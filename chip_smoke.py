@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's live-RAG loop once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout; needs one CUDA card and ``nvcc`` (CUDA_HOME,
+PATH or the toolkit's default location), and nothing of JAX. Phases, each
+printing one JSON line:
+
+1. device: the card's name and power limit (``nvidia-smi``) and versions;
+2. build: every CUDA kernel of the port built from ``pathway_tpu_torch/csrc``;
+3. kernels: each kernel against its plain PyTorch version on the card, at the
+   shapes the main path gives it, with its time, its plain version's time,
+   one PyTorch library call's time as a yardstick, and its bound;
+4. main path, at the full width of the bench's MiniLM-class encoder with
+   random seeded weights: 8192 docs tokenized, embedded in batches of 1024
+   and indexed; the index filled to 1,000,000 x 384 f32; 30 RAG queries
+   (encode → search k=10 → rerank the hits); a 16-query search at 1M;
+5. checks of the main path's answers: each doc finds itself first, search
+   agrees with a float64 numpy brute force in keys and order, rerank scores
+   are finite, card embeddings agree with the port's CPU path;
+6. the kernels line, with each kernel's launches during phase 4.
+
+The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+without it. TF32 is off for every matmul (``allow_tf32 = False``), so the f32
+KNN scores and f32 checks are true f32.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+
+N_DOCS = 8192
+DOC_WORDS = 120
+INGEST_BATCH = 1024
+INDEX_ROWS = 1_000_000
+FILL_CHUNK = 8192
+N_QUERIES = 30
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
+H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
+
+#: where every phase runs (a CPU rehearsal at a small size sets "cpu")
+DEVICE = "cuda"
+
+failures: list[str] = []
+
+
+def sync() -> None:
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def check(ok: bool, what: str) -> bool:
+    if not ok:
+        failures.append(what)
+        print(f"CHECK FAILED: {what}", file=sys.stderr, flush=True)
+    return ok
+
+
+def synth_docs(n: int, words: int = DOC_WORDS) -> list[str]:
+    """The bench's corpus: ``n`` docs of ``words`` words from a 5000-word vocab."""
+    rng = np.random.default_rng(0)
+    vocab = [f"word{i}" for i in range(5000)]
+    return [" ".join(rng.choice(vocab, size=words)) for _ in range(n)]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_device() -> dict:
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else None
+    print(card if card else "nvidia-smi: not available", flush=True)
+    info = {
+        "nvidia_smi": card,
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "python": sys.version.split()[0],
+    }
+    emit("device", **info)
+    return info
+
+
+def phase_build() -> None:
+    from pathway_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    per_kernel = _build.build()
+    ptxas = {
+        name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        for name, log in _build.build_logs.items()
+    }
+    emit("build", seconds=time.perf_counter() - t0, per_kernel_s=per_kernel, ptxas=ptxas)
+
+
+def _attention_inputs(B, L, dtype, gen, H=6, hd=64):
+    """q/k/v as the strided split of one [B, L, 3D] projection (the encoder's
+    layout), a key mask with padded tails and row 0 fully masked."""
+    import torch
+
+    D = H * hd
+    qkv = torch.randn(B, L, 3 * D, device="cuda", generator=gen).to(dtype)
+    q, k, v = qkv.split(D, dim=-1)
+    lens = torch.randint(1, L + 1, (B,), device="cuda", generator=gen)
+    mask = torch.arange(L, device="cuda")[None, :] < lens[:, None]
+    mask[0] = False
+    return q, k, v, mask
+
+
+def phase_kernels() -> dict:
+    """attention_short_flat against attention_short_flat_plain on the card.
+    f32 at rtol = atol = 1e-5; bf16 at |err| <= 2^-7 (|ref| + max|v|): one
+    bf16 ulp of the output plus one ulp of every prob that rounds the other
+    way (Σ p·|v| ≤ max|v|)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.ops import attention_kernel as A
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    D = 384
+    # (B, L, hd): the main path's shapes, timed in bf16; then, checked only,
+    # the longest length, a length that fills no warp evenly, and the other
+    # head widths the kernel is built for
+    shapes = {
+        "embed": (1024, 128, 64), "query": (1, 16, 64), "rerank": (10, 256, 64),
+        "max_len": (4, 512, 64), "ragged": (3, 77, 64), "hd32": (2, 128, 32), "hd128": (2, 256, 128),
+    }
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, (B, L, hd) in shapes.items():
+            H, scale = D // hd, hd ** -0.5
+            q, k, v, mask = _attention_inputs(B, L, dtype, gen, H, hd)
+            out = A.attention_short_flat(q, k, v, mask, H, scale)
+            torch.cuda.synchronize()
+            ref = A.attention_short_flat_plain(q, k, v, mask, H, scale)
+            err = (out.float() - ref.float()).abs()
+            mean_v = v[0].float().mean(dim=0, keepdim=True)
+            err_masked = (out[0].float() - mean_v).abs().max().item()
+            if dtype == torch.float32:
+                ok = bool(torch.allclose(out, ref, rtol=1e-5, atol=1e-5))
+                ok_masked = err_masked <= 1e-5 + 1e-5 * mean_v.abs().max().item()
+                tol = "rtol=atol=1e-5"
+            else:
+                bound = 2.0 ** -7 * (ref.float().abs() + v.float().abs().max())
+                ok = bool((err <= bound).all())
+                ok_masked = err_masked <= 2.0 ** -7 * (mean_v.abs().max().item() + v[0].float().abs().max().item())
+                tol = "2^-7*(|ref|+max|v|)"
+            check(ok and ok_masked, f"attention {label} {dtype}: kernel disagrees with plain")
+            rec = {
+                "case": label, "dtype": str(dtype).replace("torch.", ""), "B": B, "L": L, "hd": hd,
+                "max_abs_err": err.max().item(), "masked_row_vs_mean_v": err_masked,
+                "tolerance": tol, "ok": ok and ok_masked,
+            }
+            if dtype == torch.bfloat16 and label in ("embed", "query", "rerank"):
+                iters = 20 if label == "embed" else 200
+                rec["ms"] = cuda_ms(lambda: A.attention_short_flat(q, k, v, mask, H, scale), iters)
+                rec["plain_ms"] = cuda_ms(lambda: A.attention_short_flat_plain(q, k, v, mask, H, scale), iters)
+                qh, kh, vh = (t.view(B, L, H, hd).transpose(1, 2) for t in (q, k, v))
+                bias = torch.zeros(B, 1, 1, L, device="cuda", dtype=dtype).masked_fill(
+                    ~mask[:, None, None, :], -1e30
+                )
+                rec["library_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias, scale=scale), iters
+                )
+                nbytes = 4 * B * L * D * 2 + B * L  # q, k, v read, ctx written, mask read
+                flops = 4 * B * L * L * D
+                t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+                rec["bound_ms"] = max(t_bytes, t_ops)
+                rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+                result[label] = rec
+            emit("kernel_check", kernel="attention_short_flat", **rec)
+            del q, k, v, mask, out, ref, err
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_main_path(docs: list[str]) -> dict:
+    import torch
+
+    from pathway_tpu_torch.ops import attention_kernel as A
+    from pathway_tpu_torch.ops.encoder import EncoderConfig, TorchSentenceEncoder, encoder_flops_per_doc
+    from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
+    from pathway_tpu_torch.ops.reranker import TorchCrossEncoder
+
+    cfg = EncoderConfig(vocab_size=32768, d_model=384, n_heads=6, n_layers=6, d_ff=1536, max_len=128)
+    rr_cfg = EncoderConfig(vocab_size=32768, d_model=384, n_heads=6, n_layers=4, d_ff=1536, max_len=256)
+    enc = TorchSentenceEncoder(cfg, seed=0, param_dtype=torch.bfloat16, device=DEVICE)
+    ce = TorchCrossEncoder(rr_cfg, seed=1, device=DEVICE)
+
+    t0 = time.perf_counter()
+    ids_all, _ = enc.tokenizer(docs)
+    tok_s = time.perf_counter() - t0
+    L = ids_all.shape[1]
+    check(L == 128, f"corpus tokenized to L={L}, expected 128")
+
+    calls = {"encode": 0, "rerank": 0}
+
+    def ingest(index, ids):
+        for i in range(0, len(ids), INGEST_BATCH):
+            embs = enc.encode_ids_device(ids[i : i + INGEST_BATCH])
+            calls["encode"] += 1
+            index.add_batch_device(range(i, i + int(embs.shape[0])), embs)
+            index._flush()
+        index.search(embs[:64], k=10)  # one fetch syncs the whole pipeline
+
+    q_text = "what is word42 about"
+    qids, _ = enc.tokenizer([q_text])
+
+    def text_of(key):
+        return docs[key] if key < len(docs) else f"vector {key}"
+
+    def rag_query(index):
+        t0 = time.perf_counter()
+        emb = enc.encode_ids_device(qids)
+        calls["encode"] += 1
+        hits = index.search(emb, k=10)[0]
+        _context = "\n".join(text_of(int(k))[:200] for k, _ in hits)
+        t1 = time.perf_counter()
+        scores = ce.score_pairs([(q_text, text_of(int(k))[:800]) for k, _ in hits])
+        calls["rerank"] += 1
+        best = hits[int(np.argmax(scores))]
+        return (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3, hits, scores, best
+
+    # warm-up: every shape the timed loop runs (allocator, cuBLAS, kernel build)
+    warm = BruteForceKnnIndex(dimension=cfg.d_model, capacity=8192, device=DEVICE)
+    ingest(warm, ids_all[: 2 * INGEST_BATCH])
+    rag_query(warm)
+    sync()
+
+    # --- the main path: counts from 0 ---------------------------------------
+    A.LAUNCHES = 0
+    calls.update(encode=0, rerank=0)
+    rates = []
+    for _ in range(3):
+        index = BruteForceKnnIndex(dimension=cfg.d_model, capacity=8192, device=DEVICE)
+        t0 = time.perf_counter()
+        ingest(index, ids_all)
+        rates.append(len(docs) / (time.perf_counter() - t0))
+    docs_per_s = statistics.median(rates)
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    filled = 0
+    for start in range(N_DOCS, INDEX_ROWS, FILL_CHUNK):
+        n = min(FILL_CHUNK, INDEX_ROWS - start)
+        block = torch.randn(n, cfg.d_model, device=DEVICE, generator=gen)
+        block = block / block.norm(dim=-1, keepdim=True)
+        index.add_batch_device(range(start, start + n), block)
+        index._flush()
+        filled += n
+    sync()
+    fill_s = time.perf_counter() - t0
+    check(len(index) == INDEX_ROWS, f"index holds {len(index)} rows, expected {INDEX_ROWS}")
+
+    lat, lat_rr, all_scores, rr_L = [], [], [], ce.pair_ids([(q_text, docs[0][:800])])[0].shape[1]
+    for _ in range(N_QUERIES):
+        t_search, t_total, hits, scores, _best = rag_query(index)
+        lat.append(t_search)
+        lat_rr.append(t_total)
+        all_scores.append(scores)
+
+    q16 = torch.randn(16, cfg.d_model, device=DEVICE, generator=gen)
+    q16 = q16 / q16.norm(dim=-1, keepdim=True)
+    index.search(q16, k=10)
+    lat16 = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        index.search(q16, k=10)
+        lat16.append((time.perf_counter() - t0) * 1e3)
+    sync()
+    launches = A.LAUNCHES  # read right after the main path
+    # --------------------------------------------------------------------------
+
+    expected = cfg.n_layers * calls["encode"] + rr_cfg.n_layers * calls["rerank"]
+    check(launches >= cfg.n_layers * calls["encode"], "attention launches < n_layers x encoder launches")
+    check(launches == expected, f"attention launches {launches} != expected {expected}")
+    flops_per_doc = encoder_flops_per_doc(cfg, L)
+    out = {
+        "tokenize_docs_per_s": len(docs) / tok_s,
+        "seq_len": int(L),
+        "embed_index_docs_per_s": docs_per_s,
+        "embed_index_runs_docs_per_s": rates,
+        "encoder_tflops": docs_per_s * flops_per_doc / 1e12,
+        "index_fill_rows_per_s": filled / fill_s,
+        "index_rows": len(index),
+        "index_device_bytes": index.device_bytes(),
+        "rag_query_p50_ms": statistics.median(lat),
+        "rag_query_rerank_p50_ms": statistics.median(lat_rr),
+        "rerank_seq_len": int(rr_L),
+        "knn1m_query16_p50_ms": statistics.median(lat16),
+        "encoder_launches": calls["encode"],
+        "reranker_launches": calls["rerank"],
+        "attention_launches": launches,
+        "attention_launches_expected": expected,
+    }
+    emit("main_path", **out)
+    return {
+        "enc": enc, "ce": ce, "index": index, "ids_all": ids_all, "scores": all_scores,
+        "q16": q16, "launches": launches, "cfg": cfg, "metrics": out,
+    }
+
+
+def phase_checks(state: dict) -> None:
+    import torch
+
+    from pathway_tpu_torch.internals.keys import tie_order
+    from pathway_tpu_torch.ops.encoder import TorchSentenceEncoder
+
+    enc, index, ids_all = state["enc"], state["index"], state["ids_all"]
+
+    # 1. each of 16 docs, used as its own query, comes back at rank 1
+    embs = enc.encode_ids_device(ids_all[:16])
+    self_hits = [h[0][0] if h else None for h in index.search(embs, k=10)]
+    check(self_hits == list(range(16)), f"self-retrieval: got {self_hits}")
+
+    # 2. 16 random queries against a float64 numpy brute force, canonical order
+    q = state["q16"]
+    got = [[k for k, _ in hits] for hits in index.search(q, k=10)]
+    valid = index._valid.cpu().numpy()
+    slots = np.nonzero(valid)[0]
+    vecs = index._vectors[torch.from_numpy(slots).to(index._vectors.device)].cpu().numpy().astype(np.float64)
+    keys = np.array([index._slot_to_key[int(s)] for s in slots])
+    qn = q.cpu().numpy().astype(np.float64)
+    scores = (qn @ vecs.T) / np.maximum(
+        np.linalg.norm(qn, axis=1)[:, None] * np.linalg.norm(vecs, axis=1)[None, :], 1e-30
+    )
+    want = []
+    for row in scores:
+        cand = np.argpartition(-row, 40)[:40]
+        order = sorted(cand, key=lambda i: (-row[i], tie_order(int(keys[i]))))
+        want.append([int(keys[i]) for i in order[:10]])
+    check(got == want, "1M search disagrees with the float64 brute force")
+
+    # 3. rerank scores are finite
+    check(all(np.isfinite(s).all() and len(s) == 10 for s in state["scores"]), "rerank scores not finite")
+
+    # 4. card embeddings agree with the port's CPU path (same seeded weights)
+    cpu = TorchSentenceEncoder(state["cfg"], seed=0, param_dtype=torch.bfloat16, device="cpu")
+    e_cpu = cpu.encode_ids_device(ids_all[:8]).numpy()
+    e_gpu = enc.encode_ids_device(ids_all[:8]).cpu().numpy()
+    emb_err = float(np.abs(e_cpu - e_gpu).max())
+    check(emb_err <= 1e-2, f"card vs CPU embeddings differ by {emb_err}")
+    check(bool(np.isfinite(e_gpu).all()) and e_gpu.shape == (8, 384), "embeddings not finite / wrong shape")
+    emit(
+        "checks",
+        self_retrieval_ok=self_hits == list(range(16)),
+        brute_force_f64_ok=got == want,
+        rerank_finite=all(np.isfinite(s).all() for s in state["scores"]),
+        card_vs_cpu_embedding_max_abs_err=emb_err,
+        tolerance_embedding=1e-2,
+    )
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script measures the card only", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        import pathway_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: the pathway_tpu_torch package is missing ({exc})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    info = phase_device()
+    phase_build()
+    kern = phase_kernels()
+    state = phase_main_path(synth_docs(N_DOCS))
+    phase_checks(state)
+
+    embed = kern["embed"]
+    line = {
+        "kernels": [
+            {
+                "name": "attention_short_flat",
+                "route": "cuda",
+                "source": "pathway_tpu_torch/csrc/attention_short.cu",
+                "replaces": "pathway_tpu/ops/attention_kernel.py:33",
+                "launches": state["launches"],
+                "max_abs_err": max(r["max_abs_err"] for r in kern.values()),
+                "ms": embed["ms"],
+                "plain_ms": embed["plain_ms"],
+                "bound_ms": embed["bound_ms"],
+                "bound_by": embed["bound_by"],
+                "library_ms": embed["library_ms"],
+                "shape": "B=1024 L=128 D=384 H=6 bf16",
+            }
+        ]
+    }
+    if failures:
+        print("chip_smoke: FAILED: " + "; ".join(failures), file=sys.stderr)
+        return 1
+    print(json.dumps(line), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"], "count": info["count"]}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except Exception:
+        traceback.print_exc()
+        sys.exit(1)
