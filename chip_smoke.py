@@ -8,10 +8,15 @@ PATH or the toolkit's default location), and nothing of JAX. Phases, each
 printing one JSON line:
 
 1. device: the card's name and power limit (``nvidia-smi``) and versions;
-2. build: every CUDA kernel of the port built from ``pathway_tpu_torch/csrc``;
-3. kernels: each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, with its time, its plain version's time,
-   one PyTorch library call's time as a yardstick, and its bound;
+2. build: every CUDA kernel of the port built from ``pathway_tpu_torch/csrc``
+   (ptxas registers, spills and shared memory per instantiation, and the
+   tensor-core instructions in the bf16 route's SASS), and the native C
+   tokenizer built from ``pathway_tpu_torch/native``;
+3. kernels: each kernel against its plain PyTorch version on the card, both
+   routes of the attention kernel (bf16 on the tensor cores, f32 SIMT) at
+   eight shapes, the main path's among them, with its time, its plain
+   version's time, one PyTorch library call's time as a yardstick, and its
+   bound;
 4. main path, at the full width of the bench's MiniLM-class encoder with
    random seeded weights: 8192 docs tokenized, embedded in batches of 1024
    and indexed; the index filled to 1,000,000 x 384 f32; 30 RAG queries
@@ -46,6 +51,7 @@ FILL_CHUNK = 8192
 N_QUERIES = 30
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
+H100_F32_FLOPS = 67e12  # FP32 pipes, outside the tensor cores
 
 #: where every phase runs (a CPU rehearsal at a small size sets "cpu")
 DEVICE = "cuda"
@@ -113,16 +119,91 @@ def phase_device() -> dict:
     return info
 
 
+def _demangle(names: list[str], tool_dir: str) -> dict[str, str]:
+    """Mangled kernel name -> readable C++ signature (``cu++filt``)."""
+    tool = os.path.join(tool_dir, "cu++filt")
+    if not names or not os.path.exists(tool):
+        return {n: n for n in names}
+    res = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True, timeout=60)
+    out = res.stdout.splitlines() if res.returncode == 0 else []
+    return dict(zip(names, out)) if len(out) == len(names) else {n: n for n in names}
+
+
+def _ptxas_per_function(log: str) -> dict[str, str]:
+    """ptxas -v output -> one line per kernel instantiation: registers,
+    spills, shared memory."""
+    per, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            per[name] = ""
+        elif name and ("spill" in ln or "registers" in ln):
+            per[name] = (per[name] + "; " + ln.split(":", 1)[-1].strip()).strip("; ")
+    return per
+
+
+def _sass_tensor_ops(lib: str, tool_dir: str) -> dict[str, int]:
+    """HMMA / HGMMA instructions per kernel function in the library's SASS."""
+    res = subprocess.run(
+        [os.path.join(tool_dir, "cuobjdump"), "-sass", lib], capture_output=True, text=True, timeout=300
+    )
+    if res.returncode != 0:
+        raise RuntimeError(f"cuobjdump -sass failed: {res.stderr.strip()[-500:]}")
+    per, name = {}, None
+    for ln in res.stdout.splitlines():
+        if "Function : " in ln:
+            name = ln.split("Function : ", 1)[1].strip()
+            per[name] = 0
+        elif name and ("HMMA" in ln or "HGMMA" in ln):
+            per[name] += 1
+    return per
+
+
 def phase_build() -> None:
+    import torch
+
+    from pathway_tpu_torch import native
     from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.ops import attention_kernel as A
 
     t0 = time.perf_counter()
     per_kernel = _build.build()
-    ptxas = {
-        name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        for name, log in _build.build_logs.items()
+    build_s = time.perf_counter() - t0
+    tool_dir = os.path.dirname(_build.find_nvcc())
+    ptxas, sass = {}, {}
+    for name in _build.SOURCES:
+        # ptxas speaks only when this run compiled the kernel; the SASS is read
+        # from the library either way
+        per_fn = _ptxas_per_function(_build.build_logs.get(name, ""))
+        hmma = _sass_tensor_ops(str(_build.library_path(name)), tool_dir)
+        nice = _demangle(sorted(set(per_fn) | set(hmma)), tool_dir)
+        ptxas[name] = {nice[f]: v for f, v in per_fn.items()}
+        sass[name] = {nice[f]: n for f, n in hmma.items()}
+    tc = {f: n for f, n in sass.get("attention_short", {}).items() if "attention_tc_kernel" in f}
+    check(len(tc) > 0, "no tensor-core attention instantiation found in the SASS")
+    check(all(n > 0 for n in tc.values()), f"bf16 route without HMMA/HGMMA in its SASS: {tc}")
+
+    # the host C tokenizer, built here so that no timed call pays its compile
+    t1 = time.perf_counter()
+    tok = native.try_load("pwtok")
+    tok_s = time.perf_counter() - t1
+    cc = native.compiler()
+    check(tok is not None or cc is None, f"C compiler {cc} present but the native tokenizer did not load: "
+          f"{native.last_error.get('pwtok')}")
+
+    # the kernels' shared memory is dynamic (ptxas cannot report it): per
+    # checked case, what the launch asks for
+    smem = {
+        f"{str(dt).replace('torch.', '')} {case}": A.launch_geometry(B, L, 384 // hd, hd, dt).smem_bytes
+        for dt in (torch.bfloat16, torch.float32) for case, (B, L, hd) in KERNEL_SHAPES.items()
     }
-    emit("build", seconds=time.perf_counter() - t0, per_kernel_s=per_kernel, ptxas=ptxas)
+    emit(
+        "build", seconds=build_s, per_kernel_s=per_kernel, ptxas=ptxas,
+        sass_tensor_ops=sass, dynamic_smem_bytes=smem,
+        tokenizer="native" if tok is not None else "python",
+        tokenizer_build_s=native.build_seconds.get("pwtok"), tokenizer_load_s=tok_s,
+        tokenizer_error=native.last_error.get("pwtok"), c_compiler=cc,
+    )
 
 
 def _attention_inputs(B, L, dtype, gen, H=6, hd=64):
@@ -139,8 +220,23 @@ def _attention_inputs(B, L, dtype, gen, H=6, hd=64):
     return q, k, v, mask
 
 
-def phase_kernels() -> dict:
-    """attention_short_flat against attention_short_flat_plain on the card.
+#: (B, L, hd) of each checked case: the main path's three shapes (the
+#: rerank case at the reranker's longest input), then the longest length, a
+#: length that fills no tile evenly, and the other head widths the kernel is
+#: built for (hd 128 both with K and V resident and streamed)
+KERNEL_SHAPES = {
+    "embed": (1024, 128, 64), "query": (1, 16, 64), "rerank": (10, 256, 64),
+    "max_len": (4, 512, 64), "ragged": (3, 77, 64), "hd32": (2, 128, 32), "hd128": (2, 256, 128),
+    "hd128_resident": (2, 128, 128),
+}
+#: the timed cases per dtype: the bf16 route at the main path's shapes, the
+#: f32 route at the embed shape
+TIMED = {"bfloat16": ("embed", "query", "rerank"), "float32": ("embed",)}
+
+
+def phase_kernels() -> list[dict]:
+    """attention_short_flat against attention_short_flat_plain on the card,
+    both routes at every shape of KERNEL_SHAPES; returns every case's record.
     f32 at rtol = atol = 1e-5; bf16 at |err| <= 2^-7 (|ref| + max|v|): one
     bf16 ulp of the output plus one ulp of every prob that rounds the other
     way (Σ p·|v| ≤ max|v|)."""
@@ -152,18 +248,13 @@ def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     D = 384
-    # (B, L, hd): the main path's shapes, timed in bf16; then, checked only,
-    # the longest length, a length that fills no warp evenly, and the other
-    # head widths the kernel is built for
-    shapes = {
-        "embed": (1024, 128, 64), "query": (1, 16, 64), "rerank": (10, 256, 64),
-        "max_len": (4, 512, 64), "ragged": (3, 77, 64), "hd32": (2, 128, 32), "hd128": (2, 256, 128),
-    }
-    result = {}
+    records = []
     for dtype in (torch.float32, torch.bfloat16):
-        for label, (B, L, hd) in shapes.items():
+        dname = str(dtype).replace("torch.", "")
+        for label, (B, L, hd) in KERNEL_SHAPES.items():
             H, scale = D // hd, hd ** -0.5
             q, k, v, mask = _attention_inputs(B, L, dtype, gen, H, hd)
+            geo = A.launch_geometry(B, L, H, hd, dtype)
             out = A.attention_short_flat(q, k, v, mask, H, scale)
             torch.cuda.synchronize()
             ref = A.attention_short_flat_plain(q, k, v, mask, H, scale)
@@ -179,13 +270,14 @@ def phase_kernels() -> dict:
                 ok = bool((err <= bound).all())
                 ok_masked = err_masked <= 2.0 ** -7 * (mean_v.abs().max().item() + v[0].float().abs().max().item())
                 tol = "2^-7*(|ref|+max|v|)"
-            check(ok and ok_masked, f"attention {label} {dtype}: kernel disagrees with plain")
+            check(ok and ok_masked, f"attention {label} {dname}: kernel disagrees with plain")
             rec = {
-                "case": label, "dtype": str(dtype).replace("torch.", ""), "B": B, "L": L, "hd": hd,
+                "case": label, "dtype": dname, "route": geo.route, "B": B, "L": L, "hd": hd,
+                "rows_per_block": geo.rows, "resident": geo.resident, "smem_bytes": geo.smem_bytes,
                 "max_abs_err": err.max().item(), "masked_row_vs_mean_v": err_masked,
                 "tolerance": tol, "ok": ok and ok_masked,
             }
-            if dtype == torch.bfloat16 and label in ("embed", "query", "rerank"):
+            if label in TIMED[dname]:
                 iters = 20 if label == "embed" else 200
                 rec["ms"] = cuda_ms(lambda: A.attention_short_flat(q, k, v, mask, H, scale), iters)
                 rec["plain_ms"] = cuda_ms(lambda: A.attention_short_flat_plain(q, k, v, mask, H, scale), iters)
@@ -196,22 +288,26 @@ def phase_kernels() -> dict:
                 rec["library_ms"] = cuda_ms(
                     lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias, scale=scale), iters
                 )
-                nbytes = 4 * B * L * D * 2 + B * L  # q, k, v read, ctx written, mask read
+                es = q.element_size()
+                nbytes = 4 * B * L * D * es + B * L  # q, k, v read, ctx written, mask read
                 flops = 4 * B * L * L * D
-                t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+                peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+                t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / peak * 1e3
                 rec["bound_ms"] = max(t_bytes, t_ops)
                 rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-                result[label] = rec
+            records.append(rec)
             emit("kernel_check", kernel="attention_short_flat", **rec)
             del q, k, v, mask, out, ref, err
     torch.cuda.empty_cache()
-    return result
+    return records
 
 
 def phase_main_path(docs: list[str]) -> dict:
     import torch
 
+    from pathway_tpu_torch import native
     from pathway_tpu_torch.ops import attention_kernel as A
+    from pathway_tpu_torch.ops import encoder as E
     from pathway_tpu_torch.ops.encoder import EncoderConfig, TorchSentenceEncoder, encoder_flops_per_doc
     from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
     from pathway_tpu_torch.ops.reranker import TorchCrossEncoder
@@ -221,6 +317,7 @@ def phase_main_path(docs: list[str]) -> dict:
     enc = TorchSentenceEncoder(cfg, seed=0, param_dtype=torch.bfloat16, device=DEVICE)
     ce = TorchCrossEncoder(rr_cfg, seed=1, device=DEVICE)
 
+    tokenizer = "native" if E._native_pwtok() is not None else "python"
     t0 = time.perf_counter()
     ids_all, _ = enc.tokenizer(docs)
     tok_s = time.perf_counter() - t0
@@ -263,6 +360,7 @@ def phase_main_path(docs: list[str]) -> dict:
 
     # --- the main path: counts from 0 ---------------------------------------
     A.LAUNCHES = 0
+    A.ROUTE_LAUNCHES.update(tensor_core=0, simt=0)
     calls.update(encode=0, rerank=0)
     rates = []
     for _ in range(3):
@@ -303,14 +401,17 @@ def phase_main_path(docs: list[str]) -> dict:
         index.search(q16, k=10)
         lat16.append((time.perf_counter() - t0) * 1e3)
     sync()
-    launches = A.LAUNCHES  # read right after the main path
+    launches, route_launches = A.LAUNCHES, dict(A.ROUTE_LAUNCHES)  # read right after the main path
     # --------------------------------------------------------------------------
 
     expected = cfg.n_layers * calls["encode"] + rr_cfg.n_layers * calls["rerank"]
     check(launches >= cfg.n_layers * calls["encode"], "attention launches < n_layers x encoder launches")
     check(launches == expected, f"attention launches {launches} != expected {expected}")
+    check(route_launches["tensor_core"] == expected, f"bf16 tensor-core launches {route_launches} != {expected}")
     flops_per_doc = encoder_flops_per_doc(cfg, L)
     out = {
+        "tokenizer": tokenizer,
+        "tokenizer_error": native.last_error.get("pwtok"),
         "tokenize_docs_per_s": len(docs) / tok_s,
         "seq_len": int(L),
         "embed_index_docs_per_s": docs_per_s,
@@ -326,12 +427,13 @@ def phase_main_path(docs: list[str]) -> dict:
         "encoder_launches": calls["encode"],
         "reranker_launches": calls["rerank"],
         "attention_launches": launches,
+        "attention_launches_by_route": route_launches,
         "attention_launches_expected": expected,
     }
     emit("main_path", **out)
     return {
         "enc": enc, "ce": ce, "index": index, "ids_all": ids_all, "scores": all_scores,
-        "q16": q16, "launches": launches, "cfg": cfg, "metrics": out,
+        "q16": q16, "launches": route_launches, "cfg": cfg, "metrics": out,
     }
 
 
@@ -386,6 +488,34 @@ def phase_checks(state: dict) -> None:
     )
 
 
+def _kernel_entry(records: list[dict], dtype: str, route: str, what: str, launches: dict) -> dict:
+    """One route of the attention kernel on the kernels line: its time at the
+    embed shape, and its largest error over every checked case of its dtype
+    (with the case it came from)."""
+    mine = [r for r in records if r["dtype"] == dtype]
+    worst = max(mine, key=lambda r: r["max_abs_err"])
+    embed = next(r for r in mine if r["case"] == "embed")
+    return {
+        "name": f"attention_short_flat[{dtype}]",
+        "route": "cuda",
+        "source": "pathway_tpu_torch/csrc/attention_short.cu",
+        "replaces": "pathway_tpu/ops/attention_kernel.py:33",
+        "launches": launches[route],
+        "max_abs_err": worst["max_abs_err"],
+        "max_abs_err_case": f"{dtype} {worst['case']} (B={worst['B']} L={worst['L']} hd={worst['hd']})",
+        "cases_checked": len(mine),
+        "ms": embed["ms"],
+        "plain_ms": embed["plain_ms"],
+        "bound_ms": embed["bound_ms"],
+        "bound_by": embed["bound_by"],
+        "library_ms": embed["library_ms"],
+        "shape": f"B=1024 L=128 D=384 H=6 {dtype}",
+        "kernel": what,
+        "timed_cases": {r["case"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                        for r in mine if "ms" in r},
+    }
+
+
 def main() -> int:
     import torch
 
@@ -407,25 +537,10 @@ def main() -> int:
     state = phase_main_path(synth_docs(N_DOCS))
     phase_checks(state)
 
-    embed = kern["embed"]
-    line = {
-        "kernels": [
-            {
-                "name": "attention_short_flat",
-                "route": "cuda",
-                "source": "pathway_tpu_torch/csrc/attention_short.cu",
-                "replaces": "pathway_tpu/ops/attention_kernel.py:33",
-                "launches": state["launches"],
-                "max_abs_err": max(r["max_abs_err"] for r in kern.values()),
-                "ms": embed["ms"],
-                "plain_ms": embed["plain_ms"],
-                "bound_ms": embed["bound_ms"],
-                "bound_by": embed["bound_by"],
-                "library_ms": embed["library_ms"],
-                "shape": "B=1024 L=128 D=384 H=6 bf16",
-            }
-        ]
-    }
+    line = {"kernels": [
+        _kernel_entry(kern, "bfloat16", "tensor_core", "bf16, tensor cores (mma.sync, cp.async)", state["launches"]),
+        _kernel_entry(kern, "float32", "simt", "f32, FP32 pipes (SIMT); not on the main path", state["launches"]),
+    ]}
     if failures:
         print("chip_smoke: FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1

@@ -9,29 +9,63 @@
 //   probs  = exp(s - max) / sum         (f32), THEN rounded to the input type
 //   ctx    = probs . v                  (f32 accumulation), stored as the input type
 // The probabilities are normalised before they are rounded, exactly as the
-// reference does; an online (flash) softmax that normalises at the end would
-// round at another place, so it is deliberately not used here.
+// reference does. An online (flash) softmax that normalises at the end would
+// round at another place, so neither route below uses one.
 //
-// Bound on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s bf16 dense). At the
-// embedding shape (B=1024, L=128, D=384, bf16) one call must read q, k, v and
-// write ctx: 4 * B * L * D * 2 B = 403 MB -> 0.120 ms; its work is
-// 4 * B * L^2 * D = 25.8 GFLOP -> 0.026 ms. The kernel is memory-bound, and
-// its bound is ~0.12 ms per layer call.
+// Two routes, one per input type:
 //
-// What the design does about that bound: no [B, H, L, L] tensor ever reaches
-// device memory (scores and probs live in shared memory), and q, k, v are read
-// straight from the strided qkv projection (row stride 3D), so the three
-// .contiguous() copies a [B, H, L, hd] path would make never happen. Each
-// block owns one (batch row, head, tile of query rows): it stages that head's
-// K slice and the key mask in shared memory, computes and normalises all
-// scores of its query rows, then stages V over K and accumulates probs . v.
-// K and V are re-read once per row tile (ceil(L / rows) times, from L2);
-// q is read once and ctx written once. Products run on the FP32 pipes, not the
-// tensor cores: wgmma, TMA and a fused single pass are later work.
+// bf16: tensor cores (attention_tc_kernel). One block per (batch row, head,
+// tile of up to 128 query rows), one warp per 16 query rows. q/k/v are read
+// straight from the strided qkv projection (row stride 3D) with cp.async
+// into shared memory whose rows are padded by 16 bytes (ldmatrix then hits
+// 32 distinct banks); key rows >= L are zero-filled. Products are
+// mma.sync.m16n8k16 bf16 -> f32 with operands from ldmatrix (.trans for V).
+// The score accumulator is turned, in registers, into the A operand of
+// probs . v, so the probs never touch shared or device memory.
+//   - L <= 128 (every shape on the main path): K and V of the (b, h) fit in
+//     shared memory at once. K (with Q) and V are two async copy groups, so
+//     V's copy overlaps the score products and the softmax. Each warp keeps
+//     its 16 x L score rows in registers (two 64-key tiles), takes the exact
+//     row max and sum, normalises, rounds, and multiplies by V.
+//   - 128 < L <= 512: an exact softmax in two passes over 64-key tiles
+//     staged through a double-buffered ring (the next tile's copy overlaps
+//     this tile's products). Pass 1 keeps a running row max and rescaled
+//     sum; pass 2 recomputes the scores, normalises with the final max and
+//     sum, rounds and accumulates probs . v.
+// Key columns past L (tile padding) score -inf, not -1e30, so a fully masked
+// row averages the L real keys only.
 //
-// Supported: T in {float, bf16}, HD in {32, 64, 128} (template parameters),
+// f32: the FP32 pipes (attention_short_kernel, SIMT). Tensor-core TF32 would
+// round q, k, v and the probs to 10 mantissa bits and break the f32 contract
+// (rtol = atol = 1e-5), and f32 attention is not on the main path (the
+// embedder's and the reranker's activations are bf16), so this route stays
+// SIMT by design. One warp per query row, lanes split the keys; the block's
+// probs go through shared memory.
+//
+// Bound on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s bf16 dense). One call
+// must read q, k, v and the mask and write ctx: 8 * B * L * D + B * L bytes
+// in bf16; its work is 4 * B * L^2 * D FLOP.
+//   embed  (B=1024, L=128, D=384): 403 MB -> 0.120 ms; 25.8 GFLOP -> 0.026 ms:
+//          bytes-bound.
+//   query  (B=1,    L=16):  49 KB -> 15 ns; 0.4 MFLOP: bytes-bound, and in
+//          practice bound by the launch (a few microseconds).
+//   rerank (B=10,   L=128 on the main path, 256 at most): 3.9 MB -> 1.2 us;
+//          0.25 GFLOP -> 0.26 us: bytes-bound, a handful of blocks.
+// What the design does about it: q, k, v are read from device memory once
+// per block (once per (b, h) at L <= 128), ctx is written once through
+// shared memory in 16-byte rows, and no [B, H, L, L] tensor exists. The
+// products run on the tensor cores (at L <= 128 one pass of 4 * B * L^2 * D
+// FLOP; above, pass 2 recomputes the scores: +50%), far under the bytes
+// bound. What is left on the FP32 pipes per score is one expf, a correctly
+// rounded division (one reciprocal per row, then a product and two FMAs per
+// prob, in place of the compiler's division) and a few operations; the
+// K and V fragments are read from shared memory by every warp (ldmatrix),
+// which with the softmax keeps the kernel above its bytes bound.
+//
+// Supported: bf16 or f32, HD in {32, 64, 128} (template parameter),
 // L <= 512, rows of q/k/v 16-byte aligned. The Python wrapper checks all of
-// it, and picks `rows` so the shared memory below fits the block.
+// it and computes the launch geometry (rows per block, shared bytes) with
+// the same formulas as the launchers below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,27 +74,17 @@
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// f32 route: SIMT
+// ---------------------------------------------------------------------------
+
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ void store_as(float x, float* dst) { *dst = x; }
-__device__ __forceinline__ void store_as(float x, __nv_bfloat16* dst) {
-  *dst = __float2bfloat16_rn(x);
-}
-
-// Round an f32 value to T and back: the probs' cast to the input dtype.
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// N consecutive elements of T moved as one aligned access (N * sizeof(T) <= 16).
-template <typename T, int N>
-struct alignas(sizeof(T) * N) Pack {
-  T v[N];
+// N consecutive floats moved as one aligned access (N <= 4).
+template <int N>
+struct alignas(sizeof(float) * N) Pack {
+  float v[N];
 };
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -75,36 +99,33 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Copy one head's [L, HD] slice (row stride `sl` elements) into shared memory
-// rows of stride HD + one 16-byte chunk (the pad keeps the per-key row reads
-// of the score loop free of bank conflicts); rows L..LP-1 are zero-filled.
-template <typename T, int HD>
-__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, long long sl,
-                                           int L, int LP) {
-  constexpr int CH = 16 / sizeof(T);
-  constexpr int KS = HD + CH;
-  constexpr int NC = HD / CH;
+// Copy one head's [L, HD] f32 slice (row stride `sl` elements) into shared
+// memory rows of stride HD + 4 (the pad keeps the per-key row reads of the
+// score loop free of bank conflicts); rows L..LP-1 are zero-filled.
+template <int HD>
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src,
+                                           long long sl, int L, int LP) {
+  constexpr int KS = HD + 4;
+  constexpr int NC = HD / 4;
   for (int i = threadIdx.x; i < LP * NC; i += kThreads) {
     const int j = i / NC;
-    const int c = (i % NC) * CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (j < L) val = *reinterpret_cast<const uint4*>(src + (long long)j * sl + c);
-    *reinterpret_cast<uint4*>(dst + (size_t)j * KS + c) = val;
+    const int c = (i % NC) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j < L) val = *reinterpret_cast<const float4*>(src + (long long)j * sl + c);
+    *reinterpret_cast<float4*>(dst + (size_t)j * KS + c) = val;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-attention_short_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                       T* __restrict__ out, int L, int H, int rows, long long q_sb,
+attention_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                       float* __restrict__ out, int L, int H, int rows, long long q_sb,
                        long long q_sl, long long k_sb, long long k_sl, long long v_sb,
                        long long v_sl, long long m_sb, float scale) {
   static_assert(HD % 32 == 0, "HD must be a multiple of 32");
-  constexpr int CH = 16 / sizeof(T);  // elements per 16-byte chunk
-  constexpr int KS = HD + CH;         // shared-memory row stride of K / V
-  constexpr int PER_LANE = HD / 32;   // output columns per lane
-  static_assert(HD % CH == 0, "HD must fill whole 16-byte chunks");
+  constexpr int KS = HD + 4;         // shared-memory row stride of K / V
+  constexpr int PER_LANE = HD / 32;  // output columns per lane
 
   const long long b = blockIdx.x;
   const int h = blockIdx.y;
@@ -116,34 +137,35 @@ attention_short_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nrows = min(rows, L - row0);
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* kv = reinterpret_cast<T*>(smem);                                        // [LP][KS]
-  float* p = reinterpret_cast<float*>(smem + (size_t)LP * KS * sizeof(T));   // [rows][LP]
-  uint8_t* msk = reinterpret_cast<uint8_t*>(p + (size_t)rows * LP);          // [LP]
+  float* kv = reinterpret_cast<float*>(smem);                                    // [LP][KS]
+  float* p = reinterpret_cast<float*>(smem + (size_t)LP * KS * sizeof(float));   // [rows][LP]
+  uint8_t* msk = reinterpret_cast<uint8_t*>(p + (size_t)rows * LP);              // [LP]
 
-  stage_rows<T, HD>(kv, k + b * k_sb + (long long)h * HD, k_sl, L, LP);
+  stage_rows<HD>(kv, k + b * k_sb + (long long)h * HD, k_sl, L, LP);
   for (int j = threadIdx.x; j < LP; j += kThreads) msk[j] = j < L ? mask[b * m_sb + j] : 0;
   __syncthreads();
 
   // Phase 1: one warp per query row; lanes split the keys.
   for (int r = warp; r < nrows; r += kWarps) {
-    const T* qrow = q + b * q_sb + (long long)(row0 + r) * q_sl + (long long)h * HD;
+    const float* qrow = q + b * q_sb + (long long)(row0 + r) * q_sl + (long long)h * HD;
     float qr[HD];
 #pragma unroll
-    for (int c = 0; c < HD; c += CH) {
-      const Pack<T, CH> pk = *reinterpret_cast<const Pack<T, CH>*>(qrow + c);
-#pragma unroll
-      for (int e = 0; e < CH; ++e) qr[c + e] = to_float(pk.v[e]);
+    for (int c = 0; c < HD; c += 4) {
+      const float4 pk = *reinterpret_cast<const float4*>(qrow + c);
+      qr[c] = pk.x, qr[c + 1] = pk.y, qr[c + 2] = pk.z, qr[c + 3] = pk.w;
     }
     float* prow = p + (size_t)r * LP;
     float mx = -CUDART_INF_F;
     for (int j = lane; j < L; j += 32) {
-      const T* krow = kv + (size_t)j * KS;
+      const float* krow = kv + (size_t)j * KS;
       float acc = 0.f;
 #pragma unroll
-      for (int c = 0; c < HD; c += CH) {
-        const Pack<T, CH> pk = *reinterpret_cast<const Pack<T, CH>*>(krow + c);
-#pragma unroll
-        for (int e = 0; e < CH; ++e) acc = fmaf(qr[c + e], to_float(pk.v[e]), acc);
+      for (int c = 0; c < HD; c += 4) {
+        const float4 pk = *reinterpret_cast<const float4*>(krow + c);
+        acc = fmaf(qr[c], pk.x, acc);
+        acc = fmaf(qr[c + 1], pk.y, acc);
+        acc = fmaf(qr[c + 2], pk.z, acc);
+        acc = fmaf(qr[c + 3], pk.w, acc);
       }
       const float s = msk[j] ? acc * scale : -1e30f;
       prow[j] = s;
@@ -157,11 +179,11 @@ attention_short_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < LP; j += 32) prow[j] = j < L ? round_to(prow[j] / sum, T()) : 0.f;
+    for (int j = lane; j < LP; j += 32) prow[j] = j < L ? prow[j] / sum : 0.f;
   }
   __syncthreads();
 
-  stage_rows<T, HD>(kv, v + b * v_sb + (long long)h * HD, v_sl, L, LP);
+  stage_rows<HD>(kv, v + b * v_sb + (long long)h * HD, v_sl, L, LP);
   __syncthreads();
 
   // Phase 2: one warp per query row; each lane owns PER_LANE adjacent columns.
@@ -176,64 +198,457 @@ attention_short_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const Pack<T, PER_LANE> vv =
-            *reinterpret_cast<const Pack<T, PER_LANE>*>(kv + (size_t)(j + u) * KS + d0);
+        const Pack<PER_LANE> vv =
+            *reinterpret_cast<const Pack<PER_LANE>*>(kv + (size_t)(j + u) * KS + d0);
 #pragma unroll
-        for (int e = 0; e < PER_LANE; ++e) acc[e] = fmaf(pj[u], to_float(vv.v[e]), acc[e]);
+        for (int e = 0; e < PER_LANE; ++e) acc[e] = fmaf(pj[u], vv.v[e], acc[e]);
       }
     }
-    Pack<T, PER_LANE> o;
+    Pack<PER_LANE> o;
 #pragma unroll
-    for (int e = 0; e < PER_LANE; ++e) store_as(acc[e], &o.v[e]);
-    *reinterpret_cast<Pack<T, PER_LANE>*>(out + (b * L + row0 + r) * D + (long long)h * HD + d0) = o;
+    for (int e = 0; e < PER_LANE; ++e) o.v[e] = acc[e];
+    *reinterpret_cast<Pack<PER_LANE>*>(out + (b * L + row0 + r) * D + (long long)h * HD + d0) = o;
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
-                   long long B, int L, int H, int rows, long long q_sb, long long q_sl,
-                   long long k_sb, long long k_sl, long long v_sb, long long v_sl,
-                   long long m_sb, float scale, cudaStream_t stream) {
-  constexpr int KS = HD + 16 / (int)sizeof(T);
+template <int HD>
+cudaError_t launch_simt(const void* q, const void* k, const void* v, const void* mask, void* out,
+                        long long B, int L, int H, int rows, long long q_sb, long long q_sl,
+                        long long k_sb, long long k_sl, long long v_sb, long long v_sl,
+                        long long m_sb, float scale, cudaStream_t stream) {
+  constexpr int KS = HD + 4;
   const int LP = (L + 31) & ~31;
-  const size_t smem = (size_t)LP * KS * sizeof(T) + (size_t)rows * LP * sizeof(float) + LP;
-  auto kern = attention_short_kernel<T, HD>;
+  const size_t smem = (size_t)LP * KS * sizeof(float) + (size_t)rows * LP * sizeof(float) + LP;
+  auto kern = attention_short_kernel<HD>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)B, (unsigned)H, (unsigned)((L + rows - 1) / rows));
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(out), L, H, rows, q_sb, q_sl, k_sb,
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<float*>(out), L, H, rows, q_sb, q_sl, k_sb,
       k_sl, v_sb, v_sl, m_sb, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, const void* mask,
-                      void* out, long long B, int L, int H, int rows, long long q_sb,
-                      long long q_sl, long long k_sb, long long k_sl, long long v_sb,
-                      long long v_sl, long long m_sb, float scale, cudaStream_t stream) {
-  switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k, v, mask, out, B, L, H, rows, q_sb, q_sl, k_sb, k_sl, v_sb,
-                           v_sl, m_sb, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, mask, out, B, L, H, rows, q_sb, q_sl, k_sb, k_sl, v_sb,
-                           v_sl, m_sb, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, mask, out, B, L, H, rows, q_sb, q_sl, k_sb, k_sl, v_sb,
-                            v_sl, m_sb, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kKeyTile = 64;     // keys per tile
+constexpr int kMaxRows = 128;    // query rows per block (16 per warp)
+constexpr int kRowPad = 8;       // bf16 elements (16 bytes) of padding per shared row
+constexpr int kResidentLen = 2 * kKeyTile;  // L up to which K and V stay resident
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy global -> shared; zero-fills the destination when !valid
+// (src-size 0: nothing is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// c += a . b, m16n8k16, bf16 inputs, f32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 rounded (to nearest even) to bf16 and packed, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Async-copy rows [first, first + count) of one head's [L, HD] slice (row
+// stride `sl` elements) into shared rows of stride HD + kRowPad; rows >= L
+// are zero-filled.
+template <int HD>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, long long sl,
+                                          int first, int count, int L) {
+  constexpr int RS = HD + kRowPad;
+  constexpr int CPR = HD / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < count * CPR; i += blockDim.x) {
+    const int r = i / CPR;
+    const int c = (i % CPR) * 8;
+    const int j = first + r;
+    const bool ok = j < L;
+    cp_async16(dst + r * RS + c, src + (long long)(ok ? j : 0) * sl + c, ok);
   }
+}
+
+// S (16 query rows x NT * 64 keys, f32) = Q_w . K^T for one warp, where Q_w
+// is the warp's 16 shared rows and K holds NT 64-key shared tiles; each
+// k-step's Q fragment is loaded once for all tiles. `valid` keys (counted
+// from the first tile) are real; 8-key column groups past them are skipped
+// (left 0). Fragment layout (m16n8k16 C): s[t][j][0..1] are row lane/4, keys
+// 64t + 8j + 2(lane%4) + {0,1}; s[t][j][2..3] the same keys of row lane/4 + 8.
+template <int HD, int NT>
+__device__ __forceinline__ void score_tiles(float (&s)[NT][8][4], const bf16* sq_w,
+                                            const bf16* sk, int nt, int valid, int lane) {
+  constexpr int RS = HD + kRowPad;
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[t][j][0] = s[t][j][1] = s[t][j][2] = s[t][j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
+    // A: matrices (rows 0-7 | 8-15) x (dims 0-7 | 8-15) of this k-step
+    ldsm_x4(a, sq_w + (lane & 15) * RS + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      if (t < nt) {
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          const int key = t * kKeyTile + jp * 16;
+          if (key < valid) {
+            uint32_t b[4];
+            // B (K rows are B's columns): keys key + (0-7 | 8-15) x dims (0-7 | 8-15)
+            ldsm_x4(b, sk + (key + (lane & 7) + ((lane >> 4) << 3)) * RS + kk * 16 +
+                           ((lane >> 3) & 1) * 8);
+            mma_bf16(s[t][2 * jp], a, b[0], b[1]);
+            if (key + 8 < valid) mma_bf16(s[t][2 * jp + 1], a, b[2], b[3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Scale and mask a score tile: s = s * scale + f per key column, where the
+// fill f is 0 for a kept key, -1e30 for a masked key and -inf for a padding
+// column past L. Exact: s * scale + 0 is the reference's product, and a
+// score's |s * scale| is far below half an ulp of 1e30 (2^75), so a masked
+// key scores exactly -1e30.
+__device__ __forceinline__ void mask_tile(float (&s)[8][4], const float* sf_t, float scale,
+                                          int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 f = *reinterpret_cast<const float2*>(sf_t + 8 * j + 2 * (lane & 3));
+    s[j][0] = fmaf(s[j][0], scale, f.x);
+    s[j][1] = fmaf(s[j][1], scale, f.y);
+    s[j][2] = fmaf(s[j][2], scale, f.x);
+    s[j][3] = fmaf(s[j][3], scale, f.y);
+  }
+}
+
+__device__ __forceinline__ void tile_max(const float (&s)[8][4], float& m0, float& m1) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+    m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+  }
+}
+
+// e = exp(s - m) in place, for the two rows a thread holds.
+__device__ __forceinline__ void exp_tile(float (&s)[8][4], float m0, float m1) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s[j][0] = expf(s[j][0] - m0);
+    s[j][1] = expf(s[j][1] - m0);
+    s[j][2] = expf(s[j][2] - m1);
+    s[j][3] = expf(s[j][3] - m1);
+  }
+}
+
+// The correctly rounded quotient e / l, given r = RN(1 / l): q = RN(e * r)
+// is within an ulp of e / l, and one FMA correction makes it exact
+// (Markstein) whenever e / l is a normal float; a subnormal prob may be one
+// subnormal ulp off. Three operations in place of the ~10 and the branch of
+// the compiler's division, which took 45% of the kernel's time.
+__device__ __forceinline__ float div_rn(float e, float l, float r) {
+  const float q = __fmul_rn(e, r);
+  return fmaf(fmaf(-q, l, e), r, q);
+}
+
+// probs = e / l, rounded to bf16 and packed as the A operand of probs . V:
+// pa[kk] covers keys 16kk .. 16kk + 15 of the tile. The C layout of the two
+// 8-key groups 2kk, 2kk + 1 is exactly the m16n8k16 A layout.
+__device__ __forceinline__ void probs_tile(uint32_t (&pa)[4][4], const float (&e)[8][4], float l0,
+                                           float l1, float r0, float r1) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float* c = e[2 * kk + half];
+      pa[kk][2 * half] = pack_bf16(div_rn(c[0], l0, r0), div_rn(c[1], l0, r0));
+      pa[kk][2 * half + 1] = pack_bf16(div_rn(c[2], l1, r1), div_rn(c[3], l1, r1));
+    }
+  }
+}
+
+// o (16 rows x HD, f32) += P . V_t for one 64-key shared V tile; 16-key steps
+// past `valid` are skipped (their probs are 0 and their V rows zero).
+template <int HD>
+__device__ __forceinline__ void pv_tile(float (&o)[HD / 8][4], const uint32_t (&pa)[4][4],
+                                        const bf16* sv_t, int valid, int lane) {
+  constexpr int RS = HD + kRowPad;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk * 16 < valid) {
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t b[4];
+        // B = V (keys x dims), transposed: keys (0-7 | 8-15) x dims 16dp + (0-7 | 8-15)
+        ldsm_x4_trans(b, sv_t + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS + dp * 16 +
+                             (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], pa[kk], b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], pa[kk], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// Shared bytes of one block; mirrored by ops/attention_kernel.py::launch_geometry:
+// the Q rows, K and V (resident) or their 2-tile rings (streaming), and one
+// f32 fill per key.
+__host__ __device__ __forceinline__ int tc_kv_rows(int L) {
+  return L <= kKeyTile ? kKeyTile : 2 * kKeyTile;
+}
+template <int HD>
+__host__ __device__ __forceinline__ size_t tc_smem_bytes(int rows, int L) {
+  const int nt = (L + kKeyTile - 1) / kKeyTile;
+  return (size_t)(rows + 2 * tc_kv_rows(L)) * (HD + kRowPad) * sizeof(bf16) +
+         (size_t)nt * kKeyTile * sizeof(float);
+}
+
+template <int HD, bool RESIDENT>
+__global__ void __launch_bounds__(kMaxRows / 16 * 32, 2)
+attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                    bf16* __restrict__ out, int L, int H, long long q_sb, long long q_sl,
+                    long long k_sb, long long k_sl, long long v_sb, long long v_sl,
+                    long long m_sb, float scale) {
+  static_assert(HD % 32 == 0 && HD <= 128, "HD must be 32, 64 or 128");
+  constexpr int RS = HD + kRowPad;
+  constexpr int NO = HD / 8;  // 8-column groups of the output
+  constexpr int CPR = HD / 8;  // 16-byte chunks per row
+
+  const long long b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int rows = blockDim.x / 2;  // 16 query rows per 32-thread warp
+  const int row0 = blockIdx.z * rows;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nt = (L + kKeyTile - 1) / kKeyTile;
+  const int kv_rows = tc_kv_rows(L);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sq = reinterpret_cast<bf16*>(smem);  // [rows][RS]; later the output rows
+  bf16* sk = sq + rows * RS;                 // [kv_rows][RS]: K, or a 2-tile ring of K
+  bf16* sv = sk + kv_rows * RS;              // [kv_rows][RS]: V, or a 2-tile ring of V
+  float* sf = reinterpret_cast<float*>(sv + kv_rows * RS);  // [nt * 64] fill per key
+
+  const bf16* kh = k + b * k_sb + (long long)h * HD;
+  const bf16* vh = v + b * v_sb + (long long)h * HD;
+  bf16* sq_w = sq + warp * 16 * RS;
+
+  load_rows<HD>(sq, q + b * q_sb + (long long)h * HD, q_sl, row0, rows, L);
+  load_rows<HD>(sk, kh, k_sl, 0, RESIDENT ? nt * kKeyTile : kKeyTile, L);
+  cp_async_commit();
+  for (int j = threadIdx.x; j < nt * kKeyTile; j += blockDim.x) {
+    sf[j] = j >= L ? -CUDART_INF_F : mask[b * m_sb + j] ? 0.f : -1e30f;
+  }
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  if constexpr (RESIDENT) {
+    // V's copy runs while the scores and the softmax are computed.
+    load_rows<HD>(sv, vh, v_sl, 0, nt * kKeyTile, L);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    float s[2][8][4];
+    score_tiles<HD, 2>(s, sq_w, sk, nt, L, lane);
+    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      if (t < nt) {
+        mask_tile(s[t], sf + t * kKeyTile, scale, lane);
+        tile_max(s[t], m0, m1);
+      }
+    }
+    m0 = quad_max(m0);
+    m1 = quad_max(m1);
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      if (t < nt) {
+        exp_tile(s[t], m0, m1);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          l0 += s[t][j][0] + s[t][j][1];
+          l1 += s[t][j][2] + s[t][j][3];
+        }
+      }
+    }
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    const float r0 = __frcp_rn(l0), r1 = __frcp_rn(l1);
+
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      if (t < nt) {
+        uint32_t pa[4][4];
+        probs_tile(pa, s[t], l0, l1, r0, r1);
+        pv_tile<HD>(o, pa, sv + t * kKeyTile * RS, L - t * kKeyTile, lane);
+      }
+    }
+  } else {
+    // Two passes over nt >= 3 key tiles through a 2-slot ring: step st < nt
+    // is pass 1 on tile st, step st >= nt pass 2 on tile st - nt; the copy
+    // for step st + 1 is in flight while step st computes.
+    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f, r0 = 0.f, r1 = 0.f;
+    for (int st = 0; st < 2 * nt; ++st) {
+      if (st + 1 < 2 * nt) {
+        const int tn = st + 1 < nt ? st + 1 : st + 1 - nt;
+        const int slot = (st + 1) & 1;
+        load_rows<HD>(sk + slot * kKeyTile * RS, kh, k_sl, tn * kKeyTile, kKeyTile, L);
+        if (st + 1 >= nt)
+          load_rows<HD>(sv + slot * kKeyTile * RS, vh, v_sl, tn * kKeyTile, kKeyTile, L);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+
+      const int t = st < nt ? st : st - nt;
+      const int slot = st & 1;
+      float s[1][8][4];
+      score_tiles<HD, 1>(s, sq_w, sk + slot * kKeyTile * RS, 1, L - t * kKeyTile, lane);
+      mask_tile(s[0], sf + t * kKeyTile, scale, lane);
+      if (st < nt) {
+        float t0 = -CUDART_INF_F, t1 = -CUDART_INF_F;
+        tile_max(s[0], t0, t1);
+        const float n0 = fmaxf(m0, quad_max(t0)), n1 = fmaxf(m1, quad_max(t1));
+        l0 *= expf(m0 - n0);
+        l1 *= expf(m1 - n1);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          l0 += expf(s[0][j][0] - n0) + expf(s[0][j][1] - n0);
+          l1 += expf(s[0][j][2] - n1) + expf(s[0][j][3] - n1);
+        }
+        m0 = n0;
+        m1 = n1;
+        if (st == nt - 1) {
+          l0 = quad_sum(l0);
+          l1 = quad_sum(l1);
+          r0 = __frcp_rn(l0);
+          r1 = __frcp_rn(l1);
+        }
+      } else {
+        uint32_t pa[4][4];
+        exp_tile(s[0], m0, m1);
+        probs_tile(pa, s[0], l0, l1, r0, r1);
+        pv_tile<HD>(o, pa, sv + slot * kKeyTile * RS, L - t * kKeyTile, lane);
+      }
+      __syncthreads();  // the slot is refilled by the next step's copy
+    }
+  }
+
+  // Stage the warp's 16 output rows in its own (consumed) Q rows, then
+  // write the rows < L to device memory in 16-byte pieces.
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    *reinterpret_cast<uint32_t*>(sq_w + g * RS + 8 * n + c2) = pack_bf16(o[n][0], o[n][1]);
+    *reinterpret_cast<uint32_t*>(sq_w + (g + 8) * RS + 8 * n + c2) = pack_bf16(o[n][2], o[n][3]);
+  }
+  __syncwarp();
+  const long long D = (long long)H * HD;
+  for (int i = lane; i < 16 * CPR; i += 32) {
+    const int r = i / CPR;
+    const int c = (i % CPR) * 8;
+    const int row = row0 + warp * 16 + r;
+    if (row < L)
+      *reinterpret_cast<uint4*>(out + (b * L + row) * D + (long long)h * HD + c) =
+          *reinterpret_cast<const uint4*>(sq_w + r * RS + c);
+  }
+}
+
+template <int HD>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* mask, void* out,
+                      long long B, int L, int H, int rows, long long q_sb, long long q_sl,
+                      long long k_sb, long long k_sl, long long v_sb, long long v_sl,
+                      long long m_sb, float scale, cudaStream_t stream) {
+  if (rows % 16 || rows < 16 || rows > kMaxRows) return cudaErrorInvalidValue;
+  const size_t smem = tc_smem_bytes<HD>(rows, L);
+  auto kern = L <= kResidentLen ? attention_tc_kernel<HD, true> : attention_tc_kernel<HD, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)B, (unsigned)H, (unsigned)((L + rows - 1) / rows));
+  kern<<<grid, rows * 2, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), L, H, q_sb, q_sl, k_sb, k_sl,
+      v_sb, v_sl, m_sb, scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const void* mask,
+                   void* out, long long B, int L, int H, int rows, long long q_sb,
+                   long long q_sl, long long k_sb, long long k_sl, long long v_sb,
+                   long long v_sl, long long m_sb, float scale, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_simt<HD>(q, k, v, mask, out, B, L, H, rows, q_sb, q_sl, k_sb, k_sl, v_sb,
+                           v_sl, m_sb, scale, stream);
+  if (dtype == 1)
+    return launch_tc<HD>(q, k, v, mask, out, B, L, H, rows, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl,
+                         m_sb, scale, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). dtype: 0 = float32, 1 = bfloat16.
-// Strides are in elements; `out` is a contiguous [B, L, H * hd] tensor.
-// Returns the launch's cudaError_t (0 = success).
+// Plain C entry point (loaded with ctypes). dtype: 0 = float32 (SIMT route),
+// 1 = bfloat16 (tensor-core route). `rows` is the query rows per block from
+// launch_geometry. Strides are in elements; `out` is a contiguous
+// [B, L, H * hd] tensor. Returns the launch's cudaError_t (0 = success).
 extern "C" int pw_attention_short_flat(int dtype, int hd, const void* q, const void* k,
                                        const void* v, const void* mask, void* out,
                                        long long B, int L, int H, int rows, long long q_sb,
@@ -241,11 +656,17 @@ extern "C" int pw_attention_short_flat(int dtype, int hd, const void* q, const v
                                        long long v_sb, long long v_sl, long long m_sb,
                                        float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_hd<float>(hd, q, k, v, mask, out, B, L, H, rows, q_sb, q_sl, k_sb,
-                                 k_sl, v_sb, v_sl, m_sb, scale, s);
-  if (dtype == 1)
-    return (int)launch_hd<__nv_bfloat16>(hd, q, k, v, mask, out, B, L, H, rows, q_sb, q_sl,
-                                         k_sb, k_sl, v_sb, v_sl, m_sb, scale, s);
-  return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 32:
+      return (int)launch<32>(dtype, q, k, v, mask, out, B, L, H, rows, q_sb, q_sl, k_sb, k_sl,
+                             v_sb, v_sl, m_sb, scale, s);
+    case 64:
+      return (int)launch<64>(dtype, q, k, v, mask, out, B, L, H, rows, q_sb, q_sl, k_sb, k_sl,
+                             v_sb, v_sl, m_sb, scale, s);
+    case 128:
+      return (int)launch<128>(dtype, q, k, v, mask, out, B, L, H, rows, q_sb, q_sl, k_sb, k_sl,
+                              v_sb, v_sl, m_sb, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

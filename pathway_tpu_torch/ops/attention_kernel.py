@@ -9,20 +9,27 @@ head's output columns.
 
 On a CUDA tensor :func:`attention_short_flat` launches the hand-written Hopper
 kernel ``csrc/attention_short.cu`` (design and bound in its header note) or
-raises; on a CPU tensor it runs :func:`attention_short_flat_plain`, the same
-arithmetic in plain PyTorch. Both devices accept the same envelope: bf16 or
-f32, ``hd`` in :data:`HEAD_DIMS`, ``1 <= L <= MAX_LEN``.
+raises: bf16 on the tensor cores (``mma.sync`` with async copies), f32 on the
+FP32 pipes (SIMT, since TF32 would break the f32 tolerance);
+:func:`launch_geometry` says how either is launched. On a CPU tensor it runs
+:func:`attention_short_flat_plain`, the same arithmetic in plain PyTorch.
+Both devices accept the same envelope: bf16 or f32, ``hd`` in
+:data:`HEAD_DIMS`, ``1 <= L <= MAX_LEN``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import contextlib
+import functools
+from typing import NamedTuple
 
 import torch
 
 #: kernel launches since the count was last reset (the kernel's own wrapper
-#: adds one per launch; nothing else touches it)
+#: adds one per launch; nothing else touches it), in all and per route
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"tensor_core": 0, "simt": 0}
 
 #: head widths the kernel is instantiated for (template parameter HD)
 HEAD_DIMS = (32, 64, 128)
@@ -30,33 +37,86 @@ MAX_LEN = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: an H100 block may use 227 KB of dynamic shared memory
 _SMEM_LIMIT = 232448
-#: the query-row tile shrinks until a block fits here, so two blocks share an SM
+
+# f32 route (SIMT): the query-row tile shrinks from _MAX_ROWS until a block
+# fits _SMEM_TARGET, so two blocks share an SM
 _SMEM_TARGET = 96 * 1024
 _MAX_ROWS = 64
 
+# bf16 route (tensor cores): 16 query rows per warp, up to _TC_MAX_ROWS per
+# block, keys in tiles of _TC_KEY_TILE; K and V stay resident in shared
+# memory up to _TC_RESIDENT_LEN, above it they stream through a 2-tile ring
+_TC_MAX_ROWS = 128
+_TC_KEY_TILE = 64
+_TC_RESIDENT_LEN = 2 * _TC_KEY_TILE
+_TC_ROW_PAD = 8  # bf16 elements (16 bytes) of padding per shared row
 
-def _smem_bytes(L: int, hd: int, itemsize: int, rows: int) -> int:
-    """Dynamic shared memory of one block; mirrors ``launch`` in the .cu file:
-    K/V rows padded by one 16-byte chunk, the rows' f32 probs, the key mask."""
+
+class LaunchGeometry(NamedTuple):
+    route: str  #: "tensor_core" (bf16) or "simt" (f32)
+    rows: int  #: query rows per block
+    warps: int  #: warps per block
+    key_tile: int  #: keys per shared-memory tile (all L for the SIMT route)
+    resident: bool  #: K and V of a (batch row, head) held in shared memory at once
+    smem_bytes: int  #: dynamic shared memory per block
+    blocks: tuple[int, int, int]  #: grid (batch rows, heads, query-row tiles)
+
+
+def _smem_bytes(L: int, hd: int, rows: int) -> int:
+    """Dynamic shared memory of one SIMT (f32) block; mirrors ``launch_simt``
+    in the .cu file: K/V rows padded by one 16-byte chunk, the rows' f32
+    probs, the key mask."""
     lp = (L + 31) // 32 * 32
-    return lp * (hd + 16 // itemsize) * itemsize + rows * lp * 4 + lp
+    return lp * (hd + 4) * 4 + rows * lp * 4 + lp
 
 
-def _rows_per_block(L: int, hd: int, itemsize: int) -> int:
+def _tc_smem_bytes(L: int, hd: int, rows: int) -> int:
+    """Dynamic shared memory of one tensor-core (bf16) block; mirrors
+    ``tc_smem_bytes`` in the .cu file: the Q tile, K and V (resident, or a
+    2-tile ring each) in rows padded by 16 bytes, and one f32 fill per
+    key."""
+    kv_rows = _TC_KEY_TILE if L <= _TC_KEY_TILE else 2 * _TC_KEY_TILE
+    nt = -(-L // _TC_KEY_TILE)
+    return (rows + 2 * kv_rows) * (hd + _TC_ROW_PAD) * 2 + nt * _TC_KEY_TILE * 4
+
+
+def _rows_per_block(L: int, hd: int) -> int:
+    """Query rows per SIMT (f32) block."""
     rows = min(_MAX_ROWS, (L + 7) // 8 * 8)
-    while rows > 8 and _smem_bytes(L, hd, itemsize, rows) > _SMEM_TARGET:
+    while rows > 8 and _smem_bytes(L, hd, rows) > _SMEM_TARGET:
         rows //= 2
-    if _smem_bytes(L, hd, itemsize, rows) > _SMEM_LIMIT:
-        raise ValueError(
-            f"attention_short_flat: L={L}, hd={hd} at {itemsize}-byte elements "
-            f"needs {_smem_bytes(L, hd, itemsize, rows)} B of shared memory per "
-            f"block, above the {_SMEM_LIMIT} B a Hopper block may use"
-        )
     return rows
 
 
-def _check(q, k, v, mask, n_heads: int) -> tuple[int, int]:
-    """Validate the call; returns (head width, query rows per kernel block)."""
+@functools.lru_cache(maxsize=256)
+def launch_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype) -> LaunchGeometry:
+    """How the kernel is launched for one call: bf16 takes the tensor-core
+    route, f32 the SIMT route. Raises when a block would not fit the
+    227 KB of shared memory a Hopper block may use. Cached: the main path
+    repeats a handful of shapes, and the wrapper's host time is most of a
+    small call's time."""
+    if dtype == torch.bfloat16:
+        rows = min(_TC_MAX_ROWS, (L + 15) // 16 * 16)
+        geo = LaunchGeometry(
+            "tensor_core", rows, rows // 16, _TC_KEY_TILE, L <= _TC_RESIDENT_LEN,
+            _tc_smem_bytes(L, hd, rows), (B, n_heads, -(-L // rows)),
+        )
+    else:
+        rows = _rows_per_block(L, hd)
+        geo = LaunchGeometry(
+            "simt", rows, 8, (L + 31) // 32 * 32, True,
+            _smem_bytes(L, hd, rows), (B, n_heads, -(-L // rows)),
+        )
+    if geo.smem_bytes > _SMEM_LIMIT:
+        raise ValueError(
+            f"attention_short_flat: L={L}, hd={hd} in {dtype} needs {geo.smem_bytes} B "
+            f"of shared memory per block, above the {_SMEM_LIMIT} B a Hopper block may use"
+        )
+    return geo
+
+
+def _check(q, k, v, mask, n_heads: int) -> tuple[int, LaunchGeometry]:
+    """Validate the call; returns the head width and the launch geometry."""
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             f"attention_short_flat: q/k/v must share one [B, L, D] shape, got "
@@ -84,7 +144,7 @@ def _check(q, k, v, mask, n_heads: int) -> tuple[int, int]:
         raise ValueError(f"attention_short_flat: L={L} outside 1..{MAX_LEN}")
     if len({t.device for t in (q, k, v, mask)}) != 1:
         raise ValueError("attention_short_flat: q, k, v and mask must share one device")
-    return hd, _rows_per_block(L, hd, q.element_size())
+    return hd, launch_geometry(B, L, n_heads, hd, q.dtype)
 
 
 def attention_short_flat_plain(q, k, v, mask, n_heads: int, scale: float):
@@ -129,14 +189,14 @@ def _kernel():
         fn.restype = ctypes.c_int
         fn.argtypes = (
             [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
-            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_longlong] + [ctypes.c_int] * 3
             + [ctypes.c_longlong] * 7 + [ctypes.c_float, ctypes.c_void_p]
         )
         _kernel_fn = fn
     return _kernel_fn
 
 
-def _launch(q, k, v, mask, n_heads: int, scale: float, hd: int, rows: int):
+def _launch(q, k, v, mask, n_heads: int, scale: float, hd: int, geo: LaunchGeometry):
     global LAUNCHES
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not _aligned(t):
@@ -152,17 +212,21 @@ def _launch(q, k, v, mask, n_heads: int, scale: float, hd: int, rows: int):
     out = torch.empty((B, L, D), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
-    with torch.cuda.device(q.device):
+    # switching the current device costs more host time than a small launch
+    # takes on the card, so only do it when q lives on another card
+    on_current = q.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if on_current else torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             _DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), B, L, n_heads, rows,
+            mask.data_ptr(), out.data_ptr(), B, L, n_heads, geo.rows,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             mask.stride(0), float(scale), stream,
         )
     if err != 0:
         raise RuntimeError(f"attention_short_flat: kernel launch failed (cudaError {err})")
     LAUNCHES += 1
+    ROUTE_LAUNCHES[geo.route] += 1
     return out
 
 
@@ -170,9 +234,9 @@ def attention_short_flat(q, k, v, mask, n_heads: int, scale: float):
     """Flat-layout attention: [B, L, D] q/k/v and a [B, L] bool key mask →
     [B, L, D] context. CUDA tensors run the Hopper kernel (or raise); CPU
     tensors run :func:`attention_short_flat_plain`."""
-    hd, rows = _check(q, k, v, mask, n_heads)
+    hd, geo = _check(q, k, v, mask, n_heads)
     if q.device.type == "cpu":
         return attention_short_flat_plain(q, k, v, mask, n_heads, scale)
     if q.device.type != "cuda":
         raise ValueError(f"attention_short_flat: no kernel for device {q.device}")
-    return _launch(q, k, v, mask, n_heads, scale, hd, rows)
+    return _launch(q, k, v, mask, n_heads, scale, hd, geo)

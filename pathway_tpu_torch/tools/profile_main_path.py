@@ -39,7 +39,10 @@ def _window(name: str, fn) -> None:
     ]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    attention_ms = sum(r[1] for r in rows if "attention_short_kernel" in r[0])
+    # the port's attention kernel: the bf16 (tensor-core) or f32 (SIMT) route
+    attention_ms = sum(
+        r[1] for r in rows if "attention_tc_kernel" in r[0] or "attention_short_kernel" in r[0]
+    )
     print(json.dumps({
         "window": name,
         "wall_ms": wall_ms,

@@ -110,12 +110,174 @@ def test_wrapper_rejects_outside_the_kernel_envelope(shape, heads, dtype, mask_d
 
 
 @pytest.mark.parametrize(
-    "L,hd,itemsize,rows",
-    [(128, 64, 2, 64), (16, 64, 2, 16), (256, 64, 2, 32), (512, 64, 4, 8), (512, 128, 2, 8)],
+    "L,hd,dtype,rows",
+    [
+        (128, 64, torch.bfloat16, 128),
+        (16, 64, torch.bfloat16, 16),
+        (256, 64, torch.bfloat16, 128),
+        (512, 64, torch.float32, 8),
+        (512, 128, torch.bfloat16, 128),
+    ],
 )
-def test_row_tile_fits_shared_memory(L, hd, itemsize, rows):
-    assert A._rows_per_block(L, hd, itemsize) == rows
-    assert A._smem_bytes(L, hd, itemsize, rows) <= A._SMEM_LIMIT
+def test_row_tile_fits_shared_memory(L, hd, dtype, rows):
+    geo = A.launch_geometry(2, L, 2, hd, dtype)
+    assert geo.rows == rows
+    assert geo.smem_bytes <= A._SMEM_LIMIT
+    if dtype == torch.float32:
+        assert A._rows_per_block(L, hd) == rows
+        assert geo.smem_bytes == A._smem_bytes(L, hd, rows)
+
+
+# --- the bf16 route's algorithm, emulated on the CPU ------------------------
+
+#: (B, L, hd) of the kernel's checked cases: the main path's embed, query and
+#: reranker shapes, a length that fills no tile evenly, the longest length,
+#: and the other head widths (hd 128 with K and V streamed and resident)
+ALGO_SHAPES = [
+    (4, 128, 64), (1, 16, 64), (10, 256, 64), (3, 77, 64), (2, 512, 64), (2, 256, 128), (2, 128, 32),
+    (2, 128, 128),
+]
+ALGO_D = 384
+
+
+def _tiled_two_pass(q, k, v, mask, H, scale, tile=64, resident_len=128):
+    """The tensor-core route's softmax in plain torch, tile by tile as the
+    kernel runs it: keys in 64-key tiles, f32 scores ``s·scale + fill`` with
+    the fill 0 for a kept key, −1e30 for a masked key and −inf for the tail
+    tile's pad columns (zero-filled K and V rows). Up to
+    ``resident_len`` keys the row max and sum are exact over all tiles (the
+    kernel keeps the scores in registers); beyond it pass 1 keeps a running
+    max m and a rescaled sum l, and pass 2 recomputes each tile's scores.
+    Then probs = exp(s − m) / l, rounded to the input dtype, and probs·v
+    summed in f32."""
+    B, L, D = q.shape
+    hd = D // H
+    nt = -(-L // tile)
+    LP = nt * tile
+    fill = torch.full((B, LP), float("-inf"))
+    fill[:, :L] = torch.where(mask, 0.0, -1e30)
+    out = torch.empty(B, L, D, dtype=q.dtype)
+    for h in range(H):
+        sl = slice(h * hd, (h + 1) * hd)
+        qh = q[..., sl].float()
+        kh, vh = (torch.zeros(B, LP, hd) for _ in range(2))
+        kh[:, :L], vh[:, :L] = k[..., sl].float(), v[..., sl].float()
+
+        def scores(t):
+            ts = slice(t * tile, (t + 1) * tile)
+            s = torch.einsum("bqd,bkd->bqk", qh, kh[:, ts])
+            return s * scale + fill[:, None, ts]  # exact: |s·scale| ≪ half an ulp of 1e30
+
+        if L <= resident_len:
+            s_all = torch.cat([scores(t) for t in range(nt)], dim=-1)
+            m = s_all.amax(dim=-1, keepdim=True)
+            l = torch.exp(s_all - m).sum(dim=-1, keepdim=True)
+        else:
+            m = torch.full((B, L, 1), float("-inf"))
+            l = torch.zeros(B, L, 1)
+            for t in range(nt):  # pass 1
+                s = scores(t)
+                n = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                l = l * torch.exp(m - n) + torch.exp(s - n).sum(dim=-1, keepdim=True)
+                m = n
+        acc = torch.zeros(B, L, hd)
+        for t in range(nt):  # pass 2 (the resident route reuses its scores)
+            p = (torch.exp(scores(t) - m) / l).to(q.dtype).float()
+            acc += torch.einsum("bqk,bkd->bqd", p, vh[:, t * tile : (t + 1) * tile])
+        out[..., sl] = acc.to(q.dtype)
+    return out
+
+
+def _algo_inputs(B, L, hd, dtype):
+    H = ALGO_D // hd
+    q, k, v, mask = _inputs(B, L, H, hd, seed=B * 1000 + L + hd)
+    if dtype == torch.bfloat16:  # both sides start from the same bf16 values
+        q, k, v = (np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)) for a in (q, k, v))
+    return H, q, k, v, mask
+
+
+def _assert_close(out, ref, v, dtype):
+    if dtype == torch.float32:
+        np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+    else:
+        assert (np.abs(out - ref) <= 2.0 ** -7 * (np.abs(ref) + np.abs(v).max())).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,L,hd", ALGO_SHAPES)
+def test_tiled_two_pass_softmax_matches_plain(B, L, hd, dtype):
+    H, q, k, v, mask = _algo_inputs(B, L, hd, dtype)
+    args = (_torch(q, dtype), _torch(k, dtype), _torch(v, dtype), torch.from_numpy(mask), H, hd ** -0.5)
+    out = _tiled_two_pass(*args)
+    plain = A.attention_short_flat_plain(*args)
+    assert out.dtype == dtype
+    _assert_close(out.float().numpy(), plain.float().numpy(), v, dtype)
+    # row 0 is fully masked: the mean of its L real keys' v, the pad columns
+    # of the last tile left out
+    mean_v = v[0].mean(axis=0)
+    _assert_close(out[0].float().numpy(), np.broadcast_to(mean_v, out[0].shape), v[0], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,L,hd", ALGO_SHAPES)
+def test_tiled_two_pass_softmax_matches_jax_reference(B, L, hd, dtype):
+    """Against the Pallas kernel in interpret mode inside its envelope
+    (L <= 128, L % 8 == 0, hd % 64 == 0), against the JAX package's XLA
+    attention outside it."""
+    H, q, k, v, mask = _algo_inputs(B, L, hd, dtype)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    if L <= 128 and L % 8 == 0 and hd % 64 == 0:
+        from pathway_tpu.ops.attention_kernel import _attention_short_impl
+
+        ref = _attention_short_impl(
+            *(jnp.asarray(a, jdt) for a in (q, k, v)), jnp.asarray(mask),
+            H, hd ** -0.5, B, interpret=True,
+        )
+        ref = np.asarray(ref.astype(jnp.float32))
+    else:
+        ref = _sdpa_ref(q, k, v, mask, H, jdt)
+    out = _tiled_two_pass(_torch(q, dtype), _torch(k, dtype), _torch(v, dtype), torch.from_numpy(mask), H, hd ** -0.5)
+    _assert_close(out.float().numpy(), ref, v, dtype)
+
+
+@pytest.mark.parametrize(
+    "B,L,hd,rows,warps,resident,blocks_z",
+    [
+        (1024, 128, 64, 128, 8, True, 1),  # embed
+        (1, 16, 64, 16, 1, True, 1),  # query
+        (10, 128, 64, 128, 8, True, 1),  # rerank as the main path runs it
+        (10, 256, 64, 128, 8, False, 2),  # rerank at the reranker's max_len
+        (3, 77, 64, 80, 5, True, 1),
+        (2, 512, 128, 128, 8, False, 4),
+        (2, 64, 32, 64, 4, True, 1),  # one key tile
+    ],
+)
+def test_tensor_core_geometry_fits_two_blocks_per_sm(B, L, hd, rows, warps, resident, blocks_z):
+    H = ALGO_D // hd
+    geo = A.launch_geometry(B, L, H, hd, torch.bfloat16)
+    assert geo.route == "tensor_core" and geo.key_tile == 64
+    assert (geo.rows, geo.warps, geo.resident) == (rows, warps, resident)
+    assert geo.blocks == (B, H, blocks_z)
+    # two blocks (plus 1 KB each reserved by the hardware) share an SM's 228 KB
+    assert 2 * (geo.smem_bytes + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"), (torch.float32, "simt")])
+@pytest.mark.parametrize("L", [1, 16, 77, 128, 256, 512])
+def test_launch_geometry_picks_the_route_by_dtype(dtype, route, L):
+    geo = A.launch_geometry(3, L, 6, 64, dtype)
+    assert geo.route == route
+    assert geo.rows * geo.blocks[2] >= L > geo.rows * (geo.blocks[2] - 1)
+    assert geo.smem_bytes <= A._SMEM_LIMIT
+
+
+def test_launches_count_per_route_only_on_the_card():
+    x = torch.zeros(2, 16, 128, dtype=torch.bfloat16)
+    m = torch.ones(2, 16, dtype=torch.bool)
+    before = (A.LAUNCHES, dict(A.ROUTE_LAUNCHES))
+    A.attention_short_flat(x, x, x, m, 2, 0.125)
+    assert (A.LAUNCHES, A.ROUTE_LAUNCHES) == before
+    assert set(A.ROUTE_LAUNCHES) == {"tensor_core", "simt"}
 
 
 def test_kernel_build_targets_hopper_and_fails_loudly_without_nvcc(monkeypatch, tmp_path):
@@ -129,3 +291,14 @@ def test_kernel_build_targets_hopper_and_fails_loudly_without_nvcc(monkeypatch, 
     if not __import__("os").path.exists("/usr/local/cuda/bin/nvcc"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.find_nvcc()
+
+
+@pytest.mark.parametrize("variant", ["as_built", "compiler_division", "exp2_folded", "no_softmax"])
+def test_ablation_variants_still_apply_to_the_kernel_source(variant):
+    from pathway_tpu_torch.tools import attention_ablation as AB
+
+    src = (_build.CSRC / _build.SOURCES["attention_short"]).read_text()
+    out = AB._variant_source(src, AB.VARIANTS[variant])
+    route = src.index("// bf16 route: tensor cores")
+    assert out[:route] == src[:route]  # the f32 route is never touched
+    assert (out == src) == (variant == "as_built")

@@ -7,6 +7,8 @@ intermediates, PyTorch's rounds once), so unit-norm embeddings of width 128
 may differ by several bf16 ulps of their ~0.1-sized elements.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,7 @@ import torch
 
 from pathway_tpu.ops import encoder as E
 from pathway_tpu_torch import convert
+from pathway_tpu_torch import native as tnative
 from pathway_tpu_torch.ops import encoder as TE
 
 SMALL = dict(vocab_size=1024, d_model=128, n_heads=2, n_layers=2, d_ff=256, max_len=64)
@@ -60,6 +63,8 @@ def test_encode_ids_widens_int16_and_masks_pad_zero():
 def test_hash_tokenizer_ids_bit_identical(native, monkeypatch):
     if not native:  # the pure-Python path, as without a C compiler
         monkeypatch.setattr(TE, "_native_pwtok", lambda: None)
+    elif tnative.compiler() is not None:  # a compiler is here: the C path must run
+        assert TE._native_pwtok() is not None, tnative.last_error.get("pwtok")
     texts = [
         "Hello, world! The quick brown fox.",
         "word1 word2 word3 " * 30,  # longer than max_len
@@ -75,6 +80,47 @@ def test_hash_tokenizer_ids_bit_identical(native, monkeypatch):
         np.testing.assert_array_equal(mask, ref_mask)
         tok = TE.HashTokenizer(vocab, max_len)
         assert tok._tok(texts[2]) == E.HashTokenizer(vocab, max_len)._tok(texts[2])
+
+
+def _native_copy(tmp_path, monkeypatch):
+    """The native loader pointed at a scratch copy of pwtok.c."""
+    src = tmp_path / "pwtok.c"
+    src.write_text(open(os.path.join(os.path.dirname(tnative.__file__), "pwtok.c")).read())
+    monkeypatch.setattr(tnative, "_DIR", str(tmp_path))
+    monkeypatch.setattr(tnative, "_BUILD", str(tmp_path / "_build"))
+    monkeypatch.delitem(tnative.last_error, "pwtok", raising=False)
+
+
+def test_native_loader_keeps_the_reason_without_a_compiler(tmp_path, monkeypatch):
+    _native_copy(tmp_path, monkeypatch)
+    monkeypatch.setenv("CC", "no-such-compiler-here")
+    assert tnative.compiler() is None
+    assert tnative.try_load("pwtok") is None
+    assert "no C compiler" in tnative.last_error["pwtok"]
+
+
+def test_native_loader_keeps_the_compiler_message_of_a_failed_build(tmp_path, monkeypatch):
+    if tnative.compiler() is None:
+        pytest.skip("no C compiler on this machine")
+    _native_copy(tmp_path, monkeypatch)
+    (tmp_path / "pwtok.c").write_text("this is not C\n")
+    assert tnative.try_load("pwtok") is None
+    first = tnative.last_error["pwtok"]
+    assert "exited" in first and "pwtok.c" in first
+    # a later process start skips the doomed compile and keeps the message
+    assert tnative.try_load("pwtok") is None
+    assert "previously failed" in tnative.last_error["pwtok"] and "exited" in tnative.last_error["pwtok"]
+
+
+def test_native_loader_builds_and_clears_the_error(tmp_path, monkeypatch):
+    if tnative.compiler() is None:
+        pytest.skip("no C compiler on this machine")
+    _native_copy(tmp_path, monkeypatch)
+    tnative.last_error["pwtok"] = "stale"
+    mod = tnative.try_load("pwtok")
+    assert mod is not None and "pwtok" not in tnative.last_error
+    ids, lens = mod.hash_tokenize(np.array(["a b"], dtype=object), 1024, 8)
+    assert lens.tolist() == [2]
 
 
 def test_sentence_encoder_encode_texts_matches_jax_with_converted_params():

@@ -23,6 +23,7 @@ MODULES = [
     "pathway_tpu_torch.ops.knn",
     "pathway_tpu_torch.ops.reranker",
     "pathway_tpu_torch.tools.profile_main_path",
+    "pathway_tpu_torch.tools.attention_ablation",
 ]
 
 
