@@ -24,7 +24,18 @@ printing one JSON line:
 5. checks of the main path's answers: each doc finds itself first, search
    agrees with a float64 numpy brute force in keys and order, rerank scores
    are finite, card embeddings agree with the port's CPU path;
-6. the kernels line, with each kernel's launches during phase 4.
+6. pipeline: the same loop written against ``import pathway_tpu_torch as pw``
+   and run by the engine (``pw.debug`` streams → ``SentenceTransformerEmbedder``
+   through the cross-tick microbatcher → ``BruteForceKnnFactory`` index →
+   ``query_as_of_now`` → flatten → ``CrossEncoderReranker``): 65,536 docs and
+   then 1,024 queries in 64-row ticks, with its checks (self-retrieval, a
+   direct search over the embeddings the pipeline emitted, rerank scores
+   against the cross-encoder, microbatch off == auto at 4,096 docs);
+7. engine_kernels: the engine's filter → join → groupby/sum at 1,000,000
+   rows, static and over 20 ticks, with both ``engine/torch_kernels.py``
+   functions on the card (``PATHWAY_ENGINE_JAX=gpu``) and on numpy (``0``),
+   whose captured outputs must be identical;
+8. the kernels line, with each kernel's launches during phases 4 and 6.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without it. TF32 is off for every matmul (``allow_tf32 = False``), so the f32
@@ -49,6 +60,15 @@ INGEST_BATCH = 1024
 INDEX_ROWS = 1_000_000
 FILL_CHUNK = 8192
 N_QUERIES = 30
+#: the pipeline phase: docs and queries in ticks of streaming_bench's size
+PIPE_DOCS = 65_536
+PIPE_QUERIES = 1024
+PIPE_TICK = 64
+PIPE_K = 10
+PIPE_SAME_DOCS = 4096  # microbatch off == auto at this size
+#: the engine_kernels phase: engine_bench's pipeline
+ENGINE_ROWS = 1_000_000
+ENGINE_TICKS = 20
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
 H100_F32_FLOPS = 67e12  # FP32 pipes, outside the tensor cores
@@ -488,10 +508,238 @@ def phase_checks(state: dict) -> None:
     )
 
 
+class _LaunchLog:
+    """Wraps a batched UDF's batch function before a pipeline is built from
+    it: per launch, its host clock span and its row count (the bucket the
+    microbatcher padded to), and for an embedder every vector it returned,
+    by text. The launch returns numpy, so its span includes the card's
+    work."""
+
+    def __init__(self, udf, keep_vectors: bool = False):
+        self.spans: list[tuple[float, float, int]] = []
+        self.vectors: dict[str, list] = {}
+        inner = udf._fn
+
+        def launch(*cols):
+            t0 = time.perf_counter()
+            out = inner(*cols)
+            self.spans.append((t0, time.perf_counter(), len(cols[0])))
+            if keep_vectors:
+                for text, vec in zip(cols[0], out):
+                    self.vectors.setdefault(text, []).append(vec)
+            return out
+
+        udf._fn = launch
+
+
+def _buckets(spans) -> dict[str, int]:
+    """Launch row count -> number of launches."""
+    out: dict[str, int] = {}
+    for _a, _b, n in spans:
+        out[str(n)] = out.get(str(n), 0) + 1
+    return out
+
+
+def _run_pipeline(emb, rr, docs: list[str], queries: list[str], mode: str):
+    """One capture of the pipeline under ``PATHWAY_MICROBATCH=mode``; returns
+    (rows, run start, run end) on the host clock."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.debug import _capture
+    from pathway_tpu_torch.stdlib.indexing import BruteForceKnnFactory
+    from pathway_tpu_torch.tools import rag_pipeline
+
+    os.environ["PATHWAY_MICROBATCH"] = mode
+    pw.G.clear()
+    table = rag_pipeline.build(
+        pw, embedder=emb, index_factory=BruteForceKnnFactory(embedder=emb, device=DEVICE),
+        reranker=rr, docs=docs, queries=queries, tick_rows=PIPE_TICK, k=PIPE_K,
+    )
+    t0 = time.perf_counter()
+    rows = _capture(table).rows
+    sync()
+    t1 = time.perf_counter()
+    pw.G.clear()
+    return rows, t0, t1
+
+
+def phase_pipeline(info: dict) -> dict:
+    """The live-RAG loop through ``pw.run`` at full width; see the module
+    docstring. The microbatch flush deadline is set past the run, so every
+    launch is a full 512-row bucket until the streams close: the launch
+    compositions, and with them the bits, are the same in every run."""
+    import torch
+
+    from pathway_tpu_torch.internals.keys import sequential_keys
+    from pathway_tpu_torch.ops import attention_kernel as A
+    from pathway_tpu_torch.ops.encoder import EncoderConfig
+    from pathway_tpu_torch.stdlib.indexing._engine import VectorBackend
+    from pathway_tpu_torch.tools.rag_pipeline import hits_by_query
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker
+
+    saved = {k: os.environ.get(k) for k in ("PATHWAY_MICROBATCH", "PATHWAY_MICROBATCH_FLUSH_MS")}
+    os.environ["PATHWAY_MICROBATCH_FLUSH_MS"] = "3600000"
+    emb = SentenceTransformerEmbedder("minilm", seed=0, device=DEVICE)
+    rr_cfg = EncoderConfig(vocab_size=32768, d_model=384, n_heads=6, n_layers=4, d_ff=1536, max_len=256)
+    rr = CrossEncoderReranker(rr_cfg, seed=1, device=DEVICE)
+    elog, rlog = _LaunchLog(emb, keep_vectors=True), _LaunchLog(rr)
+    docs = synth_docs(PIPE_DOCS)
+    queries = docs[:PIPE_QUERIES]
+
+    # warm-up at the launch shapes (allocator, cuBLAS), outside the counts
+    emb._encoder.encode_texts(docs[:512])
+    rr._model.score_pairs([(q, d) for q, d in zip(queries[:512], docs[1:513])])
+    sync()
+
+    # --- the pipeline: counts from 0 -------------------------------------------
+    A.LAUNCHES = 0
+    A.ROUTE_LAUNCHES.update(tensor_core=0, simt=0)
+    rows, t0, t1 = _run_pipeline(emb, rr, docs, queries, "auto")
+    launches, route_launches = A.LAUNCHES, dict(A.ROUTE_LAUNCHES)
+    # ------------------------------------------------------------------------------
+    e_spans, r_spans = list(elog.spans), list(rlog.spans)
+    seen = 0
+    t_ingest = None
+    for _a, b, n in e_spans:
+        seen += n
+        if seen >= PIPE_DOCS:
+            t_ingest = b
+            break
+    check(t_ingest is not None, "the pipeline embedded fewer docs than it was given")
+    t_ingest = t_ingest if t_ingest is not None else t1
+    doc_launches = [sp for sp in e_spans if sp[1] <= t_ingest]
+    query_launches = [sp for sp in e_spans if sp[1] > t_ingest]
+    expected = 6 * len(e_spans) + rr_cfg.n_layers * len(r_spans)
+    check(route_launches["tensor_core"] > 0, "the pipeline launched no tensor-core attention kernel")
+    check(launches == expected, f"pipeline attention launches {launches} != expected {expected}")
+
+    # checks ------------------------------------------------------------------------
+    hits = hits_by_query(rows.values())
+    check(len(rows) == PIPE_QUERIES * PIPE_K, f"pipeline captured {len(rows)} rows, expected {PIPE_QUERIES * PIPE_K}")
+    check(sorted(hits) == list(range(PIPE_QUERIES)), "pipeline answered the wrong set of queries")
+    self_ok = sum(1 for qi, hs in hits.items() if hs and hs[0][1] == qi)
+    check(self_ok == PIPE_QUERIES, f"self-retrieval at rank 1: {self_ok}/{PIPE_QUERIES}")
+
+    # a direct search over the embeddings the pipeline emitted, through the
+    # index backend the pipeline uses, with the same capacity growth and the
+    # same 512-query batches
+    keys = [int(k) for k in sequential_keys(0, PIPE_DOCS)]
+    direct = VectorBackend(dimension=384, metric="cos", reserved_space=1024, device=DEVICE)
+    for key, d in zip(keys, docs):
+        direct.add(key, elog.vectors[d][0], 0)
+    q_vecs = [elog.vectors[q][-1] for q in queries]
+    want: list[list[int]] = []
+    for lo in range(0, PIPE_QUERIES, 512):
+        chunk = q_vecs[lo : lo + 512]
+        want.extend([[k for k, _ in h] for h in direct.search(chunk, [PIPE_K] * len(chunk), [lambda m: True] * len(chunk))])
+    mismatched = [qi for qi in range(PIPE_QUERIES) if [h[0] for h in hits.get(qi, [])] != want[qi]]
+    check(not mismatched, f"pipeline top-{PIPE_K} differs from the direct search for {len(mismatched)} queries")
+    del direct
+
+    pairs = [(queries[qi], docs[di]) for qi in range(PIPE_QUERIES) for _dk, di, _kn, _rs in hits.get(qi, [])]
+    got_rr = np.array([rs for qi in range(PIPE_QUERIES) for *_x, rs in hits.get(qi, [])])
+    want_rr = np.concatenate([rr._model.score_pairs(pairs[i : i + 512]) for i in range(0, len(pairs), 512)])
+    rr_err = float(np.abs(got_rr - want_rr).max()) if len(pairs) else float("inf")
+    check(bool(np.isfinite(got_rr).all()), "pipeline rerank scores not finite")
+    check(rr_err <= 1e-2, f"pipeline rerank scores differ from score_pairs by {rr_err}")
+
+    # microbatch off == auto, byte for byte, at PIPE_SAME_DOCS docs
+    same_docs = docs[:PIPE_SAME_DOCS]
+    off_rows, o0, o1 = _run_pipeline(emb, rr, same_docs, queries, "off")
+    auto_rows, a0, a1 = _run_pipeline(emb, rr, same_docs, queries, "auto")
+    same = off_rows == auto_rows
+    check(same, f"microbatch off and auto differ at {PIPE_SAME_DOCS} docs")
+
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    span_s = lambda spans: sum(b - a for a, b, _n in spans)  # noqa: E731
+    out = {
+        "card": info["nvidia_smi"],
+        "docs": PIPE_DOCS, "queries": PIPE_QUERIES, "tick_rows": PIPE_TICK, "k": PIPE_K,
+        "run_s": t1 - t0,
+        "ingest_s": t_ingest - t0,
+        "query_s": t1 - t_ingest,
+        "ingest_docs_per_s": PIPE_DOCS / (t_ingest - t0),
+        "query_rows_per_s": PIPE_QUERIES / (t1 - t_ingest),
+        "embed_docs_launch_s": span_s(doc_launches),
+        "embed_queries_launch_s": span_s(query_launches),
+        "rerank_launch_s": span_s(r_spans),
+        "engine_host_s": (t1 - t0) - span_s(e_spans) - span_s(r_spans),
+        "embed_launches": len(e_spans),
+        "embed_buckets": _buckets(e_spans),
+        "rerank_launches": len(r_spans),
+        "rerank_buckets": _buckets(r_spans),
+        "attention_launches": launches,
+        "attention_launches_by_route": route_launches,
+        "attention_launches_expected": expected,
+        "self_retrieval_rank1": self_ok,
+        "direct_search_mismatches": len(mismatched),
+        "rerank_max_abs_err_vs_score_pairs": rr_err,
+        "rerank_tolerance": 1e-2,
+        "microbatch_off_equals_auto": same,
+        "same_docs": PIPE_SAME_DOCS,
+        "off_run_s": o1 - o0,
+        "auto_run_s": a1 - a0,
+    }
+    emit("pipeline", **out)
+    del emb, rr, elog
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": route_launches, "metrics": out}
+
+
+def phase_engine_kernels(info: dict) -> dict:
+    """engine_bench's filter → join → groupby/sum in the port at
+    ENGINE_ROWS rows, static and over ENGINE_TICKS ticks, with both
+    functions of ``engine/torch_kernels.py`` on the card and on numpy."""
+    from pathway_tpu_torch.debug import _capture
+    from pathway_tpu_torch.engine import torch_kernels as K
+    from pathway_tpu_torch.tools.engine_pipeline import build
+
+    saved = os.environ.get("PATHWAY_ENGINE_JAX")
+    card_flag = "gpu" if DEVICE == "cuda" else "cpu"
+    runs = {}
+    for n_times in (1, ENGINE_TICKS):
+        outs = {}
+        for flag in (card_flag, "0"):
+            os.environ["PATHWAY_ENGINE_JAX"] = flag
+            K.ROUTES.clear()
+            table = build(ENGINE_ROWS, n_times)
+            t0 = time.perf_counter()
+            deltas = _capture(table).deltas
+            sync()
+            outs[flag] = (deltas, time.perf_counter() - t0, dict(K.ROUTES))
+        same = outs[card_flag][0] == outs["0"][0]
+        label = "static" if n_times == 1 else f"{n_times}_ticks"
+        check(same, f"engine pipeline ({label}): card and numpy routes differ")
+        check(bool(outs[card_flag][2]), f"engine pipeline ({label}): no function routed to the card")
+        check(not outs["0"][2], f"engine pipeline ({label}): numpy route ran a torch function")
+        runs[label] = {
+            "rows": ENGINE_ROWS, "ticks": n_times, "out_updates": len(outs["0"][0]),
+            f"{card_flag}_s": outs[card_flag][1], "numpy_s": outs["0"][1],
+            f"{card_flag}_rows_per_s": ENGINE_ROWS / outs[card_flag][1],
+            "numpy_rows_per_s": ENGINE_ROWS / outs["0"][1],
+            "routes": outs[card_flag][2], "identical": same,
+        }
+    if saved is None:
+        os.environ.pop("PATHWAY_ENGINE_JAX", None)
+    else:
+        os.environ["PATHWAY_ENGINE_JAX"] = saved
+    emit("engine_kernels", card=info["nvidia_smi"], **runs)
+    import pathway_tpu_torch as pw
+
+    pw.G.clear()
+    return runs
+
+
 def _kernel_entry(records: list[dict], dtype: str, route: str, what: str, launches: dict) -> dict:
     """One route of the attention kernel on the kernels line: its time at the
     embed shape, and its largest error over every checked case of its dtype
-    (with the case it came from)."""
+    (with the case it came from). ``launches``: path name -> route counts,
+    each read right after that path ran; the line's count is their sum."""
     mine = [r for r in records if r["dtype"] == dtype]
     worst = max(mine, key=lambda r: r["max_abs_err"])
     embed = next(r for r in mine if r["case"] == "embed")
@@ -500,7 +748,8 @@ def _kernel_entry(records: list[dict], dtype: str, route: str, what: str, launch
         "route": "cuda",
         "source": "pathway_tpu_torch/csrc/attention_short.cu",
         "replaces": "pathway_tpu/ops/attention_kernel.py:33",
-        "launches": launches[route],
+        "launches": sum(by_route[route] for by_route in launches.values()),
+        "launches_by_path": {path: by_route[route] for path, by_route in launches.items()},
         "max_abs_err": worst["max_abs_err"],
         "max_abs_err_case": f"{dtype} {worst['case']} (B={worst['B']} L={worst['L']} hd={worst['hd']})",
         "cases_checked": len(mine),
@@ -536,10 +785,14 @@ def main() -> int:
     kern = phase_kernels()
     state = phase_main_path(synth_docs(N_DOCS))
     phase_checks(state)
+    del state["index"]
+    pipe = phase_pipeline(info)
+    phase_engine_kernels(info)
 
+    launches = {"main_path": state["launches"], "pipeline": pipe["launches"]}
     line = {"kernels": [
-        _kernel_entry(kern, "bfloat16", "tensor_core", "bf16, tensor cores (mma.sync, cp.async)", state["launches"]),
-        _kernel_entry(kern, "float32", "simt", "f32, FP32 pipes (SIMT); not on the main path", state["launches"]),
+        _kernel_entry(kern, "bfloat16", "tensor_core", "bf16, tensor cores (mma.sync, cp.async)", launches),
+        _kernel_entry(kern, "float32", "simt", "f32, FP32 pipes (SIMT); not on a path", launches),
     ]}
     if failures:
         print("chip_smoke: FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -88,6 +88,47 @@ def _canonical_select(
     return torch.gather(scores, 1, top_ids), top_ids
 
 
+#: query rows per score product (see :func:`_dots`)
+_Q_CHUNK = 16
+
+
+def _row_sq_norms(x: torch.Tensor) -> torch.Tensor:
+    """``Σ x²`` per row, in ``x``'s dtype, summed in one fixed pairwise order
+    by elementwise adds (columns zero-padded to a power of two, then halved
+    until one is left). A reduction kernel's launch configuration, and with
+    it the rounding, depends on the tensor's shape (on the H100 a 1-query
+    norm and a 512-query norm round differently); elementwise adds do not,
+    so a row gets the same bits in any batch."""
+    s = x * x
+    width = 1 << max(0, s.shape[-1] - 1).bit_length()
+    if width != s.shape[-1]:
+        s = torch.nn.functional.pad(s, (0, width - s.shape[-1]))
+    while s.shape[-1] > 1:
+        half = s.shape[-1] // 2
+        s = s[..., :half] + s[..., half:]
+    return s[..., 0]
+
+
+def _dots(queries: torch.Tensor, vectors: torch.Tensor) -> torch.Tensor:
+    """``queries · vectorsᵀ`` in f32, one product per ``_Q_CHUNK`` query rows
+    (the last chunk zero-padded). cuBLAS picks its kernel by the product's
+    shape, and kernels for different row counts round differently (on the
+    H100, 64 and 512 query rows give other score bits); with every product
+    ``_Q_CHUNK`` rows tall, a query scores the same bits in any batch, so
+    cross-tick microbatching changes no search result. At 16 rows the
+    product still reads the index once per chunk at its memory rate."""
+    q = queries.float()
+    v = vectors.float().T
+    n = q.shape[0]
+    n_pad = -(-n // _Q_CHUNK) * _Q_CHUNK
+    if n_pad != n:
+        q = torch.cat([q, q.new_zeros(n_pad - n, q.shape[1])])
+    out = torch.empty((n_pad, v.shape[1]), dtype=torch.float32, device=q.device)
+    for lo in range(0, n_pad, _Q_CHUNK):
+        torch.matmul(q[lo : lo + _Q_CHUNK], v, out=out[lo : lo + _Q_CHUNK])
+    return out[:n]
+
+
 def _search_body(
     vectors: torch.Tensor,   # [N, d]
     norms_sq: torch.Tensor,  # [N] f32 (row |v|^2, computed at ingest)
@@ -99,13 +140,13 @@ def _search_body(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Scoring and selection shared by the resident search and the candidate
     rescore: one formula, so a row scores the same bits whichever touches it."""
-    dots = queries.float() @ vectors.float().T
+    dots = _dots(queries, vectors)
     if metric == KnnMetric.L2SQ.value:
-        qn = (queries * queries).sum(dim=-1, keepdim=True)
+        qn = _row_sq_norms(queries)[:, None]
         # negative L2^2 so that "higher is better" uniformly
         scores = -(qn + norms_sq[None, :] - 2.0 * dots)
     elif metric == KnnMetric.COS.value:
-        qn = (queries * queries).sum(dim=-1, keepdim=True).sqrt()
+        qn = _row_sq_norms(queries)[:, None].sqrt()
         denom = torch.clamp_min(qn * norms_sq.sqrt()[None, :], 1e-30)
         scores = dots / denom
     else:
@@ -131,7 +172,7 @@ def _rescore_kernel(rows, valid, key_bits, queries, k: int, metric: str):
     """Exact top-k over an ad-hoc candidate matrix; row norms use the ingest
     formula, so a candidate scores the same bits as in the resident index."""
     rows32 = rows.float()
-    norms_sq = (rows32 * rows32).sum(dim=-1)
+    norms_sq = _row_sq_norms(rows32)
     return _search_body(rows, norms_sq, valid, key_bits, queries, k, metric)
 
 
@@ -199,7 +240,7 @@ def _scatter_block(vectors, norms_sq, valid, key_bits, slots, bits, rows) -> Non
     bits."""
     rows32 = rows.float()
     vectors.index_put_((slots,), rows.to(vectors.dtype))
-    norms_sq.index_put_((slots,), (rows32 * rows32).sum(dim=-1))
+    norms_sq.index_put_((slots,), _row_sq_norms(rows32))
     valid.index_put_((slots,), torch.ones_like(slots, dtype=torch.bool))
     key_bits.index_put_((slots,), bits)
 

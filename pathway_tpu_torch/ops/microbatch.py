@@ -4,14 +4,13 @@ Copy of the host-only core of ``pathway_tpu/ops/microbatch.py``: rows buffer
 per UDF, each flush pads to the next power-of-two bucket and calls the batch
 function once per bucket, and results come back in submit order. The
 reference's tracing, request and device-profiling hooks belong to planes the
-port does not have yet, and are left out. The row-batch cap is read from
-``PATHWAY_MICROBATCH_MAX_BATCH`` (default 512) with the reference's
-validation.
+port does not have yet, and are left out. The row-batch cap is the
+``PATHWAY_MICROBATCH_MAX_BATCH`` knob (default 512), read through
+``internals/config.py`` as the reference reads it.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -25,14 +24,9 @@ LENGTH_MAX_BUCKET = 4096
 
 def microbatch_max_batch() -> int:
     """Device launch chunk for microbatching (``PATHWAY_MICROBATCH_MAX_BATCH``)."""
-    name = "PATHWAY_MICROBATCH_MAX_BATCH"
-    try:
-        n = int(os.environ.get(name, 512))
-    except ValueError:
-        raise ValueError(f"{name} must be an integer, got {os.environ[name]!r}") from None
-    if n < 1:
-        raise ValueError(f"{name} must be >= 1, got {n}")
-    return n
+    from pathway_tpu_torch.internals.config import get_pathway_config
+
+    return get_pathway_config().microbatch_max_batch
 
 
 def bucket_size(n: int, min_bucket: int = _MIN_BUCKET, max_bucket: int | None = None) -> int:

@@ -201,3 +201,30 @@ def test_tie_order_vectorized_and_salt_agree_with_reference():
     env = dict(os.environ, PATHWAY_HASH_SALT="12345", PYTHONPATH=ROOT, JAX_PLATFORMS="cpu")
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("q", [1, 15, 16, 17, 64])
+def test_search_is_batch_invariant(q):
+    """A query's hits and score bits do not depend on the batch it is searched
+    in, nor on the block size its docs were ingested in (the score product
+    runs in fixed ``_Q_CHUNK``-row chunks, norms sum in one fixed order), so
+    the cross-tick microbatcher changes no search result."""
+    rng = np.random.default_rng(q)
+    index = T.BruteForceKnnIndex(dimension=32, device="cpu")
+    index.add_batch(list(range(300)), rng.normal(size=(300, 32)).astype(np.float32))
+    queries = rng.normal(size=(q, 32)).astype(np.float32)
+    together = index.search(queries, 10)
+    alone = [index.search(queries[i : i + 1], 10)[0] for i in range(q)]
+    assert together == alone
+    # ingest in another block size: the stored norms, and so the scores, keep their bits
+    rows = index._vectors[:300].numpy()
+    stepwise = T.BruteForceKnnIndex(dimension=32, device="cpu")
+    for lo in range(0, 300, 7):
+        stepwise.add_batch(list(range(lo, min(lo + 7, 300))), rows[lo : lo + 7])
+        stepwise._flush()
+    assert stepwise.search(queries, 10) == together
+    dots = T._dots(torch.from_numpy(queries), index._vectors)
+    assert dots.shape == (q, index.capacity)
+    np.testing.assert_allclose(dots.numpy(), queries @ index._vectors.numpy().T, rtol=1e-5, atol=1e-5)
+    norms = T._row_sq_norms(torch.from_numpy(queries))
+    np.testing.assert_allclose(norms.numpy(), (queries * queries).sum(-1), rtol=1e-5)
