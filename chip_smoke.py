@@ -10,13 +10,13 @@ printing one JSON line:
 1. device: the card's name and power limit (``nvidia-smi``) and versions;
 2. build: every CUDA kernel of the port built from ``pathway_tpu_torch/csrc``
    (ptxas registers, spills and shared memory per instantiation, and the
-   tensor-core instructions in the bf16 route's SASS), and the native C
+   tensor-core instructions in each route's SASS), and the native C
    tokenizer built from ``pathway_tpu_torch/native``;
 3. kernels: each kernel against its plain PyTorch version on the card, both
-   routes of the attention kernel (bf16 on the tensor cores, f32 SIMT) at
-   eight shapes, the main path's among them, with its time, its plain
-   version's time, one PyTorch library call's time as a yardstick, and its
-   bound;
+   routes of the attention kernel (bf16, and f32 as split 3xTF32 products,
+   both on the tensor cores) at eight shapes, the main path's among them,
+   with its time at the main path's three shapes, its plain version's time,
+   one PyTorch library call's time as a yardstick, and its bound;
 4. main path, at the full width of the bench's MiniLM-class encoder with
    random seeded weights: 8192 docs tokenized, embedded in batches of 1024
    and indexed; the index filled to 1,000,000 x 384 f32; 30 RAG queries
@@ -24,18 +24,22 @@ printing one JSON line:
 5. checks of the main path's answers: each doc finds itself first, search
    agrees with a float64 numpy brute force in keys and order, rerank scores
    are finite, card embeddings agree with the port's CPU path;
-6. pipeline: the same loop written against ``import pathway_tpu_torch as pw``
+6. f32_path: the main path's encoder in f32 (f32 weights and activations,
+   so every attention call takes the f32 route): the 8192 docs embedded in
+   batches of 1024 and indexed, with its checks (the first 64 embeddings
+   against the port's CPU path, each of them finding its own doc first);
+7. pipeline: the same loop written against ``import pathway_tpu_torch as pw``
    and run by the engine (``pw.debug`` streams → ``SentenceTransformerEmbedder``
    through the cross-tick microbatcher → ``BruteForceKnnFactory`` index →
    ``query_as_of_now`` → flatten → ``CrossEncoderReranker``): 65,536 docs and
    then 1,024 queries in 64-row ticks, with its checks (self-retrieval, a
    direct search over the embeddings the pipeline emitted, rerank scores
    against the cross-encoder, microbatch off == auto at 4,096 docs);
-7. engine_kernels: the engine's filter → join → groupby/sum at 1,000,000
+8. engine_kernels: the engine's filter → join → groupby/sum at 1,000,000
    rows, static and over 20 ticks, with both ``engine/torch_kernels.py``
    functions on the card (``PATHWAY_ENGINE_JAX=gpu``) and on numpy (``0``),
    whose captured outputs must be identical;
-8. the kernels line, with each kernel's launches during phases 4 and 6.
+9. the kernels line, with each kernel's launches during phases 4, 6 and 7.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without it. TF32 is off for every matmul (``allow_tf32 = False``), so the f32
@@ -72,6 +76,7 @@ ENGINE_TICKS = 20
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
 H100_F32_FLOPS = 67e12  # FP32 pipes, outside the tensor cores
+H100_TF32_FLOPS = 495e12  # dense tensor-core TF32
 
 #: where every phase runs (a CPU rehearsal at a small size sets "cpu")
 DEVICE = "cuda"
@@ -199,9 +204,13 @@ def phase_build() -> None:
         nice = _demangle(sorted(set(per_fn) | set(hmma)), tool_dir)
         ptxas[name] = {nice[f]: v for f, v in per_fn.items()}
         sass[name] = {nice[f]: n for f, n in hmma.items()}
+    # each route's instantiations (3 head widths x resident / streamed) must
+    # run on the tensor cores
     tc = {f: n for f, n in sass.get("attention_short", {}).items() if "attention_tc_kernel" in f}
-    check(len(tc) > 0, "no tensor-core attention instantiation found in the SASS")
-    check(all(n > 0 for n in tc.values()), f"bf16 route without HMMA/HGMMA in its SASS: {tc}")
+    for dname, tname in (("bf16", "__nv_bfloat16"), ("f32", "float")):
+        mine = {f: n for f, n in tc.items() if f"attention_tc_kernel<{tname}," in f}
+        check(len(mine) == 6, f"{dname} route: {len(mine)} tensor-core instantiations in the SASS, expected 6")
+        check(all(n > 0 for n in mine.values()), f"{dname} route without HMMA/HGMMA in its SASS: {mine}")
 
     # the host C tokenizer, built here so that no timed call pays its compile
     t1 = time.perf_counter()
@@ -249,9 +258,8 @@ KERNEL_SHAPES = {
     "max_len": (4, 512, 64), "ragged": (3, 77, 64), "hd32": (2, 128, 32), "hd128": (2, 256, 128),
     "hd128_resident": (2, 128, 128),
 }
-#: the timed cases per dtype: the bf16 route at the main path's shapes, the
-#: f32 route at the embed shape
-TIMED = {"bfloat16": ("embed", "query", "rerank"), "float32": ("embed",)}
+#: the timed cases per dtype: both routes at the main path's shapes
+TIMED = {"bfloat16": ("embed", "query", "rerank"), "float32": ("embed", "query", "rerank")}
 
 
 def phase_kernels() -> list[dict]:
@@ -311,8 +319,14 @@ def phase_kernels() -> list[dict]:
                 es = q.element_size()
                 nbytes = 4 * B * L * D * es + B * L  # q, k, v read, ctx written, mask read
                 flops = 4 * B * L * L * D
-                peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-                t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / peak * 1e3
+                t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+                if dtype == torch.bfloat16:
+                    t_ops = flops / H100_BF16_FLOPS * 1e3
+                else:
+                    # f32-accurate products on the tensor cores: three TF32
+                    # products each; beside it, the same work on the FP32 pipes
+                    t_ops = 3 * flops / H100_TF32_FLOPS * 1e3
+                    rec["bound_fp32_pipes_ms"] = max(t_bytes, flops / H100_F32_FLOPS * 1e3)
                 rec["bound_ms"] = max(t_bytes, t_ops)
                 rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
             records.append(rec)
@@ -380,7 +394,7 @@ def phase_main_path(docs: list[str]) -> dict:
 
     # --- the main path: counts from 0 ---------------------------------------
     A.LAUNCHES = 0
-    A.ROUTE_LAUNCHES.update(tensor_core=0, simt=0)
+    A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
     calls.update(encode=0, rerank=0)
     rates = []
     for _ in range(3):
@@ -508,6 +522,91 @@ def phase_checks(state: dict) -> None:
     )
 
 
+def phase_f32_path(state: dict, info: dict) -> dict:
+    """The main path's ingest with the encoder in f32: f32 weights and
+    activations, so all of its attention takes the f32 (3xTF32) route. Its
+    own index, the main path's tokenized docs, batches of INGEST_BATCH,
+    median of 3 runs; checks against the port's CPU path and by
+    self-retrieval."""
+    import torch
+
+    from pathway_tpu_torch.ops import attention_kernel as A
+    from pathway_tpu_torch.ops.encoder import TorchSentenceEncoder
+    from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
+
+    cfg = state["cfg"]._replace(dtype=torch.float32)
+    enc = TorchSentenceEncoder(cfg, seed=0, device=DEVICE)
+    ids_all = state["ids_all"]
+    batches = -(-len(ids_all) // INGEST_BATCH)
+
+    def ingest(index):
+        for i in range(0, len(ids_all), INGEST_BATCH):
+            embs = enc.encode_ids_device(ids_all[i : i + INGEST_BATCH])
+            index.add_batch_device(range(i, i + int(embs.shape[0])), embs)
+            index._flush()
+        index.search(embs[:64], k=10)  # one fetch syncs the whole pipeline
+
+    # warm-up at the batch shape (allocator, cuBLAS's f32 kernels)
+    warm = BruteForceKnnIndex(dimension=cfg.d_model, capacity=2 * INGEST_BATCH, device=DEVICE)
+    for i in range(0, 2 * INGEST_BATCH, INGEST_BATCH):
+        warm.add_batch_device(range(i, i + INGEST_BATCH), enc.encode_ids_device(ids_all[i : i + INGEST_BATCH]))
+    warm._flush()
+    del warm
+    sync()
+
+    # --- the f32 path: counts from 0 ------------------------------------------
+    A.LAUNCHES = 0
+    A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
+    rates = []
+    for _ in range(3):
+        index = BruteForceKnnIndex(dimension=cfg.d_model, capacity=8192, device=DEVICE)
+        t0 = time.perf_counter()
+        ingest(index)
+        rates.append(len(ids_all) / (time.perf_counter() - t0))
+    launches, route_launches = A.LAUNCHES, dict(A.ROUTE_LAUNCHES)  # read right after the path
+    # --------------------------------------------------------------------------
+
+    expected = 3 * batches * cfg.n_layers
+    check(route_launches["tensor_core_3xtf32"] == expected,
+          f"f32 path: f32-route launches {route_launches} != {expected} ({cfg.n_layers} per batch)")
+    check(launches == expected, f"f32 path: attention launches {launches} != {expected}")
+
+    # checks: the first 64 embeddings against the CPU path (same seeded
+    # weights, the plain attention); f32 GEMMs and the kernel's split
+    # products sum in other orders than the CPU's, ~1e-6 in a unit vector
+    # after 6 layers, so 1e-4 holds with room
+    e_dev = enc.encode_ids_device(ids_all[:64])
+    e_gpu = e_dev.cpu().numpy()
+    cpu = TorchSentenceEncoder(cfg, seed=0, device="cpu")
+    e_cpu = cpu.encode_ids_device(ids_all[:64]).numpy()
+    emb_err = float(np.abs(e_cpu - e_gpu).max())
+    check(bool(np.isfinite(e_gpu).all()) and e_gpu.shape == (64, cfg.d_model), "f32 embeddings not finite / wrong shape")
+    check(emb_err <= 1e-4, f"f32 path: card vs CPU embeddings differ by {emb_err}")
+    self_hits = [h[0][0] if h else None for h in index.search(e_dev, k=10)]
+    self_ok = sum(1 for i, key in enumerate(self_hits) if key == i)
+    check(self_ok == 64, f"f32 path: self-retrieval at rank 1 {self_ok}/64")
+    out = {
+        "card": info["nvidia_smi"],
+        "dtype": "float32",
+        "docs": len(ids_all),
+        "seq_len": int(ids_all.shape[1]),
+        "f32_embed_index_docs_per_s": statistics.median(rates),
+        "f32_embed_index_runs_docs_per_s": rates,
+        "encoder_launches": 3 * batches,
+        "attention_launches": launches,
+        "attention_launches_by_route": route_launches,
+        "attention_launches_expected": expected,
+        "card_vs_cpu_embedding_max_abs_err": emb_err,
+        "tolerance_embedding": 1e-4,
+        "self_retrieval_rank1": self_ok,
+    }
+    emit("f32_path", **out)
+    del enc, cpu, index
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": route_launches, "metrics": out}
+
+
 class _LaunchLog:
     """Wraps a batched UDF's batch function before a pipeline is built from
     it: per launch, its host clock span and its row count (the bucket the
@@ -593,7 +692,7 @@ def phase_pipeline(info: dict) -> dict:
 
     # --- the pipeline: counts from 0 -------------------------------------------
     A.LAUNCHES = 0
-    A.ROUTE_LAUNCHES.update(tensor_core=0, simt=0)
+    A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
     rows, t0, t1 = _run_pipeline(emb, rr, docs, queries, "auto")
     launches, route_launches = A.LAUNCHES, dict(A.ROUTE_LAUNCHES)
     # ------------------------------------------------------------------------------
@@ -743,7 +842,7 @@ def _kernel_entry(records: list[dict], dtype: str, route: str, what: str, launch
     mine = [r for r in records if r["dtype"] == dtype]
     worst = max(mine, key=lambda r: r["max_abs_err"])
     embed = next(r for r in mine if r["case"] == "embed")
-    return {
+    entry = {
         "name": f"attention_short_flat[{dtype}]",
         "route": "cuda",
         "source": "pathway_tpu_torch/csrc/attention_short.cu",
@@ -763,6 +862,9 @@ def _kernel_entry(records: list[dict], dtype: str, route: str, what: str, launch
         "timed_cases": {r["case"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
                         for r in mine if "ms" in r},
     }
+    if "bound_fp32_pipes_ms" in embed:
+        entry["bound_fp32_pipes_ms"] = embed["bound_fp32_pipes_ms"]
+    return entry
 
 
 def main() -> int:
@@ -786,13 +888,15 @@ def main() -> int:
     state = phase_main_path(synth_docs(N_DOCS))
     phase_checks(state)
     del state["index"]
+    f32 = phase_f32_path(state, info)
     pipe = phase_pipeline(info)
     phase_engine_kernels(info)
 
-    launches = {"main_path": state["launches"], "pipeline": pipe["launches"]}
+    launches = {"main_path": state["launches"], "f32_path": f32["launches"], "pipeline": pipe["launches"]}
     line = {"kernels": [
         _kernel_entry(kern, "bfloat16", "tensor_core", "bf16, tensor cores (mma.sync, cp.async)", launches),
-        _kernel_entry(kern, "float32", "simt", "f32, FP32 pipes (SIMT); not on a path", launches),
+        _kernel_entry(kern, "float32", "tensor_core_3xtf32",
+                      "f32, tensor cores in 3xTF32 (mma.sync m16n8k8 tf32 on split operands, cp.async)", launches),
     ]}
     if failures:
         print("chip_smoke: FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -9,11 +9,12 @@ head's output columns.
 
 On a CUDA tensor :func:`attention_short_flat` launches the hand-written Hopper
 kernel ``csrc/attention_short.cu`` (design and bound in its header note) or
-raises: bf16 on the tensor cores (``mma.sync`` with async copies), f32 on the
-FP32 pipes (SIMT, since TF32 would break the f32 tolerance);
-:func:`launch_geometry` says how either is launched. On a CPU tensor it runs
-:func:`attention_short_flat_plain`, the same arithmetic in plain PyTorch.
-Both devices accept the same envelope: bf16 or f32, ``hd`` in
+raises. Both routes run one kernel on the tensor cores (``mma.sync`` with
+async copies): bf16 as bf16 products, f32 as split "3xTF32" products (each
+operand split into two TF32 parts, three products per product, near f32
+accuracy); :func:`launch_geometry` says how either is launched. On a CPU
+tensor it runs :func:`attention_short_flat_plain`, the same arithmetic in
+plain PyTorch. Both devices accept the same envelope: bf16 or f32, ``hd`` in
 :data:`HEAD_DIMS`, ``1 <= L <= MAX_LEN``.
 """
 
@@ -29,7 +30,9 @@ import torch
 #: kernel launches since the count was last reset (the kernel's own wrapper
 #: adds one per launch; nothing else touches it), in all and per route
 LAUNCHES = 0
-ROUTE_LAUNCHES = {"tensor_core": 0, "simt": 0}
+ROUTE_LAUNCHES = {"tensor_core": 0, "tensor_core_3xtf32": 0}
+#: route name per input dtype
+ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "tensor_core_3xtf32"}
 
 #: head widths the kernel is instantiated for (template parameter HD)
 HEAD_DIMS = (32, 64, 128)
@@ -38,75 +41,48 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: an H100 block may use 227 KB of dynamic shared memory
 _SMEM_LIMIT = 232448
 
-# f32 route (SIMT): the query-row tile shrinks from _MAX_ROWS until a block
-# fits _SMEM_TARGET, so two blocks share an SM
-_SMEM_TARGET = 96 * 1024
-_MAX_ROWS = 64
-
-# bf16 route (tensor cores): 16 query rows per warp, up to _TC_MAX_ROWS per
-# block, keys in tiles of _TC_KEY_TILE; K and V stay resident in shared
-# memory up to _TC_RESIDENT_LEN, above it they stream through a 2-tile ring
+# 16 query rows per warp, up to _TC_MAX_ROWS per block, keys in tiles of
+# _TC_KEY_TILE; K and V stay resident in shared memory up to
+# _TC_RESIDENT_LEN, above it they stream through a 2-tile ring
 _TC_MAX_ROWS = 128
 _TC_KEY_TILE = 64
 _TC_RESIDENT_LEN = 2 * _TC_KEY_TILE
-_TC_ROW_PAD = 8  # bf16 elements (16 bytes) of padding per shared row
+_TC_ROW_PAD_BYTES = 16  # padding per shared row
 
 
 class LaunchGeometry(NamedTuple):
-    route: str  #: "tensor_core" (bf16) or "simt" (f32)
+    route: str  #: "tensor_core" (bf16) or "tensor_core_3xtf32" (f32)
     rows: int  #: query rows per block
     warps: int  #: warps per block
-    key_tile: int  #: keys per shared-memory tile (all L for the SIMT route)
+    key_tile: int  #: keys per shared-memory tile
     resident: bool  #: K and V of a (batch row, head) held in shared memory at once
     smem_bytes: int  #: dynamic shared memory per block
     blocks: tuple[int, int, int]  #: grid (batch rows, heads, query-row tiles)
 
 
-def _smem_bytes(L: int, hd: int, rows: int) -> int:
-    """Dynamic shared memory of one SIMT (f32) block; mirrors ``launch_simt``
-    in the .cu file: K/V rows padded by one 16-byte chunk, the rows' f32
-    probs, the key mask."""
-    lp = (L + 31) // 32 * 32
-    return lp * (hd + 4) * 4 + rows * lp * 4 + lp
-
-
-def _tc_smem_bytes(L: int, hd: int, rows: int) -> int:
-    """Dynamic shared memory of one tensor-core (bf16) block; mirrors
-    ``tc_smem_bytes`` in the .cu file: the Q tile, K and V (resident, or a
-    2-tile ring each) in rows padded by 16 bytes, and one f32 fill per
-    key."""
+def _tc_smem_bytes(L: int, hd: int, rows: int, elem: int) -> int:
+    """Dynamic shared memory of one block with ``elem``-byte elements;
+    mirrors ``tc_smem_bytes`` in the .cu file: the Q tile, K and V
+    (resident, or a 2-tile ring each) in rows padded by 16 bytes, and one
+    f32 fill per key."""
     kv_rows = _TC_KEY_TILE if L <= _TC_KEY_TILE else 2 * _TC_KEY_TILE
     nt = -(-L // _TC_KEY_TILE)
-    return (rows + 2 * kv_rows) * (hd + _TC_ROW_PAD) * 2 + nt * _TC_KEY_TILE * 4
-
-
-def _rows_per_block(L: int, hd: int) -> int:
-    """Query rows per SIMT (f32) block."""
-    rows = min(_MAX_ROWS, (L + 7) // 8 * 8)
-    while rows > 8 and _smem_bytes(L, hd, rows) > _SMEM_TARGET:
-        rows //= 2
-    return rows
+    return (rows + 2 * kv_rows) * (hd * elem + _TC_ROW_PAD_BYTES) + nt * _TC_KEY_TILE * 4
 
 
 @functools.lru_cache(maxsize=256)
 def launch_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype) -> LaunchGeometry:
-    """How the kernel is launched for one call: bf16 takes the tensor-core
-    route, f32 the SIMT route. Raises when a block would not fit the
-    227 KB of shared memory a Hopper block may use. Cached: the main path
-    repeats a handful of shapes, and the wrapper's host time is most of a
-    small call's time."""
-    if dtype == torch.bfloat16:
-        rows = min(_TC_MAX_ROWS, (L + 15) // 16 * 16)
-        geo = LaunchGeometry(
-            "tensor_core", rows, rows // 16, _TC_KEY_TILE, L <= _TC_RESIDENT_LEN,
-            _tc_smem_bytes(L, hd, rows), (B, n_heads, -(-L // rows)),
-        )
-    else:
-        rows = _rows_per_block(L, hd)
-        geo = LaunchGeometry(
-            "simt", rows, 8, (L + 31) // 32 * 32, True,
-            _smem_bytes(L, hd, rows), (B, n_heads, -(-L // rows)),
-        )
+    """How the kernel is launched for one call; both routes share the
+    geometry, f32 with twice the shared memory. Raises when a block would
+    not fit the 227 KB of shared memory a Hopper block may use. Cached: the
+    main path repeats a handful of shapes, and the wrapper's host time is
+    most of a small call's time."""
+    rows = min(_TC_MAX_ROWS, (L + 15) // 16 * 16)
+    elem = 2 if dtype == torch.bfloat16 else 4
+    geo = LaunchGeometry(
+        ROUTES[dtype], rows, rows // 16, _TC_KEY_TILE,
+        L <= _TC_RESIDENT_LEN, _tc_smem_bytes(L, hd, rows, elem), (B, n_heads, -(-L // rows)),
+    )
     if geo.smem_bytes > _SMEM_LIMIT:
         raise ValueError(
             f"attention_short_flat: L={L}, hd={hd} in {dtype} needs {geo.smem_bytes} B "

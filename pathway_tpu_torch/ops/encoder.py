@@ -26,6 +26,7 @@ from torch import nn
 from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.convert import ParamTree, tree_map
 from pathway_tpu_torch.native import try_load as _try_load_native
+from pathway_tpu_torch.ops._fixed_order import fixed_order_sum
 from pathway_tpu_torch.ops.attention_kernel import attention_short_flat
 from pathway_tpu_torch.ops.microbatch import LENGTH_MAX_BUCKET, bucket_size
 
@@ -101,9 +102,9 @@ def _attention(x, wqkv, wo, mask, n_heads: int):
     return ctx @ wo.to(x.dtype)
 
 
-def encode(params, cfg: EncoderConfig, token_ids: torch.Tensor, mask: torch.Tensor):
-    """Forward pass: [B, L] integer tokens + bool mask → [B, d_model] f32
-    unit vectors."""
+def hidden_states(params, cfg: EncoderConfig, token_ids: torch.Tensor, mask: torch.Tensor):
+    """The layers and the final LN: [B, L] tokens + bool mask → [B, L,
+    d_model] in ``cfg.dtype``."""
     _check_arch(cfg)
     x = params["embed"][token_ids].to(cfg.dtype)
     L = token_ids.shape[1]
@@ -114,10 +115,26 @@ def encode(params, cfg: EncoderConfig, token_ids: torch.Tensor, mask: torch.Tens
         h = _layer_norm(x, layer["ln2"]["g"], layer["ln2"]["b"])
         h = F.gelu(h @ layer["w1"].to(x.dtype), approximate="tanh")
         x = x + (h @ layer["w2"].to(x.dtype))
-    x = _layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"])
+    return _layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"])
+
+
+def pool(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean over the kept tokens in f32, divided by ``max(count, 1)``,
+    then L2-normalised with a 1e-12 floor (the reference's pooling). The sum
+    over tokens and the sum of squares run in one fixed order of
+    elementwise adds (:func:`fixed_order_sum`): torch's reductions split
+    them by the batch's shape, which gave a doc other bits in an 8-row
+    launch than in a 512-row one on the H100."""
     m = mask.float()[:, :, None]
-    pooled = (x.float() * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
-    return pooled / pooled.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    pooled = fixed_order_sum(x.float() * m, dim=1) / m.sum(dim=1).clamp_min(1.0)
+    norm = fixed_order_sum(pooled * pooled, dim=-1).sqrt()[:, None]
+    return pooled / norm.clamp_min(1e-12)
+
+
+def encode(params, cfg: EncoderConfig, token_ids: torch.Tensor, mask: torch.Tensor):
+    """Forward pass: [B, L] integer tokens + bool mask → [B, d_model] f32
+    unit vectors."""
+    return pool(hidden_states(params, cfg, token_ids, mask), mask)
 
 
 def encode_ids(params, cfg: EncoderConfig, token_ids: torch.Tensor):

@@ -27,6 +27,7 @@ import torch
 
 from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.internals.keys import tie_order, tie_order_u64
+from pathway_tpu_torch.ops._fixed_order import fixed_order_sum
 
 
 class KnnMetric(enum.Enum):
@@ -93,20 +94,11 @@ _Q_CHUNK = 16
 
 
 def _row_sq_norms(x: torch.Tensor) -> torch.Tensor:
-    """``Σ x²`` per row, in ``x``'s dtype, summed in one fixed pairwise order
-    by elementwise adds (columns zero-padded to a power of two, then halved
-    until one is left). A reduction kernel's launch configuration, and with
-    it the rounding, depends on the tensor's shape (on the H100 a 1-query
-    norm and a 512-query norm round differently); elementwise adds do not,
-    so a row gets the same bits in any batch."""
-    s = x * x
-    width = 1 << max(0, s.shape[-1] - 1).bit_length()
-    if width != s.shape[-1]:
-        s = torch.nn.functional.pad(s, (0, width - s.shape[-1]))
-    while s.shape[-1] > 1:
-        half = s.shape[-1] // 2
-        s = s[..., :half] + s[..., half:]
-    return s[..., 0]
+    """``Σ x²`` per row, in ``x``'s dtype, summed by
+    :func:`~pathway_tpu_torch.ops._fixed_order.fixed_order_sum` (on the H100
+    a 1-query norm and a 512-query norm taken by a reduction kernel round
+    differently), so a row gets the same bits in any batch."""
+    return fixed_order_sum(x * x, -1)
 
 
 def _dots(queries: torch.Tensor, vectors: torch.Tensor) -> torch.Tensor:

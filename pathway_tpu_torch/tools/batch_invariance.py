@@ -8,7 +8,11 @@ prints one JSON line comparing, at the pipeline's widths (the ``minilm``
 embedder, the 4-layer reranker, 384-d f32 KNN over 4096 docs):
 
 - the embedder on 512 docs in one launch against launches of 8, 64, 128 and
-  256 rows;
+  256 rows, and beside it each intermediate of the pooling tail: the last
+  LN's output, the masked sum over tokens and the L2 norm, each both as
+  ``ops/encoder.py::pool`` takes it (``fixed_order_sum``) and as a torch
+  reduction (``sum(dim=1)``, ``norm(dim=-1)``), so a difference is traced to
+  its op;
 - the reranker on 640 pairs in one launch against 512 + 128 and 10 x 64;
 - the KNN search of 512 queries at once against batches of 1, 16 and 64
   (``ops/knn.py`` runs its score product in fixed 16-query chunks and sums
@@ -16,7 +20,9 @@ embedder, the 4-layer reranker, 384-d f32 KNN over 4096 docs):
   ingested at once, and the unchunked product ``queries @ vectorsᵀ`` at 64
   against 512 rows (why the chunks).
 
-Each entry is ``[bit-identical, max |difference|]``.
+Each entry is ``[bit-identical, max |difference|]``. The run fails (exit 1)
+when an embedder, reranker or search entry is not bit-identical; the torch
+reductions of the pooling tail and the unchunked product are diagnostics.
 """
 
 from __future__ import annotations
@@ -51,9 +57,14 @@ def main() -> int:
     out: dict = {"card": torch.cuda.get_device_name(0)}
 
     e512 = enc.encode_texts(docs[:512])
+    tails = _pooling_tail(enc, docs[:512], 512)
     for c in (8, 64, 128, 256):
         parts = np.concatenate([enc.encode_texts(docs[i : i + c]) for i in range(0, 512, c)])
         out[f"embed_{c}_rows_vs_512"] = _same(e512, parts)
+        part_tails = _pooling_tail(enc, docs[:512], c)
+        out[f"pooling_tail_{c}_rows_vs_512"] = {
+            name: _same(tails[name], part_tails[name]) for name in tails
+        }
 
     ce = TorchCrossEncoder(cfg._replace(n_layers=4, max_len=256), seed=1)
     pairs = [(docs[i], docs[(7 * i + 1) % 4096]) for i in range(640)]
@@ -84,8 +95,43 @@ def main() -> int:
     out["unchunked_score_product_64_vs_512_rows"] = _same(
         whole, np.concatenate([(qt[i : i + 64] @ v).cpu().numpy() for i in range(0, 512, 64)])
     )
+    failed = sorted(
+        name for name, entry in out.items()
+        if name.startswith(("embed_", "rerank_", "knn_")) and not entry[0]
+    )
+    out["failed"] = failed
     print(json.dumps(out), flush=True)
-    return 0
+    return 1 if failed else 0
+
+
+def _pooling_tail(enc, docs: list[str], rows: int) -> dict:
+    """The encoder's pooling intermediates for ``docs`` in launches of
+    ``rows`` docs, as numpy f32 arrays."""
+    import numpy as np
+    import torch
+
+    from pathway_tpu_torch.ops import encoder as E
+    from pathway_tpu_torch.ops._fixed_order import fixed_order_sum
+
+    got: dict[str, list] = {}
+    with torch.inference_mode():
+        for lo in range(0, len(docs), rows):
+            ids, _ = enc.tokenizer(docs[lo : lo + rows])
+            ids = torch.from_numpy(ids).to(enc.device).long()
+            mask = ids != 0
+            x = E.hidden_states(enc.params, enc.cfg, ids, mask)
+            xm = x.float() * mask.float()[:, :, None]
+            pooled = fixed_order_sum(xm, dim=1) / mask.float().sum(dim=1, keepdim=True).clamp_min(1.0)
+            parts = {
+                "last_ln": x.float(),
+                "pooled_sum_fixed_order": fixed_order_sum(xm, dim=1),
+                "pooled_sum_torch_reduction": xm.sum(dim=1),
+                "norm_fixed_order": fixed_order_sum(pooled * pooled, dim=-1).sqrt(),
+                "norm_torch_reduction": pooled.norm(dim=-1),
+            }
+            for name, t in parts.items():
+                got.setdefault(name, []).append(t.cpu().numpy())
+    return {name: np.concatenate(ts) for name, ts in got.items()}
 
 
 if __name__ == "__main__":

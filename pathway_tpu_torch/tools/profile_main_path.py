@@ -5,7 +5,8 @@
 ``ops`` (the default, and part of ``all``) traces, with ``torch.profiler``,
 one ingest batch (1024 bench docs: encode → ``add_batch_device`` → flush) and
 one RAG query (encode → search k=10 on an index of 8192 docs → rerank the 10
-hits), calling the ops directly.
+hits), calling the ops directly, and one ingest batch of ``chip_smoke.py``'s
+``f32_path`` (the same encoder in f32: f32 GEMMs, the f32 attention route).
 
 ``pipeline`` traces the same loop run by the engine
 (``pathway_tpu_torch/tools/rag_pipeline.py``, the pipeline of
@@ -57,10 +58,8 @@ def _report(name: str, prof, wall_ms: float, **extra) -> None:
     ]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    # the port's attention kernel: the bf16 (tensor-core) or f32 (SIMT) route
-    attention_ms = sum(
-        r[1] for r in rows if "attention_tc_kernel" in r[0] or "attention_short_kernel" in r[0]
-    )
+    # the port's attention kernel, either route
+    attention_ms = sum(r[1] for r in rows if "attention_tc_kernel" in r[0])
     print(json.dumps({
         "window": name,
         "wall_ms": wall_ms,
@@ -167,8 +166,16 @@ def profile_ops() -> None:
         hits = index.search(enc.encode_ids_device(qids), k=10)[0]
         ce.score_pairs([(q, docs[int(k)][:800]) for k, _ in hits])
 
+    enc32 = TorchSentenceEncoder(cfg._replace(dtype=torch.float32), seed=0)
+
+    def ingest_f32():
+        embs = enc32.encode_ids_device(ids[:1024])
+        index.add_batch_device(range(1024), embs)
+        index._flush()
+
     _window("ingest_batch_1024", ingest)
     _window("rag_query_rerank", query)
+    _window("f32_ingest_batch_1024", ingest_f32)
 
 
 def main() -> int:

@@ -6,6 +6,11 @@ Tolerances: f32 at rtol = atol = 1e-5 (the two sides sum in another order,
 nothing else differs). bf16: 2^-7 · (|ref| + max|v|) — one bf16 ulp (at most
 2^-7 of a value) of the output, plus one ulp of every prob that rounds the
 other way, which moves the output by at most 2^-7 · Σ p·|v| ≤ 2^-7 · max|v|.
+
+Neither kernel route runs here; the tests emulate each route's arithmetic on
+the CPU: the bf16 route's tiled softmax, and the f32 route's split "3xTF32"
+products (operands rounded to TF32 as ``cvt.rna.tf32.f32`` does), held to the
+f32 tolerance, beside one TF32 product that misses it.
 """
 
 import jax.numpy as jnp
@@ -99,7 +104,7 @@ def test_wrapper_reads_strided_qkv_split_and_counts_no_cpu_launch():
         ((2, 600, 128), 2, torch.float32, torch.bool, "L=600"),
         ((2, 16, 128), 2, torch.float16, torch.bool, "float32 or bfloat16"),
         ((2, 16, 128), 2, torch.float32, torch.int32, "mask must be bool"),
-        ((1, 512, 256), 2, torch.float32, torch.bool, "shared memory"),
+        ((2, 0, 128), 2, torch.float32, torch.bool, "L=0"),
     ],
 )
 def test_wrapper_rejects_outside_the_kernel_envelope(shape, heads, dtype, mask_dtype, match):
@@ -115,7 +120,7 @@ def test_wrapper_rejects_outside_the_kernel_envelope(shape, heads, dtype, mask_d
         (128, 64, torch.bfloat16, 128),
         (16, 64, torch.bfloat16, 16),
         (256, 64, torch.bfloat16, 128),
-        (512, 64, torch.float32, 8),
+        (512, 64, torch.float32, 128),
         (512, 128, torch.bfloat16, 128),
     ],
 )
@@ -123,9 +128,26 @@ def test_row_tile_fits_shared_memory(L, hd, dtype, rows):
     geo = A.launch_geometry(2, L, 2, hd, dtype)
     assert geo.rows == rows
     assert geo.smem_bytes <= A._SMEM_LIMIT
-    if dtype == torch.float32:
-        assert A._rows_per_block(L, hd) == rows
-        assert geo.smem_bytes == A._smem_bytes(L, hd, rows)
+    assert geo.smem_bytes == A._tc_smem_bytes(L, hd, rows, torch.empty(0, dtype=dtype).element_size())
+
+
+@pytest.mark.parametrize("hd", A.HEAD_DIMS)
+def test_every_f32_geometry_in_the_envelope_fits_shared_memory(hd):
+    """f32 rows take twice the bytes of bf16; at every length the block
+    still fits the 227 KB a Hopper block may use (hd 128 resident: 203,264
+    B, one block per SM; hd 64: 104,960 B, two)."""
+    most = 0
+    for L in range(1, A.MAX_LEN + 1):
+        geo = A.launch_geometry(4, L, 384 // hd, hd, torch.float32)
+        assert geo.route == "tensor_core_3xtf32" and geo.smem_bytes <= A._SMEM_LIMIT
+        most = max(most, geo.smem_bytes)
+    assert most == {32: 57344, 64: 106496, 128: 204800}[hd]
+    assert A.launch_geometry(1024, 128, 6, 64, torch.float32).smem_bytes == 104960
+
+
+def test_launch_geometry_rejects_a_block_above_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        A.launch_geometry(1, 512, 1, 256, torch.float32)
 
 
 # --- the bf16 route's algorithm, emulated on the CPU ------------------------
@@ -140,7 +162,7 @@ ALGO_SHAPES = [
 ALGO_D = 384
 
 
-def _tiled_two_pass(q, k, v, mask, H, scale, tile=64, resident_len=128):
+def _tiled_two_pass(q, k, v, mask, H, scale, tile=64, resident_len=128, prod=torch.einsum):
     """The tensor-core route's softmax in plain torch, tile by tile as the
     kernel runs it: keys in 64-key tiles, f32 scores ``s·scale + fill`` with
     the fill 0 for a kept key, −1e30 for a masked key and −inf for the tail
@@ -149,7 +171,8 @@ def _tiled_two_pass(q, k, v, mask, H, scale, tile=64, resident_len=128):
     kernel keeps the scores in registers); beyond it pass 1 keeps a running
     max m and a rescaled sum l, and pass 2 recomputes each tile's scores.
     Then probs = exp(s − m) / l, rounded to the input dtype, and probs·v
-    summed in f32."""
+    summed in f32. ``prod(equation, a, b)`` computes both products (f32
+    einsum; :func:`_einsum_3xtf32` for the f32 route's split products)."""
     B, L, D = q.shape
     hd = D // H
     nt = -(-L // tile)
@@ -165,7 +188,7 @@ def _tiled_two_pass(q, k, v, mask, H, scale, tile=64, resident_len=128):
 
         def scores(t):
             ts = slice(t * tile, (t + 1) * tile)
-            s = torch.einsum("bqd,bkd->bqk", qh, kh[:, ts])
+            s = prod("bqd,bkd->bqk", qh, kh[:, ts])
             return s * scale + fill[:, None, ts]  # exact: |s·scale| ≪ half an ulp of 1e30
 
         if L <= resident_len:
@@ -183,7 +206,7 @@ def _tiled_two_pass(q, k, v, mask, H, scale, tile=64, resident_len=128):
         acc = torch.zeros(B, L, hd)
         for t in range(nt):  # pass 2 (the resident route reuses its scores)
             p = (torch.exp(scores(t) - m) / l).to(q.dtype).float()
-            acc += torch.einsum("bqk,bkd->bqd", p, vh[:, t * tile : (t + 1) * tile])
+            acc += prod("bqk,bkd->bqd", p, vh[:, t * tile : (t + 1) * tile])
         out[..., sl] = acc.to(q.dtype)
     return out
 
@@ -240,6 +263,115 @@ def test_tiled_two_pass_softmax_matches_jax_reference(B, L, hd, dtype):
     _assert_close(out.float().numpy(), ref, v, dtype)
 
 
+# --- the f32 route's split (3xTF32) products, emulated on the CPU ---------
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` does (to nearest, ties away
+    from zero): half a TF32 ulp added to the uint32 bits, the low 13 bits
+    cleared."""
+    u = x.float().contiguous().numpy().view(np.uint32)
+    return torch.from_numpy(((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32))
+
+
+def _split_tf32(x):
+    big = _tf32_rna(x)
+    return big, _tf32_rna(x - big)
+
+
+def _einsum_3xtf32(eq, a, b):
+    """The kernel's split product: a = a_big + a_small, b likewise, the two
+    cross terms summed in f32 before big·big is added."""
+    (ab, as_), (bb, bs) = _split_tf32(a), _split_tf32(b)
+    return (torch.einsum(eq, as_, bb) + torch.einsum(eq, ab, bs)) + torch.einsum(eq, ab, bb)
+
+
+def _einsum_1xtf32(eq, a, b):
+    """One TF32 product, as a plain TF32 matmul would take it."""
+    return torch.einsum(eq, _tf32_rna(a), _tf32_rna(b))
+
+
+def _pallas_f32(q, k, v, mask, H, scale):
+    from pathway_tpu.ops.attention_kernel import _attention_short_impl
+
+    out = _attention_short_impl(
+        *(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(mask), H, scale, q.shape[0], interpret=True
+    )
+    return np.asarray(out)
+
+
+def _tf32_inputs(L, hd, x):
+    H = ALGO_D // hd
+    q, k, v, mask = _inputs(2, L, H, hd, seed=L + hd + x)
+    return H, q * x, k * x, v * x, mask
+
+
+def _exact_f64(q, k, v, mask, H, scale):
+    """The attention of the f32 inputs computed in f64 throughout."""
+    B, L, D = q.shape
+    q, k, v = (torch.from_numpy(a).double().view(B, L, H, D // H) for a in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.softmax(s.masked_fill(~torch.from_numpy(mask)[:, None, None, :], -1e30), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, L, D).numpy()
+
+
+def _emulate_3xtf32(L, hd, x):
+    H, q, k, v, mask = _tf32_inputs(L, hd, x)
+    scale = hd ** -0.5
+    out = _tiled_two_pass(_torch(q), _torch(k), _torch(v), torch.from_numpy(mask), H, scale, prod=_einsum_3xtf32)
+    # row 0 is fully masked: the mean of v (probs 1/L, exact at these L)
+    np.testing.assert_allclose(out[0].numpy(), np.broadcast_to(v[0].mean(axis=0), out[0].shape), rtol=1e-5, atol=1e-5)
+    return out.numpy(), (q, k, v, mask, H, scale)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("L", [16, 128, 512])
+def test_3xtf32_products_match_pallas_kernel_at_f32_tolerance(L, hd):
+    """The f32 route's arithmetic (split q, k, probs and v, the kernel's
+    tiled softmax) against the Pallas kernel in interpret mode at the f32
+    route's rtol = atol = 1e-5, row 0 fully masked."""
+    out, args = _emulate_3xtf32(L, hd, 1)
+    np.testing.assert_allclose(out, _pallas_f32(*args), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("L", [16, 128, 512])
+def test_3xtf32_products_are_as_accurate_as_f32_on_inputs_scaled_x4(L, hd):
+    """Inputs x4 make the scores 16x larger (std ~16 after scaling) and the
+    softmax nearly one-hot, so an output moves with the last bit of a score:
+    the Pallas kernel's own f32 result is more than 1e-5 from the exact
+    (f64) answer at each of these shapes, and no other summation order stays
+    within 1e-5 of it. Here the split products are held to the reference's
+    own error instead: within 4x of it (a split operand keeps 22 of f32's 24
+    bits: the dropped small x small term is up to 2^-22 of a product, an f32
+    rounding 2^-24)."""
+    out, args = _emulate_3xtf32(L, hd, 4)
+    exact = _exact_f64(*args)
+    ref_err = np.abs(_pallas_f32(*args) - exact).max()
+    assert ref_err > 1e-5  # why these cases are not held at 1e-5
+    assert np.abs(out - exact).max() <= 4 * ref_err
+
+
+@pytest.mark.parametrize("L,hd", [(128, 64), (512, 128)])
+def test_one_tf32_product_misses_f32_tolerance(L, hd):
+    """One TF32 product per product (what the f32 route would be without
+    the split) misses rtol = atol = 1e-5 on the same inputs: the test above
+    has teeth."""
+    H, q, k, v, mask = _tf32_inputs(L, hd, 1)
+    ref = _pallas_f32(q, k, v, mask, H, hd ** -0.5)
+    out = _tiled_two_pass(_torch(q), _torch(k), _torch(v), torch.from_numpy(mask), H, hd ** -0.5, prod=_einsum_1xtf32)
+    assert not np.allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+    assert np.abs(out.numpy() - ref).max() > 1e-4
+
+
+def test_tf32_rounding_is_cvt_rna():
+    x = torch.tensor([1.0, 1 + 2.0 ** -11, 1 + 2.0 ** -10 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12, 3.0e-39])
+    want = [1.0, 1 + 2.0 ** -10, 1 + 2.0 ** -9, -(1 + 2.0 ** -10), 1.0, float(_tf32_rna(torch.tensor([3.0e-39]))[0])]
+    assert _tf32_rna(x).tolist() == want
+    big, small = _split_tf32(torch.tensor([1 + 2.0 ** -12 + 2.0 ** -20]))
+    assert big.item() == 1.0 and small.item() == 2.0 ** -12 + 2.0 ** -20
+
+
 @pytest.mark.parametrize(
     "B,L,hd,rows,warps,resident,blocks_z",
     [
@@ -262,7 +394,7 @@ def test_tensor_core_geometry_fits_two_blocks_per_sm(B, L, hd, rows, warps, resi
     assert 2 * (geo.smem_bytes + 1024) <= 228 * 1024
 
 
-@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"), (torch.float32, "simt")])
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"), (torch.float32, "tensor_core_3xtf32")])
 @pytest.mark.parametrize("L", [1, 16, 77, 128, 256, 512])
 def test_launch_geometry_picks_the_route_by_dtype(dtype, route, L):
     geo = A.launch_geometry(3, L, 6, 64, dtype)
@@ -277,7 +409,10 @@ def test_launches_count_per_route_only_on_the_card():
     before = (A.LAUNCHES, dict(A.ROUTE_LAUNCHES))
     A.attention_short_flat(x, x, x, m, 2, 0.125)
     assert (A.LAUNCHES, A.ROUTE_LAUNCHES) == before
-    assert set(A.ROUTE_LAUNCHES) == {"tensor_core", "simt"}
+    assert set(A.ROUTE_LAUNCHES) == {"tensor_core", "tensor_core_3xtf32"}
+    x32 = torch.zeros(2, 16, 128)
+    A.attention_short_flat(x32, x32, x32, m, 2, 0.125)
+    assert (A.LAUNCHES, A.ROUTE_LAUNCHES) == before
 
 
 def test_kernel_build_targets_hopper_and_fails_loudly_without_nvcc(monkeypatch, tmp_path):
@@ -293,12 +428,20 @@ def test_kernel_build_targets_hopper_and_fails_loudly_without_nvcc(monkeypatch, 
             _build.find_nvcc()
 
 
-@pytest.mark.parametrize("variant", ["as_built", "compiler_division", "exp2_folded", "no_softmax"])
+@pytest.mark.parametrize(
+    "variant",
+    [
+        "as_built", "compiler_division", "exp2_folded", "no_softmax", "one_tf32_product", "no_split",
+        "cvt_rna_split", "rz_big",
+    ],
+)
 def test_ablation_variants_still_apply_to_the_kernel_source(variant):
     from pathway_tpu_torch.tools import attention_ablation as AB
 
     src = (_build.CSRC / _build.SOURCES["attention_short"]).read_text()
-    out = AB._variant_source(src, AB.VARIANTS[variant])
-    route = src.index("// bf16 route: tensor cores")
-    assert out[:route] == src[:route]  # the f32 route is never touched
+    routes, subs = AB.VARIANTS[variant]
+    out = AB._variant_source(src, subs)
+    kernel = src.index(AB.ROUTES_MARKER)
+    assert out[:kernel] == src[:kernel]  # the header note and includes are never touched
     assert (out == src) == (variant == "as_built")
+    assert set(routes) <= {"bfloat16", "float32"}

@@ -185,3 +185,26 @@ def test_flops_and_bert_arch():
         assert TE.encoder_flops_per_doc(TE.EncoderConfig(), L) == E.encoder_flops_per_doc(E.EncoderConfig(), L)
     with pytest.raises(NotImplementedError, match="later slice"):
         TE.TorchSentenceEncoder(TE.EncoderConfig(**SMALL, arch="bert"), device="cpu")
+
+
+def test_pool_keeps_the_reference_pooling_in_a_fixed_order():
+    """Masked mean in f32, divided by max(count, 1), L2-normalised with a
+    1e-12 floor (``pathway_tpu/ops/encoder.py``'s pooling), within f32
+    rounding of a float64 computation; a fully masked row pools to zero.
+    The sums are ``fixed_order_sum``: the same bits for a row in any batch."""
+    from pathway_tpu_torch.ops._fixed_order import fixed_order_sum
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((6, 40, 96)).astype(np.float32)
+    mask = np.arange(40)[None, :] < np.array([40, 33, 7, 1, 0, 20])[:, None]
+    m = mask[:, :, None].astype(np.float64)
+    pooled = (x * m).sum(axis=1) / np.maximum(m.sum(axis=1), 1.0)
+    want = pooled / np.maximum(np.linalg.norm(pooled, axis=-1, keepdims=True), 1e-12)
+    out = TE.pool(torch.from_numpy(x).to(torch.bfloat16).float(), torch.from_numpy(mask))
+    ref_bf = TE.pool(torch.from_numpy(x), torch.from_numpy(mask))
+    np.testing.assert_allclose(ref_bf.numpy(), want, rtol=0, atol=1e-6)
+    assert out.dtype == torch.float32 and not out[4].any()
+    t = torch.from_numpy(x)
+    np.testing.assert_allclose(fixed_order_sum(t, dim=1).numpy(), x.sum(axis=1), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(fixed_order_sum(t, dim=-1).numpy(), x.sum(axis=-1), rtol=1e-5, atol=1e-5)
+    assert torch.equal(fixed_order_sum(t[2:3], dim=1), fixed_order_sum(t, dim=1)[2:3])

@@ -228,3 +228,21 @@ def test_search_is_batch_invariant(q):
     np.testing.assert_allclose(dots.numpy(), queries @ index._vectors.numpy().T, rtol=1e-5, atol=1e-5)
     norms = T._row_sq_norms(torch.from_numpy(queries))
     np.testing.assert_allclose(norms.numpy(), (queries * queries).sum(-1), rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_encode_is_batch_invariant(dtype):
+    """A doc's embedding has the same bits in an 8-row launch as inside a
+    512-row one (``ops/encoder.py::pool`` sums tokens and squares in one
+    fixed order; on the H100 torch's ``norm`` rounded an 8-row launch
+    differently), so the cross-tick microbatcher changes no embedding."""
+    from pathway_tpu_torch.ops import encoder as TE
+
+    cfg = TE.EncoderConfig(vocab_size=1024, d_model=128, n_heads=2, n_layers=2, d_ff=256, max_len=32, dtype=dtype)
+    params = TE.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(8)
+    mask = torch.from_numpy(np.arange(32)[None, :] < rng.integers(1, 33, size=512)[:, None])
+    ids = torch.from_numpy(rng.integers(3, 1024, size=(512, 32))).masked_fill(~mask, 0)
+    together = TE.encode(params, cfg, ids, mask)
+    parts = torch.cat([TE.encode(params, cfg, ids[i : i + 8], mask[i : i + 8]) for i in range(0, 512, 8)])
+    assert torch.equal(together.view(torch.int32), parts.view(torch.int32))
