@@ -35,11 +35,28 @@ printing one JSON line:
    then 1,024 queries in 64-row ticks, with its checks (self-retrieval, a
    direct search over the embeddings the pipeline emitted, rerank scores
    against the cross-encoder, microbatch off == auto at 4,096 docs);
-8. engine_kernels: the engine's filter → join → groupby/sum at 1,000,000
+8. tiered: the tiered index (bounded hot shard on the card, host IVF cold
+   tier, cold candidates rescored on the card) on ``knn_bench``'s clustered
+   384-d corpus: first the index-rows check of ``tools/batch_invariance.py``
+   (the same scores in a brute-force index of any capacity and in the cold
+   rescore); then at 262,144 rows, 4x the default hot bound of 65,536, with
+   an exact cold tier, its top-10 must equal a card-resident brute-force
+   index's in keys and score bits, before and after ``maintain()``; then
+   its serving rates at 16, 256 and 1,024 queries a batch beside the
+   brute-force index's, with a trained IVF cold tier, recall@10 and the
+   tier counters; then the pipeline of phase 7 with ``TieredKnnFactory``
+   (hot bound 16,384) with its checks (self-retrieval, microbatch off ==
+   auto at 4,096 docs with an exact cold tier);
+9. engine_kernels: the engine's filter → join → groupby/sum at 1,000,000
    rows, static and over 20 ticks, with both ``engine/torch_kernels.py``
-   functions on the card (``PATHWAY_ENGINE_JAX=gpu``) and on numpy (``0``),
-   whose captured outputs must be identical;
-9. the kernels line, with each kernel's launches during phases 4, 6 and 7.
+   functions on the card (``PATHWAY_ENGINE_JAX=gpu``) and on numpy (``0``,
+   fused chains on the register program), whose captured outputs must be
+   identical; and the fused chain filter → select → select at 1,000,000
+   rows, static and over 20 ticks, on the fused device tier on the card
+   (``PATHWAY_FUSE_JAX=on``) against the register program (``off``), bit
+   for bit;
+10. the kernels line, with each kernel's launches during phases 4, 6, 7 and
+   8's pipeline.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without it. TF32 is off for every matmul (``allow_tf32 = False``), so the f32
@@ -73,6 +90,16 @@ PIPE_SAME_DOCS = 4096  # microbatch off == auto at this size
 #: the engine_kernels phase: engine_bench's pipeline
 ENGINE_ROWS = 1_000_000
 ENGINE_TICKS = 20
+#: the tiered phase: knn_bench's corpus at 4x the default hot bound
+#: (``PATHWAY_INDEX_HOT_ROWS``, internals/config.py), its query batches, and
+#: the pipeline at 4x a 16,384-row hot bound
+TIER_CORPUS = 262_144
+TIER_HOT = 65_536
+TIER_QUERIES = 64
+TIER_Q_BATCHES = (16, 256, 1024)
+TIER_PIPE_HOT = 16_384
+TIER_SAME_HOT = 1024  # microbatch off == auto: PIPE_SAME_DOCS docs, 4x this bound
+INVARIANCE_CAPACITIES = (4096, 65_536, 1 << 20)
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
 H100_F32_FLOPS = 67e12  # FP32 pipes, outside the tensor cores
@@ -639,8 +666,9 @@ def _buckets(spans) -> dict[str, int]:
     return out
 
 
-def _run_pipeline(emb, rr, docs: list[str], queries: list[str], mode: str):
-    """One capture of the pipeline under ``PATHWAY_MICROBATCH=mode``; returns
+def _run_pipeline(emb, rr, docs: list[str], queries: list[str], mode: str, factory=None):
+    """One capture of the pipeline under ``PATHWAY_MICROBATCH=mode`` with the
+    index ``factory`` builds (default: brute force on the card); returns
     (rows, run start, run end) on the host clock."""
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.debug import _capture
@@ -650,7 +678,7 @@ def _run_pipeline(emb, rr, docs: list[str], queries: list[str], mode: str):
     os.environ["PATHWAY_MICROBATCH"] = mode
     pw.G.clear()
     table = rag_pipeline.build(
-        pw, embedder=emb, index_factory=BruteForceKnnFactory(embedder=emb, device=DEVICE),
+        pw, embedder=emb, index_factory=factory or BruteForceKnnFactory(embedder=emb, device=DEVICE),
         reranker=rr, docs=docs, queries=queries, tick_rows=PIPE_TICK, k=PIPE_K,
     )
     t0 = time.perf_counter()
@@ -790,21 +818,294 @@ def phase_pipeline(info: dict) -> dict:
     return {"launches": route_launches, "metrics": out}
 
 
+def make_corpus(n: int, dim: int, seed: int = 0) -> np.ndarray:
+    """``benchmarks/knn_bench.py::make_corpus``: a clustered mixture, the shape
+    embedding corpora have, so the IVF cold tier runs in its honest regime."""
+    rng = np.random.default_rng(seed)
+    n_centers = max(64, int(np.sqrt(n)))
+    centers = rng.normal(size=(n_centers, dim)).astype(np.float32)
+    assign = rng.integers(0, n_centers, n)
+    return (centers[assign] + 0.15 * rng.normal(size=(n, dim))).astype(np.float32)
+
+
+def _true(_md) -> bool:
+    return True
+
+
+def _best_qps(fn, q: int, reps: int = 3, budget_s: float = 0.3) -> float:
+    """Queries/s of ``fn`` (one search of ``q`` queries that ends on the host):
+    warmed, then the best of ``reps`` timed runs of enough calls to fill
+    ``budget_s``."""
+    fn()
+    t0 = time.perf_counter()
+    fn()
+    iters = max(1, int(budget_s / max(time.perf_counter() - t0, 1e-4)))
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / iters)
+    return q / best
+
+
+def _tier_counters() -> dict:
+    from pathway_tpu_torch.stdlib.indexing import tiered
+
+    return dict(tiered._counters)
+
+
+def _tiered_split(tiered, queries: np.ndarray, k: int) -> dict:
+    """Host-clock seconds of one tiered search by part: the hot search on the
+    device (synchronised), the host IVF candidate scan, the cold rescore
+    (device products, fetch and decode), and the rest (the hot hits' fetch
+    and decode, candidate dedup, the canonical merge, hit accounting)."""
+    from pathway_tpu_torch.ops import knn
+
+    spent = {"hot_search": 0.0, "cold_ivf": 0.0, "cold_rescore": 0.0}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    saved = tiered.hot.search_device, tiered.cold.search, knn.exact_rescore
+    tiered.hot.search_device = timed("hot_search", saved[0])
+    tiered.cold.search = timed("cold_ivf", saved[1])
+    knn.exact_rescore = timed("cold_rescore", saved[2])
+    try:
+        t0 = time.perf_counter()
+        tiered.search(list(queries), [k] * len(queries), [_true] * len(queries))
+        total = time.perf_counter() - t0
+    finally:
+        del tiered.hot.search_device, tiered.cold.search
+        knn.exact_rescore = saved[2]
+    return {**spent, "rest": total - sum(spent.values()), "total": total}
+
+
+def phase_tiered(info: dict) -> dict:
+    """The tiered index on the card; see the module docstring (phase 8)."""
+    import torch
+
+    from pathway_tpu_torch.internals.keys import sequential_keys
+    from pathway_tpu_torch.ops import attention_kernel as A
+    from pathway_tpu_torch.ops import knn
+    from pathway_tpu_torch.ops.encoder import EncoderConfig
+    from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
+    from pathway_tpu_torch.stdlib.indexing import TieredKnnBackend, TieredKnnFactory
+    from pathway_tpu_torch.stdlib.indexing._engine import VectorBackend
+    from pathway_tpu_torch.tools.batch_invariance import index_rows_check
+    from pathway_tpu_torch.tools.rag_pipeline import hits_by_query
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker
+
+    out: dict = {"card": info["nvidia_smi"]}
+    dim, k = 384, 10
+
+    # 0. a row scores the same bits in an index of any row count
+    t0 = time.perf_counter()
+    rows_check = index_rows_check(DEVICE, capacities=INVARIANCE_CAPACITIES)
+    for name, (same, diff) in rows_check.items():
+        check(same, f"{name}: scores differ by up to {diff}")
+    out["index_rows_check"] = rows_check
+    out["index_rows_check_s"] = time.perf_counter() - t0
+
+    # 1. identity gate: 4x the hot bound, exact cold tier; the devices the
+    # hot search and the cold rescore ran on are recorded
+    ran_on: dict[str, set] = {"hot_search": set(), "cold_rescore": set()}
+
+    def on_device(name, fn):
+        def run(*args, **kwargs):
+            ran_on[name].add(args[0].device.type)
+            return fn(*args, **kwargs)
+        return run
+
+    saved_kernels = knn._search_kernel, knn._rescore_kernel
+    knn._search_kernel = on_device("hot_search", knn._search_kernel)
+    knn._rescore_kernel = on_device("cold_rescore", knn._rescore_kernel)
+    corpus = make_corpus(TIER_CORPUS, dim, seed=3)
+    queries = make_corpus(TIER_QUERIES, dim, seed=4)
+    t0 = time.perf_counter()
+    tiered = TieredKnnBackend(dimension=dim, metric="cos", hot_rows=TIER_HOT, min_train=10**9, device=DEVICE)
+    for i in range(TIER_CORPUS):
+        tiered.add(i, corpus[i], None)
+    add_s = time.perf_counter() - t0
+    brute = BruteForceKnnIndex(dimension=dim, metric="cos", capacity=TIER_CORPUS, device=DEVICE)
+    brute.add_batch(list(range(TIER_CORPUS)), corpus)
+    want = brute.search(queries, k)
+    t0 = time.perf_counter()
+    got = tiered.search(list(queries), [k] * TIER_QUERIES, [_true] * TIER_QUERIES)
+    search_s = time.perf_counter() - t0
+    check(tiered.hot.device.type == DEVICE and brute.device.type == DEVICE,
+          f"tiered hot shard on {tiered.hot.device}, brute force on {brute.device}")
+    same = got == want
+    tiered.maintain()
+    same_after = tiered.search(list(queries), [k] * TIER_QUERIES, [_true] * TIER_QUERIES) == want
+    knn._search_kernel, knn._rescore_kernel = saved_kernels
+    check(ran_on == {"hot_search": {DEVICE}, "cold_rescore": {DEVICE}},
+          f"tiered search ran on {ran_on}, expected {DEVICE} only")
+    check(same, "tiered top-10 differs from the brute-force index (keys or score bits)")
+    check(same_after, "tiered top-10 differs from the brute-force index after maintain()")
+    check(len(tiered.hot) == TIER_HOT, f"hot shard holds {len(tiered.hot)} rows, bound {TIER_HOT}")
+    out["identity"] = {
+        "corpus": TIER_CORPUS, "hot_bound": TIER_HOT, "queries": TIER_QUERIES, "k": k,
+        "identical": same, "identical_after_maintain": same_after,
+        "ran_on": {name: sorted(devs) for name, devs in ran_on.items()},
+        "hot_rows": len(tiered.hot), "hot_device_bytes": tiered.hot.device_bytes(),
+        "brute_force_device_bytes": brute.device_bytes(), "cold_host_bytes": tiered.cold_bytes(),
+        "add_rows_per_s": TIER_CORPUS / add_s, "exact_cold_search_s": search_s,
+    }
+    del tiered
+
+    # 2. serving: a trained IVF cold tier, knn_bench's queries and warm-up
+    t0 = time.perf_counter()
+    tiered = TieredKnnBackend(dimension=dim, metric="cos", hot_rows=TIER_HOT, device=DEVICE)
+    for i in range(TIER_CORPUS):
+        tiered.add(i, corpus[i], None)
+    add_s = time.perf_counter() - t0
+    rng = np.random.default_rng(7)
+    qsets = {
+        qb: (make_corpus(qb, dim, seed=100 + qb) + 0.1 * rng.normal(size=(qb, dim))).astype(np.float32)
+        for qb in TIER_Q_BATCHES
+    }
+    t0 = time.perf_counter()
+    for qb in TIER_Q_BATCHES:  # two passes per batch in one window, then rebalance
+        for _ in range(2):
+            tiered.search(list(qsets[qb]), [k] * qb, [_true] * qb)
+        tiered.maintain()
+    warm_s = time.perf_counter() - t0
+    serving: dict = {"tiered_qps": {}, "brute_force_qps": {}, "recall_at_10": {}}
+    for qb in TIER_Q_BATCHES:
+        qs, qlist = qsets[qb], list(qsets[qb])
+        tier_fn = lambda qlist=qlist, qb=qb: tiered.search(qlist, [k] * qb, [_true] * qb)  # noqa: E731
+        brute_fn = lambda qs=qs: brute.search(qs, k)  # noqa: E731
+        serving["tiered_qps"][str(qb)] = _best_qps(tier_fn, qb)
+        serving["brute_force_qps"][str(qb)] = _best_qps(brute_fn, qb)
+        got, want = tier_fn(), brute_fn()
+        serving["recall_at_10"][str(qb)] = sum(
+            len({key for key, _ in g} & {key for key, _ in w}) for g, w in zip(got, want)
+        ) / (qb * k)
+    serving["split_s"] = {str(qb): _tiered_split(tiered, qsets[qb], k) for qb in TIER_Q_BATCHES}
+    stats = tiered.stats()
+    check(stats["hot_rows"] <= TIER_HOT, f"hot shard past its bound: {stats['hot_rows']}")
+    out["serving"] = {
+        "corpus": TIER_CORPUS, "nlist": len(tiered.cold._centroids),
+        "nprobe": tiered.cold._nprobe(len(tiered.cold._centroids)), "add_rows_per_s": TIER_CORPUS / add_s,
+        "warmup_s": warm_s, **serving, **stats,
+    }
+    del tiered, brute, corpus
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    # 3. the pipeline with the tiered factory, at the pipeline phase's sizes
+    saved = {key: os.environ.get(key) for key in ("PATHWAY_MICROBATCH", "PATHWAY_MICROBATCH_FLUSH_MS")}
+    os.environ["PATHWAY_MICROBATCH_FLUSH_MS"] = "3600000"
+    emb = SentenceTransformerEmbedder("minilm", seed=0, device=DEVICE)
+    rr_cfg = EncoderConfig(vocab_size=32768, d_model=384, n_heads=6, n_layers=4, d_ff=1536, max_len=256)
+    rr = CrossEncoderReranker(rr_cfg, seed=1, device=DEVICE)
+    elog, rlog = _LaunchLog(emb, keep_vectors=True), _LaunchLog(rr)
+    docs = synth_docs(PIPE_DOCS)
+    queries = docs[:PIPE_QUERIES]
+    factory = TieredKnnFactory(embedder=emb, hot_rows=TIER_PIPE_HOT, device=DEVICE)
+    emb._encoder.encode_texts(docs[:512])  # warm-up at the launch shapes, outside the counts
+    rr._model.score_pairs([(q, d) for q, d in zip(queries[:512], docs[1:513])])
+    sync()
+    before = _tier_counters()
+
+    # --- the tiered pipeline: counts from 0 --------------------------------------
+    A.LAUNCHES = 0
+    A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
+    rows, t0, t1 = _run_pipeline(emb, rr, docs, queries, "auto", factory)
+    launches, route_launches = A.LAUNCHES, dict(A.ROUTE_LAUNCHES)
+    # ------------------------------------------------------------------------------
+    after = _tier_counters()
+    e_spans, r_spans = list(elog.spans), list(rlog.spans)
+    seen, t_ingest = 0, t1
+    for _a, b, n in e_spans:
+        seen += n
+        if seen >= PIPE_DOCS:
+            t_ingest = b
+            break
+    expected = 6 * len(e_spans) + rr_cfg.n_layers * len(r_spans)
+    check(route_launches["tensor_core"] > 0, "the tiered pipeline launched no tensor-core attention kernel")
+    check(launches == expected, f"tiered pipeline attention launches {launches} != expected {expected}")
+    hits = hits_by_query(rows.values())
+    check(len(rows) == PIPE_QUERIES * PIPE_K, f"tiered pipeline captured {len(rows)} rows")
+    self_ok = sum(1 for qi, hs in hits.items() if hs and hs[0][1] == qi)
+    check(self_ok == PIPE_QUERIES, f"tiered pipeline self-retrieval at rank 1: {self_ok}/{PIPE_QUERIES}")
+
+    # recall of the pipeline's answers against an exact search over the
+    # vectors it embedded
+    keys = [int(key) for key in sequential_keys(0, PIPE_DOCS)]
+    direct = VectorBackend(dimension=dim, metric="cos", reserved_space=PIPE_DOCS, device=DEVICE)
+    for key, d in zip(keys, docs):
+        direct.add(key, elog.vectors[d][0], 0)
+    q_vecs = [elog.vectors[q][-1] for q in queries]
+    exact = []
+    for lo in range(0, PIPE_QUERIES, 512):
+        chunk = q_vecs[lo : lo + 512]
+        exact.extend([{key for key, _ in h} for h in direct.search(chunk, [PIPE_K] * len(chunk), [_true] * len(chunk))])
+    recall = sum(len({h[0] for h in hits.get(qi, [])} & exact[qi]) for qi in range(PIPE_QUERIES)) / (PIPE_QUERIES * PIPE_K)
+    del direct
+
+    # microbatch off == auto at PIPE_SAME_DOCS docs, 4x the hot bound, with an
+    # exact cold tier: the cold tier's candidates are the union over a
+    # query batch, so only an exact tier promises the same answers for any
+    # batching (as the brute-force index does)
+    same_factory = TieredKnnFactory(embedder=emb, hot_rows=TIER_SAME_HOT, min_train=10**9, device=DEVICE)
+    off_rows, o0, o1 = _run_pipeline(emb, rr, docs[:PIPE_SAME_DOCS], queries, "off", same_factory)
+    auto_rows, a0, a1 = _run_pipeline(emb, rr, docs[:PIPE_SAME_DOCS], queries, "auto", same_factory)
+    same = off_rows == auto_rows
+    check(same, f"tiered pipeline: microbatch off and auto differ at {PIPE_SAME_DOCS} docs")
+    for key, v in saved.items():
+        if v is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = v
+    out["pipeline"] = {
+        "docs": PIPE_DOCS, "queries": PIPE_QUERIES, "tick_rows": PIPE_TICK, "k": PIPE_K,
+        "hot_bound": TIER_PIPE_HOT, "run_s": t1 - t0,
+        "ingest_docs_per_s": PIPE_DOCS / (t_ingest - t0),
+        "query_rows_per_s": PIPE_QUERIES / (t1 - t_ingest),
+        "self_retrieval_rank1": self_ok,
+        "recall_at_10_vs_exact": recall,
+        **{name: after[name] - before[name] for name in after},
+        "embed_launches": len(e_spans), "rerank_launches": len(r_spans),
+        "attention_launches": launches, "attention_launches_by_route": route_launches,
+        "attention_launches_expected": expected,
+        "microbatch_off_equals_auto": same, "same_docs": PIPE_SAME_DOCS, "same_hot_bound": TIER_SAME_HOT,
+        "off_run_s": o1 - o0, "auto_run_s": a1 - a0,
+    }
+    emit("tiered", **out)
+    del emb, rr, elog
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": route_launches, "metrics": out}
+
+
 def phase_engine_kernels(info: dict) -> dict:
     """engine_bench's filter → join → groupby/sum in the port at
     ENGINE_ROWS rows, static and over ENGINE_TICKS ticks, with both
-    functions of ``engine/torch_kernels.py`` on the card and on numpy."""
+    functions of ``engine/torch_kernels.py`` on the card and on numpy (its
+    fused chains on the register program); then the fused chain filter →
+    select → select at ENGINE_ROWS rows on the fused device tier on the card
+    against the register program."""
     from pathway_tpu_torch.debug import _capture
     from pathway_tpu_torch.engine import torch_kernels as K
-    from pathway_tpu_torch.tools.engine_pipeline import build
+    from pathway_tpu_torch.tools.engine_pipeline import build, build_fused_chain
 
-    saved = os.environ.get("PATHWAY_ENGINE_JAX")
+    saved = {k: os.environ.get(k) for k in ("PATHWAY_ENGINE_JAX", "PATHWAY_FUSE_JAX")}
     card_flag = "gpu" if DEVICE == "cuda" else "cpu"
     runs = {}
     for n_times in (1, ENGINE_TICKS):
         outs = {}
         for flag in (card_flag, "0"):
             os.environ["PATHWAY_ENGINE_JAX"] = flag
+            os.environ["PATHWAY_FUSE_JAX"] = "off" if flag == "0" else "auto"
             K.ROUTES.clear()
             table = build(ENGINE_ROWS, n_times)
             t0 = time.perf_counter()
@@ -823,10 +1124,38 @@ def phase_engine_kernels(info: dict) -> dict:
             "numpy_rows_per_s": ENGINE_ROWS / outs["0"][1],
             "routes": outs[card_flag][2], "identical": same,
         }
-    if saved is None:
-        os.environ.pop("PATHWAY_ENGINE_JAX", None)
-    else:
-        os.environ["PATHWAY_ENGINE_JAX"] = saved
+    # the fused chain: PATHWAY_FUSE_JAX=on (the device tier, on the card)
+    # against off (the register program), bit for bit
+    os.environ["PATHWAY_ENGINE_JAX"] = card_flag
+    fused = {}
+    for n_times in (1, ENGINE_TICKS):
+        outs = {}
+        for mode in ("on", "off"):
+            os.environ["PATHWAY_FUSE_JAX"] = mode
+            K.ROUTES.clear()
+            table = build_fused_chain(ENGINE_ROWS, n_times)
+            t0 = time.perf_counter()
+            deltas = _capture(table).deltas
+            sync()
+            outs[mode] = (deltas, time.perf_counter() - t0, dict(K.ROUTES))
+        label = "static" if n_times == 1 else f"{n_times}_ticks"
+        same = outs["on"][0] == outs["off"][0] and repr(outs["on"][0]) == repr(outs["off"][0])
+        check(same, f"fused chain ({label}): device tier and register program differ")
+        check(outs["on"][2].get(f"fused/{DEVICE}", 0) > 0, f"fused chain ({label}): no block took the device tier on {DEVICE}")
+        check(not outs["off"][2], f"fused chain ({label}): the register program ran a torch function")
+        fused[label] = {
+            "rows": ENGINE_ROWS, "ticks": n_times, "out_updates": len(outs["off"][0]),
+            "device_tier_s": outs["on"][1], "register_program_s": outs["off"][1],
+            "device_tier_rows_per_s": ENGINE_ROWS / outs["on"][1],
+            "register_program_rows_per_s": ENGINE_ROWS / outs["off"][1],
+            "routes": outs["on"][2], "identical": same,
+        }
+    runs["fused_chain"] = fused
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     emit("engine_kernels", card=info["nvidia_smi"], **runs)
     import pathway_tpu_torch as pw
 
@@ -890,9 +1219,13 @@ def main() -> int:
     del state["index"]
     f32 = phase_f32_path(state, info)
     pipe = phase_pipeline(info)
+    tier = phase_tiered(info)
     phase_engine_kernels(info)
 
-    launches = {"main_path": state["launches"], "f32_path": f32["launches"], "pipeline": pipe["launches"]}
+    launches = {
+        "main_path": state["launches"], "f32_path": f32["launches"], "pipeline": pipe["launches"],
+        "tiered_pipeline": tier["launches"],
+    }
     line = {"kernels": [
         _kernel_entry(kern, "bfloat16", "tensor_core", "bf16, tensor cores (mma.sync, cp.async)", launches),
         _kernel_entry(kern, "float32", "tensor_core_3xtf32",

@@ -18,8 +18,10 @@ hand-written Hopper attention kernel, the brute-force KNN index, the
 cross-encoder), the weight bridge from the JAX package's parameter trees
 (``pathway_tpu_torch.convert``), the dataflow engine and the Table API
 (``engine/``, ``internals/``), the Python connector and ``subscribe``, the
-debug surface, the brute-force KNN index as a dataflow operator
-(``stdlib.indexing``) and the local embedder and rerankers
+debug surface, the index family as dataflow operators (``stdlib.indexing``:
+brute-force KNN on the card, the tiered index with its hot shard on the card
+over a host IVF cold tier, IVF-flat, usearch, LSH, BM25 and hybrid), the
+fused device tier of chain fusion, and the local embedder and rerankers
 (``xpacks.llm``). The other planes raise
 ``NotImplementedError("later slice: <plane>")`` where a call reaches them.
 

@@ -7,8 +7,9 @@ columns, per-row python fallbacks only for object columns and ``pw.apply`` UDFs.
 Async applies run batched through an event loop — the microbatch replacement for the
 reference's one-boxed-future-per-row dispatch (``src/engine/dataflow.rs:1924-1962``).
 
-Carried from ``pathway_tpu/engine/expression_vm.py`` without ``trace_fused``,
-the traceable mirror that feeds the fused device tier (a later slice).
+Carried from ``pathway_tpu/engine/expression_vm.py``; ``trace_fused``, the
+mirror that feeds the fused device tier, evaluates on torch tensors where the
+reference traces jax arrays.
 """
 
 from __future__ import annotations
@@ -510,9 +511,8 @@ def _eval_get(expr: GetExpression, ctx: EvalContext) -> np.ndarray:
 # NO value-dependent fallback (integer division routes to the object path on
 # a zero divisor, so it can never fuse). ``infer_fused_dtype`` is the static
 # eligibility check — it mirrors the dtype flow of ``eval_expr`` and returns
-# None the moment an expression leaves the whitelist. The port runs the
-# whitelisted subset as ``compile_fast``'s flat host program; the device
-# lowering is a later slice.
+# None the moment an expression leaves the whitelist; ``compile_fast`` is the
+# flat host program for that subset and ``trace_fused`` its torch mirror.
 
 #: binops that lower: elementwise, value-independent, bit-identical on XLA
 _FUSE_CMP = {"==", "!=", "<", "<=", ">", ">="}
@@ -707,3 +707,137 @@ def compile_rowwise(
         return {name: np.asarray(eval_expr(e, ctx)) for name, e in exprs.items()}
 
     return program
+
+
+# ------------------------------------------------------------- torch fused tier
+#
+# ``trace_fused`` evaluates a whitelisted expression on torch tensors, bit for
+# bit as ``compile_fast`` does on numpy. Each value is a (tensor, numpy dtype)
+# pair: torch has no full unsigned 64-bit ops, so every unsigned column (keys,
+# ``id``) rides as the int64 view of its uint64 bits: equality and ``& | ^`` on
+# the raw bits, order on the sign-flipped bits (the view
+# ``engine/torch_kernels._keys_tensor`` uses). numpy's promotion is not
+# torch's (numpy: int32 + float32 -> float64, torch: float32), so both
+# operands are cast to numpy's result dtype before every op; comparisons
+# compare in that dtype too. float16 arithmetic computes in float32 and
+# rounds once to float16, as numpy's half loops do.
+
+_SIGN64 = -(1 << 63)
+
+#: numpy kind + width -> the torch dtype's name; unsigned values of any
+#: width ride as int64 bits
+_TORCH_DTYPES = {
+    "b1": "bool", "i1": "int8", "i2": "int16", "i4": "int32", "i8": "int64",
+    "f2": "float16", "f4": "float32", "f8": "float64",
+}
+
+
+def torch_dtype(d: np.dtype):
+    """The torch dtype a column of numpy dtype ``d`` rides in."""
+    import torch
+
+    return torch.int64 if d.kind == "u" else getattr(torch, _TORCH_DTYPES[f"{d.kind}{d.itemsize}"])
+
+
+def to_torch_lanes(a: np.ndarray, device):
+    """A numpy column as the tensor :func:`trace_fused` reads."""
+    import torch
+
+    if a.dtype.kind == "u":
+        a = a.astype(np.uint64, copy=False).view(np.int64)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def from_torch_lanes(t, d: np.dtype) -> np.ndarray:
+    """The inverse of :func:`to_torch_lanes` for a result of dtype ``d``."""
+    a = t.cpu().numpy()
+    if d.kind == "u":
+        return a.view(np.uint64).astype(d, copy=False)
+    return a
+
+
+def _cast_lanes(t, src: np.dtype, dst: np.dtype):
+    """``t`` (of numpy dtype ``src``) as numpy's ``astype(dst)`` would give it,
+    for the widenings the whitelist's promotions need."""
+    import torch
+
+    if src == dst or (src.kind == "u" and dst.kind == "u"):
+        return t  # unsigned values share one representation
+    if src.kind == "u" and dst.kind == "f" and src.itemsize == 8:
+        # uint64 -> float64, rounded once: both halves convert exactly
+        hi = ((t >> 32) & 0xFFFFFFFF).to(torch.float64) * 4294967296.0
+        return hi + (t & 0xFFFFFFFF).to(torch.float64)
+    return t.to(torch_dtype(dst))
+
+
+def _arith(op: str, a, b, d: np.dtype):
+    import torch
+
+    if d.kind == "f" and d.itemsize == 2:
+        return _arith(op, a.float(), b.float(), np.dtype(np.float32)).to(torch.float16)
+    if op == "+":
+        return torch.add(a, b)
+    if op == "-":
+        return torch.sub(a, b)
+    return torch.mul(a, b)
+
+
+_TORCH_CMP = {
+    "==": "eq", "!=": "ne", "<": "lt", "<=": "le", ">": "gt", ">=": "ge",
+}
+_TORCH_BITS = {"&": "bitwise_and", "|": "bitwise_or", "^": "bitwise_xor"}
+
+
+def trace_fused(expr: ColumnExpression, env: dict[str, tuple], keys: tuple) -> tuple:
+    """torch mirror of :func:`compile_fast` for the fused whitelist. ``env``
+    maps column names to ``(tensor, numpy dtype)`` pairs; ``keys`` is the
+    key column's pair (``id`` references). Returns the expression's pair,
+    one value per lane. Call only after :func:`infer_fused_dtype` accepted
+    the expression under ``env``'s dtypes."""
+    import torch
+
+    if isinstance(expr, ColumnReference):
+        return keys if expr.name == "id" else env[expr.name]
+
+    n, device = keys[0].shape[0], keys[0].device
+    if isinstance(expr, ConstExpression):
+        npd = dt.dtype_of_value(expr.value).np_dtype
+        return torch.full((n,), expr.value, dtype=torch_dtype(npd), device=device), npd
+
+    if isinstance(expr, DeclareTypeExpression):
+        return trace_fused(expr.expr, env, keys)
+
+    if isinstance(expr, BinOpExpression):
+        (a, da), (b, db) = trace_fused(expr.left, env, keys), trace_fused(expr.right, env, keys)
+        op = expr.op
+        if op in _FUSE_BITS and (da.kind == "b") != (db.kind == "b"):
+            # eval_expr casts a lone bool operand to int64 first
+            a, da = (a.to(torch.int64), np.dtype(np.int64)) if da.kind == "b" else (a, da)
+            b, db = (b.to(torch.int64), np.dtype(np.int64)) if db.kind == "b" else (b, db)
+        d = np.result_type(da, db)
+        a, b = _cast_lanes(a, da, d), _cast_lanes(b, db, d)
+        if op in _FUSE_CMP:
+            if d.kind == "u" and op not in ("==", "!="):
+                a, b = a ^ _SIGN64, b ^ _SIGN64  # uint64 order as int64 order
+            return getattr(torch, _TORCH_CMP[op])(a, b), np.dtype(bool)
+        if op in _FUSE_BITS:
+            return getattr(torch, _TORCH_BITS[op])(a, b), d
+        return _arith(op, a, b, d), d
+
+    if isinstance(expr, UnOpExpression):
+        a, da = trace_fused(expr.operand, env, keys)
+        return (torch.neg(a) if expr.op == "-" else torch.bitwise_not(a)), da
+
+    if isinstance(expr, IsNoneExpression):  # IsNotNoneExpression included
+        a, da = trace_fused(expr.operand, env, keys)
+        none = torch.isnan(a) if da.kind == "f" else torch.zeros(n, dtype=torch.bool, device=device)
+        return (~none if isinstance(expr, IsNotNoneExpression) else none), np.dtype(bool)
+
+    if isinstance(expr, IfElseExpression):
+        c, _ = trace_fused(expr.if_, env, keys)
+        (t, dt_), (e, _) = trace_fused(expr.then, env, keys), trace_fused(expr.else_, env, keys)
+        return torch.where(c, t, e), dt_
+
+    raise NotImplementedError(
+        f"trace_fused: {type(expr).__name__} is outside the fused whitelist"
+    )

@@ -24,15 +24,23 @@ Within a chain, consecutive *expression* members (``FilterNode`` /
 collapse into a :class:`ComposedSegment`: one program over ``(keys, diffs,
 columns)`` with no intermediate ``DeltaBatch`` construction; for the
 whitelisted numeric expression subset (``expression_vm.infer_fused_dtype``)
-it is a flat register program whose filters fold into one lane mask.
+it is a flat register program whose filters fold into one lane mask, and —
+for big blocks — the **device tier** (``PATHWAY_FUSE_JAX``): the same stages
+as torch ops over the padded block (``expression_vm.trace_fused``), filters
+accumulating one lane mask. Inputs pad to the power-of-two buckets of
+``torch_kernels._bucket``, so the set of block shapes (and the caching
+allocator's block sizes) stays closed under row-count churn.
 
-Carried from ``pathway_tpu/engine/fusion.py`` without its device tier: the
-reference also lowers a whitelisted segment into one jitted XLA kernel
-(``PATHWAY_FUSE_JAX``). That tier is a later slice. Under
-``PATHWAY_FUSE_JAX=auto`` (the default) the port runs the composed host
-program, whose output the reference's whitelist rule makes bit-identical to
-the device tier's; ``PATHWAY_FUSE_JAX=on`` raises ``NotImplementedError``.
-The audit plane's per-member edge recordings are cut with that plane.
+Carried from ``pathway_tpu/engine/fusion.py``, whose device tier is one
+jitted, buffer-donating XLA kernel per segment. The port's differences:
+- the device follows the port's rule: the card, or an error without CUDA;
+  ``PATHWAY_ENGINE_JAX=cpu`` pins it to CPU tensors (tests);
+- a failure on the device tier raises, where the reference logs a warning
+  and falls back to numpy for the rest of the process;
+- torch has no buffer donation (reference ``jax_kernels._donate_active``):
+  each tick's blocks are freed after the launch and the caching allocator
+  hands their blocks to the next tick;
+- the audit plane's per-member edge recordings are cut with that plane.
 
 ``PATHWAY_FUSE=off`` restores the one-node-per-step sweep exactly.
 
@@ -102,9 +110,13 @@ class ComposedSegment:
     byte-identical to member-by-member execution. When every stage is in the
     whitelist and the batch's column dtypes are numeric
     (``expression_vm.infer_fused_dtype``), the segment runs as one flat
-    register program."""
+    register program, or on the device tier: the same stages as torch ops
+    (``expression_vm.trace_fused``). The whitelist is chosen so that both
+    give the same bits as the numpy path (elementwise IEEE ops, exact
+    integer ops, no value-dependent fallbacks); a device-tier failure
+    raises."""
 
-    __slots__ = ("nodes", "stages", "label", "_kernels")
+    __slots__ = ("nodes", "stages", "label", "_kernels", "_device_cfg")
 
     def __init__(self, nodes: list[Node]):
         from pathway_tpu_torch.engine import operators as ops
@@ -121,6 +133,7 @@ class ComposedSegment:
         self.label = "+".join(n.name for n in nodes)
         # dtype signature -> _CompiledSegment | None (None = ineligible)
         self._kernels: dict[tuple, Any] = {}
+        self._device_cfg: tuple | None = None
 
     # ---------------------------------------------------------------- execute
     def run(self, batch: DeltaBatch, time: int) -> DeltaBatch:
@@ -137,7 +150,28 @@ class ComposedSegment:
             # outside the whitelist (object columns, UDFs, excluded ops):
             # stage-by-stage eval_expr, still one sweep step
             return self._run_numpy(batch, time)
+        if self._device_wanted(len(batch)):
+            return self._run_device(ent, batch, time)
         return self._run_fast(ent.fast, batch, time)
+
+    def _device_wanted(self, n: int) -> bool:
+        """Reference ``_jax_wanted``: ``on`` always, ``auto`` for blocks of at
+        least ``PATHWAY_FUSE_JAX_MIN_ROWS`` rows, ``off`` never."""
+        mode, min_rows = self._device_mode()
+        if mode == "off":
+            return False
+        return mode == "on" or n >= min_rows
+
+    def _device_mode(self) -> tuple:
+        # resolved once per segment per run-phase: three env reads per tick
+        # showed up in the reference's small-tick profile
+        mode = self._device_cfg
+        if mode is None:
+            from pathway_tpu_torch.internals.config import get_pathway_config
+
+            cfg = get_pathway_config()
+            mode = self._device_cfg = (cfg.fuse_jax, cfg.fuse_jax_min_rows)
+        return mode
 
     def _run_fast(self, prog, batch: DeltaBatch, time: int) -> DeltaBatch:
         """Flat compiled register program: same ufuncs and values as the
@@ -322,6 +356,46 @@ class ComposedSegment:
         )
         return _CompiledSegment(prog, list(in_names), list(cur.keys()))
 
+    def _run_device(self, ent: "_CompiledSegment", batch: DeltaBatch, time: int) -> DeltaBatch:
+        """Reference ``_seg_run_jax``: the block padded to its power-of-two
+        bucket, on the device tier's device, one fetch of the mask and the
+        output columns."""
+        import torch
+
+        from pathway_tpu_torch.engine import torch_kernels as K
+        from pathway_tpu_torch.engine.expression_vm import from_torch_lanes, to_torch_lanes
+
+        kern = ent.device_kernel(self)
+        n = len(batch)
+        bs = K._bucket(n)
+        dev = K._device()
+
+        def lanes(a: np.ndarray):
+            if bs != n:
+                a = np.concatenate([a, np.zeros(bs - n, dtype=a.dtype)])
+            return to_torch_lanes(a, dev), a.dtype
+
+        keys = lanes(batch.keys)
+        cols = [lanes(batch.data[c]) for c in ent.in_names]
+        with torch.inference_mode():
+            mask, outs = kern(keys, cols)
+            mask = mask[:n].cpu().numpy()
+            outs = [from_torch_lanes(t[:n], d) for t, d in outs]
+        K._note("fused", dev)
+        # stats: the single fused lane mask can't attribute per-member
+        # intermediate counts — block-in is booked for every member (the
+        # device tier engages on large blocks / explicit opt-in; the register
+        # program and the unfused sweep keep the gauges exact)
+        for node in self.nodes:
+            node.stats_rows_in += n
+        idx = np.flatnonzero(mask)
+        data = {name: o[idx] for name, o in zip(ent.out_names, outs)}
+        out = DeltaBatch(batch.keys[idx], batch.diffs[idx], data, time)
+        if len(out):
+            for node in self.nodes[:-1]:
+                node.stats_rows_out += len(out)
+        return out
+
 
 class _FastProgram:
     __slots__ = ("in_names", "instrs", "out_pairs")
@@ -334,14 +408,48 @@ class _FastProgram:
 
 class _CompiledSegment:
     """One (segment, input dtype signature) compilation: the flat numpy
-    program for the segment's stages."""
+    program plus the lazily built device kernel for the same stages."""
 
-    __slots__ = ("fast", "in_names", "out_names")
+    __slots__ = ("fast", "in_names", "out_names", "_device")
 
     def __init__(self, fast: list[tuple], in_names: list[str], out_names: list[str]):
         self.fast = fast
         self.in_names = in_names
         self.out_names = out_names
+        self._device: Callable | None = None
+
+    def device_kernel(self, seg: "ComposedSegment") -> Callable:
+        """Reference ``jax_kernel``: ``kernel(keys, cols) -> (mask, outs)``
+        over ``(tensor, numpy dtype)`` lanes. Filters fold into one lane mask
+        and filtered-out lanes keep computing downstream stages — the
+        whitelist has no value-dependent failure modes, and masked lanes are
+        dropped on the host."""
+        if self._device is not None:
+            return self._device
+        from pathway_tpu_torch.engine.expression_vm import trace_fused
+
+        in_names, out_names, stages = self.in_names, self.out_names, seg.stages
+
+        def kernel(keys, cols):
+            import torch
+
+            env = dict(zip(in_names, cols))
+            mask = None
+            for st in stages:
+                if st[0] == "filter":
+                    m = trace_fused(st[2], env, keys)[0]
+                    mask = m if mask is None else mask & m
+                elif st[0] == "rowwise":
+                    env = {name: trace_fused(e, env, keys) for name, e in st[2]}
+                else:
+                    _, _, columns, rename = st
+                    env = {rename.get(c, c): env[c] for c in columns}
+            if mask is None:
+                mask = torch.ones(keys[0].shape, dtype=torch.bool, device=keys[0].device)
+            return mask, [env[c] for c in out_names]
+
+        self._device = kernel
+        return kernel
 
 
 _MISSING = object()
@@ -567,20 +675,11 @@ def build_plan(graph, exchange_aware: bool, transient: bool = False) -> Plan | N
     ``exchange_aware=True`` (sharded/cluster runtimes) restricts interior
     links to exchange-free consumers — fusing across an exchange would move
     rows off the worker the unfused routing would have placed them on.
-    ``transient`` is accepted for the reference's signature (it pins the
-    device tier off there; the port has no device tier).
-
-    ``PATHWAY_FUSE_JAX=on`` asks for the fused device tier, a later slice:
-    it raises."""
+    ``transient=True`` (short-lived inner graphs rebuilt per use, e.g.
+    iterate's fixed-point body) pins the segments' device tier off."""
     from pathway_tpu_torch.internals.config import get_pathway_config
 
-    cfg = get_pathway_config()
-    if cfg.fuse_jax == "on":
-        raise NotImplementedError(
-            "later slice: the fused device tier (PATHWAY_FUSE_JAX=on); "
-            "PATHWAY_FUSE_JAX=auto runs the composed host program"
-        )
-    if cfg.fuse != "on":
+    if get_pathway_config().fuse != "on":
         return None
     plan = Plan(graph)
     chains: list[FusedChain] = []
@@ -616,5 +715,10 @@ def build_plan(graph, exchange_aware: bool, transient: bool = False) -> Plan | N
             for i in chain:
                 assigned[i] = True
             chains.append(FusedChain([nodes[i] for i in chain], ports))
+    if transient:
+        for ch in chains:
+            for kind, payload in ch.units:
+                if kind == "seg":
+                    payload._device_cfg = ("off", 0)
     plan._finish(graph, chains)
     return plan

@@ -1,4 +1,4 @@
-"""The relational hot path's two device functions, as torch ops.
+"""The relational hot path's device functions, as torch ops.
 
 Port of ``pathway_tpu/engine/jax_kernels.py``: the grouped segment-sum that
 powers ``GroupByNode`` (reference ``_jit_grouped``) and the sorted probe that
@@ -24,6 +24,10 @@ Flag values:
     CUDA, as every entry point of the port does).
   - ``cpu`` / ``gpu`` — both functions pinned to that device.
 
+The fused device tier of ``engine/fusion.py`` (``PATHWAY_FUSE_JAX``) runs on
+:func:`_device` too: on CPU tensors under ``cpu``, on the card under every
+other value.
+
 No failure is caught here: a function routed to the card that fails raises,
 so a run can never finish on the CPU after quietly missing the card.
 """
@@ -41,8 +45,9 @@ _MIN_ROWS = 32_768  # below this, dispatch overhead dominates any kernel win
 
 _FLAGS = ("auto", "0", "false", "1", "cpu", "gpu")
 
-#: route -> calls, e.g. ``"grouped/cuda"``, ``"probe/cpu"``: where each
-#: function ran (chip_smoke prints it; counts only, no timing)
+#: route -> calls, e.g. ``"grouped/cuda"``, ``"probe/cpu"``, ``"fused/cuda"``
+#: (a fused chain on ``engine/fusion.py``'s device tier): where each function
+#: ran (chip_smoke prints it; counts only, no timing)
 ROUTES: dict[str, int] = {}
 
 _SIGN = np.uint64(1 << 63)
@@ -85,6 +90,16 @@ def _keys_tensor(keys: np.ndarray, dev):
 
 def _host(t) -> np.ndarray:
     return t.cpu().numpy()
+
+
+def _bucket(n: int) -> int:
+    """The power-of-two block size (at least 1024) a fused chain pads ``n``
+    rows to (``engine/fusion.py``'s device tier), so the set of block shapes
+    stays closed under row-count churn."""
+    b = 1024
+    while b < n:
+        b <<= 1
+    return b
 
 
 # ------------------------------------------------------------------ groupby

@@ -3,9 +3,10 @@
 Port of the single-device half of ``pathway_tpu/ops/knn.py``. The matrix is a
 padded ``[N, d]`` tensor whose capacity doubles from 128; add and remove work
 on a slot free-list; updates are staged and land in one scatter before the
-next search; a search is one f32 matmul plus an exact top-k under the
-canonical order (score desc, key asc), so results never depend on slot
-order. Invalid (free or deleted) slots score −inf.
+next search; a search is f32 products of one fixed shape (``_dots``) plus an
+exact top-k under the canonical order (score desc, key asc), so results never
+depend on slot order, batch or index size. Invalid (free or deleted) slots
+score −inf.
 
 Differences from the JAX package, none of them visible in results:
 - the ingest scatter updates the index tensors in place (``index_put_``)
@@ -24,6 +25,7 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.internals.keys import tie_order, tie_order_u64
@@ -91,6 +93,8 @@ def _canonical_select(
 
 #: query rows per score product (see :func:`_dots`)
 _Q_CHUNK = 16
+#: index rows per score product (see :func:`_dots`)
+_N_TILE = 65536
 
 
 def _row_sq_norms(x: torch.Tensor) -> torch.Tensor:
@@ -102,23 +106,37 @@ def _row_sq_norms(x: torch.Tensor) -> torch.Tensor:
 
 
 def _dots(queries: torch.Tensor, vectors: torch.Tensor) -> torch.Tensor:
-    """``queries · vectorsᵀ`` in f32, one product per ``_Q_CHUNK`` query rows
-    (the last chunk zero-padded). cuBLAS picks its kernel by the product's
-    shape, and kernels for different row counts round differently (on the
-    H100, 64 and 512 query rows give other score bits); with every product
-    ``_Q_CHUNK`` rows tall, a query scores the same bits in any batch, so
-    cross-tick microbatching changes no search result. At 16 rows the
-    product still reads the index once per chunk at its memory rate."""
+    """``queries · vectorsᵀ`` in f32, as products of one fixed shape:
+    ``_Q_CHUNK`` query rows (the last chunk zero-padded) times ``_N_TILE``
+    index rows (the last tile zero-padded). cuBLAS picks its kernel by the
+    product's shape, and kernels for other shapes round differently: on the
+    H100 a query scores other bits in a 64-query than in a 512-query product,
+    and a row other bits in a 4,096-row than in a 65,536-row product. With
+    every product the same shape, a (query, row) pair scores the same bits in
+    any query batch and in any index: the brute-force index at any capacity,
+    the tiered index's hot shard and its cold-candidate rescore. So
+    cross-tick microbatching changes no search result, and the tiered index
+    answers as the brute-force index does. A 16 x 65,536 product still reads
+    its tile of the index at the memory rate; an index below 65,536 rows pays
+    for a padded tile."""
     q = queries.float()
-    v = vectors.float().T
-    n = q.shape[0]
-    n_pad = -(-n // _Q_CHUNK) * _Q_CHUNK
+    v = vectors.float()
+    n_q, n = q.shape[0], v.shape[0]
+    q_pad = -(-n_q // _Q_CHUNK) * _Q_CHUNK
+    n_pad = -(-n // _N_TILE) * _N_TILE
+    if q_pad != n_q:
+        q = F.pad(q, (0, 0, 0, q_pad - n_q))
     if n_pad != n:
-        q = torch.cat([q, q.new_zeros(n_pad - n, q.shape[1])])
-    out = torch.empty((n_pad, v.shape[1]), dtype=torch.float32, device=q.device)
-    for lo in range(0, n_pad, _Q_CHUNK):
-        torch.matmul(q[lo : lo + _Q_CHUNK], v, out=out[lo : lo + _Q_CHUNK])
-    return out[:n]
+        v = F.pad(v, (0, 0, 0, n_pad - n))
+    vt = v.T
+    out = torch.empty((q_pad, n_pad), dtype=torch.float32, device=q.device)
+    for lo in range(0, q_pad, _Q_CHUNK):
+        for c in range(0, n_pad, _N_TILE):
+            torch.matmul(
+                q[lo : lo + _Q_CHUNK], vt[:, c : c + _N_TILE],
+                out=out[lo : lo + _Q_CHUNK, c : c + _N_TILE],
+            )
+    return out[:n_q, :n]
 
 
 def _search_body(

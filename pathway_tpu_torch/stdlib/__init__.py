@@ -1,8 +1,8 @@
 """Standard library (reference ``python/pathway/stdlib/``): the indexing
-package. Temporal, ml, graphs, stateful, ordered, statistical, utils and viz
-are a later slice.
+package and the LSH bucketers of ``ml``. Temporal, the rest of ml, graphs,
+stateful, ordered, statistical, utils and viz are a later slice.
 """
 
-from pathway_tpu_torch.stdlib import indexing
+from pathway_tpu_torch.stdlib import indexing, ml
 
-__all__ = ["indexing"]
+__all__ = ["indexing", "ml"]

@@ -13,22 +13,26 @@ additions/retractions and queried per query row. Two query disciplines:
   emitted. On TPU this is the natural mode for the brute-force index: re-answering
   every query is ONE batched einsum (``ops/knn.py``), not a per-query loop.
 
-Carried from ``pathway_tpu/stdlib/indexing/_engine.py`` with one backend,
-``VectorBackend`` over the port's ``ops/knn.py`` index on the card. The
-reference's BM25 and LSH backends are a later slice, and so are the hooks this
-node has into planes not ported yet: persistence's incremental index
-snapshots, the fabric's replica feed and the request plane's search stage.
+Carried from ``pathway_tpu/stdlib/indexing/_engine.py``. Backends:
+``VectorBackend`` (the port's ``ops/knn.py`` index on the card),
+``BM25Backend`` (host-side inverted index — memory-bound, not FLOP-bound, so
+it stays on the host like the reference's tantivy) and ``LshVectorBackend``
+(host LSH buckets, exact scores). The hooks this node has into planes not
+ported yet are cut: persistence's incremental index snapshots, the fabric's
+replica feed and the request plane's search stage.
 """
 
 from __future__ import annotations
 
+import math
+from collections import defaultdict
 from typing import Any, Callable
 
 import numpy as np
 
 from pathway_tpu_torch.engine.blocks import DeltaBatch
 from pathway_tpu_torch.engine.graph import Node
-from pathway_tpu_torch.internals.keys import tie_order
+from pathway_tpu_torch.internals.keys import tie_order, tie_order_u64
 from pathway_tpu_torch.stdlib.indexing._filters import compile_filter
 
 
@@ -108,6 +112,79 @@ class VectorBackend(IndexBackend):
         return out
 
 
+class BM25Backend(IndexBackend):
+    """Okapi BM25 over a host-side inverted index (k1=1.2, b=0.75)."""
+
+    K1 = 1.2
+    B = 0.75
+
+    #: BM25 idf depends on GLOBAL corpus statistics; per-shard scores would
+    #: change results, so this backend stays on one worker
+    shardable = False
+
+    def __init__(self):
+        self.docs: dict[int, dict[str, int]] = {}
+        self.metadata: dict[int, Any] = {}
+        self.doc_len: dict[int, int] = {}
+        self.postings: dict[str, dict[int, int]] = defaultdict(dict)
+        self.total_len = 0
+
+    @staticmethod
+    def _tokens(text: str) -> list[str]:
+        import re
+
+        return re.findall(r"[a-z0-9]+", str(text).lower())
+
+    def add(self, key, item, metadata):
+        toks = self._tokens(item)
+        tf: dict[str, int] = defaultdict(int)
+        for t in toks:
+            tf[t] += 1
+        self.docs[key] = dict(tf)
+        self.metadata[key] = metadata
+        self.doc_len[key] = len(toks)
+        self.total_len += len(toks)
+        for t, c in tf.items():
+            self.postings[t][key] = c
+
+    def remove(self, key):
+        tf = self.docs.pop(key, None)
+        if tf is None:
+            return
+        self.metadata.pop(key, None)
+        self.total_len -= self.doc_len.pop(key, 0)
+        for t in tf:
+            self.postings[t].pop(key, None)
+            if not self.postings[t]:
+                del self.postings[t]
+
+    def search(self, items, ks, filters):
+        n = len(self.docs)
+        out = []
+        avgdl = (self.total_len / n) if n else 1.0
+        for query, k, flt in zip(items, ks, filters):
+            scores: dict[int, float] = defaultdict(float)
+            for t in self._tokens(query):
+                posting = self.postings.get(t)
+                if not posting:
+                    continue
+                idf = math.log(1 + (n - len(posting) + 0.5) / (len(posting) + 0.5))
+                for key, tf in posting.items():
+                    dl = self.doc_len[key] or 1
+                    scores[key] += (
+                        idf
+                        * tf
+                        * (self.K1 + 1)
+                        / (tf + self.K1 * (1 - self.B + self.B * dl / avgdl))
+                    )
+            ranked = sorted(scores.items(), key=lambda kv: (-kv[1], tie_order(kv[0])))
+            picked = [
+                (key, float(s)) for key, s in ranked if flt(self.metadata.get(key))
+            ][:k]
+            out.append(picked)
+        return out
+
+
 class ExternalIndexNode(Node):
     """input0 = docs (item, metadata); input1 = queries (item, k, filter).
 
@@ -116,8 +193,9 @@ class ExternalIndexNode(Node):
     shard and emits a PARTIAL reply row (killing the r2 worker-0 serialization
     of the FLOP-heavy index — reference ``operators/external_index.rs:81`` runs
     on one worker; this fans out). ``MergeIndexRepliesNode`` downstream merges
-    partials into the final per-query reply. Non-shardable backends keep the
-    SOLO placement; their single partial passes through the same merge.
+    partials into the final per-query reply. Non-shardable backends (BM25:
+    global idf) keep the SOLO placement; their single partial passes through
+    the same merge.
     """
 
     name = "external_index"
@@ -251,6 +329,12 @@ class ExternalIndexNode(Node):
             # answered queries need no further tracking (they are never revised)
             for k in to_answer:
                 self._live_queries.pop(k, None)
+        # tiered backends rebalance AFTER this tick's answers are emitted:
+        # promotion/demotion is batched scatter work that must never sit on
+        # the query path (stdlib/indexing/tiered.py)
+        maintain = getattr(self.backend, "maintain", None)
+        if maintain is not None and (docs_changed or to_answer):
+            maintain()
         if not out_keys:
             return []
         return [
@@ -342,3 +426,105 @@ class MergeIndexRepliesNode(Node):
                 out_keys, out_rows, ["_pw_index_reply"], time, diffs=out_diffs
             )
         ]
+
+
+class LshVectorBackend(IndexBackend):
+    """Approximate KNN via LSH bucket pruning (the ANN answer to the
+    reference's usearch/HNSW integrations, ``usearch_integration.rs:20``):
+    candidates come from the union of a query's band buckets
+    (``stdlib/ml/classifiers/_lsh.py`` bucketers), then score EXACTLY — so
+    accuracy degrades only by bucket recall, never by score error, and
+    per-shard candidate sets still merge exactly (scores are
+    shard-independent)."""
+
+    shardable = True
+
+    def __init__(
+        self,
+        dimension: int,
+        metric: str = "cos",
+        n_or: int = 10,
+        n_and: int = 8,
+        bucket_length: float = 1.0,
+        seed: int = 0,
+    ):
+        from pathway_tpu_torch.stdlib.ml.classifiers._lsh import (
+            generate_cosine_lsh_bucketer,
+            generate_euclidean_lsh_bucketer,
+        )
+
+        self.metric = metric
+        if metric == "dot":
+            # hyperplane buckets ignore magnitude, so the true max-inner-product
+            # neighbor can be excluded from every bucket; MIPS needs an ALSH
+            # transform we don't implement — use the exact brute-force index
+            raise ValueError(
+                "LshVectorBackend: metric='dot' is not supported (bucket recall "
+                "ignores vector magnitude); use BruteForceKnnFactory for "
+                "max-inner-product search"
+            )
+        if metric == "cos":
+            self.bucketer = generate_cosine_lsh_bucketer(
+                dimension, M=n_and, L=n_or, seed=seed
+            )
+        elif metric in ("l2sq", "euclidean"):
+            self.bucketer = generate_euclidean_lsh_bucketer(
+                dimension, M=n_and, L=n_or, A=bucket_length, seed=seed
+            )
+        else:
+            raise ValueError(f"LshVectorBackend: unsupported metric {metric!r}")
+        self.vectors: dict[int, np.ndarray] = {}
+        self.metadata: dict[int, Any] = {}
+        self.bands: dict[int, np.ndarray] = {}  # key -> its L band hashes
+        self.buckets: dict[int, set[int]] = {}  # band hash -> keys
+
+    def add(self, key, item, metadata):
+        vec = np.asarray(item, dtype=np.float32)
+        if key in self.vectors:
+            self.remove(key)
+        bands = self.bucketer(vec)[0]
+        self.vectors[key] = vec
+        self.metadata[key] = metadata
+        self.bands[key] = bands
+        for b in bands.tolist():
+            self.buckets.setdefault(int(b), set()).add(key)
+
+    def remove(self, key):
+        self.vectors.pop(key, None)
+        self.metadata.pop(key, None)
+        bands = self.bands.pop(key, None)
+        if bands is not None:
+            for b in bands.tolist():
+                bucket = self.buckets.get(int(b))
+                if bucket is not None:
+                    bucket.discard(key)
+                    if not bucket:
+                        del self.buckets[int(b)]
+
+    def _score(self, cand_mat: np.ndarray, q: np.ndarray) -> np.ndarray:
+        if self.metric == "cos":
+            qn = np.linalg.norm(q) or 1.0
+            dn = np.linalg.norm(cand_mat, axis=1)
+            dn[dn == 0] = 1.0
+            return (cand_mat @ q) / (dn * qn)
+        if self.metric in ("l2sq", "euclidean"):
+            diff = cand_mat - q[None, :]
+            return -(diff * diff).sum(axis=1)
+        raise ValueError(f"LshVectorBackend: unsupported metric {self.metric!r}")
+
+    def search(self, items, ks, filters):
+        out = []
+        for q, k, flt in zip(items, ks, filters):
+            qv = np.asarray(q, dtype=np.float32)
+            cands: set[int] = set()
+            for b in self.bucketer(qv)[0].tolist():
+                cands |= self.buckets.get(int(b), set())
+            good = [c for c in sorted(cands) if flt(self.metadata.get(c))]
+            if not good:
+                out.append([])
+                continue
+            mat = np.stack([self.vectors[c] for c in good])
+            scores = self._score(mat, qv)
+            order = np.lexsort((tie_order_u64(np.asarray(good, dtype=np.uint64)), -scores))[:k]
+            out.append([(good[i], float(scores[i])) for i in order])
+        return out

@@ -1,9 +1,16 @@
 """KNN inner indexes (reference ``stdlib/indexing/nearest_neighbors.py:65-262``).
 
 ``BruteForceKnn``: the ``[N, d]`` matrix lives on the card, search is one
-matmul + the canonical top-k (``pathway_tpu_torch/ops/knn.py``). Carried from
-``pathway_tpu/stdlib/indexing/nearest_neighbors.py``; the approximate indexes
-(LSH, IVF-flat, usearch, tiered) are a later slice.
+matmul + the canonical top-k (``pathway_tpu_torch/ops/knn.py``). ``LshKnn``
+keeps the reference API over the LSH backend; ``UsearchKnn`` — the reference's
+ANN index name — routes to :class:`IvfFlatKnn` (k-means coarse quantizer +
+exact in-list scoring) so asking for an approximate index delivers sub-linear
+ANN costs rather than silently aliasing the exact scan. ``TieredKnn`` keeps a
+bounded hot shard on the card over a host IVF cold tier.
+
+Carried from ``pathway_tpu/stdlib/indexing/nearest_neighbors.py``. Indexes
+with a device part (brute force, tiered) take ``device=`` (``None``: the
+card); the LSH and IVF-flat backends are host code by design.
 """
 
 from __future__ import annotations
@@ -60,3 +67,149 @@ class BruteForceKnn(InnerIndex):
         )
         self.dimensions = dimensions
         self.metric = metric_val
+
+
+class LshKnn(InnerIndex):
+    """Approximate KNN: LSH band buckets prune candidates, exact scoring ranks
+    them (reference ``LshKnn``; backend in ``_engine.LshVectorBackend``)."""
+
+    def __init__(
+        self,
+        data_column: ColumnReference,
+        dimensions: int,
+        *,
+        reserved_space: int = 1024,
+        metric: DistanceMetric | str = DistanceMetric.COS,
+        metadata_column: ColumnExpression | None = None,
+        embedder=None,
+        n_or: int = 10,
+        n_and: int = 8,
+        bucket_length: float = 1.0,
+    ):
+        from pathway_tpu_torch.stdlib.indexing._engine import LshVectorBackend
+
+        metric_val = metric.value if isinstance(metric, DistanceMetric) else str(metric)
+        transform = _embedder_transform(embedder)
+        super().__init__(
+            data_column,
+            metadata_column=metadata_column,
+            backend_factory=lambda: LshVectorBackend(
+                dimension=dimensions,
+                metric=metric_val,
+                n_or=n_or,
+                n_and=n_and,
+                bucket_length=bucket_length,
+            ),
+            item_transform=transform,
+        )
+
+
+class IvfFlatKnn(InnerIndex):
+    """IVF-flat approximate KNN (the HNSW-class retriever; backend in
+    ``indexing/ivf.py``): k-means coarse quantizer + exact scoring inside the
+    ``nprobe`` nearest lists. Sub-linear search for big corpora with measured
+    recall@10 ≥ 0.95 vs brute force (``tests/test_ivf.py``)."""
+
+    def __init__(
+        self,
+        data_column: ColumnReference,
+        dimensions: int,
+        *,
+        metric: DistanceMetric | str = DistanceMetric.COS,
+        metadata_column: ColumnExpression | None = None,
+        embedder=None,
+        nlist: int | None = None,
+        nprobe: int | None = None,
+        min_train: int = 4096,
+    ):
+        from pathway_tpu_torch.stdlib.indexing.ivf import IvfFlatBackend
+
+        metric_val = metric.value if isinstance(metric, DistanceMetric) else str(metric)
+        transform = _embedder_transform(embedder)
+        super().__init__(
+            data_column,
+            metadata_column=metadata_column,
+            backend_factory=lambda: IvfFlatBackend(
+                dimension=dimensions,
+                metric=metric_val,
+                nlist=nlist,
+                nprobe=nprobe,
+                min_train=min_train,
+            ),
+            item_transform=transform,
+        )
+        self.dimensions = dimensions
+        self.metric = metric_val
+
+
+class TieredKnn(InnerIndex):
+    """Tiered KNN (``indexing/tiered.py``): a bounded hot shard in device memory
+    (recently added + frequently hit rows, ``PATHWAY_INDEX_HOT_ROWS``) over a
+    host-resident IVF cold tier, with batched promotion/demotion between
+    ticks — serves corpora far beyond device memory on a fixed device-memory
+    budget. ``device=None`` puts the hot shard on the card."""
+
+    def __init__(
+        self,
+        data_column: ColumnReference,
+        dimensions: int,
+        *,
+        metric: DistanceMetric | str = DistanceMetric.COS,
+        metadata_column: ColumnExpression | None = None,
+        embedder=None,
+        hot_rows: int | None = None,
+        nlist: int | None = None,
+        nprobe: int | None = None,
+        min_train: int = 4096,
+        promote_hits: int | None = None,
+        device=None,
+    ):
+        from pathway_tpu_torch.stdlib.indexing.tiered import TieredKnnBackend
+
+        metric_val = metric.value if isinstance(metric, DistanceMetric) else str(metric)
+        transform = _embedder_transform(embedder)
+        super().__init__(
+            data_column,
+            metadata_column=metadata_column,
+            backend_factory=lambda: TieredKnnBackend(
+                dimension=dimensions,
+                metric=metric_val,
+                hot_rows=hot_rows,
+                nlist=nlist,
+                nprobe=nprobe,
+                min_train=min_train,
+                promote_hits=promote_hits,
+                device=device,
+            ),
+            item_transform=transform,
+        )
+        self.dimensions = dimensions
+        self.metric = metric_val
+
+
+class UsearchKnn(IvfFlatKnn):
+    """Reference API parity for the ANN index name. Routed to :class:`IvfFlatKnn`
+    (VERDICT r5 #7): a user asking for the approximate index by the reference
+    name gets sub-linear ANN search costs, not a silent exact O(N·d) scan.
+    ``reserved_space`` (a usearch capacity hint) is accepted and ignored —
+    IVF sizes its lists from the data."""
+
+    def __init__(
+        self,
+        data_column: ColumnReference,
+        dimensions: int,
+        *,
+        reserved_space: int = 1024,
+        metric: DistanceMetric | str = DistanceMetric.COS,
+        metadata_column: ColumnExpression | None = None,
+        embedder=None,
+        **ivf_kwargs,
+    ):
+        super().__init__(
+            data_column,
+            dimensions,
+            metric=metric,
+            metadata_column=metadata_column,
+            embedder=embedder,
+            **ivf_kwargs,
+        )

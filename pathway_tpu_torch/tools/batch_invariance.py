@@ -18,7 +18,13 @@ embedder, the 4-layer reranker, 384-d f32 KNN over 4096 docs):
   (``ops/knn.py`` runs its score product in fixed 16-query chunks and sums
   norms in one fixed order), an index ingested in 8-row blocks against one
   ingested at once, and the unchunked product ``queries @ vectorsᵀ`` at 64
-  against 512 rows (why the chunks).
+  against 512 rows (why the chunks);
+- the KNN scores of 64 queries against the same 4,096 rows in brute-force
+  indexes of capacity 4,096, 65,536 and 1,048,576 (the extra slots invalid)
+  and through ``exact_rescore`` over exactly those rows, every (query, row)
+  pair (:func:`index_rows_check`; ``ops/knn.py`` also runs its score product
+  in fixed 65,536-row tiles), and the untiled product against 4,096 and
+  65,536 rows (why the tiles).
 
 Each entry is ``[bit-identical, max |difference|]``. The run fails (exit 1)
 when an embedder, reranker or search entry is not bit-identical; the torch
@@ -95,6 +101,12 @@ def main() -> int:
     out["unchunked_score_product_64_vs_512_rows"] = _same(
         whole, np.concatenate([(qt[i : i + 64] @ v).cpu().numpy() for i in range(0, 512, 64)])
     )
+    wide = torch.cat([index._vectors.float(), torch.randn(65536 - 4096, 384, device="cuda")])
+    out["untiled_score_product_4096_vs_65536_rows"] = _same(
+        (qt[:64] @ v).cpu().numpy(), (qt[:64] @ wide.T)[:, :4096].cpu().numpy()
+    )
+    del wide
+    out.update(index_rows_check("cuda"))
     failed = sorted(
         name for name, entry in out.items()
         if name.startswith(("embed_", "rerank_", "knn_")) and not entry[0]
@@ -102,6 +114,45 @@ def main() -> int:
     out["failed"] = failed
     print(json.dumps(out), flush=True)
     return 1 if failed else 0
+
+
+def index_rows_check(
+    device, dim: int = 384, rows: int = 4096, n_queries: int = 64,
+    capacities: tuple = (4096, 65536, 1 << 20),
+) -> dict:
+    """The same ``n_queries`` queries against the same ``rows`` rows, scored
+    by a ``BruteForceKnnIndex`` at each of ``capacities`` (the extra slots
+    invalid) and by ``exact_rescore`` over exactly those rows (the tiered
+    index's two tiers), each searched for every row. One entry per scorer
+    against the first capacity: ``[every (query, row) score bit-identical,
+    max |difference|]``."""
+    import numpy as np
+
+    from pathway_tpu_torch.ops.knn import BruteForceKnnIndex, exact_rescore
+
+    rng = np.random.default_rng(0)
+    vecs = rng.normal(size=(rows, dim)).astype(np.float32)
+    queries = rng.normal(size=(n_queries, dim)).astype(np.float32)
+    keys = list(range(rows))
+
+    def table(hits) -> np.ndarray:
+        scores = np.full((n_queries, rows), np.nan, dtype=np.float32)
+        for qi, h in enumerate(hits):
+            scores[qi, [k for k, _ in h]] = [s for _, s in h]
+        return scores
+
+    scored = {}
+    for cap in capacities:
+        index = BruteForceKnnIndex(dim, capacity=cap, device=device)
+        index.add_batch(keys, vecs)
+        scored[f"brute_force_capacity_{cap}"] = table(index.search(queries, rows))
+        del index
+    scored["exact_rescore"] = table(exact_rescore(vecs, keys, queries, rows, device=device))
+    base = f"brute_force_capacity_{capacities[0]}"
+    return {
+        f"knn_scores_{name}_vs_{base}": _same(scored[base], got)
+        for name, got in scored.items() if name != base
+    }
 
 
 def _pooling_tail(enc, docs: list[str], rows: int) -> dict:

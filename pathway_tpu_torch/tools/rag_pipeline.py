@@ -1,6 +1,8 @@
 """The live-RAG loop as a Pathway pipeline, written once against a ``pw``
 module (``import pathway_tpu_torch as pw``, or the JAX package for a parity
-run): docs stream in, an embedder UDF feeds a brute-force KNN index, queries
+run): docs stream in and feed the index a retriever factory builds (any
+factory of ``stdlib.indexing``: brute-force, tiered, IVF-flat, usearch, LSH,
+BM25 or hybrid; a vector index embeds through its embedder UDF), queries
 stream in after the docs and are answered as of now, and a cross-encoder
 reranker scores every (query, hit) pair.
 

@@ -1,7 +1,8 @@
 """``engine/torch_kernels.py``: the grouped segment-sum and the sorted probe as
 torch ops, held against the numpy path bit for bit on the CPU, and the
-routing knobs (``PATHWAY_ENGINE_JAX``, ``_MIN_ROWS``, ``probe_eligible``,
-``PATHWAY_FUSE_JAX``)."""
+routing knobs (``PATHWAY_ENGINE_JAX``, ``_MIN_ROWS``, ``probe_eligible``).
+The fused device tier (``PATHWAY_FUSE_JAX``) is held in
+``test_torch_fusion_device.py``."""
 
 from __future__ import annotations
 
@@ -139,12 +140,16 @@ def test_engine_routes_both_functions_and_matches_numpy(monkeypatch):
     groupby (static load: one block above ``_MIN_ROWS``) and the probe (the
     same rows over 20 ticks: each tick probes the sorted 40k-key right
     side). Integer sums, so the captured update streams equal the numpy
-    route's exactly."""
+    route's exactly. The numpy route also keeps the fused chains on the
+    register program (``PATHWAY_FUSE_JAX=off``: under ``auto`` a 400k-row
+    segment takes the device tier, the card); the CPU route runs them on the
+    device tier's CPU tensors."""
     from pathway_tpu_torch.debug import _capture
     from pathway_tpu_torch.tools.engine_pipeline import build
 
     def run(flag, n_times):
         monkeypatch.setenv("PATHWAY_ENGINE_JAX", flag)
+        monkeypatch.setenv("PATHWAY_FUSE_JAX", "off" if flag == "0" else "auto")
         K.ROUTES.clear()
         out = _capture(build(400_000, n_times)).deltas
         pw.G.clear()
@@ -156,21 +161,3 @@ def test_engine_routes_both_functions_and_matches_numpy(monkeypatch):
         assert numpy_routes == {}
         assert torch_routes.get(route, 0) > 0, torch_routes
         assert torch_out == numpy_out
-
-
-def test_fuse_jax_on_raises(monkeypatch):
-    t = pw.debug.table_from_markdown(
-        """
-        a | b
-        1 | 2
-        """
-    )
-    s = t.filter(t.a > 0).select(c=t.a + t.b)
-    from pathway_tpu_torch.debug import _capture
-
-    monkeypatch.setenv("PATHWAY_FUSE_JAX", "on")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _capture(s)
-    monkeypatch.setenv("PATHWAY_FUSE_JAX", "auto")
-    assert [row for row in _capture(s).rows.values()] == [(3,)]
-    pw.G.clear()

@@ -230,6 +230,22 @@ def test_search_is_batch_invariant(q):
     np.testing.assert_allclose(norms.numpy(), (queries * queries).sum(-1), rtol=1e-5)
 
 
+def test_scores_do_not_depend_on_index_rows():
+    """A (query, row) pair scores the same bits in a brute-force index of any
+    capacity and in ``exact_rescore`` over exactly the live rows (the score
+    product also runs in fixed ``_N_TILE``-row tiles), so the tiered index's
+    hot shard and cold rescore score rows as the brute-force index does.
+    Checked by the tool that checks it on the card, at a small width."""
+    from pathway_tpu_torch.tools.batch_invariance import index_rows_check
+
+    out = index_rows_check("cpu", dim=32, capacities=(4096, 65536, 2 * 65536 + 128))
+    assert len(out) == 3
+    for name, (same, diff) in out.items():
+        assert same, (name, diff)
+    dots = T._dots(torch.ones(3, 8), torch.ones(T._N_TILE + 5, 8))
+    assert dots.shape == (3, T._N_TILE + 5) and bool((dots == 8.0).all())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_encode_is_batch_invariant(dtype):
     """A doc's embedding has the same bits in an 8-row launch as inside a
