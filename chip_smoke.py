@@ -14,8 +14,9 @@ printing one JSON line:
    tokenizer built from ``pathway_tpu_torch/native``;
 3. kernels: each kernel against its plain PyTorch version on the card, both
    routes of the attention kernel (bf16, and f32 as split 3xTF32 products,
-   both on the tensor cores) at eight shapes, the main path's among them,
-   with its time at the main path's three shapes, its plain version's time,
+   both on the tensor cores) at nine shapes, the main path's among them,
+   with its time at the main path's three shapes (and f32 at bert_path's
+   batch, 12 heads of 32), its plain version's time,
    one PyTorch library call's time as a yardstick, and its bound;
 4. main path, at the full width of the bench's MiniLM-class encoder with
    random seeded weights: 8192 docs tokenized, embedded in batches of 1024
@@ -55,8 +56,26 @@ printing one JSON line:
    rows, static and over 20 ticks, on the fused device tier on the card
    (``PATHWAY_FUSE_JAX=on``) against the register program (``off``), bit
    for bit;
-10. the kernels line, with each kernel's launches during phases 4, 6, 7 and
-   8's pipeline.
+10. bert_path: a BERT checkpoint at all-MiniLM-L6-v2's published widths
+   (vocab 30,522, hidden 384, 6 layers, 12 heads of 32, random f32 weights
+   from seed 0, a synthetic vocab.txt), written as pytorch_model.bin and
+   model.safetensors (equal parameters), loaded by ``from_pretrained`` on
+   the card; 8,192 WordPiece docs embedded in f32 in batches of 1,024 (every
+   attention call on the f32 route at hd 32) and indexed, with its checks
+   (64 embeddings against the CPU path, 8,192/8,192 self-hits, the bert
+   entry of ``tools/batch_invariance.py``);
+11. document_store: 8,192 UTF-8 files in 64 directories read by
+   ``pw.io.fs`` into ``DocumentStore`` (``minilm`` embedder,
+   ``TokenCountSplitter(50, 200)``, the default ``TieredKnnFactory``); 1,024
+   ``retrieve_query`` rows in 64-row ticks (256 filtered to a directory),
+   ``statistics_query``, ``inputs_query`` and 256 prompts through
+   ``BaseRAGQuestionAnswerer``, with its checks (self-hits, filtered hits
+   inside their glob, 8,192 files counted, each prompt holding its k texts
+   in order); a 1,024-file streaming read whose answers equal a static
+   read's; 64 files each of PDF, DOCX, HTML and Markdown through their
+   parsers, each marker phrase retrieved first;
+12. the kernels line, with each kernel's launches during phases 4, 6, 7,
+   8's pipeline, 10 and 11.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without it. TF32 is off for every matmul (``allow_tf32 = False``), so the f32
@@ -100,6 +119,23 @@ TIER_Q_BATCHES = (16, 256, 1024)
 TIER_PIPE_HOT = 16_384
 TIER_SAME_HOT = 1024  # microbatch off == auto: PIPE_SAME_DOCS docs, 4x this bound
 INVARIANCE_CAPACITIES = (4096, 65_536, 1 << 20)
+#: the bert_path phase: all-MiniLM-L6-v2's published widths, random weights
+BERT_DOCS = 8192
+BERT_BATCH = 1024
+#: the document_store phase: a file corpus read by pw.io.fs into DocumentStore
+DS_FILES = 8192
+DS_SUBDIRS = 64
+DS_WORDS = (600, 1000)
+DS_QUERIES = 1024
+DS_GLOB_QUERIES = 256
+DS_QA = 256
+DS_TICK = 64
+DS_K = 6
+DS_STREAM_FILES = 1024
+DS_STREAM_QUERIES = 128
+DS_FORMAT_FILES = 64  # of each of PDF, DOCX, HTML and Markdown
+#: scratch files of the two phases (``build/`` is not committed)
+SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
 H100_F32_FLOPS = 67e12  # FP32 pipes, outside the tensor cores
@@ -278,15 +314,16 @@ def _attention_inputs(B, L, dtype, gen, H=6, hd=64):
 
 #: (B, L, hd) of each checked case: the main path's three shapes (the
 #: rerank case at the reranker's longest input), then the longest length, a
-#: length that fills no tile evenly, and the other head widths the kernel is
-#: built for (hd 128 both with K and V resident and streamed)
+#: length that fills no tile evenly, the other head widths the kernel is
+#: built for (hd 128 both with K and V resident and streamed), and the
+#: bert_path's ingest batch (12 heads of 32)
 KERNEL_SHAPES = {
     "embed": (1024, 128, 64), "query": (1, 16, 64), "rerank": (10, 256, 64),
     "max_len": (4, 512, 64), "ragged": (3, 77, 64), "hd32": (2, 128, 32), "hd128": (2, 256, 128),
-    "hd128_resident": (2, 128, 128),
+    "hd128_resident": (2, 128, 128), "bert_embed": (1024, 128, 32),
 }
 #: the timed cases per dtype: both routes at the main path's shapes
-TIMED = {"bfloat16": ("embed", "query", "rerank"), "float32": ("embed", "query", "rerank")}
+TIMED = {"bfloat16": ("embed", "query", "rerank"), "float32": ("embed", "query", "rerank", "bert_embed")}
 
 
 def phase_kernels() -> list[dict]:
@@ -637,19 +674,22 @@ def phase_f32_path(state: dict, info: dict) -> dict:
 class _LaunchLog:
     """Wraps a batched UDF's batch function before a pipeline is built from
     it: per launch, its host clock span and its row count (the bucket the
-    microbatcher padded to), and for an embedder every vector it returned,
-    by text. The launch returns numpy, so its span includes the card's
+    microbatcher padded to), optionally its texts, and for an embedder every
+    vector it returned, by text. The launch returns numpy, so its span includes the card's
     work."""
 
-    def __init__(self, udf, keep_vectors: bool = False):
+    def __init__(self, udf, keep_vectors: bool = False, keep_texts: bool = False):
         self.spans: list[tuple[float, float, int]] = []
         self.vectors: dict[str, list] = {}
+        self.texts: list[list[str]] = []
         inner = udf._fn
 
         def launch(*cols):
             t0 = time.perf_counter()
             out = inner(*cols)
             self.spans.append((t0, time.perf_counter(), len(cols[0])))
+            if keep_texts:
+                self.texts.append(list(cols[0]))
             if keep_vectors:
                 for text, vec in zip(cols[0], out):
                     self.vectors.setdefault(text, []).append(vec)
@@ -1163,6 +1203,508 @@ def phase_engine_kernels(info: dict) -> dict:
     return runs
 
 
+def _write_safetensors(path: str, tensors: dict) -> None:
+    """A ``.safetensors`` file of f32 tensors without the ``safetensors``
+    package: 8-byte little-endian header length, JSON header, raw data."""
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        raw = t.detach().to("cpu", dtype=__import__("torch").float32).contiguous().numpy().tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape), "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head)
+        for raw in blobs:
+            f.write(raw)
+
+
+def phase_bert_path(info: dict) -> dict:
+    """A BERT checkpoint at all-MiniLM-L6-v2's widths (vocab 30,522, hidden
+    384, 6 layers, 12 heads of 32, intermediate 1,536, random f32 weights
+    from seed 0, a synthetic vocab.txt) written as pytorch_model.bin and as
+    model.safetensors, loaded by ``from_pretrained`` on the card (f32, so
+    every attention call takes the f32 route at hd 32); BERT_DOCS WordPiece
+    docs tokenized on the host, then embedded in batches of BERT_BATCH and
+    indexed, median of 3; checks against the port's CPU path, by
+    self-retrieval and by the bert entry of ``tools/batch_invariance.py``."""
+    import shutil
+
+    import torch
+
+    from pathway_tpu_torch.ops import attention_kernel as A
+    from pathway_tpu_torch.ops.encoder import TorchSentenceEncoder
+    from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
+    from pathway_tpu_torch.tools import bert_checkpoint as C
+    from pathway_tpu_torch.tools.batch_invariance import bert_check
+
+    config = C.MINILM_L6
+    root = os.path.join(SCRATCH, "bert")
+    shutil.rmtree(root, ignore_errors=True)
+    vocab = C.synthetic_vocab(config["vocab_size"])
+    sd = C.random_state_dict(config, seed=0)
+    bin_dir, st_dir = os.path.join(root, "bin"), os.path.join(root, "safetensors")
+    C.write_checkpoint(bin_dir, config, sd, vocab)
+    os.makedirs(st_dir)
+    for name in ("config.json", "vocab.txt"):
+        shutil.copy(os.path.join(bin_dir, name), st_dir)
+    _write_safetensors(os.path.join(st_dir, "model.safetensors"), sd)
+    t0 = time.perf_counter()
+    enc = TorchSentenceEncoder.from_pretrained(bin_dir, max_len=128, device=DEVICE)
+    load_s = time.perf_counter() - t0
+    enc_st = TorchSentenceEncoder.from_pretrained(st_dir, max_len=128, device=DEVICE)
+    pa, pb = dict(enc.named_parameters()), dict(enc_st.named_parameters())
+    same_params = pa.keys() == pb.keys() and all(torch.equal(pa[k], pb[k]) for k in pa)
+    check(same_params, "bert_path: pytorch_model.bin and model.safetensors load different parameters")
+    check(enc.cfg.n_heads == 12 and enc.cfg.d_model // enc.cfg.n_heads == 32 and enc.cfg.dtype == torch.float32,
+          f"bert_path: config {enc.cfg}")
+    del enc_st, pa, pb
+
+    docs = C.synthetic_docs(vocab, BERT_DOCS)
+    t0 = time.perf_counter()
+    ids_all, mask_all = enc.tokenizer(docs)
+    tok_s = time.perf_counter() - t0
+    n_ids = mask_all.sum(axis=1)
+    check(ids_all.shape[1] == 128 and int(n_ids.max()) <= 128, f"bert_path: docs tokenized to L={ids_all.shape[1]}")
+    unk_share = float((ids_all == enc.tokenizer.unk_id).sum() / n_ids.sum())
+    cont_ids = {i for t, i in enc.tokenizer.vocab.items() if t.startswith("##")}
+    cont_share = float(np.isin(ids_all, list(cont_ids)).sum() / n_ids.sum())
+    batches = -(-len(docs) // BERT_BATCH)
+
+    def ingest(index):
+        for i in range(0, len(ids_all), BERT_BATCH):
+            embs = enc.encode_ids_device(ids_all[i : i + BERT_BATCH])
+            index.add_batch_device(range(i, i + int(embs.shape[0])), embs)
+            index._flush()
+        index.search(embs[:64], k=10)  # one fetch syncs the whole pipeline
+
+    warm = BruteForceKnnIndex(dimension=384, capacity=2 * BERT_BATCH, device=DEVICE)
+    for i in range(0, 2 * BERT_BATCH, BERT_BATCH):
+        warm.add_batch_device(range(i, i + BERT_BATCH), enc.encode_ids_device(ids_all[i : i + BERT_BATCH]))
+    warm._flush()
+    del warm
+    sync()
+
+    # --- the bert path: counts from 0 -----------------------------------------
+    A.LAUNCHES = 0
+    A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
+    rates = []
+    for _ in range(3):
+        index = BruteForceKnnIndex(dimension=384, capacity=BERT_DOCS, device=DEVICE)
+        t0 = time.perf_counter()
+        ingest(index)
+        rates.append(len(docs) / (time.perf_counter() - t0))
+    launches, route_launches = A.LAUNCHES, dict(A.ROUTE_LAUNCHES)  # read right after the path
+    # --------------------------------------------------------------------------
+    expected = 3 * batches * enc.cfg.n_layers
+    check(route_launches["tensor_core_3xtf32"] == expected,
+          f"bert_path: f32-route launches {route_launches} != {expected}")
+    check(launches == expected, f"bert_path: attention launches {launches} != {expected}")
+
+    # checks: the first 64 against the CPU path (f32_path's tolerance), every
+    # doc finds itself first, the bert entry of batch_invariance
+    e_dev = torch.cat([enc.encode_ids_device(ids_all[i : i + BERT_BATCH]) for i in range(0, len(docs), BERT_BATCH)])
+    e64 = e_dev[:64].cpu().numpy()
+    cpu = TorchSentenceEncoder.from_pretrained(bin_dir, max_len=128, device="cpu")
+    e_cpu = cpu.encode_ids_device(ids_all[:64]).numpy()
+    emb_err = float(np.abs(e_cpu - e64).max())
+    check(bool(torch.isfinite(e_dev).all()) and tuple(e_dev.shape) == (BERT_DOCS, 384), "bert embeddings not finite / wrong shape")
+    check(emb_err <= 1e-4, f"bert_path: card vs CPU embeddings differ by {emb_err}")
+    self_ok = 0
+    for lo in range(0, len(docs), 1024):
+        hits = index.search(e_dev[lo : lo + 1024], k=1)
+        self_ok += sum(1 for i, h in enumerate(hits) if h and h[0][0] == lo + i)
+    check(self_ok == BERT_DOCS, f"bert_path: self-retrieval at rank 1 {self_ok}/{BERT_DOCS}")
+    inv = bert_check(enc, docs[:BERT_BATCH])
+    inv_key = f"bert_embed_8_rows_vs_{min(BERT_BATCH, len(docs))}"
+    check(inv[inv_key][0], f"bert_path: batch invariance {inv}")
+    out = {
+        "card": info["nvidia_smi"],
+        "config": {k: config[k] for k in ("vocab_size", "hidden_size", "num_hidden_layers", "num_attention_heads",
+                                          "intermediate_size", "max_position_embeddings", "layer_norm_eps")},
+        "dtype": "float32",
+        "docs": len(docs),
+        "seq_len": int(ids_all.shape[1]),
+        "ids_per_doc_mean": float(n_ids.mean()),
+        "ids_per_doc_max": int(n_ids.max()),
+        "unk_share": unk_share,
+        "continuation_share": cont_share,
+        "wordpiece_docs_per_s": len(docs) / tok_s,
+        "from_pretrained_bin_s": load_s,
+        "bin_equals_safetensors": same_params,
+        "bert_embed_index_docs_per_s": statistics.median(rates),
+        "bert_embed_index_runs_docs_per_s": rates,
+        "encoder_launches": 3 * batches,
+        "attention_launches": launches,
+        "attention_launches_by_route": route_launches,
+        "attention_launches_expected": expected,
+        "card_vs_cpu_embedding_max_abs_err": emb_err,
+        "tolerance_embedding": 1e-4,
+        "self_retrieval_rank1": self_ok,
+        "batch_invariance": inv,
+    }
+    emit("bert_path", **out)
+    del enc, cpu, index, e_dev
+    shutil.rmtree(root, ignore_errors=True)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": route_launches, "metrics": out}
+
+
+def _make_pdf(text: str) -> bytes:
+    """A one-page PDF showing ``text`` (Helvetica, FlateDecode)."""
+    import zlib
+
+    esc = text.replace("\\", r"\\").replace("(", r"\(").replace(")", r"\)").encode("latin-1")
+    stream = zlib.compress(b"BT /F1 12 Tf 72 720 Td (" + esc + b") Tj ET")
+    objs = [
+        b"<< /Type /Font /Subtype /Type1 /BaseFont /Helvetica >>",
+        b"<< /Length %d /Filter /FlateDecode >>\nstream\n" % len(stream) + stream + b"\nendstream",
+        b"<< /Type /Page /Parent 4 0 R /MediaBox [0 0 612 792] /Resources << /Font << /F1 1 0 R >> >> /Contents 2 0 R >>",
+        b"<< /Type /Pages /Kids [3 0 R] /Count 1 >>",
+        b"<< /Type /Catalog /Pages 4 0 R >>",
+    ]
+    out, offsets = bytearray(b"%PDF-1.4\n"), []
+    for i, body in enumerate(objs, start=1):
+        offsets.append(len(out))
+        out += b"%d 0 obj\n" % i + body + b"\nendobj\n"
+    xref = len(out)
+    out += b"xref\n0 %d\n0000000000 65535 f \n" % (len(objs) + 1)
+    out += b"".join(b"%010d 00000 n \n" % o for o in offsets)
+    out += b"trailer\n<< /Size %d /Root 5 0 R >>\nstartxref\n%d\n%%%%EOF\n" % (len(objs) + 1, xref)
+    return bytes(out)
+
+
+def _make_docx(text: str) -> bytes:
+    import io
+    import zipfile
+
+    w = "http://schemas.openxmlformats.org/wordprocessingml/2006/main"
+    doc = (f'<?xml version="1.0" encoding="UTF-8"?><w:document xmlns:w="{w}"><w:body>'
+           f'<w:p><w:r><w:t xml:space="preserve">{text}</w:t></w:r></w:p></w:body></w:document>')
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as zf:
+        zf.writestr("word/document.xml", doc)
+    return buf.getvalue()
+
+
+def _format_files(root: str, n: int, rng) -> dict:
+    """``n`` files of each of PDF, DOCX, HTML and Markdown under
+    ``root/<fmt>``, each holding one marker phrase; returns {fmt: [(path,
+    phrase)]}."""
+    words = [f"marker{i}" for i in range(2000)]
+    made: dict = {}
+    for fmt, ext in (("pdf", "pdf"), ("docx", "docx"), ("html", "html"), ("md", "md")):
+        os.makedirs(os.path.join(root, fmt), exist_ok=True)
+        for i in range(n):
+            phrase = f"{fmt} file {i} " + " ".join(rng.choice(words, size=12))
+            path = os.path.join(root, fmt, f"f{i:03d}.{ext}")
+            data = {
+                "pdf": lambda: _make_pdf(phrase),
+                "docx": lambda: _make_docx(phrase),
+                "html": lambda: f"<html><head><title>t{i}</title></head><body><p>{phrase}</p></body></html>".encode(),
+                "md": lambda: f"# {phrase.split()[0]}\n\n{' '.join(phrase.split()[1:])}\n".encode(),
+            }[fmt]()
+            with open(path, "wb") as f:
+                f.write(data)
+            made.setdefault(fmt, []).append((path, phrase))
+    return made
+
+
+def _ds_run(pw, store, *, retrieve=None, stats=False, inputs=False, qa=None) -> dict:
+    """One ``pw.run`` of ``store``'s queries, each a list of query rows
+    arriving in DS_TICK-row ticks after the docs; returns every subscribed
+    output's final rows by name (each a list in arrival order) and the host
+    clock of the run."""
+    out: dict = {}
+    tick = [1]
+
+    def stream(schema, rows):
+        timed = [(*r, tick[0] + i // DS_TICK, 1) for i, r in enumerate(rows)]
+        tick[0] += -(-len(rows) // DS_TICK)
+        return pw.debug.table_from_rows(schema, timed, is_stream=True)
+
+    def sink(name, table):
+        got = out.setdefault(name, {})
+
+        def on_change(key, row, time, is_addition):  # row: {column: value}
+            if is_addition:
+                got[key] = row
+            elif got.get(key) == row:
+                del got[key]
+
+        pw.io.subscribe(table, on_change)
+
+    Store = type(store)
+    if retrieve is not None:
+        q = stream(Store.RetrieveQuerySchema, retrieve)
+        sink("retrieve", q.select(q.query, q.filepath_globpattern, result=store.retrieve_query(q).with_universe_of(q).result))
+    if stats:
+        sink("stats", store.statistics_query(stream(Store.StatisticsQuerySchema, [()])))
+    if inputs:
+        sink("inputs", store.inputs_query(stream(Store.InputsQuerySchema, [(None, None)])))
+    if qa is not None:
+        rag, prompts = qa
+        q = stream(rag.AnswerQuerySchema, [(p, None, None) for p in prompts])
+        sink("qa", q.select(q.prompt, result=rag.answer_query(q).with_universe_of(q).result))
+    out["_t0"] = time.perf_counter()
+    pw.run()
+    sync()
+    out["_t1"] = time.perf_counter()
+    return out
+
+
+def _hits(result) -> list[dict]:
+    return list(result.value if hasattr(result, "value") else result or [])
+
+
+def phase_document_store(info: dict) -> dict:
+    """The DocumentStore RAG surface on the card: DS_FILES UTF-8 files of
+    DS_WORDS seeded words in DS_SUBDIRS directories, read by ``pw.io.fs``
+    (binary, static, with metadata) into ``DocumentStore`` with the
+    ``minilm`` embedder and ``TokenCountSplitter(50, 200)`` over the default
+    ``TieredKnnFactory``; DS_QUERIES ``retrieve_query`` rows (k = DS_K) in
+    DS_TICK-row ticks, each the text of a known chunk, DS_GLOB_QUERIES of
+    them filtered to the chunk's directory; ``statistics_query``,
+    ``inputs_query`` and DS_QA prompts through ``BaseRAGQuestionAnswerer``
+    with a ``FakeChatModel``. Then the same store over DS_STREAM_FILES of the
+    files read in streaming mode against a static read; then
+    DS_FORMAT_FILES files of each of PDF, DOCX, HTML and Markdown through
+    their parsers."""
+    import fnmatch
+    import shutil
+    import threading
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.ops import attention_kernel as A
+    from pathway_tpu_torch.stdlib.indexing import tiered
+    from pathway_tpu_torch.stdlib.indexing.retrievers import TieredKnnFactory
+    from pathway_tpu_torch.xpacks.llm import DocumentStore, parsers
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.mocks import FakeChatModel
+    from pathway_tpu_torch.xpacks.llm.question_answering import BaseRAGQuestionAnswerer
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+
+    root = os.path.join(SCRATCH, "docs")
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(0)
+    vocab = [f"word{i}" for i in range(5000)]
+    texts: list[tuple[str, str]] = []
+    for i in range(DS_FILES):
+        d = os.path.join(root, "corpus", f"d{i % DS_SUBDIRS:02d}")
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"f{i:05d}.txt")
+        text = " ".join(rng.choice(vocab, size=int(rng.integers(DS_WORDS[0], DS_WORDS[1] + 1))))
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(text)
+        texts.append((path, text))
+    corpus = os.path.join(root, "corpus")
+
+    splitter = TokenCountSplitter(min_tokens=50, max_tokens=200)
+    t0 = time.perf_counter()
+    utf8 = parsers.Utf8Parser()
+    for path, _t in texts:
+        with open(path, "rb") as f:
+            utf8.func(f.read())
+    parse_s = time.perf_counter() - t0
+    chunks = [(path, c) for path, text in texts for c, _m in splitter.func(text)]
+    pick = rng.choice(len(chunks), size=DS_QUERIES, replace=False)
+    queries = []
+    for j, ci in enumerate(pick):
+        path, c = chunks[ci]
+        glob = os.path.join(os.path.dirname(path), "*") if j >= DS_QUERIES - DS_GLOB_QUERIES else None
+        queries.append((c, DS_K, None, glob))
+    prompts = [q[0] for q in queries[:DS_QA]]
+
+    emb = SentenceTransformerEmbedder("minilm", seed=0, device=DEVICE)
+    launch_log = _LaunchLog(emb, keep_texts=True)
+    chunk_texts = {c for _p, c in chunks}
+
+    def make_store(docs, parser=None):
+        # on the card the default retriever (TieredKnnFactory at the default
+        # hot bound); a CPU rehearsal names the CPU for it
+        factory = None if DEVICE == "cuda" else TieredKnnFactory(embedder=emb, device=DEVICE)
+        return DocumentStore(docs, retriever_factory=factory, embedder=emb, splitter=splitter,
+                             **({"parser": parser} if parser is not None else {}))
+
+    # warm-up at the launch shapes (allocator, cuBLAS), outside the counts
+    emb._encoder.encode_texts([c for _p, c in chunks[:512]])
+    sync()
+
+    # --- the document store: counts from 0 ------------------------------------
+    pw.G.clear()
+    A.LAUNCHES = 0
+    A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
+    launch_log.spans.clear()
+    launch_log.texts.clear()
+    store = make_store(pw.io.fs.read(corpus, format="binary", mode="static", with_metadata=True))
+    rag = BaseRAGQuestionAnswerer(FakeChatModel(), store, search_topk=DS_K)
+    got = _ds_run(pw, store, retrieve=queries, stats=True, inputs=True, qa=(rag, prompts))
+    launches, route_launches = A.LAUNCHES, dict(A.ROUTE_LAUNCHES)
+    # ----------------------------------------------------------------------------
+    tier = tiered.tier_stats() or {}
+    pw.G.clear()
+    spans = list(launch_log.spans)
+    t_run0, t_run1 = got["_t0"], got["_t1"]
+    check(len(spans) > 0, "document_store: the embedder never launched")
+    expected = 6 * len(spans)
+    check(route_launches["tensor_core"] == expected and launches == expected,
+          f"document_store: bf16 attention launches {route_launches} != {expected} (6 per embedder launch)")
+
+    # the ingest ends with the launch that embedded the last chunk
+    left, t_ingest, n_ingest_launches = set(chunk_texts), None, 0
+    for (_a, b, _n), batch in zip(spans, launch_log.texts):
+        left.difference_update(batch)
+        n_ingest_launches += 1
+        if not left:
+            t_ingest = b
+            break
+    check(t_ingest is not None, f"document_store: {len(left)} chunks were never embedded")
+    t_ingest = t_ingest or t_run1
+
+    res = list(got.get("retrieve", {}).values())
+    check(len(res) == DS_QUERIES, f"document_store: {len(res)} retrieve answers, expected {DS_QUERIES}")
+    # unfiltered queries get k hits; a filtered one may get fewer, as in the
+    # reference: the tiered index over-fetches, then filters
+    self_ok, glob_ok, glob_n, k_ok, glob_hits = 0, True, 0, True, []
+    for row in res:
+        query, glob, hits = row["query"], row["filepath_globpattern"], _hits(row["result"])
+        self_ok += bool(hits) and hits[0]["text"] == query
+        if glob:
+            glob_n += 1
+            glob_hits.append(len(hits))
+            glob_ok &= all(fnmatch.fnmatch(h["metadata"]["path"], glob) for h in hits)
+        else:
+            k_ok &= len(hits) == DS_K
+    check(k_ok, f"document_store: an unfiltered query got other than k={DS_K} hits")
+    check(self_ok == DS_QUERIES, f"document_store: self-hits {self_ok}/{DS_QUERIES}")
+    check(glob_ok and glob_n == DS_GLOB_QUERIES, f"document_store: a filtered hit outside its glob ({glob_n} filtered)")
+    stats = [r["result"] for r in got.get("stats", {}).values()]
+    stats = stats[0].value if stats else {}
+    check(stats.get("file_count") == DS_FILES, f"document_store: statistics {stats}")
+    inputs = [r["result"] for r in got.get("inputs", {}).values()]
+    n_inputs = len(inputs[0].value) if inputs else 0
+    check(n_inputs == DS_FILES, f"document_store: inputs_query listed {n_inputs} files")
+    by_query = {r["query"]: [h["text"] for h in _hits(r["result"])] for r in res if r["filepath_globpattern"] is None}
+    qa_rows = list(got.get("qa", {}).values())
+    qa_ok = len(qa_rows) == DS_QA
+    for row in qa_rows:
+        answer, want = row["result"], by_query.get(row["prompt"], [])
+        pos = [answer.find(t) for t in want]
+        qa_ok &= len(want) == DS_K and all(p >= 0 for p in pos) and pos == sorted(pos)
+    check(qa_ok, f"document_store: {len(qa_rows)} QA answers, or a prompt without its {DS_K} texts in order")
+
+    # the streaming leg: DS_STREAM_FILES files read in streaming mode against
+    # the static read of the same files, the same queries
+    stream_root = os.path.join(root, "stream")
+    picked = texts[:DS_STREAM_FILES]
+    for path, text in picked:
+        dest = os.path.join(stream_root, os.path.relpath(path, corpus))
+        os.makedirs(os.path.dirname(dest), exist_ok=True)
+        shutil.copy(path, dest)
+    s_chunks = [c for _p, t in picked for c, _m in splitter.func(t)]
+    s_queries = [(c, DS_K, None, None) for c in s_chunks[:: max(1, len(s_chunks) // DS_STREAM_QUERIES)][:DS_STREAM_QUERIES]]
+    pw.G.clear()
+    static = _ds_run(pw, make_store(pw.io.fs.read(stream_root, format="binary", mode="static", with_metadata=True)),
+                     retrieve=s_queries)
+    pw.G.clear()
+    ingested = threading.Event()
+    count = [0]
+
+    class Queries(pw.io.python.ConnectorSubject):
+        def run(self):
+            ingested.wait(timeout=600)
+            time.sleep(1.0)  # past the microbatcher's flush deadline
+            for lo in range(0, len(s_queries), DS_TICK):
+                for q in s_queries[lo : lo + DS_TICK]:
+                    self.next(query=q[0], k=q[1], metadata_filter=None, filepath_globpattern=None)
+                time.sleep(0.05)
+
+    def on_chunk(key, row, time, is_addition):
+        count[0] += 1 if is_addition else -1
+        if count[0] >= len(s_chunks):
+            ingested.set()
+
+    live = make_store(pw.io.fs.read(stream_root, format="binary", with_metadata=True, _bounded=True))
+    pw.io.subscribe(live.chunked_docs, on_chunk)
+    lq = pw.io.python.read(Queries(), schema=DocumentStore.RetrieveQuerySchema)
+    streamed: dict = {}
+    pw.io.subscribe(
+        lq.select(lq.query, result=live.retrieve_query(lq).with_universe_of(lq).result),
+        lambda key, row, time, is_addition: streamed.__setitem__(row["query"], row["result"]) if is_addition else None,
+    )
+    t0 = time.perf_counter()
+    pw.run()
+    stream_s = time.perf_counter() - t0
+    pw.G.clear()
+    pairs = lambda r: [(h["text"], h["dist"]) for h in _hits(r)]  # noqa: E731
+    s_static = {r["query"]: pairs(r["result"]) for r in static.get("retrieve", {}).values()}
+    s_live = {q: pairs(r) for q, r in streamed.items()}
+    stream_same = len(s_static) == len(s_queries) and s_static == s_live
+    check(stream_same, f"document_store: streaming read answers differ from the static read's "
+          f"({len(s_live)}/{len(s_static)} answered, {sum(s_static.get(q) != s_live.get(q) for q in s_static)} differ)")
+
+    # the parsers leg: each format's files through its parser, each marker
+    # phrase retrieved first
+    made = _format_files(os.path.join(root, "formats"), DS_FORMAT_FILES, rng)
+    fmt_out = {}
+    parser_of = {"pdf": parsers.PypdfParser, "docx": parsers.DocxParser, "html": parsers.HtmlParser, "md": parsers.MarkdownParser}
+    for fmt, files in made.items():
+        p = parser_of[fmt]()
+        t0 = time.perf_counter()
+        for path, _phrase in files:
+            with open(path, "rb") as f:
+                p.func(f.read())
+        fmt_parse_s = time.perf_counter() - t0
+        pw.G.clear()
+        fstore = make_store(pw.io.fs.read(os.path.join(root, "formats", fmt), format="binary", mode="static",
+                                          with_metadata=True), parser=p)
+        r = _ds_run(pw, fstore, retrieve=[(phrase, 1, None, None) for _path, phrase in files])
+        pw.G.clear()
+        want = {phrase: path for path, phrase in files}
+        first = sum(1 for row in r.get("retrieve", {}).values()
+                    if _hits(row["result"]) and _hits(row["result"])[0]["metadata"]["path"] == want.get(row["query"]))
+        check(first == len(files), f"document_store: {fmt} marker phrases retrieved first {first}/{len(files)}")
+        fmt_out[fmt] = {"files": len(files), "parse_files_per_s": len(files) / fmt_parse_s, "marker_first": first}
+
+    query_rows = DS_QUERIES + 2 + DS_QA
+    out = {
+        "card": info["nvidia_smi"],
+        "files": DS_FILES, "subdirs": DS_SUBDIRS, "words_per_file": list(DS_WORDS),
+        "utf8_parse_files_per_s": DS_FILES / parse_s,
+        "chunks": len(chunks),
+        "tier": {k: tier.get(k) for k in ("backends", "hot_rows", "hot_bound", "cold_rows", "hot_device_bytes")},
+        "run_s": t_run1 - t_run0,
+        "ingest_s": t_ingest - t_run0,
+        "ingest_chunks_per_s": len(chunks) / (t_ingest - t_run0),
+        "query_rows": query_rows,
+        "query_s": t_run1 - t_ingest,
+        "query_rows_per_s": query_rows / (t_run1 - t_ingest),
+        "embed_launches": len(spans),
+        "embed_ingest_launches": n_ingest_launches,
+        "embed_buckets": _buckets(spans),
+        "attention_launches": launches,
+        "attention_launches_by_route": route_launches,
+        "attention_launches_expected": expected,
+        "self_hits": self_ok,
+        "glob_queries": glob_n,
+        "glob_hits_mean": float(np.mean(glob_hits)) if glob_hits else None,
+        "glob_hits_inside": glob_ok,
+        "statistics_file_count": stats.get("file_count"),
+        "inputs_listed": n_inputs,
+        "qa_prompts_with_k_texts_in_order": qa_ok,
+        "stream_files": DS_STREAM_FILES,
+        "stream_queries": len(s_queries),
+        "stream_equals_static": stream_same,
+        "stream_run_s": stream_s,
+        "formats": fmt_out,
+    }
+    emit("document_store", **out)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": route_launches, "metrics": out}
+
+
 def _kernel_entry(records: list[dict], dtype: str, route: str, what: str, launches: dict) -> dict:
     """One route of the attention kernel on the kernels line: its time at the
     embed shape, and its largest error over every checked case of its dtype
@@ -1221,10 +1763,12 @@ def main() -> int:
     pipe = phase_pipeline(info)
     tier = phase_tiered(info)
     phase_engine_kernels(info)
+    bert = phase_bert_path(info)
+    store = phase_document_store(info)
 
     launches = {
         "main_path": state["launches"], "f32_path": f32["launches"], "pipeline": pipe["launches"],
-        "tiered_pipeline": tier["launches"],
+        "tiered_pipeline": tier["launches"], "bert_path": bert["launches"], "document_store": store["launches"],
     }
     line = {"kernels": [
         _kernel_entry(kern, "bfloat16", "tensor_core", "bf16, tensor cores (mma.sync, cp.async)", launches),

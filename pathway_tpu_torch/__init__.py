@@ -13,17 +13,21 @@ Use it like the JAX package::
     pw.debug.compute_and_print(result)
 
 What is ported: the live-RAG loop's ops (``pathway_tpu_torch.ops``: the hash
-tokenizer, microbatch padding, the pre-LN sentence encoder with its
-hand-written Hopper attention kernel, the brute-force KNN index, the
+and WordPiece tokenizers, microbatch padding, the pre-LN sentence encoder and
+the exact BERT block of HuggingFace checkpoints (``from_pretrained``) with
+their hand-written Hopper attention kernel, the brute-force KNN index, the
 cross-encoder), the weight bridge from the JAX package's parameter trees
 (``pathway_tpu_torch.convert``), the dataflow engine and the Table API
-(``engine/``, ``internals/``), the Python connector and ``subscribe``, the
+(``engine/``, ``internals/``), the Python and file connectors (``io.fs``,
+``csv``, ``jsonlines``, ``plaintext``, ``null``) and ``subscribe``, the
 debug surface, the index family as dataflow operators (``stdlib.indexing``:
 brute-force KNN on the card, the tiered index with its hot shard on the card
 over a host IVF cold tier, IVF-flat, usearch, LSH, BM25 and hybrid), the
-fused device tier of chain fusion, and the local embedder and rerankers
-(``xpacks.llm``). The other planes raise
-``NotImplementedError("later slice: <plane>")`` where a call reaches them.
+fused device tier of chain fusion, and the LLM xpack's RAG surface
+(``xpacks.llm``: embedders, rerankers, chats, parsers, splitters,
+DocumentStore, question answering; not its REST servers). The other planes
+raise ``NotImplementedError("later slice: <plane>")`` where a call reaches
+them.
 
 Entry points that touch a model or an index run on the card unless the caller
 passes ``device="cpu"``. Importing the package loads no ``torch``: a UDF, an

@@ -19,7 +19,7 @@ from pathway_tpu_torch.engine import operators as ops
 from pathway_tpu_torch.engine.graph import Node
 from pathway_tpu_torch.internals import schema as schema_mod
 from pathway_tpu_torch.internals.keys import row_keys, sequential_keys
-from pathway_tpu_torch.internals.later_slice import interactive_only, later_slice
+from pathway_tpu_torch.internals.later_slice import arrival_order, later_slice
 from pathway_tpu_torch.internals.logical import LogicalNode
 from pathway_tpu_torch.internals.table import Table
 from pathway_tpu_torch.internals.universe import Universe
@@ -300,7 +300,7 @@ def read(
 ) -> Table:
     # service_class scopes the flow plane and event_time_column the metrics
     # plane's event-time watermark; neither plane is ported yet
-    interactive_only(service_class)
+    arrival_order(service_class)
     if event_time_column is not None:
         raise later_slice("metrics (event_time_column)")
     columns = schema.column_names()
@@ -365,7 +365,7 @@ def read_partitioned(
     """
     from pathway_tpu_torch.internals.logical import current_build
 
-    interactive_only(service_class)
+    arrival_order(service_class)
     columns = schema.column_names()
     np_dtypes = schema.np_dtypes()
 

@@ -24,7 +24,13 @@ embedder, the 4-layer reranker, 384-d f32 KNN over 4096 docs):
   and through ``exact_rescore`` over exactly those rows, every (query, row)
   pair (:func:`index_rows_check`; ``ops/knn.py`` also runs its score product
   in fixed 65,536-row tiles), and the untiled product against 4,096 and
-  65,536 rows (why the tiles).
+  65,536 rows (why the tiles);
+- the bert block in f32 (:func:`bert_check`): ``from_pretrained`` on a
+  random checkpoint at all-MiniLM-L6-v2's widths (``tools/bert_checkpoint``),
+  the first 8 of 1,024 WordPiece docs in an 8-row launch against the
+  1,024-row launch, and beside it every intermediate of the forward in call
+  order (each f32 product, LN and attention), so a difference is traced to
+  the first op that shows it.
 
 Each entry is ``[bit-identical, max |difference|]``. The run fails (exit 1)
 when an embedder, reranker or search entry is not bit-identical; the torch
@@ -107,9 +113,13 @@ def main() -> int:
     )
     del wide
     out.update(index_rows_check("cuda"))
+    from pathway_tpu_torch.tools.bert_checkpoint import synthetic_docs
+
+    bert, bert_vocab = bert_encoder("cuda")
+    out.update(bert_check(bert, synthetic_docs(bert_vocab, 1024)))
     failed = sorted(
         name for name, entry in out.items()
-        if name.startswith(("embed_", "rerank_", "knn_")) and not entry[0]
+        if name.startswith(("embed_", "rerank_", "knn_", "bert_embed_")) and not entry[0]
     )
     out["failed"] = failed
     print(json.dumps(out), flush=True)
@@ -152,6 +162,68 @@ def index_rows_check(
     return {
         f"knn_scores_{name}_vs_{base}": _same(scored[base], got)
         for name, got in scored.items() if name != base
+    }
+
+
+def bert_encoder(device, config: dict | None = None) -> tuple:
+    """(``from_pretrained`` on ``device`` of a random checkpoint at
+    ``config``'s widths, default all-MiniLM-L6-v2's, in f32 with max_len 128;
+    its synthetic vocabulary)."""
+    import tempfile
+
+    from pathway_tpu_torch.ops import encoder as E
+    from pathway_tpu_torch.tools import bert_checkpoint as C
+
+    config = config or C.MINILM_L6
+    vocab = C.synthetic_vocab(config["vocab_size"])
+    with tempfile.TemporaryDirectory() as tmp:
+        C.write_checkpoint(tmp, config, C.random_state_dict(config, seed=0), vocab)
+        return E.TorchSentenceEncoder.from_pretrained(tmp, max_len=128, device=device), vocab
+
+
+def bert_check(enc, docs: list[str], rows: int = 8) -> dict:
+    """The bert encoder ``enc``: the first ``rows`` of ``docs`` embedded in a
+    ``rows``-row launch and in one launch of all of ``docs``.
+    ``bert_embed_<rows>_rows_vs_<len(docs)>`` is ``[bit-identical, max
+    |difference|]``; ``bert_first_differing_op`` names the first intermediate
+    of the forward (in call order, over the docs' shared token positions)
+    whose bits differ between the launches, or None."""
+    from pathway_tpu_torch.ops import encoder as E
+
+    def traced(texts) -> tuple:
+        """(embeddings, [(op, output)] in call order, sequence length)."""
+        ids, _ = enc.tokenizer(texts)
+        calls: list = []
+        saved = {n: getattr(E, n) for n in ("_dot_f32", "_layer_norm_eps", "attention_short_flat")}
+
+        def wrap(name, fn):
+            def run(*args, **kwargs):
+                res = fn(*args, **kwargs)
+                calls.append((f"{len(calls)}:{name}", res[:rows].float().cpu().numpy()))
+                return res
+            return run
+
+        try:
+            for name, fn in saved.items():
+                setattr(E, name, wrap(name, fn))
+            emb = enc.encode_ids_device(ids)[:rows].cpu().numpy()
+        finally:
+            for name, fn in saved.items():
+                setattr(E, name, fn)
+        return emb, calls, ids.shape[1]
+
+    e_all, c_all, l_all = traced(docs)
+    e_few, c_few, l_few = traced(docs[:rows])
+    first = None
+    L = min(l_all, l_few)
+    for (name, a), (_n, b) in zip(c_all, c_few):
+        if not _same(a[:, :L], b[:, :L])[0]:
+            first = name
+            break
+    return {
+        f"bert_embed_{rows}_rows_vs_{len(docs)}": _same(e_all, e_few),
+        "bert_first_differing_op": first,
+        "bert_seq_len": [l_all, l_few],
     }
 
 

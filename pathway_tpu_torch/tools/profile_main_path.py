@@ -1,12 +1,14 @@
 """Where the device time of the port's main path goes, on one CUDA card.
 
-    python -m pathway_tpu_torch.tools.profile_main_path [ops|pipeline|all]
+    python -m pathway_tpu_torch.tools.profile_main_path [ops|pipeline|document_store|all]
 
 ``ops`` (the default, and part of ``all``) traces, with ``torch.profiler``,
 one ingest batch (1024 bench docs: encode → ``add_batch_device`` → flush) and
 one RAG query (encode → search k=10 on an index of 8192 docs → rerank the 10
-hits), calling the ops directly, and one ingest batch of ``chip_smoke.py``'s
-``f32_path`` (the same encoder in f32: f32 GEMMs, the f32 attention route).
+hits), calling the ops directly, one ingest batch of ``chip_smoke.py``'s
+``f32_path`` (the same encoder in f32: f32 GEMMs, the f32 attention route)
+and one of its ``bert_path`` (1024 WordPiece docs through the bert block of
+a random checkpoint at all-MiniLM-L6-v2's widths, f32).
 
 ``pipeline`` traces the same loop run by the engine
 (``pathway_tpu_torch/tools/rag_pipeline.py``, the pipeline of
@@ -18,7 +20,15 @@ search → flatten → rerank of 640 pairs). Besides the device time by kernel,
 it gives the tick's host time (wall − device time) split into the engine's
 phases (``PATHWAY_ENGINE_PHASES``) and the rest (Python between launches).
 
-Both run at the bench's widths with random seeded weights. Each window prints
+``document_store`` traces the DocumentStore of ``chip_smoke.py``'s
+document_store phase (``minilm`` embedder, ``TokenCountSplitter(50, 200)``,
+the default ``TieredKnnFactory`` on the card), fed 1,024 of its files as
+rows (bytes and metadata) in ticks of 128 files, then ``retrieve_query``
+rows (k = 6, each a chunk's text) in ticks of 64, flush deadline 0: one
+ingest tick (parse → split → embed → index) and one query tick, each with
+the engine phase split as for ``pipeline``.
+
+All run at the bench's widths with random seeded weights. Each window prints
 one JSON line: wall time, summed kernel time, the device's idle share
 (1 − device time / wall time; one stream, so kernels do not overlap), the
 attention kernel's time and the top kernels by device time. The profiler's
@@ -86,12 +96,9 @@ def profile_pipeline(ingest_tick: int = 5, query_tick: int = 10) -> None:
     import os
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.debug import _capture
-    from pathway_tpu_torch.engine.graph import Scheduler
-    from pathway_tpu_torch.observability import engine_phases
     from pathway_tpu_torch.ops.encoder import EncoderConfig
     from pathway_tpu_torch.stdlib.indexing import BruteForceKnnFactory
     from pathway_tpu_torch.tools import rag_pipeline
@@ -108,32 +115,15 @@ def profile_pipeline(ingest_tick: int = 5, query_tick: int = 10) -> None:
     rr._model.score_pairs([(docs[0], d) for d in docs[:640]])
     torch.cuda.synchronize()
     windows = {ingest_tick: "pipeline_ingest_tick_512", query_tick: "pipeline_query_tick_64"}
-    plain_run_tick = Scheduler.run_tick
-
-    def run_tick(self, time_):
-        name = windows.get(time_)
-        if name is None:
-            return plain_run_tick(self, time_)
-        torch.cuda.synchronize()
-        engine_phases.reset()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            plain_run_tick(self, time_)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        _report(name, prof, wall_ms, engine_phases_ms=engine_phases.snapshot())
-
     # docs in 512-row ticks (one ingest flush each), then 64-row query ticks
     pw.G.clear()
     table = rag_pipeline.build(
         pw, embedder=emb, index_factory=BruteForceKnnFactory(embedder=emb), reranker=rr,
         docs=docs, queries=docs[:256], tick_rows=512, query_tick_rows=64, k=10,
     )
-    Scheduler.run_tick = run_tick
     try:
-        _capture(table)
+        _profile_ticks(windows, lambda: _capture(table))
     finally:
-        Scheduler.run_tick = plain_run_tick
         pw.G.clear()
 
 
@@ -173,9 +163,99 @@ def profile_ops() -> None:
         index.add_batch_device(range(1024), embs)
         index._flush()
 
+    from pathway_tpu_torch.tools.batch_invariance import bert_encoder
+    from pathway_tpu_torch.tools.bert_checkpoint import synthetic_docs
+
+    bert, vocab = bert_encoder("cuda")
+    bert_ids, _ = bert.tokenizer(synthetic_docs(vocab, 1024))
+
+    def ingest_bert():
+        embs = bert.encode_ids_device(bert_ids)
+        index.add_batch_device(range(1024), embs)
+        index._flush()
+
     _window("ingest_batch_1024", ingest)
     _window("rag_query_rerank", query)
     _window("f32_ingest_batch_1024", ingest_f32)
+    _window("bert_ingest_batch_1024", ingest_bert)
+
+
+def _profile_ticks(windows: dict, capture) -> None:
+    """Run ``capture()`` with the engine ticks named in ``windows`` (tick →
+    window name) under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathway_tpu_torch.engine.graph import Scheduler
+    from pathway_tpu_torch.observability import engine_phases
+
+    plain_run_tick = Scheduler.run_tick
+
+    def run_tick(self, time_):
+        name = windows.get(time_)
+        if name is None:
+            return plain_run_tick(self, time_)
+        torch.cuda.synchronize()
+        engine_phases.reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            plain_run_tick(self, time_)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        _report(name, prof, wall_ms, engine_phases_ms=engine_phases.snapshot())
+
+    Scheduler.run_tick = run_tick
+    try:
+        capture()
+    finally:
+        Scheduler.run_tick = plain_run_tick
+
+
+def profile_document_store(files: int = 1024, file_tick: int = 128, ingest_tick: int = 4, query_tick: int = 10) -> None:
+    """One ingest tick and one query tick of the DocumentStore pipeline.
+    Ticks 0 .. files/file_tick - 1 each bring ``file_tick`` files; later
+    ticks each bring 64 queries."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.debug import _capture
+    from pathway_tpu_torch.xpacks.llm import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+
+    os.environ.update(PATHWAY_MICROBATCH="auto", PATHWAY_MICROBATCH_FLUSH_MS="0", PATHWAY_ENGINE_PHASES="on")
+    rng = np.random.default_rng(0)
+    vocab = [f"word{i}" for i in range(5000)]
+    texts = [" ".join(rng.choice(vocab, size=int(rng.integers(600, 1001)))) for _ in range(files)]
+    splitter = TokenCountSplitter(min_tokens=50, max_tokens=200)
+    chunks = [c for t in texts for c, _m in splitter.func(t)]
+    emb = SentenceTransformerEmbedder("minilm", seed=0)
+    emb._encoder.encode_texts(chunks[:512])  # warm: allocator, cuBLAS
+    torch.cuda.synchronize()
+    pw.G.clear()
+    docs = pw.debug.table_from_rows(
+        pw.schema_from_types(data=bytes, _metadata=dict),
+        [(t.encode(), {"path": f"/corpus/d{i % 64:02d}/f{i:05d}.txt"}, i // file_tick, 1)
+         for i, t in enumerate(texts)],
+        is_stream=True,
+    )
+    store = DocumentStore(docs, embedder=emb, splitter=splitter)
+    first = -(-files // file_tick)
+    picks = rng.choice(len(chunks), size=256, replace=False)
+    queries = pw.debug.table_from_rows(
+        DocumentStore.RetrieveQuerySchema,
+        [(chunks[c], 6, None, None, first + j // 64, 1) for j, c in enumerate(picks)],
+        is_stream=True,
+    )
+    table = store.retrieve_query(queries)
+    windows = {ingest_tick: f"document_store_ingest_tick_{file_tick}_files", query_tick: "document_store_query_tick_64"}
+    try:
+        _profile_ticks(windows, lambda: _capture(table))
+    finally:
+        pw.G.clear()
 
 
 def main() -> int:
@@ -185,13 +265,15 @@ def main() -> int:
         print("profile_main_path: CUDA is not available", file=sys.stderr)
         return 2
     mode = sys.argv[1] if len(sys.argv) > 1 else "ops"
-    if mode not in ("ops", "pipeline", "all"):
-        print(f"profile_main_path: unknown mode {mode!r} (ops, pipeline, all)", file=sys.stderr)
+    if mode not in ("ops", "pipeline", "document_store", "all"):
+        print(f"profile_main_path: unknown mode {mode!r} (ops, pipeline, document_store, all)", file=sys.stderr)
         return 2
     if mode in ("ops", "all"):
         profile_ops()
     if mode in ("pipeline", "all"):
         profile_pipeline()
+    if mode in ("document_store", "all"):
+        profile_document_store()
     return 0
 
 

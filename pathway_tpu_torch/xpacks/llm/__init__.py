@@ -1,9 +1,34 @@
-"""LLM xpack (reference ``python/pathway/xpacks/llm/``): the local embedder and
-the rerankers of the live-RAG loop, running on the port's encoder and
-cross-encoder. Chats, parsers, splitters, the DocumentStore and the servers
-are a later slice.
+"""LLM xpack (reference ``python/pathway/xpacks/llm/``): embedders, rerankers,
+chats, parsers, splitters, DocumentStore, vector store, Adaptive RAG.
+
+The local embedder and cross-encoder run as batched PyTorch models
+(``pathway_tpu_torch/ops/``, with the hand-written Hopper attention kernel),
+not per-row calls. The REST servers (``servers``) are a later slice.
 """
 
-from pathway_tpu_torch.xpacks.llm import embedders, rerankers
+from pathway_tpu_torch.xpacks.llm import (
+    embedders,
+    llms,
+    mocks,
+    parsers,
+    prompts,
+    question_answering,
+    rerankers,
+    splitters,
+    vector_store,
+)
+from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore, SlidesDocumentStore
 
-__all__ = ["embedders", "rerankers"]
+__all__ = [
+    "DocumentStore",
+    "SlidesDocumentStore",
+    "embedders",
+    "llms",
+    "mocks",
+    "parsers",
+    "prompts",
+    "question_answering",
+    "rerankers",
+    "splitters",
+    "vector_store",
+]

@@ -7,10 +7,13 @@ attention kernel) behind a **batched** UDF: the engine hands the whole delta
 block's texts to one forward pass (``BatchApplyExpression``), padded to
 power-of-two buckets by the cross-tick microbatcher.
 
+Remote-API embedders (OpenAI, LiteLLM, Gemini) keep the async-UDF path with
+capacity/retry wrappers; they gate on their client libraries at construction
+and take an injected transport (``client=`` / ``aembedding=``) in its place.
+
 Carried from ``pathway_tpu/xpacks/llm/embedders.py``. Its pod-wide shared memo
 tier (``drain_shared_out`` and its callers) belongs to the fabric plane and the
 memo's metrics exposition to the monitoring plane; both wait for those planes.
-The remote-API embedders (OpenAI, LiteLLM, Gemini) are a later slice.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from typing import Any
 
 import numpy as np
 
-from pathway_tpu_torch.internals.udfs import UDF
+from pathway_tpu_torch.internals.udfs import UDF, async_executor
+from pathway_tpu_torch.xpacks.llm._utils import require
 
 
 class BaseEmbedder(UDF):
@@ -151,3 +155,97 @@ class SentenceTransformerEmbedder(BaseEmbedder):
 
     def get_embedding_dimension(self, **kwargs) -> int:
         return self._encoder.dimension
+
+
+class OpenAIEmbedder(BaseEmbedder):
+    """Remote OpenAI embeddings (reference ``embedders.py:88``); async UDF.
+    ``client=`` injects an OpenAI-shaped transport (the wrapper's
+    request/parse/retry plumbing runs against canned responses in tests)."""
+
+    def __init__(
+        self,
+        model: str = "text-embedding-3-small",
+        capacity: int | None = None,
+        retry_strategy: Any = None,
+        cache_strategy: Any = None,
+        client: Any = None,
+        **openai_kwargs,
+    ):
+        if client is None:
+            require("openai", "OpenAIEmbedder")
+            import openai
+
+            client = openai.AsyncOpenAI(
+                **{k: v for k, v in openai_kwargs.items() if k in ("api_key", "base_url")}
+            )
+        self.model = model
+        extra = {k: v for k, v in openai_kwargs.items() if k not in ("api_key", "base_url")}
+
+        async def embed(text: str) -> np.ndarray:
+            r = await client.embeddings.create(input=[text or "."], model=model, **extra)
+            return np.asarray(r.data[0].embedding, dtype=np.float32)
+
+        super().__init__(
+            _fn=embed,
+            return_type=np.ndarray,
+            executor=async_executor(capacity=capacity, retry_strategy=retry_strategy),
+            cache_strategy=cache_strategy,
+        )
+
+    def get_embedding_dimension(self, **kwargs) -> int:
+        return {"text-embedding-3-small": 1536, "text-embedding-3-large": 3072,
+                "text-embedding-ada-002": 1536}.get(self.model, 1536)
+
+
+class LiteLLMEmbedder(BaseEmbedder):
+    def __init__(
+        self,
+        model: str,
+        capacity: int | None = None,
+        retry_strategy: Any = None,
+        cache_strategy: Any = None,
+        aembedding: Any = None,
+        **kwargs,
+    ):
+        if aembedding is None:
+            require("litellm", "LiteLLMEmbedder")
+            import litellm
+
+            aembedding = litellm.aembedding
+
+        async def embed(text: str) -> np.ndarray:
+            r = await aembedding(model=model, input=[text or "."], **kwargs)
+            return np.asarray(r.data[0]["embedding"], dtype=np.float32)
+
+        super().__init__(
+            _fn=embed,
+            return_type=np.ndarray,
+            executor=async_executor(capacity=capacity, retry_strategy=retry_strategy),
+            cache_strategy=cache_strategy,
+        )
+
+
+class GeminiEmbedder(BaseEmbedder):
+    def __init__(
+        self,
+        model: str = "models/embedding-001",
+        capacity: int | None = None,
+        retry_strategy: Any = None,
+        cache_strategy: Any = None,
+        client: Any = None,
+        **kwargs,
+    ):
+        if client is None:
+            require("google.generativeai", "GeminiEmbedder")
+            import google.generativeai as client  # noqa: F811 — module as client
+
+        async def embed(text: str) -> np.ndarray:
+            r = client.embed_content(model=model, content=text or ".", **kwargs)
+            return np.asarray(r["embedding"], dtype=np.float32)
+
+        super().__init__(
+            _fn=embed,
+            return_type=np.ndarray,
+            executor=async_executor(capacity=capacity, retry_strategy=retry_strategy),
+            cache_strategy=cache_strategy,
+        )

@@ -3,11 +3,11 @@
 ``CrossEncoderReranker``: the reference runs one torch
 ``model.predict([[query, doc]])`` per row; here the port's cross-encoder
 (``pathway_tpu_torch/ops/reranker.py``, with the hand-written Hopper attention
-kernel) sits behind a batched UDF. ``EncoderReranker`` (bi-encoder dot
-product) keeps the reference semantics.
+kernel) sits behind a batched UDF. ``LLMReranker`` (LLM-as-judge 1–5
+scoring), ``EncoderReranker`` (bi-encoder dot product) and
+``rerank_topk_filter`` keep the reference semantics.
 
-Carried from ``pathway_tpu/xpacks/llm/rerankers.py``; ``LLMReranker`` and
-``rerank_topk_filter`` are a later slice, with the LLM wiring.
+Carried from ``pathway_tpu/xpacks/llm/rerankers.py``.
 """
 
 from __future__ import annotations
@@ -80,3 +80,57 @@ class EncoderReranker(UDF):
 
         kwargs.setdefault("deterministic", True)  # fixed weights, pure forward
         super().__init__(_fn=score_batch, return_type=float, **kwargs)
+
+
+class LLMReranker(UDF):
+    """LLM-as-judge relevance scoring 1-5 (reference ``rerankers.py:59``)."""
+
+    PROMPT = (
+        "Given a query and a document, rate on an integer scale of 1 to 5 how "
+        "relevant the document is to the query. Answer with ONLY the number.\n"
+        "Query: {query}\nDocument: {doc}\nRating:"
+    )
+
+    def __init__(self, llm, *, retry_strategy=None, **kwargs):
+        import asyncio
+        import re
+
+        from pathway_tpu_torch.internals.udfs import AsyncExecutor
+
+        self.llm = llm
+        # the wrapped callable keeps the chat's capacity/timeout/cache wrappers
+        chat = llm._callable()
+        prompt_tmpl = self.PROMPT
+        if retry_strategy is not None and asyncio.iscoroutinefunction(chat):
+            chat = AsyncExecutor(retry_strategy=retry_strategy).wrap(chat)
+
+        def parse_rating(answer) -> float:
+            m = re.search(r"[1-5]", str(answer))
+            if m is None:
+                raise ValueError(f"reranker LLM returned no 1-5 rating: {answer!r}")
+            return float(m.group())
+
+        if asyncio.iscoroutinefunction(chat):
+
+            async def score(doc: str, query: str) -> float:
+                answer = await chat(
+                    [{"role": "user", "content": prompt_tmpl.format(query=query, doc=doc)}]
+                )
+                return parse_rating(answer)
+
+        else:
+
+            def score(doc: str, query: str) -> float:
+                answer = chat(
+                    [{"role": "user", "content": prompt_tmpl.format(query=query, doc=doc)}]
+                )
+                return parse_rating(answer)
+
+        super().__init__(_fn=score, return_type=float, **kwargs)
+
+
+def rerank_topk_filter(docs: Any, scores: Any, k: int = 5):
+    """Keep the top-k docs by score (reference ``rerankers.py`` util). Returns
+    (docs_tuple, scores_tuple)."""
+    order = sorted(range(len(scores)), key=lambda i: -scores[i])[:k]
+    return tuple(docs[i] for i in order), tuple(scores[i] for i in order)

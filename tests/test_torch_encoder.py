@@ -183,8 +183,12 @@ def test_params_from_numpy_takes_bf16_and_casts_matrices_only():
 def test_flops_and_bert_arch():
     for L in (16, 128):
         assert TE.encoder_flops_per_doc(TE.EncoderConfig(), L) == E.encoder_flops_per_doc(E.EncoderConfig(), L)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TE.TorchSentenceEncoder(TE.EncoderConfig(**SMALL, arch="bert"), device="cpu")
+    # arch="bert" builds (the pre-LN tree, as in the JAX package, when no
+    # params are given); a bert tree comes from from_pretrained or params=
+    # (tests/test_torch_encoder_pretrained.py)
+    enc = TE.TorchSentenceEncoder(TE.EncoderConfig(**SMALL, arch="bert"), device="cpu")
+    jenc = E.JaxSentenceEncoder(E.EncoderConfig(**SMALL, arch="bert"))
+    assert enc.cfg.arch == "bert" and enc.param_count() == jenc.param_count()
 
 
 def test_pool_keeps_the_reference_pooling_in_a_fixed_order():
