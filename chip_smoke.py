@@ -28,7 +28,10 @@ printing one JSON line:
 6. f32_path: the main path's encoder in f32 (f32 weights and activations,
    so every attention call takes the f32 route): the 8192 docs embedded in
    batches of 1024 and indexed, with its checks (the first 64 embeddings
-   against the port's CPU path, each of them finding its own doc first);
+   against the port's CPU path, each of them finding its own doc first, and
+   the first 8 docs embedded in an 8-row launch bit-identical to the same
+   docs in a 1,024-row launch, ``tools/batch_invariance.py``'s pre-LN f32
+   entry);
 7. pipeline: the same loop written against ``import pathway_tpu_torch as pw``
    and run by the engine (``pw.debug`` streams → ``SentenceTransformerEmbedder``
    through the cross-tick microbatcher → ``BruteForceKnnFactory`` index →
@@ -74,8 +77,20 @@ printing one JSON line:
    in order); a 1,024-file streaming read whose answers equal a static
    read's; 64 files each of PDF, DOCX, HTML and Markdown through their
    parsers, each marker phrase retrieved first;
-12. the kernels line, with each kernel's launches during phases 4, 6, 7,
-   8's pipeline, 10 and 11.
+12. rest_serving: phase 11's files served over HTTP by ``QARestServer``
+   (``pw.io.http`` on the port's own HTTP/1.1 server) over the same
+   ``DocumentStore`` and ``BaseRAGQuestionAnswerer``: ingest until
+   ``/v1/statistics`` counts every file and both index nodes hold every
+   chunk; phase 11's 1,024 retrieve payloads as JSON POSTs from 1 and from
+   32 concurrent keep-alive clients, each answer equal to phase 11's
+   in-process answer (texts, metadata, score bits); 256 ``/v2/answer``
+   prompts holding their texts in order; ``/v1/inputs``,
+   ``/v2/list_documents``, ``/_schema``, ``/healthz``, ``/readyz``; a shed
+   leg (in-flight budget 8, 64 concurrent requests: 200s + 429s = 64 and
+   the route's counters agree) and a lifecycle leg (requests pending at
+   ``stop()`` answered 503, a restart on the same port);
+13. the kernels line, with each kernel's launches during phases 4, 6, 7,
+   8's pipeline, 10, 11 and 12.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without it. TF32 is off for every matmul (``allow_tf32 = False``), so the f32
@@ -134,6 +149,12 @@ DS_K = 6
 DS_STREAM_FILES = 1024
 DS_STREAM_QUERIES = 128
 DS_FORMAT_FILES = 64  # of each of PDF, DOCX, HTML and Markdown
+#: the rest_serving phase: document_store's corpus and queries over HTTP
+RS_CLIENTS = 32
+RS_SHED_INFLIGHT = 8
+RS_SHED_REQUESTS = 64
+RS_SHED_SLEEP_S = 0.05  # host seconds per answered row of the shed route
+RS_PENDING = 8
 #: scratch files of the two phases (``build/`` is not committed)
 SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
@@ -649,6 +670,11 @@ def phase_f32_path(state: dict, info: dict) -> dict:
     self_hits = [h[0][0] if h else None for h in index.search(e_dev, k=10)]
     self_ok = sum(1 for i, key in enumerate(self_hits) if key == i)
     check(self_ok == 64, f"f32 path: self-retrieval at rank 1 {self_ok}/64")
+    from pathway_tpu_torch.tools.batch_invariance import preln_f32_check
+
+    invariance = preln_f32_check(enc, synth_docs(INGEST_BATCH))
+    check(invariance[f"preln_f32_embed_8_rows_vs_{INGEST_BATCH}"][0],
+          f"f32 path: a doc in an 8-row launch differs from the {INGEST_BATCH}-row launch ({invariance})")
     out = {
         "card": info["nvidia_smi"],
         "dtype": "float32",
@@ -663,6 +689,7 @@ def phase_f32_path(state: dict, info: dict) -> dict:
         "card_vs_cpu_embedding_max_abs_err": emb_err,
         "tolerance_embedding": 1e-4,
         "self_retrieval_rank1": self_ok,
+        "batch_invariance": invariance,
     }
     emit("f32_path", **out)
     del enc, cpu, index
@@ -1701,8 +1728,416 @@ def phase_document_store(info: dict) -> dict:
         "formats": fmt_out,
     }
     emit("document_store", **out)
-    shutil.rmtree(root, ignore_errors=True)
+    # the corpus stays on disk for phase rest_serving, which removes it
+    answers = {(r["query"], r["filepath_globpattern"]): _hits(r["result"]) for r in res}
+    return {"launches": route_launches, "metrics": out, "root": root, "corpus": corpus, "queries": queries,
+            "prompts": prompts, "answers": answers, "chunks": len(chunks), "emb": emb, "launch_log": launch_log,
+            "splitter": splitter}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _wait_listening(port: int, timeout: float = 60.0) -> None:
+    import socket
+
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1.0).close()
+            return
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.02)
+
+
+class _Http:
+    """One keep-alive ``http.client`` connection to the server on ``port``."""
+
+    def __init__(self, port: int):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+
+    def call(self, method: str, path: str, payload=None) -> tuple:
+        """(status, the JSON body parsed, seconds on the host clock)."""
+        body = None if payload is None else json.dumps(payload).encode()
+        t0 = time.perf_counter()
+        self.conn.request(method, path, body=body, headers={"Content-Type": "application/json"} if body else {})
+        resp = self.conn.getresponse()
+        data = resp.read()
+        took = time.perf_counter() - t0
+        if resp.getheader("Connection") == "close":
+            self.conn.close()
+        try:
+            return resp.status, json.loads(data), took
+        except ValueError:
+            return resp.status, data, took
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def _fan_out(port: int, jobs: list, clients: int) -> list:
+    """``jobs`` ((method, path, payload) each) from ``clients`` threads, each
+    on its own keep-alive connection and sending its share in turn (job i
+    from client i mod clients); the answers in job order."""
+    import threading
+
+    results: list = [None] * len(jobs)
+    start = threading.Barrier(clients)
+
+    def client(c: int) -> None:
+        http = _Http(port)
+        try:
+            start.wait(timeout=60)
+            for i in range(c, len(jobs), clients):
+                results[i] = http.call(*jobs[i])
+        except Exception as e:  # reported by the gate as a missing answer
+            print(f"rest_serving: client {c}: {e!r}", file=sys.stderr, flush=True)
+        finally:
+            http.close()
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return results
+
+
+def _route_counts(state) -> tuple:
+    return list(state.latency.snapshot()["counts"]), state.batches_total, state.batched_rows_total
+
+
+def _server_leg(before: tuple, after: tuple) -> dict:
+    """The route's server-side numbers over one leg: arrival-to-response
+    quantiles (the histogram's bucket bounds) and rows per resolution pass."""
+    from pathway_tpu_torch.observability.metrics import Histogram
+
+    counts = [a - b for a, b in zip(after[0], before[0])]
+    snap = {"counts": counts, "count": sum(counts)}
+    batches, rows = after[1] - before[1], after[2] - before[2]
+    return {
+        "latency_p50_s": Histogram.quantile(snap, 0.5),
+        "latency_p99_s": Histogram.quantile(snap, 0.99),
+        "mean_batch": rows / batches if batches else None,
+        "batches": batches,
+    }
+
+
+def _client_leg(answers: list, wall_s: float) -> dict:
+    took = [a[2] for a in answers if a is not None]
+    return {
+        "requests": len(answers),
+        "wall_s": wall_s,
+        "requests_per_s": len(answers) / wall_s,
+        "client_p50_ms": float(np.percentile(took, 50)) * 1e3 if took else None,
+        "client_p99_ms": float(np.percentile(took, 99)) * 1e3 if took else None,
+    }
+
+
+def _comparable(hits) -> str:
+    """A retrieve answer as JSON text, without the fs connector's ``seen_at``
+    (the wall-clock second the file was read, which differs between runs);
+    floats print as their shortest repr, so equal text is equal bits."""
+    from pathway_tpu_torch.io.http._server import _jsonable
+
+    return json.dumps([
+        {**h, "metadata": {k: v for k, v in h["metadata"].items() if k != "seen_at"}}
+        for h in _jsonable(list(hits))
+    ])
+
+
+def _first_difference(got, want) -> str:
+    """Where a REST answer first departs from the in-process one."""
+    if not isinstance(got, list) or want is None:
+        return f"answer {str(got)[:200]!r}, in-process {str(want)[:200]!r}"
+    got, want = json.loads(_comparable(got)), json.loads(_comparable(want))
+    if len(got) != len(want):
+        return f"{len(got)} hits, in-process {len(want)}"
+    for i, (g, w) in enumerate(zip(got, want)):
+        for field in sorted(set(g) | set(w)):
+            if g.get(field) != w.get(field):
+                return f"hit {i} {field}: {str(g.get(field))[:120]!r} != in-process {str(w.get(field))[:120]!r}"
+    return "equal"
+
+
+def _diagnose_embed(emb, texts: list[str], others: list[str]) -> list[dict]:
+    """For each of ``texts``: its token count, and whether the embedder gives
+    it the same bits in an 8-row launch (the microbatcher's smallest bucket,
+    pad rows repeating it) as at the head of a 512-row launch of ``others``,
+    with the first traced op that differs."""
+    from pathway_tpu_torch.tools.batch_invariance import PRELN_OPS, _launch_check
+
+    enc = emb._encoder
+    out = []
+    for t in texts:
+        batch = [t] + [o for o in others if o != t][:511]
+        got = _launch_check(enc, batch, [t] * 8, 1, "d", PRELN_OPS)
+        out.append({"tokens": int((enc.tokenizer([t])[0] != 0).sum()), "same_bits": got[f"d_embed_1_rows_vs_{len(batch)}"],
+                    "first_differing_op": got["d_first_differing_op"], "seq_len": got["d_seq_len"]})
+    return out
+
+
+def _stop_run(run, timeout: float = 120.0) -> None:
+    import pathway_tpu_torch as pw
+
+    rt = pw.internals.run.current_runtime()
+    if rt is not None:
+        rt.request_stop()
+    run.join(timeout=timeout)
+    check(not run.is_alive(), "rest_serving: a server's pw.run did not stop")
+
+
+def phase_rest_serving(info: dict, ds: dict) -> dict:
+    """The live-RAG store over HTTP: phase document_store's DS_FILES files
+    (still on disk) served by ``QARestServer`` over ``DocumentStore`` (the
+    ``minilm`` embedder, the default ``TieredKnnFactory``) and
+    ``BaseRAGQuestionAnswerer(FakeChatModel())`` on 127.0.0.1. Waits for
+    ingest (``/v1/statistics`` reports every file, and both index nodes hold
+    every chunk); sends phase document_store's DS_QUERIES retrieve payloads
+    as JSON POSTs from 1 client and from RS_CLIENTS concurrent clients over
+    keep-alive connections, each answer held against that phase's in-process
+    answer (texts, metadata, score bits); DS_QA ``/v2/answer`` requests, each
+    prompt holding its DS_K texts in order; ``/v1/inputs``,
+    ``/v2/list_documents``, ``/_schema``, ``/healthz`` and ``/readyz``. Then,
+    on the same port, a shed leg (one route, ``PATHWAY_SERVE_MAX_INFLIGHT`` =
+    RS_SHED_INFLIGHT, RS_SHED_REQUESTS concurrent requests: 429s + 200s
+    equal the requests and the route's counters) and a lifecycle leg
+    (RS_PENDING requests pending at ``stop()`` each get 503, then a restart
+    on the same port answers)."""
+    import gc
+    import shutil
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.ops import attention_kernel as A
+    from pathway_tpu_torch.stdlib.indexing import tiered
+    from pathway_tpu_torch.stdlib.indexing.retrievers import TieredKnnFactory
+    from pathway_tpu_torch.xpacks.llm import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.mocks import FakeChatModel
+    from pathway_tpu_torch.xpacks.llm.question_answering import BaseRAGQuestionAnswerer
+
+    emb, launch_log = ds["emb"], ds["launch_log"]
+    port = _free_port()
+    pw.G.clear()
+    gc.collect()
+    with tiered._registry_lock:
+        earlier = {id(b) for b in tiered._live_tiered}
+
+    def new_index_rows() -> int:
+        with tiered._registry_lock:
+            live = [b for b in tiered._live_tiered if id(b) not in earlier]
+        return sum(b.stats()["hot_rows"] + b.stats()["cold_rows"] for b in live)
+
+    out: dict = {"card": info["nvidia_smi"], "files": DS_FILES, "chunks": ds["chunks"]}
+    diagnose: dict = {}  # leg -> texts whose answer differed, embedded again once the counts are read
+    try:
+        # --- the QA server: counts from 0 -------------------------------------
+        A.LAUNCHES = 0
+        A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
+        launch_log.spans.clear()
+        launch_log.texts.clear()
+        factory = None if DEVICE == "cuda" else TieredKnnFactory(embedder=emb, device=DEVICE)
+        store = DocumentStore(
+            pw.io.fs.read(ds["corpus"], format="binary", mode="static", with_metadata=True),
+            retriever_factory=factory, embedder=emb, splitter=ds["splitter"],
+        )
+        rag = BaseRAGQuestionAnswerer(FakeChatModel(), store, search_topk=DS_K)
+        rag.build_server("127.0.0.1", port)
+        routes = {st.route: st for st in rag.server.webserver._route_states()}
+        t0 = time.perf_counter()
+        run = rag.run_server(threaded=True)
+        try:
+            _wait_listening(port)
+            http = _Http(port)
+            files_s = indexed_s = None
+            deadline = time.monotonic() + 900
+            while time.monotonic() < deadline and files_s is None:
+                status, stats, _ = http.call("POST", "/v1/statistics", {})
+                if status == 200 and stats.get("file_count") == DS_FILES:
+                    files_s = time.perf_counter() - t0
+                else:
+                    time.sleep(0.05)
+            # /v1/retrieve and /v2/answer each query their own index node
+            while time.monotonic() < deadline and indexed_s is None:
+                if new_index_rows() >= 2 * ds["chunks"]:
+                    indexed_s = time.perf_counter() - t0
+                else:
+                    time.sleep(0.02)
+            check(files_s is not None and indexed_s is not None,
+                  f"rest_serving: ingest never finished (files at {files_s}, index rows {new_index_rows()})")
+            check(new_index_rows() == 2 * ds["chunks"],
+                  f"rest_serving: the index nodes hold {new_index_rows()} rows, expected 2 x {ds['chunks']}")
+            out.update(ingest_files_s=files_s, ingest_s=indexed_s,
+                       ingest_chunks_per_s=ds["chunks"] / indexed_s if indexed_s else None)
+
+            # retrieve: the document_store phase's payloads, 1 then RS_CLIENTS clients
+            jobs = [("POST", "/v1/retrieve", {"query": q, "k": k, "metadata_filter": m, "filepath_globpattern": g})
+                    for q, k, m, g in ds["queries"]]
+            want = {key: _comparable(hits) for key, hits in ds["answers"].items()}
+            retrieve = routes["/v1/retrieve"]
+            for clients in (1, RS_CLIENTS):
+                before = _route_counts(retrieve)
+                t1 = time.perf_counter()
+                got = _fan_out(port, jobs, clients)
+                wall = time.perf_counter() - t1
+                differing = [
+                    i for i, ((_m, _p, body), ans) in enumerate(zip(jobs, got))
+                    if ans is None or ans[0] != 200
+                    or _comparable(ans[1]) != want.get((body["query"], body["filepath_globpattern"]))
+                ]
+                same = len(jobs) - len(differing)
+                if differing:
+                    body, ans = jobs[differing[0]][2], got[differing[0]]
+                    print("rest_serving: first differing retrieve answer:",
+                          _first_difference(ans[1] if ans else None,
+                                            ds["answers"].get((body["query"], body["filepath_globpattern"]))),
+                          file=sys.stderr, flush=True)
+                    diagnose[f"retrieve_{clients}_clients_diagnosis"] = [jobs[i][2]["query"] for i in differing[:4]]
+                check(same == len(jobs), f"rest_serving: {same}/{len(jobs)} retrieve answers at {clients} "
+                      "client(s) equal the in-process answers")
+                out[f"retrieve_{clients}_clients"] = {
+                    **_client_leg(got, wall), "equal_to_in_process": same,
+                    "server": _server_leg(before, _route_counts(retrieve)),
+                }
+
+            # answer: each prompt holds its DS_K retrieved texts in order
+            answer = routes["/v2/answer"]
+            before = _route_counts(answer)
+            t1 = time.perf_counter()
+            got = _fan_out(port, [("POST", "/v2/answer", {"prompt": p}) for p in ds["prompts"]], RS_CLIENTS)
+            wall = time.perf_counter() - t1
+            in_order = 0
+            for p, ans in zip(ds["prompts"], got):
+                texts = [h["text"] for h in ds["answers"][(p, None)]]
+                pos = [ans[1].find(t) for t in texts] if ans is not None and ans[0] == 200 else [-1]
+                in_order += len(texts) == DS_K and min(pos) >= 0 and pos == sorted(pos)
+            check(in_order == len(ds["prompts"]),
+                  f"rest_serving: {in_order}/{len(ds['prompts'])} answers hold their {DS_K} texts in order")
+            out["answer"] = {**_client_leg(got, wall), "prompts_with_k_texts_in_order": in_order,
+                             "server": _server_leg(before, _route_counts(answer))}
+
+            status_i, inputs, _ = http.call("POST", "/v1/inputs", {})
+            status_l, listed, _ = http.call("POST", "/v2/list_documents", {})
+            status_s, spec, _ = http.call("GET", "/_schema")
+            health = [http.call("GET", p)[:2] for p in ("/healthz", "/readyz")]
+            http.close()
+            n_inputs = len(inputs) if status_i == 200 else None
+            n_listed = len(listed) if status_l == 200 else None
+            check(n_inputs == DS_FILES and n_listed == DS_FILES,
+                  f"rest_serving: /v1/inputs listed {n_inputs}, /v2/list_documents {n_listed} files")
+            check(status_s == 200 and set(spec.get("paths", {})) == set(routes),
+                  f"rest_serving: /_schema paths {sorted(spec.get('paths', {})) if status_s == 200 else status_s}")
+            check(health == [(200, {"alive": True, "health": "off"}), (200, {"ready": True, "health": "off"})],
+                  f"rest_serving: /healthz, /readyz answered {health}")
+            launches, route_launches = A.LAUNCHES, dict(A.ROUTE_LAUNCHES)
+            # ---------------------------------------------------------------------
+            out.update(inputs_listed=n_inputs, list_documents_listed=n_listed,
+                       routes={r: routes[r].snapshot() for r in sorted(routes)})
+        finally:
+            _stop_run(run)
+        spans = list(launch_log.spans)
+        expected = 6 * len(spans)
+        check(len(spans) > 0 and route_launches["tensor_core"] == expected and launches == expected,
+              f"rest_serving: bf16 attention launches {route_launches} != {expected} (6 per embedder launch)")
+        out.update(embed_launches=len(spans), embed_buckets=_buckets(spans), attention_launches=launches,
+                   attention_launches_by_route=route_launches, attention_launches_expected=expected)
+        for leg, texts in diagnose.items():
+            out[leg] = _diagnose_embed(emb, texts, [q for q, *_r in ds["queries"]])
+            print(f"rest_serving: {leg}:", json.dumps(out[leg]), file=sys.stderr, flush=True)
+
+        out["shed"], out["lifecycle"] = _rest_shed_and_lifecycle(port, emb)
+        emit("rest_serving", **out)
+    finally:
+        shutil.rmtree(ds["root"], ignore_errors=True)
     return {"launches": route_launches, "metrics": out}
+
+
+def _rest_shed_and_lifecycle(port: int, emb) -> tuple[dict, dict]:
+    """The shed and lifecycle legs on one embedding route on ``port`` (the
+    QA server's, released by its stop). A query of "hold" never gets an
+    answer; each answered row sleeps RS_SHED_SLEEP_S on the host, so the
+    in-flight budget stays full while the concurrent requests arrive."""
+    import threading
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.io.http import _server as S
+
+    def build():
+        pw.G.clear()
+        ws = S.PathwayWebserver(host="127.0.0.1", port=port)
+        q, respond = pw.io.http.rest_connector(webserver=ws, route="/v1/embed", schema=pw.schema_from_types(query=str))
+        kept = q.filter(q.query != "hold")
+        vec = kept.select(v=emb(kept.query))
+
+        def first(v):
+            time.sleep(RS_SHED_SLEEP_S)
+            return float(np.asarray(v)[0])
+
+        respond(vec.select(result=pw.apply_with_type(first, float, vec.v)))
+        return ws._route_states()[0]
+
+    def serve():
+        run = threading.Thread(target=pw.run, daemon=True)
+        run.start()
+        _wait_listening(port)
+        return run
+
+    os.environ["PATHWAY_SERVE_MAX_INFLIGHT"] = str(RS_SHED_INFLIGHT)
+    try:
+        state = build()
+        run = serve()
+        try:
+            got = _fan_out(port, [("POST", "/v1/embed", {"query": f"shed {i}"}) for i in range(RS_SHED_REQUESTS)],
+                           RS_SHED_REQUESTS)
+            ok = sum(1 for a in got if a is not None and a[0] == 200)
+            shed = sum(1 for a in got if a is not None and a[0] == 429 and a[1].get("reason") == "max_inflight")
+            snap = state.snapshot()
+            check(ok + shed == RS_SHED_REQUESTS and shed > 0 and snap["shed_total"] == shed
+                  and snap["responses_total"] == ok and snap["requests_total"] == RS_SHED_REQUESTS,
+                  f"rest_serving: shed leg {ok} x 200 + {shed} x 429 of {RS_SHED_REQUESTS}, route counters {snap}")
+            shed_out = {"requests": RS_SHED_REQUESTS, "max_inflight": RS_SHED_INFLIGHT, "ok": ok, "shed_429": shed,
+                        "route": {k: snap[k] for k in ("requests_total", "responses_total", "shed_total")}}
+
+            # lifecycle: RS_PENDING requests pending when the engine stops
+            pending: list = []
+            holders = [threading.Thread(target=lambda: pending.append(_Http(port).call("POST", "/v1/embed",
+                                                                                      {"query": "hold"})),
+                                        daemon=True) for _ in range(RS_PENDING)]
+            for t in holders:
+                t.start()
+            deadline = time.monotonic() + 60
+            while len(state.futures) < RS_PENDING and time.monotonic() < deadline:
+                time.sleep(0.01)
+            held = len(state.futures)
+        finally:
+            t_stop = time.perf_counter()
+            _stop_run(run)
+            stop_s = time.perf_counter() - t_stop
+        for t in holders:
+            t.join(timeout=60)
+        answered_503 = sum(1 for a in pending if a[0] == 503 and a[1] == {"error": "engine shutting down"})
+        check(held == RS_PENDING and answered_503 == RS_PENDING,
+              f"rest_serving: {held} requests pending at stop, {answered_503} answered 503")
+    finally:
+        os.environ.pop("PATHWAY_SERVE_MAX_INFLIGHT", None)
+    build()
+    run = serve()
+    try:
+        again = _Http(port).call("POST", "/v1/embed", {"query": "after restart"})
+    finally:
+        _stop_run(run)
+    check(again[0] == 200 and isinstance(again[1], float), f"rest_serving: the restart on port {port} answered {again[:2]}")
+    pw.G.clear()
+    return shed_out, {"pending_at_stop": held, "answered_503": answered_503, "stop_s": stop_s,
+                      "restart_same_port": again[0]}
 
 
 def _kernel_entry(records: list[dict], dtype: str, route: str, what: str, launches: dict) -> dict:
@@ -1765,10 +2200,12 @@ def main() -> int:
     phase_engine_kernels(info)
     bert = phase_bert_path(info)
     store = phase_document_store(info)
+    rest = phase_rest_serving(info, store)
 
     launches = {
         "main_path": state["launches"], "f32_path": f32["launches"], "pipeline": pipe["launches"],
         "tiered_pipeline": tier["launches"], "bert_path": bert["launches"], "document_store": store["launches"],
+        "rest_serving": rest["launches"],
     }
     line = {"kernels": [
         _kernel_entry(kern, "bfloat16", "tensor_core", "bf16, tensor cores (mma.sync, cp.async)", launches),

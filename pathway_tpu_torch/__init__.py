@@ -19,13 +19,15 @@ their hand-written Hopper attention kernel, the brute-force KNN index, the
 cross-encoder), the weight bridge from the JAX package's parameter trees
 (``pathway_tpu_torch.convert``), the dataflow engine and the Table API
 (``engine/``, ``internals/``), the Python and file connectors (``io.fs``,
-``csv``, ``jsonlines``, ``plaintext``, ``null``) and ``subscribe``, the
+``csv``, ``jsonlines``, ``plaintext``, ``null``), ``subscribe``, the REST
+serving plane (``io.http``: ``rest_connector`` on an HTTP/1.1 server of the
+standard library), the
 debug surface, the index family as dataflow operators (``stdlib.indexing``:
 brute-force KNN on the card, the tiered index with its hot shard on the card
 over a host IVF cold tier, IVF-flat, usearch, LSH, BM25 and hybrid), the
 fused device tier of chain fusion, and the LLM xpack's RAG surface
 (``xpacks.llm``: embedders, rerankers, chats, parsers, splitters,
-DocumentStore, question answering; not its REST servers). The other planes
+DocumentStore, question answering and its REST servers). The other planes
 raise ``NotImplementedError("later slice: <plane>")`` where a call reaches
 them.
 

@@ -31,7 +31,7 @@ from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.convert import ParamTree, tree_map
 from pathway_tpu_torch.native import try_load as _try_load_native
 from pathway_tpu_torch.ops._fixed_order import fixed_order_sum
-from pathway_tpu_torch.ops.attention_kernel import HEAD_DIMS, attention_short_flat
+from pathway_tpu_torch.ops.attention_kernel import HEAD_DIMS, RESIDENT_LEN, attention_short_flat
 from pathway_tpu_torch.ops.microbatch import LENGTH_MAX_BUCKET, bucket_size
 
 
@@ -98,9 +98,9 @@ def _attention(x, wqkv, wo, mask, n_heads: int):
     """QKV projection, flat attention on the strided q/k/v views of the
     projection (no copies), output projection."""
     D = x.shape[-1]
-    q, k, v = (x @ wqkv.to(x.dtype)).split(D, dim=-1)
+    q, k, v = _dot(x, wqkv).split(D, dim=-1)
     ctx = attention_short_flat(q, k, v, mask, n_heads, (D // n_heads) ** -0.5)
-    return ctx @ wo.to(x.dtype)
+    return _dot(ctx, wo)
 
 
 def _layer_norm_eps(x, g, b, eps: float):
@@ -112,7 +112,8 @@ def _layer_norm_eps(x, g, b, eps: float):
     return (x32 - mu) * torch.rsqrt(var + eps) * g + b
 
 
-#: rows of every product of the bert block (see :func:`_dot_f32`)
+#: rows of every f32 product: the bert block's, and the pre-LN block's in
+#: f32 (see :func:`_dot_f32`)
 DOT_ROWS = 8192
 
 
@@ -139,6 +140,19 @@ def _dot_f32(x, w):
         else:
             out[lo : lo + n] = (F.pad(rows[lo : lo + n], (0, 0, 0, DOT_ROWS - n)) @ w)[:n]
     return out.reshape(*lead, w.shape[1])
+
+
+def _dot(x, w):
+    """The pre-LN block's ``x @ w`` in ``x``'s dtype. In f32 it runs through
+    :func:`_dot_f32`'s fixed-row tiles: there too a doc got other bits in an
+    8-row launch than in a 1,024-row one on the H100 (the pre-LN f32 entry
+    of ``tools/batch_invariance.py``; first differing: layer 0's attention
+    output, whose only f32 product before it is the QKV projection). bf16
+    products keep the launch's own shape, which gives a row the same bits
+    in any batch on the card (its embed entries)."""
+    if x.dtype == torch.float32:
+        return _dot_f32(x, w)
+    return x @ w.to(x.dtype)
 
 
 def _attention_biased(x, wqkv, bqkv, wo, bo, mask, n_heads: int):
@@ -187,8 +201,8 @@ def hidden_states(params, cfg: EncoderConfig, token_ids: torch.Tensor, mask: tor
         h = _layer_norm(x, layer["ln1"]["g"], layer["ln1"]["b"])
         x = x + _attention(h, layer["wqkv"], layer["wo"], mask, cfg.n_heads)
         h = _layer_norm(x, layer["ln2"]["g"], layer["ln2"]["b"])
-        h = F.gelu(h @ layer["w1"].to(x.dtype), approximate="tanh")
-        x = x + (h @ layer["w2"].to(x.dtype))
+        h = F.gelu(_dot(h, layer["w1"]), approximate="tanh")
+        x = x + _dot(h, layer["w2"])
     return _layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"])
 
 
@@ -205,9 +219,31 @@ def pool(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return pooled / norm.clamp_min(1e-12)
 
 
+def past_resident(cfg: EncoderConfig, token_ids: torch.Tensor, mask: torch.Tensor) -> tuple:
+    """``token_ids`` and ``mask`` padded (pad id 0, masked) to
+    ``min(max_len, 2 * RESIDENT_LEN)`` tokens when the encoder's ``max_len``
+    exceeds the attention kernel's ``RESIDENT_LEN`` and the launch does not;
+    else unchanged. The kernel keeps the keys of an L <= RESIDENT_LEN launch
+    resident and streams longer ones in 64-key tiles, and the two round a
+    row with more than one tile of keys differently: on the H100 a text of
+    78-118 tokens embedded alone (L = 128) got other bits than in a batch
+    padded to 256 (``chip_smoke.py``'s rest_serving diagnosis). Padding keys
+    are masked, so with every launch past the bound a row gets the same bits
+    at any padded length."""
+    L = token_ids.shape[1]
+    if cfg.max_len <= RESIDENT_LEN or L > RESIDENT_LEN:
+        return token_ids, mask
+    pad = min(cfg.max_len, 2 * RESIDENT_LEN) - L
+    return F.pad(token_ids, (0, pad)), F.pad(mask, (0, pad), value=False)
+
+
 def encode(params, cfg: EncoderConfig, token_ids: torch.Tensor, mask: torch.Tensor):
     """Forward pass: [B, L] integer tokens + bool mask → [B, d_model] f32
-    unit vectors."""
+    unit vectors. On the card, a launch of an encoder that may see more
+    than ``RESIDENT_LEN`` tokens runs past that bound (:func:`past_resident`);
+    the CPU's plain attention has one path at every length."""
+    if token_ids.is_cuda:
+        token_ids, mask = past_resident(cfg, token_ids, mask)
     return pool(hidden_states(params, cfg, token_ids, mask), mask)
 
 

@@ -30,10 +30,18 @@ embedder, the 4-layer reranker, 384-d f32 KNN over 4096 docs):
   the first 8 of 1,024 WordPiece docs in an 8-row launch against the
   1,024-row launch, and beside it every intermediate of the forward in call
   order (each f32 product, LN and attention), so a difference is traced to
-  the first op that shows it.
+  the first op that shows it;
+- the pre-LN encoder in f32 (:func:`preln_f32_check`), the encoder of
+  ``chip_smoke.py``'s ``f32_path`` (f32 weights and activations, seed 0):
+  the first 8 of 1,024 of the bench's docs in an 8-row launch against the
+  1,024-row launch, with each LN and attention output in call order;
+- the ``minilm`` embedder (max_len 512) on docs in launches padded to
+  other lengths (:func:`length_check`): 64 or 128 tokens alone against 256,
+  256 against 512, and 8 against 64 rows at 256.
 
 Each entry is ``[bit-identical, max |difference|]``. The run fails (exit 1)
-when an embedder, reranker or search entry is not bit-identical; the torch
+when an embedder, reranker, search, bert or pre-LN f32 entry is not
+bit-identical; the torch
 reductions of the pooling tail and the unchunked product are diagnostics.
 """
 
@@ -117,9 +125,15 @@ def main() -> int:
 
     bert, bert_vocab = bert_encoder("cuda")
     out.update(bert_check(bert, synthetic_docs(bert_vocab, 1024)))
+    del bert
+    out.update(preln_f32_check(preln_f32_encoder("cuda"), docs[:1024]))
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    out.update(length_check(SentenceTransformerEmbedder("minilm", seed=0)._encoder))
     failed = sorted(
         name for name, entry in out.items()
-        if name.startswith(("embed_", "rerank_", "knn_", "bert_embed_")) and not entry[0]
+        if name.startswith(("embed_", "rerank_", "knn_", "bert_embed_", "preln_f32_embed_"))
+        and isinstance(entry, list) and isinstance(entry[0], bool) and not entry[0]
     )
     out["failed"] = failed
     print(json.dumps(out), flush=True)
@@ -188,16 +202,84 @@ def bert_check(enc, docs: list[str], rows: int = 8) -> dict:
     |difference|]``; ``bert_first_differing_op`` names the first intermediate
     of the forward (in call order, over the docs' shared token positions)
     whose bits differ between the launches, or None."""
+    return _launch_check(enc, docs, docs[:rows], rows, "bert", ("_dot_f32", "_layer_norm_eps", "attention_short_flat"))
+
+
+def preln_f32_encoder(device):
+    """The pre-LN encoder of ``chip_smoke.py``'s ``f32_path``: the bench's
+    MiniLM-class widths, f32 weights and activations, seed 0."""
+    import torch
+
+    from pathway_tpu_torch.ops.encoder import EncoderConfig, TorchSentenceEncoder
+
+    cfg = EncoderConfig(vocab_size=32768, d_model=384, n_heads=6, n_layers=6, d_ff=1536, max_len=128,
+                        dtype=torch.float32)
+    return TorchSentenceEncoder(cfg, seed=0, device=device)
+
+
+def preln_f32_check(enc, docs: list[str], rows: int = 8) -> dict:
+    """:func:`bert_check` for the pre-LN encoder ``enc`` in f32, under the
+    ``preln_f32_`` prefix; the traced intermediates are each LN's output,
+    each f32 product and each attention output."""
+    return _launch_check(enc, docs, docs[:rows], rows, "preln_f32", ("_layer_norm", "_dot_f32", "attention_short_flat"))
+
+
+#: the ops of the pre-LN block that :func:`length_check` traces
+PRELN_OPS = ("_layer_norm", "_dot_f32", "_attention", "attention_short_flat")
+
+
+def length_check(enc, rows: int = 8) -> dict:
+    """Does a doc get the same bits whatever length its launch is padded
+    to? ``rows`` docs of 40 words (the tokenizer's 64-token bucket) and
+    ``rows`` of 100 words (128: more than one 64-key tile, inside the
+    attention kernel's resident length) embedded by ``enc`` alone and beside
+    a 200-word doc (a launch padded to 256); the 100-word docs also beside a
+    400-word doc (512) and at 256 beside 55 more docs (the batch changes,
+    the length does not). Each entry ``embed_len_<a>_vs_<b>`` compares the
+    ``rows`` docs' embeddings in the two launches, with the first traced
+    intermediate (inputs and outputs of :data:`PRELN_OPS`, over the shared
+    token positions) that differs."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    vocab = [f"word{i}" for i in range(5000)]
+
+    def docs(n, words):
+        return [" ".join(rng.choice(vocab, size=words)) for _ in range(n)]
+
+    short, mid = docs(rows, 40), docs(rows, 100)
+    long_, longer, more = docs(1, 200), docs(1, 400), docs(55, 100)
+    cases = {
+        "64_vs_256": (short + long_, short),
+        "128_vs_256": (mid + long_, mid),
+        "256_vs_512": (mid + longer, mid + long_),
+        "256_vs_256x64": (mid + long_ + more, mid + long_),
+    }
+    out = {}
+    for name, (docs_b, docs_a) in cases.items():
+        got = _launch_check(enc, docs_b, docs_a, rows, "len", PRELN_OPS)
+        out[f"embed_len_{name}"] = got[f"len_embed_{rows}_rows_vs_{len(docs_b)}"]
+        out[f"embed_len_{name}_first_differing_op"] = got["len_first_differing_op"]
+        out[f"embed_len_{name}_seq_len"] = got["len_seq_len"]
+    return out
+
+
+def _launch_check(enc, docs: list[str], few: list[str], rows: int, prefix: str, ops: tuple) -> dict:
+    """The first ``rows`` docs embedded by ``enc`` in one launch of ``docs``
+    and in one launch of ``few`` (which begins with the same ``rows`` docs),
+    each of ``ops`` (functions of ``ops/encoder.py``; their first argument
+    and their output) traced in call order."""
     from pathway_tpu_torch.ops import encoder as E
 
     def traced(texts) -> tuple:
         """(embeddings, [(op, output)] in call order, sequence length)."""
         ids, _ = enc.tokenizer(texts)
         calls: list = []
-        saved = {n: getattr(E, n) for n in ("_dot_f32", "_layer_norm_eps", "attention_short_flat")}
+        saved = {n: getattr(E, n) for n in ops}
 
         def wrap(name, fn):
             def run(*args, **kwargs):
+                calls.append((f"{len(calls)}:{name}.in", args[0][:rows].float().cpu().numpy()))
                 res = fn(*args, **kwargs)
                 calls.append((f"{len(calls)}:{name}", res[:rows].float().cpu().numpy()))
                 return res
@@ -213,7 +295,7 @@ def bert_check(enc, docs: list[str], rows: int = 8) -> dict:
         return emb, calls, ids.shape[1]
 
     e_all, c_all, l_all = traced(docs)
-    e_few, c_few, l_few = traced(docs[:rows])
+    e_few, c_few, l_few = traced(few)
     first = None
     L = min(l_all, l_few)
     for (name, a), (_n, b) in zip(c_all, c_few):
@@ -221,9 +303,9 @@ def bert_check(enc, docs: list[str], rows: int = 8) -> dict:
             first = name
             break
     return {
-        f"bert_embed_{rows}_rows_vs_{len(docs)}": _same(e_all, e_few),
-        "bert_first_differing_op": first,
-        "bert_seq_len": [l_all, l_few],
+        f"{prefix}_embed_{rows}_rows_vs_{len(docs)}": _same(e_all, e_few),
+        f"{prefix}_first_differing_op": first,
+        f"{prefix}_seq_len": [l_all, l_few],
     }
 
 

@@ -1,6 +1,6 @@
 """Where the device time of the port's main path goes, on one CUDA card.
 
-    python -m pathway_tpu_torch.tools.profile_main_path [ops|pipeline|document_store|all]
+    python -m pathway_tpu_torch.tools.profile_main_path [ops|pipeline|document_store|rest|all]
 
 ``ops`` (the default, and part of ``all``) traces, with ``torch.profiler``,
 one ingest batch (1024 bench docs: encode → ``add_batch_device`` → flush) and
@@ -27,6 +27,16 @@ rows (bytes and metadata) in ticks of 128 files, then ``retrieve_query``
 rows (k = 6, each a chunk's text) in ticks of 64, flush deadline 0: one
 ingest tick (parse → split → embed → index) and one query tick, each with
 the engine phase split as for ``pipeline``.
+
+``rest`` serves the same DocumentStore (1,024 files, one static batch) over
+HTTP through ``DocumentStoreServer`` on 127.0.0.1, flush deadline 0, and
+traces the one engine tick that answers 64 concurrent ``/v1/retrieve``
+requests (k = 6, each a chunk's text, from 64 ``http.client`` connections;
+the coalesce window wakes the engine once all 64 have arrived), after a warm
+round and a timed round of the same (its clients' wall time is printed): the
+query embed, the tiered search, the as-of-now joins and the response pass
+of the serving plane, with the engine phase split as for ``pipeline`` and
+the requests the tick carried.
 
 All run at the bench's widths with random seeded weights. Each window prints
 one JSON line: wall time, summed kernel time, the device's idle share
@@ -258,6 +268,122 @@ def profile_document_store(files: int = 1024, file_tick: int = 128, ingest_tick:
         pw.G.clear()
 
 
+def profile_rest(files: int = 1024, clients: int = 64) -> None:
+    """One coalesced request tick of a DocumentStoreServer: ``clients``
+    concurrent ``/v1/retrieve`` requests answered by one engine tick."""
+    import http.client
+    import os
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.graph import Scheduler
+    from pathway_tpu_torch.observability import engine_phases
+    from pathway_tpu_torch.stdlib.indexing import tiered
+    from pathway_tpu_torch.xpacks.llm import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.servers import DocumentStoreServer
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+
+    os.environ.update(
+        PATHWAY_MICROBATCH="auto", PATHWAY_MICROBATCH_FLUSH_MS="0", PATHWAY_ENGINE_PHASES="on",
+        PATHWAY_SERVE_COALESCE_MS="500", PATHWAY_SERVE_COALESCE_ROWS=str(clients),
+    )
+    rng = np.random.default_rng(0)
+    vocab = [f"word{i}" for i in range(5000)]
+    texts = [" ".join(rng.choice(vocab, size=int(rng.integers(600, 1001)))) for _ in range(files)]
+    splitter = TokenCountSplitter(min_tokens=50, max_tokens=200)
+    chunks = [c for t in texts for c, _m in splitter.func(t)]
+    emb = SentenceTransformerEmbedder("minilm", seed=0)
+    emb._encoder.encode_texts(chunks[:512])  # warm: allocator, cuBLAS
+    torch.cuda.synchronize()
+    pw.G.clear()
+    docs = pw.debug.table_from_rows(
+        pw.schema_from_types(data=bytes, _metadata=dict),
+        [(t.encode(), {"path": f"/corpus/d{i % 64:02d}/f{i:05d}.txt"}) for i, t in enumerate(texts)],
+    )
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    server = DocumentStoreServer("127.0.0.1", port, DocumentStore(docs, embedder=emb, splitter=splitter))
+    (route,) = [st for st in server.webserver._route_states() if st.route == "/v1/retrieve"]
+    picks = rng.choice(len(chunks), size=3 * clients, replace=False)
+    armed = threading.Event()
+    plain_run_tick = Scheduler.run_tick
+
+    def arrived() -> int:
+        """Requests waiting in the route's input (the served rows'
+        retractions wait there too)."""
+        node = route.node
+        return 0 if node is None else sum(1 for _k, _v, diff in list(node._pending) if diff > 0)
+
+    def run_tick(self, time_):
+        if not armed.is_set() or arrived() < clients:
+            return plain_run_tick(self, time_)
+        armed.clear()
+        rows = arrived()
+        torch.cuda.synchronize()
+        engine_phases.reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            plain_run_tick(self, time_)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        _report(f"rest_request_tick_{clients}", prof, wall_ms, requests_in_tick=rows,
+                engine_phases_ms=engine_phases.snapshot())
+
+    def round_of(queries: list[str]) -> float:
+        """The clients' wall time for one concurrent round."""
+        start = threading.Barrier(len(queries) + 1)
+        bad: list = []
+
+        def client(q: str) -> None:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            start.wait(timeout=60)
+            conn.request("POST", "/v1/retrieve", body=json.dumps({"query": q, "k": 6}).encode())
+            resp = conn.getresponse()
+            if resp.status != 200 or not json.loads(resp.read()):
+                bad.append(resp.status)
+            conn.close()
+
+        threads = [threading.Thread(target=client, args=(q,), daemon=True) for q in queries]
+        for t in threads:
+            t.start()
+        start.wait(timeout=60)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(timeout=300)
+        if bad:
+            raise RuntimeError(f"profile_main_path rest: {len(bad)} requests failed: {bad[:4]}")
+        return (time.perf_counter() - t0) * 1e3
+
+    Scheduler.run_tick = run_tick
+    # the autocommit poll past the coalesce window: only a full round of
+    # arrivals (or the window) starts a query tick
+    run = server.run(threaded=True, autocommit_duration_ms=2000)
+    try:
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline:  # the one static batch indexed
+            stats = tiered.tier_stats() or {}
+            if stats.get("hot_rows", 0) + stats.get("cold_rows", 0) >= len(chunks):
+                break
+            time.sleep(0.05)
+        round_of([chunks[c] for c in picks[:clients]])  # warm: the query shapes
+        wall = round_of([chunks[c] for c in picks[clients : 2 * clients]])
+        print(json.dumps({"window": f"rest_request_round_{clients}_clients", "clients_wall_ms": wall}), flush=True)
+        armed.set()
+        round_of([chunks[c] for c in picks[2 * clients :]])
+    finally:
+        Scheduler.run_tick = plain_run_tick
+        pw.internals.run.current_runtime().request_stop()
+        run.join(timeout=120)
+        pw.G.clear()
+
+
 def main() -> int:
     import torch
 
@@ -265,8 +391,8 @@ def main() -> int:
         print("profile_main_path: CUDA is not available", file=sys.stderr)
         return 2
     mode = sys.argv[1] if len(sys.argv) > 1 else "ops"
-    if mode not in ("ops", "pipeline", "document_store", "all"):
-        print(f"profile_main_path: unknown mode {mode!r} (ops, pipeline, document_store, all)", file=sys.stderr)
+    if mode not in ("ops", "pipeline", "document_store", "rest", "all"):
+        print(f"profile_main_path: unknown mode {mode!r} (ops, pipeline, document_store, rest, all)", file=sys.stderr)
         return 2
     if mode in ("ops", "all"):
         profile_ops()
@@ -274,6 +400,8 @@ def main() -> int:
         profile_pipeline()
     if mode in ("document_store", "all"):
         profile_document_store()
+    if mode in ("rest", "all"):
+        profile_rest()
     return 0
 
 

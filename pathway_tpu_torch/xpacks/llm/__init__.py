@@ -3,7 +3,8 @@ chats, parsers, splitters, DocumentStore, vector store, Adaptive RAG.
 
 The local embedder and cross-encoder run as batched PyTorch models
 (``pathway_tpu_torch/ops/``, with the hand-written Hopper attention kernel),
-not per-row calls. The REST servers (``servers``) are a later slice.
+not per-row calls. ``servers`` serves a DocumentStore or a QA answerer over
+REST (``pw.io.http.rest_connector``).
 """
 
 from pathway_tpu_torch.xpacks.llm import (
@@ -14,6 +15,7 @@ from pathway_tpu_torch.xpacks.llm import (
     prompts,
     question_answering,
     rerankers,
+    servers,
     splitters,
     vector_store,
 )
@@ -29,6 +31,7 @@ __all__ = [
     "prompts",
     "question_answering",
     "rerankers",
+    "servers",
     "splitters",
     "vector_store",
 ]

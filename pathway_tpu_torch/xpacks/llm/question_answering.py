@@ -14,7 +14,6 @@ from typing import Any, Callable
 import pathway_tpu_torch as pw
 from pathway_tpu_torch.internals import dtype as dt
 from pathway_tpu_torch.internals.expression import ColumnReference
-from pathway_tpu_torch.internals.later_slice import later_slice
 from pathway_tpu_torch.internals.table import Table
 from pathway_tpu_torch.stdlib.indexing.data_index import DataIndex
 from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
@@ -171,11 +170,12 @@ class BaseRAGQuestionAnswerer:
 
     # -- REST serving -------------------------------------------------------
     def build_server(self, host: str, port: int, **kwargs) -> None:
-        """Register /v2/answer, /v2/summarize, /v2/list_documents,
-        /v2/statistics, /v1/retrieve endpoints (reference ``:314`` region).
-        The REST layer (``io.http``, ``xpacks/llm/servers.py``) is not
-        ported yet."""
-        raise later_slice("io.http")
+        """Register /v2/answer, /v2/list_documents, /v1/retrieve,
+        /v1/statistics and /v1/inputs endpoints (reference ``:314`` region)
+        on a :class:`~pathway_tpu_torch.xpacks.llm.servers.QARestServer`."""
+        from pathway_tpu_torch.xpacks.llm.servers import QARestServer
+
+        self.server = QARestServer(host, port, self, **kwargs)
 
     def run_server(self, *args, **kwargs):
         if self.server is None:

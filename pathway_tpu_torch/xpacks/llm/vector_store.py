@@ -13,7 +13,6 @@ import urllib.request
 from typing import Any, Callable, Iterable
 
 import pathway_tpu_torch as pw
-from pathway_tpu_torch.internals.later_slice import later_slice
 from pathway_tpu_torch.internals.table import Table
 from pathway_tpu_torch.stdlib.indexing.retrievers import BruteForceKnnFactory
 from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
@@ -47,9 +46,12 @@ class VectorStoreServer:
         with_cache: bool = False,
         **kwargs,
     ):
-        """Serve the store over REST: the REST layer (``io.http``,
-        ``xpacks/llm/servers.py``) is not ported yet."""
-        raise later_slice("io.http")
+        """Serve the store over REST (``/v1/retrieve``, ``/v1/statistics``,
+        ``/v1/inputs``) on a ``DocumentStoreServer``."""
+        from pathway_tpu_torch.xpacks.llm.servers import DocumentStoreServer
+
+        server = DocumentStoreServer(host, port, self.document_store)
+        return server.run(threaded=threaded, with_cache=with_cache, **kwargs)
 
 
 def post_json(url: str, route: str, payload: dict, timeout: float, headers: dict | None = None) -> Any:

@@ -436,29 +436,91 @@ def test_base_answerer_prompt_holds_the_retrieved_texts_in_order():
     assert [prompt.index(t) for t in texts] == sorted(prompt.index(t) for t in texts)
 
 
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _serve_until(run_thread, ask, timeout: float = 30.0):
+    """``ask()`` until it returns a non-empty answer (the store indexes its
+    docs in the run's first ticks), then stop the run and join it."""
+    import time
+
+    pw = pathway_tpu_torch
+    deadline = time.monotonic() + timeout
+    try:
+        while True:
+            try:
+                got = ask()
+            except OSError:  # the server is not listening yet
+                got = None
+            if got or time.monotonic() > deadline:
+                return got
+            time.sleep(0.05)
+    finally:
+        while pw.internals.run.current_runtime() is None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        pw.internals.run.current_runtime().request_stop()
+        run_thread.join(timeout=60)
+        assert not run_thread.is_alive(), "the server's pw.run did not stop"
+
+
 def test_servers_are_a_later_slice_and_clients_keep_the_reference_api():
+    """The REST servers are ported now (the name is kept from the slice that
+    cut them): ``rag.build_server`` + ``run_server(threaded=True)`` and
+    ``VectorStoreServer.run_server(threaded=True)`` serve ``/v1/retrieve``
+    and ``/v2/answer``, read back by ``RAGClient`` and ``VectorStoreClient``;
+    the clients keep the reference's API."""
     from pathway_tpu_torch.xpacks.llm import question_answering as qa
     from pathway_tpu_torch.xpacks.llm import vector_store as vs
     from pathway_tpu_torch.xpacks.llm.mocks import FakeChatModel, FakeEmbedder
 
     pw = pathway_tpu_torch
+    pw.G.clear()
     store = pw.xpacks.llm.DocumentStore(make_docs(pw), retriever_factory=bm25(pw))
-    rag = qa.BaseRAGQuestionAnswerer(FakeChatModel(), store)
-    with pytest.raises(NotImplementedError, match="later slice: io.http"):
-        rag.build_server("127.0.0.1", 0)
+    rag = qa.BaseRAGQuestionAnswerer(FakeChatModel(), store, search_topk=1)
     with pytest.raises(RuntimeError, match="build_server"):
         rag.run_server()
+    port = _free_port()
+    rag.build_server("127.0.0.1", port)
+    assert isinstance(rag.server, pw.xpacks.llm.servers.QARestServer)
+    client = qa.RAGClient(host="127.0.0.1", port=port, timeout=30)
+    hits = _serve_until(rag.run_server(threaded=True), lambda: client.retrieve("kafka topics tables", k=1))
+    assert [h["text"] for h in hits] == ["Kafka connector reads topics into tables."]
+    pw.G.clear()
+    store = pw.xpacks.llm.DocumentStore(make_docs(pw), retriever_factory=bm25(pw))
+    rag = qa.BaseRAGQuestionAnswerer(FakeChatModel(), store, search_topk=1)
+    port = _free_port()
+    rag.build_server("127.0.0.1", port)
+    client = qa.RAGClient(host="127.0.0.1", port=port, timeout=30)
+
+    def answer():
+        got = client.answer("kafka topics tables")
+        return got if "Kafka connector" in str(got) else None
+
+    assert "Kafka connector reads topics into tables." in _serve_until(rag.run_server(threaded=True), answer)
+
+    pw.G.clear()
     server = vs.VectorStoreServer(make_docs(pw), embedder=FakeEmbedder(), index_params={"device": "cpu"})
     assert isinstance(server.document_store, pw.xpacks.llm.DocumentStore)
-    with pytest.raises(NotImplementedError, match="later slice: io.http"):
-        server.run_server("127.0.0.1", 0)
+    port = _free_port()
+    vclient = vs.VectorStoreClient("127.0.0.1", port, timeout=30)
+    run = server.run_server("127.0.0.1", port, threaded=True)
+    hits = _serve_until(run, lambda: vclient.query("Bananas are yellow fruit rich in potassium.", k=1))
+    assert [h["text"] for h in hits] == ["Bananas are yellow fruit rich in potassium."]
+    pw.G.clear()
+
     assert qa.RAGClient(host="h", port=1).url == "http://h:1"
     assert qa.RAGClient(url="http://x").url == "http://x"
     with pytest.raises(ValueError, match="not both"):
         qa.RAGClient(host="h", port=1, url="http://x")
     assert vs.VectorStoreClient("h", 2).url == "http://h:2"
-    assert not hasattr(pw.xpacks.llm, "servers")
-    assert pw.xpacks.llm.__all__ == [n for n in pathway_tpu.xpacks.llm.__all__ if n != "servers"]
+    assert pw.xpacks.llm.__all__ == pathway_tpu.xpacks.llm.__all__
 
 
 def test_prompts_match_reference():
