@@ -88,7 +88,8 @@ printing one JSON line:
    ``/v2/list_documents``, ``/_schema``, ``/healthz``, ``/readyz``; a shed
    leg (in-flight budget 8, 64 concurrent requests: 200s + 429s = 64 and
    the route's counters agree) and a lifecycle leg (requests pending at
-   ``stop()`` answered 503, a restart on the same port);
+   ``stop()`` answered 503, a restart on the same port); a text embedded
+   with the same bits in launches padded to 64, 128, 256 and 512 tokens;
 13. the kernels line, with each kernel's launches during phases 4, 6, 7,
    8's pipeline, 10, 11 and 12.
 
@@ -1912,7 +1913,9 @@ def phase_rest_serving(info: dict, ds: dict) -> dict:
     RS_SHED_INFLIGHT, RS_SHED_REQUESTS concurrent requests: 429s + 200s
     equal the requests and the route's counters) and a lifecycle leg
     (RS_PENDING requests pending at ``stop()`` each get 503, then a restart
-    on the same port answers)."""
+    on the same port answers). Between them, ``batch_invariance.length_check``
+    on the embedder: a text gets the same bits in launches padded to 64,
+    128, 256 and 512 tokens."""
     import gc
     import shutil
 
@@ -2049,6 +2052,14 @@ def phase_rest_serving(info: dict, ds: dict) -> dict:
               f"rest_serving: bf16 attention launches {route_launches} != {expected} (6 per embedder launch)")
         out.update(embed_launches=len(spans), embed_buckets=_buckets(spans), attention_launches=launches,
                    attention_launches_by_route=route_launches, attention_launches_expected=expected)
+        # a text alone (its launch padded to 64 or 128 tokens, keys resident
+        # in the kernel) and in a batch (256 or 512, keys streamed): same bits
+        from pathway_tpu_torch.tools.batch_invariance import length_check
+
+        lengths = length_check(emb._encoder)
+        out["length_invariance"] = lengths
+        check(all(v[0] for n, v in lengths.items() if n.startswith("embed_len_") and isinstance(v, list)
+                  and isinstance(v[0], bool)), f"rest_serving: a text's bits depend on its launch's length: {lengths}")
         for leg, texts in diagnose.items():
             out[leg] = _diagnose_embed(emb, texts, [q for q, *_r in ds["queries"]])
             print(f"rest_serving: {leg}:", json.dumps(out[leg]), file=sys.stderr, flush=True)

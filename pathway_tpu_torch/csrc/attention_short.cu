@@ -42,13 +42,17 @@
 //   - L <= 128 (every shape on the main path): K and V of the (b, h) fit in
 //     shared memory at once. K (with Q) and V are two async copy groups, so
 //     V's copy overlaps the score products and the softmax. Each warp keeps
-//     its 16 x L score rows in registers (two 64-key tiles), takes the exact
-//     row max and sum, normalises, rounds, and multiplies by V.
+//     its 16 x L score rows in registers (two 64-key tiles), folds them into
+//     the row max and sum as pass 1 below does, normalises, rounds, and
+//     multiplies by V.
 //   - 128 < L <= 512: an exact softmax in two passes over 64-key tiles
 //     staged through a double-buffered ring (the next tile's copy overlaps
 //     this tile's products). Pass 1 keeps a running row max and rescaled
 //     sum; pass 2 recomputes the scores, normalises with the final max and
 //     sum, rounds and accumulates probs . v.
+// Both fold the row sum tile by tile in the same order (fold_tile), so a row
+// gets the same bits whatever length its launch is padded to: a text alone
+// (L = 128, resident) and in a batch (L = 256, streamed) embed alike.
 // Key columns past L (tile padding) score -inf, not -1e30, so a fully masked
 // row averages the L real keys only. Shared memory per block: (rows + 2 x 128
 // key rows) x (HD x size + 16) bytes; f32 at HD = 128 takes ~199 KB (one
@@ -72,10 +76,12 @@
 // shared memory in 16-byte rows, and no [B, H, L, L] tensor exists. The
 // products run on the tensor cores (at L <= 128 one pass of 4 * B * L^2 * D
 // FLOP; above, pass 2 recomputes the scores: +50%). What is left on the
-// other pipes per score is one expf, a correctly rounded division (one
-// reciprocal per row, then a product and two FMAs per prob) and a few
-// operations, plus, in f32, the splits (two conversions and a subtraction
-// per operand element, each warp splitting the K and V it reads).
+// other pipes per score is one expf (two above 128 keys, and for the first
+// tile of 65-128: the sum's fold, then the numerator), a correctly rounded
+// division (one reciprocal per row, then a product and two FMAs per prob)
+// and a few operations, plus, in f32, the splits (two conversions and a
+// subtraction per operand element, each warp splitting the K and V it
+// reads).
 //
 // Supported: bf16 or f32, HD in {32, 64, 128} (template parameter),
 // L <= 512, rows of q/k/v 16-byte aligned. The Python wrapper checks all of
@@ -344,6 +350,40 @@ __device__ __forceinline__ void exp_tile(float (&s)[8][4], float m0, float m1) {
   }
 }
 
+// Fold one masked score tile into the running row max m and the thread's
+// part l of the row sum of exp(s - m): l is rescaled by exp(m - n) for the
+// new max n, then the tile's exp(s - n) are added in key order. A masked or
+// pad key adds exactly 0 and leaves m alone, so folding every tile (both
+// routes do) gives a row's sum the same bits at any padded length; a
+// one-pass sum with the final max rounds otherwise once m grows after the
+// first tile. With KEEP, s becomes exp(s - n) in place: the tile's
+// numerators when n is the final max.
+template <bool KEEP>
+__device__ __forceinline__ void fold_tile(float (&s)[8][4], float& m0, float& m1, float& l0,
+                                          float& l1) {
+  float t0 = -CUDART_INF_F, t1 = -CUDART_INF_F;
+  tile_max(s, t0, t1);
+  const float n0 = fmaxf(m0, quad_max(t0)), n1 = fmaxf(m1, quad_max(t1));
+  l0 *= expf(m0 - n0);
+  l1 *= expf(m1 - n1);
+  if constexpr (KEEP) {
+    exp_tile(s, n0, n1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      l0 += expf(s[j][0] - n0) + expf(s[j][1] - n0);
+      l1 += expf(s[j][2] - n1) + expf(s[j][3] - n1);
+    }
+  }
+  m0 = n0;
+  m1 = n1;
+}
+
 // The correctly rounded quotient e / l, given r = RN(1 / l): q = RN(e * r)
 // is within an ulp of e / l, and one FMA correction makes it exact
 // (Markstein) whenever e / l is a normal float; a subnormal prob may be one
@@ -482,27 +522,18 @@ attention_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     float s[2][8][4];
     score_tiles<T, HD, 2>(s, sq_w, sk, nt, L, lane);
-    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      if (t < nt) {
-        mask_tile(s[t], sf + t * kKeyTile, scale, lane);
-        tile_max(s[t], m0, m1);
-      }
-    }
-    m0 = quad_max(m0);
-    m1 = quad_max(m1);
-    float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      if (t < nt) {
-        exp_tile(s[t], m0, m1);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          l0 += s[t][j][0] + s[t][j][1];
-          l1 += s[t][j][2] + s[t][j][3];
-        }
-      }
+    // the streaming route's pass 1, tile by tile; the last tile's max is the
+    // final one, so its exponentials are kept, and a first tile of two is
+    // exponentiated again with the final max
+    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+    mask_tile(s[0], sf, scale, lane);
+    if (nt == 2) {
+      fold_tile<false>(s[0], m0, m1, l0, l1);
+      mask_tile(s[1], sf + kKeyTile, scale, lane);
+      fold_tile<true>(s[1], m0, m1, l0, l1);
+      exp_tile(s[0], m0, m1);
+    } else {
+      fold_tile<true>(s[0], m0, m1, l0, l1);
     }
     l0 = quad_sum(l0);
     l1 = quad_sum(l1);
@@ -539,18 +570,7 @@ attention_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       score_tiles<T, HD, 1>(s, sq_w, sk + slot * kKeyTile * RS, 1, L - t * kKeyTile, lane);
       mask_tile(s[0], sf + t * kKeyTile, scale, lane);
       if (st < nt) {
-        float t0 = -CUDART_INF_F, t1 = -CUDART_INF_F;
-        tile_max(s[0], t0, t1);
-        const float n0 = fmaxf(m0, quad_max(t0)), n1 = fmaxf(m1, quad_max(t1));
-        l0 *= expf(m0 - n0);
-        l1 *= expf(m1 - n1);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          l0 += expf(s[0][j][0] - n0) + expf(s[0][j][1] - n0);
-          l1 += expf(s[0][j][2] - n1) + expf(s[0][j][3] - n1);
-        }
-        m0 = n0;
-        m1 = n1;
+        fold_tile<false>(s[0], m0, m1, l0, l1);
         if (st == nt - 1) {
           l0 = quad_sum(l0);
           l1 = quad_sum(l1);

@@ -42,14 +42,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448
 
 # 16 query rows per warp, up to _TC_MAX_ROWS per block, keys in tiles of
-# _TC_KEY_TILE; K and V stay resident in shared memory up to RESIDENT_LEN,
-# above it they stream through a 2-tile ring
+# _TC_KEY_TILE; K and V stay resident in shared memory up to
+# _TC_RESIDENT_LEN, above it they stream through a 2-tile ring
 _TC_MAX_ROWS = 128
 _TC_KEY_TILE = 64
-#: the longest L whose keys stay resident (one softmax pass over all of
-#: them); a longer L streams key tiles with a running max, which rounds a
-#: row with more than one tile of keys differently (``encoder.encode``)
-RESIDENT_LEN = 2 * _TC_KEY_TILE
+_TC_RESIDENT_LEN = 2 * _TC_KEY_TILE
 _TC_ROW_PAD_BYTES = 16  # padding per shared row
 
 
@@ -84,7 +81,7 @@ def launch_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype) -
     elem = 2 if dtype == torch.bfloat16 else 4
     geo = LaunchGeometry(
         ROUTES[dtype], rows, rows // 16, _TC_KEY_TILE,
-        L <= RESIDENT_LEN, _tc_smem_bytes(L, hd, rows, elem), (B, n_heads, -(-L // rows)),
+        L <= _TC_RESIDENT_LEN, _tc_smem_bytes(L, hd, rows, elem), (B, n_heads, -(-L // rows)),
     )
     if geo.smem_bytes > _SMEM_LIMIT:
         raise ValueError(

@@ -31,7 +31,7 @@ from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.convert import ParamTree, tree_map
 from pathway_tpu_torch.native import try_load as _try_load_native
 from pathway_tpu_torch.ops._fixed_order import fixed_order_sum
-from pathway_tpu_torch.ops.attention_kernel import HEAD_DIMS, RESIDENT_LEN, attention_short_flat
+from pathway_tpu_torch.ops.attention_kernel import HEAD_DIMS, attention_short_flat
 from pathway_tpu_torch.ops.microbatch import LENGTH_MAX_BUCKET, bucket_size
 
 
@@ -219,31 +219,9 @@ def pool(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return pooled / norm.clamp_min(1e-12)
 
 
-def past_resident(cfg: EncoderConfig, token_ids: torch.Tensor, mask: torch.Tensor) -> tuple:
-    """``token_ids`` and ``mask`` padded (pad id 0, masked) to
-    ``min(max_len, 2 * RESIDENT_LEN)`` tokens when the encoder's ``max_len``
-    exceeds the attention kernel's ``RESIDENT_LEN`` and the launch does not;
-    else unchanged. The kernel keeps the keys of an L <= RESIDENT_LEN launch
-    resident and streams longer ones in 64-key tiles, and the two round a
-    row with more than one tile of keys differently: on the H100 a text of
-    78-118 tokens embedded alone (L = 128) got other bits than in a batch
-    padded to 256 (``chip_smoke.py``'s rest_serving diagnosis). Padding keys
-    are masked, so with every launch past the bound a row gets the same bits
-    at any padded length."""
-    L = token_ids.shape[1]
-    if cfg.max_len <= RESIDENT_LEN or L > RESIDENT_LEN:
-        return token_ids, mask
-    pad = min(cfg.max_len, 2 * RESIDENT_LEN) - L
-    return F.pad(token_ids, (0, pad)), F.pad(mask, (0, pad), value=False)
-
-
 def encode(params, cfg: EncoderConfig, token_ids: torch.Tensor, mask: torch.Tensor):
     """Forward pass: [B, L] integer tokens + bool mask → [B, d_model] f32
-    unit vectors. On the card, a launch of an encoder that may see more
-    than ``RESIDENT_LEN`` tokens runs past that bound (:func:`past_resident`);
-    the CPU's plain attention has one path at every length."""
-    if token_ids.is_cuda:
-        token_ids, mask = past_resident(cfg, token_ids, mask)
+    unit vectors."""
     return pool(hidden_states(params, cfg, token_ids, mask), mask)
 
 

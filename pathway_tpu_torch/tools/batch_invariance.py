@@ -36,13 +36,15 @@ embedder, the 4-layer reranker, 384-d f32 KNN over 4096 docs):
   the first 8 of 1,024 of the bench's docs in an 8-row launch against the
   1,024-row launch, with each LN and attention output in call order;
 - the ``minilm`` embedder (max_len 512) on docs in launches padded to
-  other lengths (:func:`length_check`): 64 or 128 tokens alone against 256,
-  256 against 512, and 8 against 64 rows at 256.
+  other lengths (:func:`length_check`): 64 or 128 tokens alone against 256
+  (the attention kernel keeps the keys of L <= 128 resident and streams
+  longer ones; both fold a row's softmax sum in the same tile order), 256
+  against 512, and 8 against 64 rows at 256.
 
 Each entry is ``[bit-identical, max |difference|]``. The run fails (exit 1)
-when an embedder, reranker, search, bert or pre-LN f32 entry is not
-bit-identical; the torch
-reductions of the pooling tail and the unchunked product are diagnostics.
+when an embedder (the length entries included), reranker, search, bert or
+pre-LN f32 entry is not bit-identical; the torch reductions of the pooling
+tail and the unchunked product are diagnostics.
 """
 
 from __future__ import annotations
@@ -267,21 +269,25 @@ def length_check(enc, rows: int = 8) -> dict:
 def _launch_check(enc, docs: list[str], few: list[str], rows: int, prefix: str, ops: tuple) -> dict:
     """The first ``rows`` docs embedded by ``enc`` in one launch of ``docs``
     and in one launch of ``few`` (which begins with the same ``rows`` docs),
-    each of ``ops`` (functions of ``ops/encoder.py``; their first argument
-    and their output) traced in call order."""
+    each of ``ops`` (functions of ``ops/encoder.py``) traced in call order:
+    its output, and its first argument where that is not (a view of) the
+    previous traced op's output."""
     from pathway_tpu_torch.ops import encoder as E
 
     def traced(texts) -> tuple:
-        """(embeddings, [(op, output)] in call order, sequence length)."""
+        """(embeddings, [(op, array)] in call order, sequence length)."""
         ids, _ = enc.tokenizer(texts)
         calls: list = []
+        last: list = [None]  # the previous traced output (held, so no other tensor takes its memory)
         saved = {n: getattr(E, n) for n in ops}
 
         def wrap(name, fn):
             def run(*args, **kwargs):
-                calls.append((f"{len(calls)}:{name}.in", args[0][:rows].float().cpu().numpy()))
+                if last[0] is None or args[0].untyped_storage().data_ptr() != last[0].untyped_storage().data_ptr():
+                    calls.append((f"{len(calls)}:{name}.in", args[0][:rows].float().cpu().numpy()))
                 res = fn(*args, **kwargs)
                 calls.append((f"{len(calls)}:{name}", res[:rows].float().cpu().numpy()))
+                last[0] = res
                 return res
             return run
 

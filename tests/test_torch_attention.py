@@ -162,17 +162,17 @@ ALGO_SHAPES = [
 ALGO_D = 384
 
 
-def _tiled_two_pass(q, k, v, mask, H, scale, tile=64, resident_len=128, prod=torch.einsum):
+def _tiled_two_pass(q, k, v, mask, H, scale, tile=64, prod=torch.einsum):
     """The tensor-core route's softmax in plain torch, tile by tile as the
     kernel runs it: keys in 64-key tiles, f32 scores ``s·scale + fill`` with
     the fill 0 for a kept key, −1e30 for a masked key and −inf for the tail
-    tile's pad columns (zero-filled K and V rows). Up to
-    ``resident_len`` keys the row max and sum are exact over all tiles (the
-    kernel keeps the scores in registers); beyond it pass 1 keeps a running
-    max m and a rescaled sum l, and pass 2 recomputes each tile's scores.
-    Then probs = exp(s − m) / l, rounded to the input dtype, and probs·v
-    summed in f32. ``prod(equation, a, b)`` computes both products (f32
-    einsum; :func:`_einsum_3xtf32` for the f32 route's split products)."""
+    tile's pad columns (zero-filled K and V rows). Pass 1 folds the tiles in
+    key order into a running max m and a rescaled sum l, at every length
+    (the kernel keeps the scores of L <= 128 in registers, and recomputes
+    them above). Then probs = exp(s − m) / l, rounded to the input dtype,
+    and probs·v summed in f32. ``prod(equation, a, b)`` computes both
+    products (f32 einsum; :func:`_einsum_3xtf32` for the f32 route's split
+    products)."""
     B, L, D = q.shape
     hd = D // H
     nt = -(-L // tile)
@@ -191,18 +191,13 @@ def _tiled_two_pass(q, k, v, mask, H, scale, tile=64, resident_len=128, prod=tor
             s = prod("bqd,bkd->bqk", qh, kh[:, ts])
             return s * scale + fill[:, None, ts]  # exact: |s·scale| ≪ half an ulp of 1e30
 
-        if L <= resident_len:
-            s_all = torch.cat([scores(t) for t in range(nt)], dim=-1)
-            m = s_all.amax(dim=-1, keepdim=True)
-            l = torch.exp(s_all - m).sum(dim=-1, keepdim=True)
-        else:
-            m = torch.full((B, L, 1), float("-inf"))
-            l = torch.zeros(B, L, 1)
-            for t in range(nt):  # pass 1
-                s = scores(t)
-                n = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-                l = l * torch.exp(m - n) + torch.exp(s - n).sum(dim=-1, keepdim=True)
-                m = n
+        m = torch.full((B, L, 1), float("-inf"))
+        l = torch.zeros(B, L, 1)
+        for t in range(nt):  # pass 1
+            s = scores(t)
+            n = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            l = l * torch.exp(m - n) + torch.exp(s - n).sum(dim=-1, keepdim=True)
+            m = n
         acc = torch.zeros(B, L, hd)
         for t in range(nt):  # pass 2 (the resident route reuses its scores)
             p = (torch.exp(scores(t) - m) / l).to(q.dtype).float()
@@ -261,6 +256,44 @@ def test_tiled_two_pass_softmax_matches_jax_reference(B, L, hd, dtype):
         ref = _sdpa_ref(q, k, v, mask, H, jdt)
     out = _tiled_two_pass(_torch(q, dtype), _torch(k, dtype), _torch(v, dtype), torch.from_numpy(mask), H, hd ** -0.5)
     _assert_close(out.float().numpy(), ref, v, dtype)
+
+
+#: (L, padded L) pairs: alone, a text's launch is padded to its own length
+#: bucket (L <= 128 keeps keys resident); in a batch, to a longer one
+PADDED_LENGTHS = [(64, 128), (64, 256), (77, 128), (128, 256), (128, 512), (256, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("L,LP", PADDED_LENGTHS)
+def test_tiled_softmax_gives_a_row_the_same_bits_at_any_padded_length(L, LP, dtype):
+    """Both routes fold a row's sum tile by tile in key order, so keys added
+    masked (exp 0, the max unchanged) leave every bit of its output as
+    it was: the same rows of q, k, v in an L-key and an LP-key launch."""
+    H, hd = 2, 64
+    rng = np.random.default_rng(L * 1000 + LP)
+    q, k, v = (rng.standard_normal((3, LP, H * hd)).astype(np.float32) * 3 for _ in range(3))
+    mask = np.zeros((3, LP), bool)
+    mask[:, :L] = rng.random((3, L)) < 0.8
+    mask[:, 0] = True  # every row keeps a key (a fully masked row averages all L of them)
+    args = lambda n: (*(_torch(a[:, :n], dtype) for a in (q, k, v)), torch.from_numpy(mask[:, :n]), H, hd ** -0.5)
+    short = _tiled_two_pass(*args(L))
+    padded = _tiled_two_pass(*args(LP))[:, :L]
+    assert torch.equal(short, padded)
+
+
+def test_one_pass_row_sum_rounds_otherwise_than_the_fold():
+    """Why the kernel folds at every length: a row of 128 keys summed in one
+    pass with the final max gives other bits than the running fold of its
+    two 64-key tiles for some rows (those whose max lies in tile 2)."""
+    rng = np.random.default_rng(0)
+    s = torch.from_numpy(rng.standard_normal((4096, 128)).astype(np.float32) * 4)
+    m = s.amax(dim=-1, keepdim=True)
+    one_pass = torch.exp(s - m).sum(dim=-1, keepdim=True)
+    m1 = s[:, :64].amax(dim=-1, keepdim=True)
+    fold = torch.exp(s[:, :64] - m1).sum(dim=-1, keepdim=True) * torch.exp(m1 - m)
+    fold = fold + torch.exp(s[:, 64:] - m).sum(dim=-1, keepdim=True)
+    later = (m1 < m).squeeze(-1)
+    assert later.any() and not torch.equal(one_pass[later], fold[later])
 
 
 # --- the f32 route's split (3xTF32) products, emulated on the CPU ---------

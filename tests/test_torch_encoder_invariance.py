@@ -1,25 +1,21 @@
 """A row gets the same bits from the port's encoder in any launch.
 
-Two repairs pinned here, both found on the H100 by
-``pathway_tpu_torch/tools/batch_invariance.py``:
-
-- the pre-LN block in f32 runs its four products per layer through
-  ``_dot_f32``'s fixed-row tiles, as the bert block does (cuBLAS picks its
-  f32 kernel by the product's rows, and an 8-row launch gave a doc other
-  bits than a 1,024-row one); bf16 products keep the launch's own shape;
-- on the card, an encoder whose ``max_len`` exceeds the attention kernel's
-  resident length pads every launch past it (``past_resident``): the kernel
-  rounds a row of more than one key tile differently when its keys stay
-  resident (L <= 128) than when they stream (L > 128).
+The repair pinned here was found on the H100 by
+``pathway_tpu_torch/tools/batch_invariance.py``: the pre-LN block in f32
+runs its four products per layer through ``_dot_f32``'s fixed-row tiles, as
+the bert block does (cuBLAS picks its f32 kernel by the product's rows, and
+an 8-row launch gave a doc other bits than a 1,024-row one); bf16 products
+keep the launch's own shape. A launch padded to another length gives a doc
+the same bits because the attention kernel folds a row's softmax sum in one
+tile order at every length (``tests/test_torch_attention.py`` emulates it).
 
 The card's own checks are ``chip_smoke.py``'s ``f32_path`` gate and its
-rest_serving gate; here the same functions run on CPU tensors.
+rest_serving gates; here the same functions run on CPU tensors.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import pytest
 import torch
 
 from pathway_tpu_torch.ops import encoder as TE
@@ -70,33 +66,6 @@ def test_dot_keeps_bf16_products_at_the_launch_shape():
     w = torch.from_numpy(rng.standard_normal((16, 8)).astype(np.float32))
     assert torch.equal(TE._dot(x.bfloat16(), w), x.bfloat16() @ w.bfloat16())
     assert torch.equal(TE._dot(x, w), TE._dot_f32(x, w))
-
-
-@pytest.mark.parametrize(
-    "max_len, L, padded",
-    [(512, 64, 256), (512, 128, 256), (512, 256, 256), (512, 512, 512), (200, 64, 200), (128, 64, 64), (128, 128, 128)],
-)
-def test_past_resident_pads_launches_of_encoders_that_outgrow_the_resident_length(max_len, L, padded):
-    cfg = TE.EncoderConfig(**TINY, max_len=max_len)
-    ids = torch.arange(1, 2 * L + 1).reshape(2, L)
-    mask = ids % 3 != 0
-    got_ids, got_mask = TE.past_resident(cfg, ids, mask)
-    assert tuple(got_ids.shape) == tuple(got_mask.shape) == (2, padded)
-    assert torch.equal(got_ids[:, :L], ids) and torch.equal(got_mask[:, :L], mask)
-    assert not got_ids[:, L:].any() and not got_mask[:, L:].any()
-
-
-def test_padding_past_the_resident_length_keeps_the_embedding():
-    """Pad keys are masked: the padded launch embeds as the unpadded one
-    (within 1e-6 on the CPU, whose plain attention sums in other orders)."""
-    cfg = TE.EncoderConfig(**TINY, max_len=512)
-    enc = TE.TorchSentenceEncoder(cfg, seed=0, device="cpu")
-    ids, mask = enc.tokenizer(_docs(4, 90))
-    ids, mask = torch.from_numpy(ids).long(), torch.from_numpy(mask)
-    assert ids.shape[1] == 128
-    plain = TE.encode(enc.params, cfg, ids, mask)
-    padded = TE.encode(enc.params, cfg, *TE.past_resident(cfg, ids, mask))
-    np.testing.assert_allclose(padded.numpy(), plain.numpy(), rtol=0, atol=1e-6)
 
 
 def test_batch_invariance_entries_hold_on_cpu():
