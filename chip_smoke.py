@@ -15,8 +15,8 @@ printing one JSON line:
 3. kernels: each kernel against its plain PyTorch version on the card, both
    routes of the attention kernel (bf16, and f32 as split 3xTF32 products,
    both on the tensor cores) at nine shapes, the main path's among them,
-   with its time at the main path's three shapes (and f32 at bert_path's
-   batch, 12 heads of 32), its plain version's time,
+   with its time at the main path's three shapes and at bert_path's
+   batch (12 heads of 32), its plain version's time,
    one PyTorch library call's time as a yardstick, and its bound;
 4. main path, at the full width of the bench's MiniLM-class encoder with
    random seeded weights: 8192 docs tokenized, embedded in batches of 1024
@@ -59,7 +59,19 @@ printing one JSON line:
    rows, static and over 20 ticks, on the fused device tier on the card
    (``PATHWAY_FUSE_JAX=on``) against the register program (``off``), bit
    for bit;
-10. bert_path: a BERT checkpoint at all-MiniLM-L6-v2's published widths
+10. temporal: the temporal Table API on a Nexmark-shaped stream
+   (``tools/nexmark.py``: Beam's generator defaults, 2% of the bids 1-8 s
+   late): Q5 (sliding hot items), Q7 (tumbling highest bid, without a
+   behavior and with ``common_behavior(cutoff=5 s)``) and Q8 (window join
+   of persons and the auctions they sell) over TEMPORAL_EVENTS events,
+   static and in ticks of 65,536, each with the engine's device functions
+   on the card (``PATHWAY_ENGINE_JAX=gpu``, ``PATHWAY_FUSE_JAX=on``) and on
+   numpy, the runs spread over worker processes; then asof and interval
+   joins, sort/diff and deduplicate on the first 65,536 events. Gates:
+   card == numpy update streams, ``grouped`` and ``fused`` routes on the
+   card and none on numpy, the static answers and the cutoff's dropped late
+   bids equal a numpy model, ticks == static without a behavior;
+11. bert_path: a BERT checkpoint at all-MiniLM-L6-v2's published widths
    (vocab 30,522, hidden 384, 6 layers, 12 heads of 32, random f32 weights
    from seed 0, a synthetic vocab.txt), written as pytorch_model.bin and
    model.safetensors (equal parameters), loaded by ``from_pretrained`` on
@@ -67,7 +79,7 @@ printing one JSON line:
    attention call on the f32 route at hd 32) and indexed, with its checks
    (64 embeddings against the CPU path, 8,192/8,192 self-hits, the bert
    entry of ``tools/batch_invariance.py``);
-11. document_store: 8,192 UTF-8 files in 64 directories read by
+12. document_store: 8,192 UTF-8 files in 64 directories read by
    ``pw.io.fs`` into ``DocumentStore`` (``minilm`` embedder,
    ``TokenCountSplitter(50, 200)``, the default ``TieredKnnFactory``); 1,024
    ``retrieve_query`` rows in 64-row ticks (256 filtered to a directory),
@@ -77,12 +89,12 @@ printing one JSON line:
    in order); a 1,024-file streaming read whose answers equal a static
    read's; 64 files each of PDF, DOCX, HTML and Markdown through their
    parsers, each marker phrase retrieved first;
-12. rest_serving: phase 11's files served over HTTP by ``QARestServer``
+13. rest_serving: phase 12's files served over HTTP by ``QARestServer``
    (``pw.io.http`` on the port's own HTTP/1.1 server) over the same
    ``DocumentStore`` and ``BaseRAGQuestionAnswerer``: ingest until
    ``/v1/statistics`` counts every file and both index nodes hold every
-   chunk; phase 11's 1,024 retrieve payloads as JSON POSTs from 1 and from
-   32 concurrent keep-alive clients, each answer equal to phase 11's
+   chunk; phase 12's 1,024 retrieve payloads as JSON POSTs from 1 and from
+   32 concurrent keep-alive clients, each answer equal to phase 12's
    in-process answer (texts, metadata, score bits); 256 ``/v2/answer``
    prompts holding their texts in order; ``/v1/inputs``,
    ``/v2/list_documents``, ``/_schema``, ``/healthz``, ``/readyz``; a shed
@@ -90,8 +102,8 @@ printing one JSON line:
    the route's counters agree) and a lifecycle leg (requests pending at
    ``stop()`` answered 503, a restart on the same port); a text embedded
    with the same bits in launches padded to 64, 128, 256 and 512 tokens;
-13. the kernels line, with each kernel's launches during phases 4, 6, 7,
-   8's pipeline, 10, 11 and 12.
+14. the kernels line, with each kernel's launches during phases 4, 6, 7,
+   8's pipeline, 10, 11, 12 and 13.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without it. TF32 is off for every matmul (``allow_tf32 = False``), so the f32
@@ -135,6 +147,15 @@ TIER_Q_BATCHES = (16, 256, 1024)
 TIER_PIPE_HOT = 16_384
 TIER_SAME_HOT = 1024  # microbatch off == auto: PIPE_SAME_DOCS docs, 4x this bound
 INVARIANCE_CAPACITIES = (4096, 65_536, 1 << 20)
+#: the temporal phase: a Nexmark-shaped stream (``tools/nexmark.py``) in
+#: ticks of TEMPORAL_TICK events, the queries, and the rest of the temporal
+#: surface on the first TEMPORAL_SURFACE_EVENTS events
+TEMPORAL_EVENTS_GENERATED = 1_048_576  # the stream; the runs read its first TEMPORAL_EVENTS
+TEMPORAL_EVENTS = 524_288
+TEMPORAL_TICK = 65_536
+TEMPORAL_SURFACE_EVENTS = 65_536
+TEMPORAL_QUERIES = ("q5", "q7", "q7_cutoff", "q8")
+TEMPORAL_WORKERS = 6  # processes running the phase's 18 runs, longest first
 #: the bert_path phase: all-MiniLM-L6-v2's published widths, random weights
 BERT_DOCS = 8192
 BERT_BATCH = 1024
@@ -344,8 +365,9 @@ KERNEL_SHAPES = {
     "max_len": (4, 512, 64), "ragged": (3, 77, 64), "hd32": (2, 128, 32), "hd128": (2, 256, 128),
     "hd128_resident": (2, 128, 128), "bert_embed": (1024, 128, 32),
 }
-#: the timed cases per dtype: both routes at the main path's shapes
-TIMED = {"bfloat16": ("embed", "query", "rerank"), "float32": ("embed", "query", "rerank", "bert_embed")}
+#: the timed cases per dtype: both routes at the main path's shapes and at
+#: bert_path's batch
+TIMED = {"bfloat16": ("embed", "query", "rerank", "bert_embed"), "float32": ("embed", "query", "rerank", "bert_embed")}
 
 
 def phase_kernels() -> list[dict]:
@@ -1229,6 +1251,254 @@ def phase_engine_kernels(info: dict) -> dict:
 
     pw.G.clear()
     return runs
+
+
+def _capture_all(tables: dict) -> tuple[dict, float]:
+    """Every table of ``tables`` captured in ONE engine run: (name -> its
+    update stream ``(time, key, diff, values)``, the run's seconds)."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.tools import nexmark as nx
+
+    t0 = time.perf_counter()
+    nodes = nx.capture(pw, tables)
+    sync()
+    seconds = time.perf_counter() - t0
+
+    def plain(v):
+        return v.item() if isinstance(v, np.generic) else v
+
+    streams = {
+        name: [(t, k, d, tuple(plain(v) for v in row)) for (t, k, d, row) in node.deltas]
+        for name, node in nodes.items()
+    }
+    return streams, seconds
+
+
+def _net_rows(stream) -> dict:
+    """Final rows of an update stream: row values -> multiplicity."""
+    net: dict = {}
+    for _t, k, d, row in stream:
+        net[(k, row)] = net.get((k, row), 0) + d
+    out: dict = {}
+    for (_k, row), m in net.items():
+        if m:
+            out[row] = out.get(row, 0) + m
+    return out
+
+
+def _nexmark_model(ev: dict, tick: int) -> dict:
+    """The static answers of Q5, Q7 and Q8 in plain numpy, and the bids that
+    Q7's cutoff drops when the events arrive ``tick`` at a time: a bid is
+    dropped iff the watermark at its arrival (the largest bid time of the
+    earlier ticks) is at least its window's end + the cutoff."""
+    from pathway_tpu_torch.tools import nexmark as nx
+
+    b = ev["kind"] == nx.BID
+    arrival = np.flatnonzero(b)
+    auction, bidder, price, t = (ev[c][b] for c in ("auction", "bidder", "price", "t"))
+    out: dict = {}
+    # Q5: 5 sliding windows per bid (hop 2 s, duration 10 s), count per auction
+    k = nx.Q5_DURATION_MS // nx.Q5_HOP_MS
+    starts = ((t // nx.Q5_HOP_MS)[:, None] - np.arange(k)[None, :]) * nx.Q5_HOP_MS
+    pairs = np.stack([np.repeat(auction, k), starts.ravel()], axis=1)
+    uniq, counts = np.unique(pairs, axis=0, return_counts=True)
+    out["q5_counts"] = {(int(a), int(s), int(c)): 1 for (a, s), c in zip(uniq, counts)}
+    best: dict = {}
+    for (a, s), c in zip(uniq.tolist(), counts.tolist()):
+        best[s] = max(best.get(s, 0), c)
+    out["q5_hot"] = {(s, a, c): 1 for (a, s), c in zip(uniq.tolist(), counts.tolist()) if c == best[s]}
+
+    def q7(keep):
+        start = (t // nx.Q7_WINDOW_MS) * nx.Q7_WINDOW_MS
+        top: dict = {}
+        n: dict = {}
+        for s_, p_ in zip(start[keep].tolist(), price[keep].tolist()):
+            top[s_] = max(top.get(s_, p_), p_)
+            n[s_] = n.get(s_, 0) + 1
+        highest: dict = {}
+        for s_, a_, b_, p_ in zip(start.tolist(), auction.tolist(), bidder.tolist(), price.tolist()):
+            if top.get(s_) == p_:
+                highest[(s_, a_, b_, p_)] = highest.get((s_, a_, b_, p_), 0) + 1
+        return {(s_, top[s_], n[s_]): 1 for s_ in top}, highest
+
+    out["q7_top"], out["q7_highest"] = q7(np.ones(len(t), bool))
+    # the cutoff's drops in the ticked run
+    tick_of = arrival // tick
+    tick_max = {}
+    for j, tt in zip(tick_of.tolist(), t.tolist()):
+        tick_max[j] = max(tick_max.get(j, tt), tt)
+    wm = np.full(len(t), -1, np.int64)
+    running = None
+    for j in range(int(tick_of.max()) + 1 if len(t) else 0):
+        wm[tick_of == j] = -1 if running is None else running
+        if j in tick_max:
+            running = tick_max[j] if running is None else max(running, tick_max[j])
+    threshold = (t // nx.Q7_WINDOW_MS) * nx.Q7_WINDOW_MS + nx.Q7_WINDOW_MS + nx.Q7_CUTOFF_MS
+    dropped = (wm >= 0) & (threshold <= wm)
+    out["q7_cutoff_dropped"] = int(dropped.sum())
+    out["q7_cutoff_top_ticks"], out["q7_cutoff_highest_ticks"] = q7(~dropped)
+    # Q8: a person and the auctions it sells in the same 10 s window
+    pm, am = ev["kind"] == nx.PERSON, ev["kind"] == nx.AUCTION
+    persons = {}
+    for pid, city, pt in zip(ev["eid"][pm].tolist(), ev["city"][pm].tolist(), ev["t"][pm].tolist()):
+        persons.setdefault((pid, pt // nx.Q8_WINDOW_MS), []).append((city, pt))
+    q8: dict = {}
+    for aid, seller, at in zip(ev["eid"][am].tolist(), ev["seller"][am].tolist(), ev["t"][am].tolist()):
+        for city, pt in persons.get((seller, at // nx.Q8_WINDOW_MS), ()):
+            row = (seller, city, aid, pt, at)
+            q8[row] = q8.get(row, 0) + 1
+    out["q8_pairs"] = q8
+    out["bids"] = int(b.sum())
+    return out
+
+
+def _surface_model(ev: dict) -> dict:
+    """Plain numpy answers of the surface queries (``tools/nexmark.py``)."""
+    from pathway_tpu_torch.tools import nexmark as nx
+
+    b, pm, am = (ev["kind"] == k for k in (nx.BID, nx.PERSON, nx.AUCTION))
+    auction, bidder, price, t = (ev[c][b] for c in ("auction", "bidder", "price", "t"))
+    person_t = dict(zip(ev["eid"][pm].tolist(), ev["t"][pm].tolist()))
+    asof_matched = sum(1 for bd, tt in zip(bidder.tolist(), t.tolist()) if person_t.get(bd, tt + 1) <= tt)
+    created = dict(zip(ev["eid"][am].tolist(), ev["t"][am].tolist()))
+    interval = sum(
+        1 for a, tt in zip(auction.tolist(), t.tolist())
+        if a in created and 0 <= tt - created[a] <= nx.SURFACE_INTERVAL_MS
+    )
+    kept: dict = {}
+    for a, p in zip(auction.tolist(), price.tolist()):
+        kept[a] = max(kept.get(a, p), p)
+    return {"asof_matched": asof_matched, "asof_rows": int(b.sum()), "interval_pairs": interval,
+            "dedup_prices": sorted(kept.items()), "diff_firsts": len(set(auction.tolist()))}
+
+
+def _temporal_job(job: tuple) -> tuple:
+    """One run of phase ``temporal`` in a worker process: ``query`` over the
+    first ``n_events`` events of the seeded stream (static, or in ticks of
+    ``tick``) on one route. Returns the job, the update streams, the run's
+    seconds, the engine routes and the attention launches it made."""
+    global DEVICE
+    query, mode, route, n_events, generated, tick, device = job
+    DEVICE = device
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import torch_kernels as K
+    from pathway_tpu_torch.ops import attention_kernel as A
+    from pathway_tpu_torch.tools import nexmark as nx
+
+    engine, fuse = ("0", "off") if route == "numpy" else (route, "on")
+    os.environ["PATHWAY_ENGINE_JAX"] = engine
+    os.environ["PATHWAY_FUSE_JAX"] = fuse
+    ev = {c: v[:n_events] for c, v in nx.generate(generated, seed=0).items()}
+    tables = nx.build(pw, query, ev, tick if mode == "ticks" else None)
+    K.ROUTES.clear()
+    A.LAUNCHES = 0
+    A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
+    streams, seconds = _capture_all(tables)
+    pw.G.clear()
+    return job, streams, seconds, dict(K.ROUTES), dict(A.ROUTE_LAUNCHES)
+
+
+def phase_temporal(info: dict) -> dict:
+    """The temporal Table API on a Nexmark-shaped stream (``tools/nexmark.py``):
+    Q5, Q7 (without a behavior and with ``common_behavior(cutoff=5 s)``) and
+    Q8 over TEMPORAL_EVENTS events, static and in ticks of TEMPORAL_TICK,
+    each with the engine's device functions on the card
+    (``PATHWAY_ENGINE_JAX=gpu``, ``PATHWAY_FUSE_JAX=on``) and on numpy
+    (``0``, ``off``); then the rest of the surface (asof and interval joins,
+    sort/diff, deduplicate) on the first TEMPORAL_SURFACE_EVENTS events.
+    The runs are host-bound Python, so they run TEMPORAL_WORKERS at a time,
+    each in a worker process of its own that times its run.
+    Gates: card == numpy update streams; ``grouped`` and ``fused`` on the
+    card, no torch function on numpy; the static answers and the cutoff's
+    drops equal ``_nexmark_model``; ticks == static where no behavior acts."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from pathway_tpu_torch.tools import nexmark as nx
+
+    card = "gpu" if DEVICE == "cuda" else "cpu"
+    device = "cuda" if DEVICE == "cuda" else "cpu"
+    t_gen = time.perf_counter()
+    ev = nx.generate(TEMPORAL_EVENTS_GENERATED, seed=0)
+    ev = {c: v[:TEMPORAL_EVENTS] for c, v in ev.items()}
+    model = _nexmark_model(ev, TEMPORAL_TICK)
+    gen_s = time.perf_counter() - t_gen
+    # longest runs first, so the pool's tail is short
+    jobs = [(q, mode, route, TEMPORAL_EVENTS, TEMPORAL_EVENTS_GENERATED, TEMPORAL_TICK, DEVICE)
+            for q in TEMPORAL_QUERIES for mode in ("static", "ticks") for route in (card, "numpy")]
+    jobs += [("surface", "static", route, TEMPORAL_SURFACE_EVENTS, TEMPORAL_EVENTS_GENERATED, TEMPORAL_TICK, DEVICE)
+             for route in (card, "numpy")]
+    t_phase = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=TEMPORAL_WORKERS, mp_context=ctx) as pool:
+        done = {(job[0], job[1], job[2]): rest for job, *rest in pool.map(_temporal_job, jobs)}
+    phase_s = time.perf_counter() - t_phase
+    launches = {"tensor_core": 0, "tensor_core_3xtf32": 0}
+    for *_, by_route in done.values():
+        for k, v in by_route.items():
+            launches[k] = launches.get(k, 0) + v
+
+    result: dict = {"events": TEMPORAL_EVENTS, "tick_events": TEMPORAL_TICK, "ticks": -(-TEMPORAL_EVENTS // TEMPORAL_TICK),
+                    "late_bids": int(ev["late"].sum()), "bids": model["bids"], "workers": TEMPORAL_WORKERS,
+                    "generate_and_model_s": gen_s}
+    finals: dict = {}
+    for query in TEMPORAL_QUERIES + ("surface",):
+        entry = {}
+        n = TEMPORAL_SURFACE_EVENTS if query == "surface" else TEMPORAL_EVENTS
+        for mode in ("static",) if query == "surface" else ("static", "ticks"):
+            c, nu = done[(query, mode, card)], done[(query, mode, "numpy")]
+            label = f"temporal {query} ({mode})"
+            same = c[0] == nu[0]
+            check(same, f"{label}: card and numpy update streams differ")
+            check(c[2].get(f"fused/{device}", 0) > 0, f"{label}: no fused chain on the {device} tier")
+            if query in ("q5", "q7", "q7_cutoff"):
+                check(c[2].get(f"grouped/{device}", 0) > 0, f"{label}: no groupby on the {device} route")
+            check(not nu[2], f"{label}: the numpy route ran a torch function {nu[2]}")
+            finals[(query, mode)] = {name: _net_rows(st) for name, st in nu[0].items()}
+            entry[mode] = {
+                f"{card}_s": c[1], "numpy_s": nu[1],
+                f"{card}_events_per_s": n / c[1], "numpy_events_per_s": n / nu[1],
+                "routes": c[2], "out_updates": {k: len(v) for k, v in nu[0].items()}, "identical": same,
+            }
+        result[query] = entry
+    # gate 3: the static answers against the numpy model
+    for query, names in (("q5", ("q5_counts", "q5_hot")), ("q7", ("q7_top", "q7_highest")),
+                         ("q7_cutoff", ("q7_top", "q7_highest")), ("q8", ("q8_pairs",))):
+        for name in names:
+            got = finals[(query, "static")][name]
+            check(got == model[name], f"temporal {query} static {name}: {len(got)} rows, model {len(model[name])}")
+    # the cutoff's drops over ticks
+    cut = finals[("q7_cutoff", "ticks")]
+    kept = sum(n * m for (_s, _top, n), m in cut["q7_top"].items())
+    dropped = model["bids"] - kept
+    check(dropped == model["q7_cutoff_dropped"],
+          f"temporal q7_cutoff: {dropped} late bids dropped, model {model['q7_cutoff_dropped']}")
+    check(cut["q7_top"] == model["q7_cutoff_top_ticks"], "temporal q7_cutoff ticks: window maxima differ from the model")
+    check(cut["q7_highest"] == model["q7_cutoff_highest_ticks"], "temporal q7_cutoff ticks: highest bids differ from the model")
+    result["q7_cutoff"]["dropped_late_bids"] = dropped
+    result["q7_cutoff"]["model_dropped"] = model["q7_cutoff_dropped"]
+    # gate 4: without a behavior, the ticked final state is the static one
+    for query in ("q5", "q7", "q8"):
+        check(finals[(query, "ticks")] == finals[(query, "static")], f"temporal {query}: ticks final state != static")
+    # the rest of the surface against its numpy model
+    head = {c: v[:TEMPORAL_SURFACE_EVENTS] for c, v in ev.items()}
+    sm = _surface_model(head)
+    fin = finals[("surface", "static")]
+    asof_rows = sum(fin["asof"].values())
+    asof_matched = sum(m for row, m in fin["asof"].items() if row[4] is not None)
+    check(asof_rows == sm["asof_rows"] and asof_matched == sm["asof_matched"],
+          f"temporal surface asof: {asof_rows} rows / {asof_matched} matched, model {sm['asof_rows']} / {sm['asof_matched']}")
+    check(sum(fin["interval"].values()) == sm["interval_pairs"],
+          f"temporal surface interval: {sum(fin['interval'].values())} pairs, model {sm['interval_pairs']}")
+    check(sorted((row[0], row[2]) for row in fin["dedup"]) == sm["dedup_prices"],
+          "temporal surface dedup: kept prices differ from the model")
+    firsts = sum(m for row, m in fin["diff"].items() if row[0] is None)
+    check(firsts == sm["diff_firsts"], f"temporal surface diff: {firsts} first bids, model {sm['diff_firsts']}")
+    result["surface"].update(asof_matched=asof_matched, interval_pairs=sm["interval_pairs"])
+    result["phase_s"] = phase_s
+    result["launches"] = launches
+    emit("temporal", card=info["nvidia_smi"], **result)
+    return result
 
 
 def _write_safetensors(path: str, tensors: dict) -> None:
@@ -2209,14 +2479,15 @@ def main() -> int:
     pipe = phase_pipeline(info)
     tier = phase_tiered(info)
     phase_engine_kernels(info)
+    temporal = phase_temporal(info)
     bert = phase_bert_path(info)
     store = phase_document_store(info)
     rest = phase_rest_serving(info, store)
 
     launches = {
         "main_path": state["launches"], "f32_path": f32["launches"], "pipeline": pipe["launches"],
-        "tiered_pipeline": tier["launches"], "bert_path": bert["launches"], "document_store": store["launches"],
-        "rest_serving": rest["launches"],
+        "tiered_pipeline": tier["launches"], "temporal": temporal["launches"], "bert_path": bert["launches"],
+        "document_store": store["launches"], "rest_serving": rest["launches"],
     }
     line = {"kernels": [
         _kernel_entry(kern, "bfloat16", "tensor_core", "bf16, tensor cores (mma.sync, cp.async)", launches),

@@ -27,7 +27,10 @@ brute-force KNN on the card, the tiered index with its hot shard on the card
 over a host IVF cold tier, IVF-flat, usearch, LSH, BM25 and hybrid), the
 fused device tier of chain fusion, and the LLM xpack's RAG surface
 (``xpacks.llm``: embedders, rerankers, chats, parsers, splitters,
-DocumentStore, question answering and its REST servers). The other planes
+DocumentStore, question answering and its REST servers), and the temporal
+and stateful Table API (windows, behaviors, interval/asof/as-of-now and window
+joins, sort/diff, deduplicate, interpolate, gradual broadcast, ``pw.temporal``,
+``pw.stateful``, ``pw.utils``, ``AsyncTransformer``). The other planes
 raise ``NotImplementedError("later slice: <plane>")`` where a call reaches
 them.
 
@@ -88,9 +91,34 @@ from pathway_tpu_torch.internals.parse_graph import G
 from pathway_tpu_torch.internals.errors import ERROR as _ERROR  # noqa: F401
 from pathway_tpu_torch.internals.errors import PENDING
 
-from pathway_tpu_torch import debug, io, stdlib, xpacks
-from pathway_tpu_torch.stdlib import indexing
+from pathway_tpu_torch import debug, io, stdlib, universes, xpacks
+from pathway_tpu_torch.stdlib import temporal, indexing, ml, statistical, stateful
+from pathway_tpu_torch.stdlib import utils as utils
+from pathway_tpu_torch.stdlib.utils.async_transformer import AsyncTransformer
+from pathway_tpu_torch.stdlib.utils.pandas_transformer import pandas_transformer
 import pathway_tpu_torch.xpacks.llm  # noqa: E402,F401  (pw.xpacks.llm)
+from pathway_tpu_torch.internals.later_slice import cut_callable as _cut
+from pathway_tpu_torch.internals.later_slice import cut_class as _cut_class
+
+# the reference's surface over planes still to port: each raises
+# NotImplementedError("later slice: <plane>") when called (ROADMAP Queue 1)
+iterate = _cut("iterate", "iterate")
+iterate_universe = _cut_class("iterate", "iterate_universe")
+sql = _cut("sql", "sql")
+load_yaml = _cut("yaml_loader", "load_yaml")
+export_table = _cut("exported", "export_table")
+import_table = _cut("exported", "import_table")
+ExportedTable = _cut_class("exported", "ExportedTable")
+enable_interactive_mode = _cut("interactive", "enable_interactive_mode")
+live = _cut("interactive", "live")
+LiveTable = _cut_class("interactive", "LiveTable")
+ClassArg = _cut_class("row_transformer", "ClassArg")
+transformer = _cut("row_transformer", "transformer")
+attribute = _cut("row_transformer", "attribute")
+input_attribute = _cut("row_transformer", "input_attribute")
+input_method = _cut("row_transformer", "input_method")
+method = _cut("row_transformer", "method")
+output_attribute = _cut("row_transformer", "output_attribute")
 
 __version__ = "0.1.0"
 
@@ -146,4 +174,27 @@ __all__ = [
     "PENDING",
     "G",
     "global_error_log",
+    "temporal",
+    "stateful",
+    "statistical",
+    "utils",
+    "AsyncTransformer",
+    "pandas_transformer",
+    "universes",
+    "iterate",
+    "sql",
+    "load_yaml",
+    "export_table",
+    "import_table",
+    "ExportedTable",
+    "LiveTable",
+    "enable_interactive_mode",
+    "live",
+    "ClassArg",
+    "attribute",
+    "input_attribute",
+    "input_method",
+    "method",
+    "output_attribute",
+    "transformer",
 ]

@@ -37,3 +37,39 @@ def interactive_only(service_class: str) -> str:
     if sc != "interactive":
         raise later_slice(f"flow (service_class={service_class!r})")
     return sc
+
+
+def cut_callable(plane: str, name: str):
+    """A stand-in for the reference's ``pw.<name>``: calling it raises
+    ``later_slice(plane)``, so a pipeline that reaches an unported plane
+    fails at the call instead of with an ``AttributeError``."""
+
+    def cut(*args, **kwargs):
+        raise later_slice(plane)
+
+    cut.__name__ = cut.__qualname__ = name
+    cut.__doc__ = f"The reference's ``pw.{name}``; the {plane} plane is a later slice."
+    return cut
+
+
+class _CutClassMeta(type):
+    def __call__(cls, *args, **kwargs):
+        raise later_slice(cls._plane)
+
+
+def cut_class(plane: str, name: str) -> type:
+    """A stand-in class for the reference's ``pw.<name>``: building it or
+    subclassing it raises ``later_slice(plane)``."""
+
+    def init_subclass(sub, **kwargs):
+        raise later_slice(plane)
+
+    return _CutClassMeta(
+        name,
+        (),
+        {
+            "_plane": plane,
+            "__init_subclass__": classmethod(init_subclass),
+            "__doc__": f"The reference's ``pw.{name}``; the {plane} plane is a later slice.",
+        },
+    )

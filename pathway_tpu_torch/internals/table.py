@@ -7,10 +7,7 @@ are declarative: they create LogicalNodes; nothing computes until ``pw.run`` /
 ``pw.debug.compute_and_print``. Lowering targets block-oriented engine operators
 instead of the reference's per-row differential operators.
 
-Carried from ``pathway_tpu/internals/table.py``. Methods that lower into planes
-the port has not carried yet (temporal, sorting, time_ops, statistical,
-ordered, deduplicate, gradual broadcast) raise
-``NotImplementedError("later slice: <plane>")``.
+Carried from ``pathway_tpu/internals/table.py``.
 """
 
 from __future__ import annotations
@@ -33,7 +30,6 @@ from pathway_tpu_torch.internals.expression import (
     TYPE_ENV,
 )
 from pathway_tpu_torch.internals.keys import row_keys, sequential_keys
-from pathway_tpu_torch.internals.later_slice import later_slice
 from pathway_tpu_torch.internals.logical import LogicalNode
 from pathway_tpu_torch.internals.universe import Universe, solver
 
@@ -251,7 +247,9 @@ class Table:
         acceptor: Callable | None = None,
         name: str | None = None,
     ) -> "Table":
-        raise later_slice("deduplicate")
+        from pathway_tpu_torch.internals.deduplicate import deduplicate_impl
+
+        return deduplicate_impl(self, value=value, instance=instance, acceptor=acceptor)
 
     # ------------------------------------------------------------- joins
 
@@ -274,10 +272,14 @@ class Table:
         return self.join(other, *on, id=id, how="outer", **kw)
 
     def asof_join(self, other: "Table", t_left: Any, t_right: Any, *on: Any, **kw):
-        raise later_slice("temporal")
+        from pathway_tpu_torch.stdlib.temporal import asof_join
+
+        return asof_join(self, other, t_left, t_right, *on, **kw)
 
     def asof_now_join(self, other: "Table", *on: Any, **kw):
-        raise later_slice("temporal")
+        from pathway_tpu_torch.stdlib.temporal import asof_now_join
+
+        return asof_now_join(self, other, *on, **kw)
 
     def ix(self, expression: Any, *, optional: bool = False, context: Any = None) -> "Table":
         """Foreign-key lookup: rows of ``self`` re-pointed through a pointer
@@ -479,34 +481,58 @@ class Table:
     # ------------------------------------------------------------- sort / temporal
 
     def sort(self, key: Any, instance: Any = None) -> "Table":
-        raise later_slice("sorting")
+        from pathway_tpu_torch.internals.sorting import sort_impl
+
+        return sort_impl(self, self._bind(key), None if instance is None else self._bind(instance))
 
     def interpolate(self, timestamp: Any, *values: Any, mode: Any = None) -> "Table":
-        raise later_slice("statistical")
+        from pathway_tpu_torch.stdlib.statistical import InterpolateMode, interpolate
+
+        return interpolate(
+            self, timestamp, *values, mode=mode if mode is not None else InterpolateMode.LINEAR
+        )
 
     def _gradual_broadcast(self, threshold_table, lower_column, value_column, upper_column) -> "Table":
-        raise later_slice("gradual_broadcast")
+        from pathway_tpu_torch.internals.gradual_broadcast import gradual_broadcast_impl
+
+        return gradual_broadcast_impl(
+            self, threshold_table, lower_column, value_column, upper_column
+        )
 
     def diff(self, timestamp: Any, *values: Any, instance: Any = None) -> "Table":
-        raise later_slice("ordered")
+        from pathway_tpu_torch.stdlib.ordered import diff_impl
+
+        return diff_impl(self, timestamp, *values, instance=instance)
 
     def windowby(self, time_expr: Any, *, window: Any, instance: Any = None, behavior: Any = None, **kwargs):
-        raise later_slice("temporal")
+        from pathway_tpu_torch.stdlib.temporal import windowby_impl
+
+        return windowby_impl(self, time_expr, window=window, instance=instance, behavior=behavior, **kwargs)
 
     def interval_join(self, other, self_time, other_time, interval, *on, how: str = "inner", **kw):
-        raise later_slice("temporal")
+        from pathway_tpu_torch.stdlib.temporal import interval_join
+
+        return interval_join(self, other, self_time, other_time, interval, *on, how=how, **kw)
 
     def _buffer(self, threshold_column: Any, current_time_column: Any) -> "Table":
-        raise later_slice("time_ops")
+        from pathway_tpu_torch.internals.time_ops import buffer_impl
+
+        return buffer_impl(self, threshold_column, current_time_column)
 
     def _forget(self, threshold_column: Any, current_time_column: Any, mark_forgetting_records: bool = False) -> "Table":
-        raise later_slice("time_ops")
+        from pathway_tpu_torch.internals.time_ops import forget_impl
+
+        return forget_impl(self, threshold_column, current_time_column, mark_forgetting_records)
 
     def _freeze(self, threshold_column: Any, current_time_column: Any) -> "Table":
-        raise later_slice("time_ops")
+        from pathway_tpu_torch.internals.time_ops import freeze_impl
+
+        return freeze_impl(self, threshold_column, current_time_column)
 
     def _forget_immediately(self) -> "Table":
-        raise later_slice("time_ops")
+        from pathway_tpu_torch.internals.time_ops import forget_immediately_impl
+
+        return forget_immediately_impl(self)
 
     # ------------------------------------------------------------- error handling
 

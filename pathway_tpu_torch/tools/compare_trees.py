@@ -24,7 +24,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("kernels", "main_path", "f32_path", "pipeline", "document_store", "rest_serving")
+PHASES = ("kernels", "main_path", "f32_path", "pipeline", "temporal", "document_store", "rest_serving")
 
 #: phase -> the fields of its chip_smoke line kept in the summary (dotted
 #: paths into nested objects)
@@ -32,6 +32,10 @@ HEADLINES = {
     "main_path": ("embed_index_docs_per_s", "rag_query_p50_ms", "rag_query_rerank_p50_ms", "knn1m_query16_p50_ms"),
     "f32_path": ("f32_embed_index_docs_per_s",),
     "pipeline": ("ingest_docs_per_s", "query_rows_per_s"),
+    "temporal": tuple(
+        f"{q}.{mode}.{route}_events_per_s"
+        for q in ("q5", "q7", "q7_cutoff", "q8") for mode in ("static", "ticks") for route in ("gpu", "numpy")
+    ) + ("q7_cutoff.dropped_late_bids", "phase_s"),
     "document_store": ("ingest_chunks_per_s", "query_rows_per_s"),
     "rest_serving": (
         "ingest_chunks_per_s", "retrieve_1_clients.requests_per_s", "retrieve_1_clients.client_p50_ms",
@@ -62,6 +66,8 @@ if "main_path" in want or "f32_path" in want:
     del state
 if "pipeline" in want:
     cs.phase_pipeline(info)
+if "temporal" in want and hasattr(cs, "phase_temporal"):
+    cs.phase_temporal(info)
 if "document_store" in want or "rest_serving" in want:
     store = cs.phase_document_store(info)
     if "rest_serving" in want and hasattr(cs, "phase_rest_serving"):

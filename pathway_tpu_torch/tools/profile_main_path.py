@@ -1,6 +1,6 @@
 """Where the device time of the port's main path goes, on one CUDA card.
 
-    python -m pathway_tpu_torch.tools.profile_main_path [ops|pipeline|document_store|rest|all]
+    python -m pathway_tpu_torch.tools.profile_main_path [ops|pipeline|document_store|rest|temporal|all]
 
 ``ops`` (the default, and part of ``all``) traces, with ``torch.profiler``,
 one ingest batch (1024 bench docs: encode → ``add_batch_device`` → flush) and
@@ -37,6 +37,12 @@ round and a timed round of the same (its clients' wall time is printed): the
 query embed, the tiered search, the as-of-now joins and the response pass
 of the serving plane, with the engine phase split as for ``pipeline`` and
 the requests the tick carried.
+
+``temporal`` runs Q5 and Q7 with its 5 s cutoff from ``chip_smoke.py``'s
+temporal phase (``tools/nexmark.py``) over 262,144 events in ticks of
+65,536, with the engine's device functions on the card
+(``PATHWAY_ENGINE_JAX=gpu``, ``PATHWAY_FUSE_JAX=on``), and traces the third
+tick of each, with the engine phase split as for ``pipeline``.
 
 All run at the bench's widths with random seeded weights. Each window prints
 one JSON line: wall time, summed kernel time, the device's idle share
@@ -384,6 +390,24 @@ def profile_rest(files: int = 1024, clients: int = 64) -> None:
         pw.G.clear()
 
 
+def profile_temporal(events: int = 262_144, tick: int = 65_536, traced_time: int = 6) -> None:
+    """One 65,536-event tick of Q5 and of Q7 with its cutoff under the
+    profiler (logical time ``traced_time``: ticks arrive at 2, 4, 6, ...)."""
+    import os
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.tools import nexmark
+
+    os.environ.update(PATHWAY_ENGINE_JAX="gpu", PATHWAY_FUSE_JAX="on", PATHWAY_ENGINE_PHASES="on")
+    ev = {c: v[:events] for c, v in nexmark.generate(1_048_576, seed=0).items()}
+    for query in ("q5", "q7_cutoff"):
+        tables = nexmark.build(pw, query, ev, tick)
+        try:
+            _profile_ticks({traced_time: f"temporal_{query}_tick_{tick}"}, lambda: nexmark.capture(pw, tables))
+        finally:
+            pw.G.clear()
+
+
 def main() -> int:
     import torch
 
@@ -391,8 +415,9 @@ def main() -> int:
         print("profile_main_path: CUDA is not available", file=sys.stderr)
         return 2
     mode = sys.argv[1] if len(sys.argv) > 1 else "ops"
-    if mode not in ("ops", "pipeline", "document_store", "rest", "all"):
-        print(f"profile_main_path: unknown mode {mode!r} (ops, pipeline, document_store, rest, all)", file=sys.stderr)
+    if mode not in ("ops", "pipeline", "document_store", "rest", "temporal", "all"):
+        print(f"profile_main_path: unknown mode {mode!r} (ops, pipeline, document_store, rest, temporal, all)",
+              file=sys.stderr)
         return 2
     if mode in ("ops", "all"):
         profile_ops()
@@ -402,6 +427,8 @@ def main() -> int:
         profile_document_store()
     if mode in ("rest", "all"):
         profile_rest()
+    if mode in ("temporal", "all"):
+        profile_temporal()
     return 0
 
 

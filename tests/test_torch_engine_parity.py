@@ -337,10 +337,10 @@ def test_microbatch_auto_stream_equals_off(monkeypatch):
 
 def test_unported_planes_raise_later_slice():
     t = pathway_tpu_torch.debug.table_from_markdown(_MD)
-    with pytest.raises(NotImplementedError, match="later slice: sorting"):
-        t.sort(t.v)
-    with pytest.raises(NotImplementedError, match="later slice: temporal"):
-        t.windowby(t.v, window=None)
+    with pytest.raises(NotImplementedError, match="later slice: iterate"):
+        pathway_tpu_torch.iterate(lambda t: t, t=t)
+    with pytest.raises(NotImplementedError, match="later slice: sql"):
+        pathway_tpu_torch.sql("SELECT v FROM t", t=t)
     with pytest.raises(NotImplementedError, match="later slice: flow"):
         pathway_tpu_torch.io.subscribe(t, lambda **kw: None, service_class="bulk")
     pathway_tpu_torch.io.subscribe(t, lambda **kw: None)
