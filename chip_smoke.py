@@ -91,19 +91,31 @@ printing one JSON line:
    parsers, each marker phrase retrieved first;
 13. rest_serving: phase 12's files served over HTTP by ``QARestServer``
    (``pw.io.http`` on the port's own HTTP/1.1 server) over the same
-   ``DocumentStore`` and ``BaseRAGQuestionAnswerer``: ingest until
-   ``/v1/statistics`` counts every file and both index nodes hold every
-   chunk; phase 12's 1,024 retrieve payloads as JSON POSTs from 1 and from
-   32 concurrent keep-alive clients, each answer equal to phase 12's
-   in-process answer (texts, metadata, score bits); 256 ``/v2/answer``
-   prompts holding their texts in order; ``/v1/inputs``,
-   ``/v2/list_documents``, ``/_schema``, ``/healthz``, ``/readyz``; a shed
-   leg (in-flight budget 8, 64 concurrent requests: 200s + 429s = 64 and
-   the route's counters agree) and a lifecycle leg (requests pending at
-   ``stop()`` answered 503, a restart on the same port); a text embedded
-   with the same bits in launches padded to 64, 128, 256 and 512 tokens;
-14. the kernels line, with each kernel's launches during phases 4, 6, 7,
-   8's pipeline, 10, 11, 12 and 13.
+   ``DocumentStore`` and ``BaseRAGQuestionAnswerer``, at the port's
+   defaults (the device, request-trace and health planes on) with the
+   monitoring server on a port of its own: ingest until ``/v1/statistics``
+   counts every file and both index nodes hold every chunk; phase 12's
+   1,024 retrieve payloads as JSON POSTs from 1 and from 32 concurrent
+   keep-alive clients, each answer equal to phase 12's in-process answer
+   (texts, metadata, score bits); 256 ``/v2/answer`` prompts holding their
+   texts in order; ``/v1/inputs``, ``/v2/list_documents``, ``/_schema``,
+   ``/healthz``, ``/readyz``; the planes' gates (a unique
+   ``X-Pathway-Request-Id`` on every answer, each kept id's flight path on
+   ``/request?id=``, canaries outside the route counters, ``/readyz`` 503
+   while draining, the hot shard's bytes on ``/metrics``, the CUDA
+   allocator, per leg traced encoder calls == launches and attention
+   launches == 6 x calls and tokens == buckets x lengths, a
+   ``/profile?ticks=4`` window naming the kernel); a shed leg (in-flight
+   budget 8, 64 concurrent requests: 200s + 429s = 64 and the route's
+   counters agree) and a lifecycle leg (requests pending at ``stop()``
+   answered 503, a restart on the same port); a text embedded with the same
+   bits in launches padded to 64, 128, 256 and 512 tokens;
+14. observability: the 32-client retrieve leg again over two fresh servers
+   on the same files, one with the planes off and one with
+   ``PATHWAY_PROFILE=full`` (the encoder's device-wait split above 0 and
+   below the leg's wall), requests/s and p50/p99 beside phase 13's;
+15. the kernels line, with each kernel's launches during phases 4, 6, 7,
+   8's pipeline, 10, 11, 12, 13 and 14.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without it. TF32 is off for every matmul (``allow_tf32 = False``), so the f32
@@ -2037,19 +2049,21 @@ class _Http:
         self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
 
     def call(self, method: str, path: str, payload=None) -> tuple:
-        """(status, the JSON body parsed, seconds on the host clock)."""
+        """(status, the JSON body parsed, seconds on the host clock, the
+        ``X-Pathway-Request-Id`` header, the ``Retry-After`` header)."""
         body = None if payload is None else json.dumps(payload).encode()
         t0 = time.perf_counter()
         self.conn.request(method, path, body=body, headers={"Content-Type": "application/json"} if body else {})
         resp = self.conn.getresponse()
         data = resp.read()
         took = time.perf_counter() - t0
+        rid, retry = resp.getheader("X-Pathway-Request-Id"), resp.getheader("Retry-After")
         if resp.getheader("Connection") == "close":
             self.conn.close()
         try:
-            return resp.status, json.loads(data), took
+            return resp.status, json.loads(data), took, rid, retry
         except ValueError:
-            return resp.status, data, took
+            return resp.status, data, took, rid, retry
 
     def close(self) -> None:
         self.conn.close()
@@ -2167,38 +2181,66 @@ def _stop_run(run, timeout: float = 120.0) -> None:
     check(not run.is_alive(), "rest_serving: a server's pw.run did not stop")
 
 
-def phase_rest_serving(info: dict, ds: dict) -> dict:
-    """The live-RAG store over HTTP: phase document_store's DS_FILES files
-    (still on disk) served by ``QARestServer`` over ``DocumentStore`` (the
-    ``minilm`` embedder, the default ``TieredKnnFactory``) and
-    ``BaseRAGQuestionAnswerer(FakeChatModel())`` on 127.0.0.1. Waits for
-    ingest (``/v1/statistics`` reports every file, and both index nodes hold
-    every chunk); sends phase document_store's DS_QUERIES retrieve payloads
-    as JSON POSTs from 1 client and from RS_CLIENTS concurrent clients over
-    keep-alive connections, each answer held against that phase's in-process
-    answer (texts, metadata, score bits); DS_QA ``/v2/answer`` requests, each
-    prompt holding its DS_K texts in order; ``/v1/inputs``,
-    ``/v2/list_documents``, ``/_schema``, ``/healthz`` and ``/readyz``. Then,
-    on the same port, a shed leg (one route, ``PATHWAY_SERVE_MAX_INFLIGHT`` =
-    RS_SHED_INFLIGHT, RS_SHED_REQUESTS concurrent requests: 429s + 200s
-    equal the requests and the route's counters) and a lifecycle leg
-    (RS_PENDING requests pending at ``stop()`` each get 503, then a restart
-    on the same port answers). Between them, ``batch_invariance.length_check``
-    on the embedder: a text gets the same bits in launches padded to 64,
-    128, 256 and 512 tokens."""
+def _encoder_calls() -> int:
+    """The device plane's count of traced encoder calls (``encoder.encode``
+    and ``encoder.encode_ids``; the hash tokenizer's pad id is 0, so the
+    embedder takes ``encoder.encode_ids``)."""
+    from pathway_tpu_torch.observability import device as D
+
+    view = D._callables_view()
+    return sum((view.get(label) or {}).get("calls") or 0 for label in ("encoder.encode", "encoder.encode_ids"))
+
+
+def _encoder_tokens() -> int:
+    """Real plus pad tokens the encoder launched this run (the device plane)."""
+    from pathway_tpu_torch.observability import device as D
+
+    with D.stats().lock:
+        ent = D.stats().pad.get("encoder", [0, 0, 0, 0])
+    return ent[2] + ent[3]
+
+
+def _leg_counts(launch_log) -> tuple:
+    """What a leg's call gates difference: the phase's own launch count, the
+    traced encoder calls, the attention kernel's route launches, the
+    encoder's launched tokens."""
+    from pathway_tpu_torch.ops import attention_kernel as A
+
+    return len(launch_log.spans), _encoder_calls(), dict(A.ROUTE_LAUNCHES), _encoder_tokens()
+
+
+def _check_leg_calls(leg: str, before: tuple, after: tuple, launch_log, emb, layers: int) -> dict:
+    """Per leg: traced encoder calls == the launches the phase counts; the
+    bf16 route's launches == layers x those calls; the encoder's launched
+    tokens == sum over the leg's launches of rows x padded length."""
+    spans, calls = after[0] - before[0], after[1] - before[1]
+    attn = after[2]["tensor_core"] - before[2]["tensor_core"]
+    tokens = after[3] - before[3]
+    shapes = [emb._encoder.tokenizer(batch)[0].shape for batch in launch_log.texts[before[0]:after[0]]]
+    want_tokens = sum(int(r) * int(L) for r, L in shapes)
+    check(spans > 0 and calls == spans, f"{leg}: traced encoder calls {calls} != the phase's {spans} launches")
+    check(attn == layers * calls, f"{leg}: bf16 attention launches {attn} != {layers} x {calls} encoder calls")
+    check(tokens == want_tokens, f"{leg}: the encoder launched {tokens} tokens, buckets x lengths = {want_tokens}")
+    return {"embed_launches": spans, "encoder_calls": calls, "attention_launches": attn,
+            "encoder_tokens": tokens, "buckets_x_lengths": want_tokens}
+
+
+def _serve_store(ds: dict, port: int) -> tuple:
+    """``QARestServer`` over a fresh ``DocumentStore`` on phase document_store's
+    files, run with the monitoring server (``PATHWAY_MONITORING_HTTP_PORT``)
+    until ingest finishes: ``/v1/statistics`` counts every file and both
+    index nodes hold every chunk. Returns (the run thread, the routes'
+    serving states, ingest numbers, the statistics calls sent)."""
     import gc
-    import shutil
 
     import pathway_tpu_torch as pw
-    from pathway_tpu_torch.ops import attention_kernel as A
     from pathway_tpu_torch.stdlib.indexing import tiered
     from pathway_tpu_torch.stdlib.indexing.retrievers import TieredKnnFactory
     from pathway_tpu_torch.xpacks.llm import DocumentStore
     from pathway_tpu_torch.xpacks.llm.mocks import FakeChatModel
     from pathway_tpu_torch.xpacks.llm.question_answering import BaseRAGQuestionAnswerer
 
-    emb, launch_log = ds["emb"], ds["launch_log"]
-    port = _free_port()
+    emb = ds["emb"]
     pw.G.clear()
     gc.collect()
     with tiered._registry_lock:
@@ -2209,135 +2251,477 @@ def phase_rest_serving(info: dict, ds: dict) -> dict:
             live = [b for b in tiered._live_tiered if id(b) not in earlier]
         return sum(b.stats()["hot_rows"] + b.stats()["cold_rows"] for b in live)
 
-    out: dict = {"card": info["nvidia_smi"], "files": DS_FILES, "chunks": ds["chunks"]}
-    diagnose: dict = {}  # leg -> texts whose answer differed, embedded again once the counts are read
+    factory = None if DEVICE == "cuda" else TieredKnnFactory(embedder=emb, device=DEVICE)
+    store = DocumentStore(
+        pw.io.fs.read(ds["corpus"], format="binary", mode="static", with_metadata=True),
+        retriever_factory=factory, embedder=emb, splitter=ds["splitter"],
+    )
+    rag = BaseRAGQuestionAnswerer(FakeChatModel(), store, search_topk=DS_K)
+    rag.build_server("127.0.0.1", port)
+    routes = {st.route: st for st in rag.server.webserver._route_states()}
+    t0 = time.perf_counter()
+    run = rag.run_server(threaded=True, with_http_server=True)
+    _wait_listening(port)
+    http = _Http(port)
+    files_s = indexed_s = None
+    stats_calls = 0
+    deadline = time.monotonic() + 900
+    while time.monotonic() < deadline and files_s is None:
+        status, stats, *_ = http.call("POST", "/v1/statistics", {})
+        stats_calls += 1
+        if status == 200 and stats.get("file_count") == DS_FILES:
+            files_s = time.perf_counter() - t0
+        else:
+            time.sleep(0.05)
+    http.close()
+    # /v1/retrieve and /v2/answer each query their own index node
+    while time.monotonic() < deadline and indexed_s is None:
+        if new_index_rows() >= 2 * ds["chunks"]:
+            indexed_s = time.perf_counter() - t0
+        else:
+            time.sleep(0.02)
+    check(files_s is not None and indexed_s is not None,
+          f"rest_serving: ingest never finished (files at {files_s}, index rows {new_index_rows()})")
+    check(new_index_rows() == 2 * ds["chunks"],
+          f"rest_serving: the index nodes hold {new_index_rows()} rows, expected 2 x {ds['chunks']}")
+    ingest = {"ingest_files_s": files_s, "ingest_s": indexed_s,
+              "ingest_chunks_per_s": ds["chunks"] / indexed_s if indexed_s else None}
+    return run, routes, ingest, stats_calls
+
+
+def _retrieve_leg(port: int, ds: dict, clients: int, retrieve, diagnose: dict, leg: str) -> tuple[dict, list]:
+    """The document_store phase's retrieve payloads from ``clients`` clients,
+    each answer held against the in-process one; (the leg's numbers, the
+    answers)."""
+    jobs = [("POST", "/v1/retrieve", {"query": q, "k": k, "metadata_filter": m, "filepath_globpattern": g})
+            for q, k, m, g in ds["queries"]]
+    want = {key: _comparable(hits) for key, hits in ds["answers"].items()}
+    before = _route_counts(retrieve)
+    t1 = time.perf_counter()
+    got = _fan_out(port, jobs, clients)
+    wall = time.perf_counter() - t1
+    differing = [
+        i for i, ((_m, _p, body), ans) in enumerate(zip(jobs, got))
+        if ans is None or ans[0] != 200
+        or _comparable(ans[1]) != want.get((body["query"], body["filepath_globpattern"]))
+    ]
+    same = len(jobs) - len(differing)
+    if differing:
+        body, ans = jobs[differing[0]][2], got[differing[0]]
+        print(f"{leg}: first differing retrieve answer:",
+              _first_difference(ans[1] if ans else None,
+                                ds["answers"].get((body["query"], body["filepath_globpattern"]))),
+              file=sys.stderr, flush=True)
+        diagnose[f"retrieve_{clients}_clients_diagnosis"] = [jobs[i][2]["query"] for i in differing[:4]]
+    check(same == len(jobs), f"{leg}: {same}/{len(jobs)} retrieve answers at {clients} "
+          "client(s) equal the in-process answers")
+    return {**_client_leg(got, wall), "equal_to_in_process": same,
+            "server": _server_leg(before, _route_counts(retrieve))}, got
+
+
+def _get(port: int, path: str) -> tuple:
+    """(status, body, headers) of one GET; the body parsed when it is JSON."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
     try:
-        # --- the QA server: counts from 0 -------------------------------------
-        A.LAUNCHES = 0
-        A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
-        launch_log.spans.clear()
-        launch_log.texts.clear()
-        factory = None if DEVICE == "cuda" else TieredKnnFactory(embedder=emb, device=DEVICE)
-        store = DocumentStore(
-            pw.io.fs.read(ds["corpus"], format="binary", mode="static", with_metadata=True),
-            retriever_factory=factory, embedder=emb, splitter=ds["splitter"],
-        )
-        rag = BaseRAGQuestionAnswerer(FakeChatModel(), store, search_topk=DS_K)
-        rag.build_server("127.0.0.1", port)
-        routes = {st.route: st for st in rag.server.webserver._route_states()}
-        t0 = time.perf_counter()
-        run = rag.run_server(threaded=True)
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        data = resp.read()
+        hdrs = {k.lower(): v for k, v in resp.getheaders()}
+    finally:
+        conn.close()
+    try:
+        return resp.status, json.loads(data), hdrs
+    except ValueError:
+        return resp.status, data.decode(errors="replace"), hdrs
+
+
+def _card_component_bytes() -> dict:
+    """Registered device bytes per component, over the owners whose tensors
+    are on the card (an owner on the CPU counts in the plane's gauge, but
+    not on the card's allocator). ``knn_cold`` is the tiered index's host
+    IVF tier, registered as the reference registers it, and is not on the
+    card."""
+    from pathway_tpu_torch.observability import device as D
+
+    out: dict = {}
+    with D._memory_lock:
+        providers = list(D._memory_providers)
+    for component, ref, fn in providers:
+        owner = ref()
+        dev = getattr(owner, "device", None)
+        if owner is None or component == "knn_cold" or getattr(dev, "type", dev) != "cuda":
+            continue
+        out[component] = out.get(component, 0) + int(fn(owner))
+    return out
+
+
+def _metric_value(text: str, series: str) -> float | None:
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+#: profiler windows armed at most, one after another, until one's ticks hold
+#: a launch: arrivals wake the engine within 2 ms, and a row waits in the
+#: microbatcher until its flush deadline, so under concurrent clients most
+#: ticks only buffer rows and a 4-tick window can miss every launch
+PROFILE_WINDOWS = 8
+#: the clients sending while a window is open: one client alternates an
+#: arrival tick and a launch tick
+PROFILE_CLIENTS = 1
+
+
+def _trace_kernels(trace: str) -> tuple[int, list[str]]:
+    """(kernel events, the attention kernel's symbols) of a Chrome trace."""
+    with open(trace) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    names = [ev.get("name", "") for ev in events if ev.get("cat") == "kernel"]
+    return len(names), sorted({n for n in names if "attention_tc_kernel" in n})
+
+
+def _profiler_window(port: int, mon_port: int, ds: dict) -> dict:
+    """``/profile?ticks=4`` armed while PROFILE_CLIENTS clients keep sending
+    retrieve requests: each window closes by itself, and a window's Chrome
+    trace names the attention kernel's symbol from ``csrc/attention_short.cu``
+    (windows are armed one after another, up to PROFILE_WINDOWS, until one
+    does)."""
+    import threading
+
+    from pathway_tpu_torch.observability import device as D
+
+    prof_dir = os.path.join(SCRATCH, "profile")
+    os.makedirs(prof_dir, exist_ok=True)
+    queries = [(q, k) for q, k, _m, _g in ds["queries"]]
+    stop = threading.Event()
+    answered: list = []
+
+    def client(c: int) -> None:
+        http = _Http(port)
         try:
-            _wait_listening(port)
-            http = _Http(port)
-            files_s = indexed_s = None
-            deadline = time.monotonic() + 900
-            while time.monotonic() < deadline and files_s is None:
-                status, stats, _ = http.call("POST", "/v1/statistics", {})
-                if status == 200 and stats.get("file_count") == DS_FILES:
-                    files_s = time.perf_counter() - t0
-                else:
-                    time.sleep(0.05)
-            # /v1/retrieve and /v2/answer each query their own index node
-            while time.monotonic() < deadline and indexed_s is None:
-                if new_index_rows() >= 2 * ds["chunks"]:
-                    indexed_s = time.perf_counter() - t0
-                else:
-                    time.sleep(0.02)
-            check(files_s is not None and indexed_s is not None,
-                  f"rest_serving: ingest never finished (files at {files_s}, index rows {new_index_rows()})")
-            check(new_index_rows() == 2 * ds["chunks"],
-                  f"rest_serving: the index nodes hold {new_index_rows()} rows, expected 2 x {ds['chunks']}")
-            out.update(ingest_files_s=files_s, ingest_s=indexed_s,
-                       ingest_chunks_per_s=ds["chunks"] / indexed_s if indexed_s else None)
-
-            # retrieve: the document_store phase's payloads, 1 then RS_CLIENTS clients
-            jobs = [("POST", "/v1/retrieve", {"query": q, "k": k, "metadata_filter": m, "filepath_globpattern": g})
-                    for q, k, m, g in ds["queries"]]
-            want = {key: _comparable(hits) for key, hits in ds["answers"].items()}
-            retrieve = routes["/v1/retrieve"]
-            for clients in (1, RS_CLIENTS):
-                before = _route_counts(retrieve)
-                t1 = time.perf_counter()
-                got = _fan_out(port, jobs, clients)
-                wall = time.perf_counter() - t1
-                differing = [
-                    i for i, ((_m, _p, body), ans) in enumerate(zip(jobs, got))
-                    if ans is None or ans[0] != 200
-                    or _comparable(ans[1]) != want.get((body["query"], body["filepath_globpattern"]))
-                ]
-                same = len(jobs) - len(differing)
-                if differing:
-                    body, ans = jobs[differing[0]][2], got[differing[0]]
-                    print("rest_serving: first differing retrieve answer:",
-                          _first_difference(ans[1] if ans else None,
-                                            ds["answers"].get((body["query"], body["filepath_globpattern"]))),
-                          file=sys.stderr, flush=True)
-                    diagnose[f"retrieve_{clients}_clients_diagnosis"] = [jobs[i][2]["query"] for i in differing[:4]]
-                check(same == len(jobs), f"rest_serving: {same}/{len(jobs)} retrieve answers at {clients} "
-                      "client(s) equal the in-process answers")
-                out[f"retrieve_{clients}_clients"] = {
-                    **_client_leg(got, wall), "equal_to_in_process": same,
-                    "server": _server_leg(before, _route_counts(retrieve)),
-                }
-
-            # answer: each prompt holds its DS_K retrieved texts in order
-            answer = routes["/v2/answer"]
-            before = _route_counts(answer)
-            t1 = time.perf_counter()
-            got = _fan_out(port, [("POST", "/v2/answer", {"prompt": p}) for p in ds["prompts"]], RS_CLIENTS)
-            wall = time.perf_counter() - t1
-            in_order = 0
-            for p, ans in zip(ds["prompts"], got):
-                texts = [h["text"] for h in ds["answers"][(p, None)]]
-                pos = [ans[1].find(t) for t in texts] if ans is not None and ans[0] == 200 else [-1]
-                in_order += len(texts) == DS_K and min(pos) >= 0 and pos == sorted(pos)
-            check(in_order == len(ds["prompts"]),
-                  f"rest_serving: {in_order}/{len(ds['prompts'])} answers hold their {DS_K} texts in order")
-            out["answer"] = {**_client_leg(got, wall), "prompts_with_k_texts_in_order": in_order,
-                             "server": _server_leg(before, _route_counts(answer))}
-
-            status_i, inputs, _ = http.call("POST", "/v1/inputs", {})
-            status_l, listed, _ = http.call("POST", "/v2/list_documents", {})
-            status_s, spec, _ = http.call("GET", "/_schema")
-            health = [http.call("GET", p)[:2] for p in ("/healthz", "/readyz")]
-            http.close()
-            n_inputs = len(inputs) if status_i == 200 else None
-            n_listed = len(listed) if status_l == 200 else None
-            check(n_inputs == DS_FILES and n_listed == DS_FILES,
-                  f"rest_serving: /v1/inputs listed {n_inputs}, /v2/list_documents {n_listed} files")
-            check(status_s == 200 and set(spec.get("paths", {})) == set(routes),
-                  f"rest_serving: /_schema paths {sorted(spec.get('paths', {})) if status_s == 200 else status_s}")
-            check(health == [(200, {"alive": True, "health": "off"}), (200, {"ready": True, "health": "off"})],
-                  f"rest_serving: /healthz, /readyz answered {health}")
-            launches, route_launches = A.LAUNCHES, dict(A.ROUTE_LAUNCHES)
-            # ---------------------------------------------------------------------
-            out.update(inputs_listed=n_inputs, list_documents_listed=n_listed,
-                       routes={r: routes[r].snapshot() for r in sorted(routes)})
+            i = c
+            while not stop.is_set():
+                q, k = queries[i % len(queries)]
+                answered.append(http.call("POST", "/v1/retrieve", {"query": q, "k": k})[0])
+                i += PROFILE_CLIENTS
         finally:
-            _stop_run(run)
-        spans = list(launch_log.spans)
-        expected = 6 * len(spans)
-        check(len(spans) > 0 and route_launches["tensor_core"] == expected and launches == expected,
-              f"rest_serving: bf16 attention launches {route_launches} != {expected} (6 per embedder launch)")
-        out.update(embed_launches=len(spans), embed_buckets=_buckets(spans), attention_launches=launches,
-                   attention_launches_by_route=route_launches, attention_launches_expected=expected)
-        # a text alone (its launch padded to 64 or 128 tokens, keys resident
-        # in the kernel) and in a batch (256 or 512, keys streamed): same bits
-        from pathway_tpu_torch.tools.batch_invariance import length_check
+            http.close()
 
-        lengths = length_check(emb._encoder)
-        out["length_invariance"] = lengths
-        check(all(v[0] for n, v in lengths.items() if n.startswith("embed_len_") and isinstance(v, list)
-                  and isinstance(v[0], bool)), f"rest_serving: a text's bits depend on its launch's length: {lengths}")
-        for leg, texts in diagnose.items():
-            out[leg] = _diagnose_embed(emb, texts, [q for q, *_r in ds["queries"]])
-            print(f"rest_serving: {leg}:", json.dumps(out[leg]), file=sys.stderr, flush=True)
+    threads = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(PROFILE_CLIENTS)]
+    for t in threads:
+        t.start()
+    windows: list = []
+    symbol: list = []
+    try:
+        deadline = time.monotonic() + 120
+        while len(answered) < 4 * PROFILE_CLIENTS and time.monotonic() < deadline:
+            time.sleep(0.01)  # the traffic is flowing before a window opens
+        while len(windows) < PROFILE_WINDOWS and not symbol and time.monotonic() < deadline:
+            before = len(answered)
+            armed = _get(mon_port, f"/profile?ticks=4&dir={prof_dir}")
+            state = armed
+            while time.monotonic() < deadline:
+                state = _get(mon_port, "/profile")
+                if state[0] == 200 and state[1].get("window") is None:
+                    break
+                time.sleep(0.02)
+            trace = D.last_trace()
+            closed = armed[0] == 200 and armed[1].get("ok") is True and armed[1].get("ticks") == 4 \
+                and state[0] == 200 and state[1].get("window") is None and trace is not None
+            kernels, symbol = _trace_kernels(trace) if closed else (0, [])
+            windows.append({"closed_by_itself": closed, "kernel_events": kernels,
+                            "answers_while_open": len(answered) - before,
+                            "trace_bytes": os.path.getsize(trace) if closed else None})
+            if not closed:
+                break
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+    check(bool(windows) and all(w["closed_by_itself"] for w in windows),
+          f"observability: a /profile?ticks=4 window did not close by itself: {windows}")
+    check(bool(symbol), f"observability: no profiler window named attention_tc_kernel in {len(windows)}: {windows}")
+    return {"windows": windows, "attention_symbols": symbol[:4],
+            "trace_file": os.path.relpath(D.last_trace(), os.path.dirname(SCRATCH)) if D.last_trace() else None}
 
-        out["shed"], out["lifecycle"] = _rest_shed_and_lifecycle(port, emb)
-        emit("rest_serving", **out)
+
+def phase_rest_serving(info: dict, ds: dict) -> dict:
+    """The live-RAG store over HTTP at the port's defaults, which are the
+    reference's: the device, request-trace and health planes on, and the
+    monitoring server on a port of its own. Phase document_store's DS_FILES
+    files (still on disk) served by ``QARestServer`` over ``DocumentStore``
+    (the ``minilm`` embedder, the default ``TieredKnnFactory``) and
+    ``BaseRAGQuestionAnswerer(FakeChatModel())`` on 127.0.0.1. Waits for
+    ingest (``/v1/statistics`` reports every file, and both index nodes hold
+    every chunk); sends phase document_store's DS_QUERIES retrieve payloads
+    as JSON POSTs from 1 client and from RS_CLIENTS concurrent clients over
+    keep-alive connections, each answer held against that phase's in-process
+    answer (texts, metadata, score bits); DS_QA ``/v2/answer`` requests, each
+    prompt holding its DS_K texts in order; ``/v1/inputs``,
+    ``/v2/list_documents``, ``/_schema``, ``/healthz`` and ``/readyz``.
+    The planes' gates: a unique ``X-Pathway-Request-Id`` on every answer and
+    the flight path of every kept id on ``/request?id=`` (microbatch and
+    index stages); canaries counted and never in a route's counters;
+    ``/readyz`` 503 with ``Retry-After`` while the door drains; the hot
+    shard's tensor bytes on ``/metrics``, ``knn_cold`` registered, the CUDA
+    allocator at least the card's registered bytes; per leg, traced encoder
+    calls == the phase's launches, attention launches == 6 x calls, launched
+    tokens == buckets x lengths; a ``/profile?ticks=4`` window that closes
+    by itself and names the kernel. Then, on the same port, a shed leg (one
+    route, ``PATHWAY_SERVE_MAX_INFLIGHT`` = RS_SHED_INFLIGHT,
+    RS_SHED_REQUESTS concurrent requests: 429s + 200s equal the requests
+    and the route's counters) and a lifecycle leg (RS_PENDING requests
+    pending at ``stop()`` each get 503, then a restart on the same port
+    answers). Between them, ``batch_invariance.length_check`` on the
+    embedder: a text gets the same bits in launches padded to 64, 128, 256
+    and 512 tokens. Phase document_store's files stay for phase
+    observability."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.observability import device as D
+    from pathway_tpu_torch.observability import health as H
+    from pathway_tpu_torch.observability import requests as R
+    from pathway_tpu_torch.ops import attention_kernel as A
+    from pathway_tpu_torch.stdlib.indexing import tiered
+
+    emb, launch_log = ds["emb"], ds["launch_log"]
+    layers = emb._encoder.cfg.n_layers
+    port, mon_port = _free_port(), _free_port()
+    os.environ["PATHWAY_MONITORING_HTTP_PORT"] = str(mon_port)
+    out: dict = {"card": info["nvidia_smi"], "files": DS_FILES, "chunks": ds["chunks"],
+                 "planes": {"profile": "on", "request_trace": "on", "health": "on", "monitoring_port": mon_port}}
+    diagnose: dict = {}  # leg -> texts whose answer differed, embedded again once the counts are read
+    # --- the QA server: counts from 0 -------------------------------------
+    A.LAUNCHES = 0
+    A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
+    launch_log.spans.clear()
+    launch_log.texts.clear()
+    run, routes, ingest, stats_calls = _serve_store(ds, port)
+    out.update(ingest)
+    try:
+        ids: list = []
+        # retrieve: the document_store phase's payloads, 1 then RS_CLIENTS clients
+        retrieve = routes["/v1/retrieve"]
+        for clients in (1, RS_CLIENTS):
+            c0 = _leg_counts(launch_log)
+            leg, got = _retrieve_leg(port, ds, clients, retrieve, diagnose, "rest_serving")
+            leg["calls"] = _check_leg_calls(f"rest_serving retrieve {clients}", c0, _leg_counts(launch_log),
+                                            launch_log, emb, layers)
+            out[f"retrieve_{clients}_clients"] = leg
+            ids += [a[3] if a is not None else None for a in got]
+
+        # answer: each prompt holds its DS_K retrieved texts in order
+        answer = routes["/v2/answer"]
+        before = _route_counts(answer)
+        c0 = _leg_counts(launch_log)
+        t1 = time.perf_counter()
+        got = _fan_out(port, [("POST", "/v2/answer", {"prompt": p}) for p in ds["prompts"]], RS_CLIENTS)
+        wall = time.perf_counter() - t1
+        in_order = 0
+        for p, ans in zip(ds["prompts"], got):
+            texts = [h["text"] for h in ds["answers"][(p, None)]]
+            pos = [ans[1].find(t) for t in texts] if ans is not None and ans[0] == 200 else [-1]
+            in_order += len(texts) == DS_K and min(pos) >= 0 and pos == sorted(pos)
+        check(in_order == len(ds["prompts"]),
+              f"rest_serving: {in_order}/{len(ds['prompts'])} answers hold their {DS_K} texts in order")
+        out["answer"] = {**_client_leg(got, wall), "prompts_with_k_texts_in_order": in_order,
+                         "server": _server_leg(before, _route_counts(answer)),
+                         "calls": _check_leg_calls("rest_serving answer", c0, _leg_counts(launch_log),
+                                                   launch_log, emb, layers)}
+        ids += [a[3] if a is not None else None for a in got]
+
+        # request ids: one on every answer, unique; every kept id's flight path
+        check(all(ids) and len(set(ids)) == len(ids),
+              f"rest_serving: {sum(1 for i in ids if i)} of {len(ids)} answers carry a request id, "
+              f"{len(set(i for i in ids if i))} distinct")
+        # a kept /v1/retrieve or /v2/answer flight embeds its query and
+        # searches the index; a kept /v1/statistics flight (slow while the
+        # ingest ticks run) does neither
+        listing = _get(mon_port, "/request")
+        kept = listing[1].get("kept_ids", []) if listing[0] == 200 else []
+        paths_ok, stage_names, kept_routes, missing = 0, set(), {}, []
+        for rid in kept:
+            st, doc, _h = _get(mon_port, f"/request?id={rid}")
+            names = [s["name"] for s in doc.get("spans", [])] if st == 200 else []
+            route = doc.get("route") if st == 200 else None
+            kept_routes[route] = kept_routes.get(route, 0) + 1
+            stage_names.update(names)
+            ok = doc.get("ok") is True and doc.get("kept") is True and "serve/admission" in names
+            if route in ("/v1/retrieve", "/v2/answer"):
+                ok = ok and rid in ids and any(n.startswith("microbatch/") for n in names) and "index/search" in names
+            paths_ok += ok
+            if not ok:
+                missing.append({"id": rid, "route": route, "status": doc.get("status"), "stages": names})
+        check(len(kept) > 0 and paths_ok == len(kept),
+              f"rest_serving: {paths_ok}/{len(kept)} kept request ids have their flight path "
+              f"(the query routes' with the microbatch and index stages): {missing[:2]}")
+        unknown = "ffffffffffffffff"
+        st, doc, _h = _get(mon_port, f"/request?id={unknown}")
+        check(st == 200 and doc.get("ok") is False and doc.get("error") == f"unknown request '{unknown}'",
+              f"rest_serving: /request?id= of an unknown id answered {st} {doc}")
+        summary = R.current().status_summary()
+        out["request_trace"] = {"ids": len(ids), "distinct": len(set(ids)), "kept": len(kept),
+                                "kept_by_route": kept_routes, "kept_with_flight_path": paths_ok,
+                                "summary": summary, "stages": sorted(stage_names)}
+
+        http = _Http(port)
+        status_i, inputs, *_ = http.call("POST", "/v1/inputs", {})
+        status_l, listed, *_ = http.call("POST", "/v2/list_documents", {})
+        status_s, spec, *_ = http.call("GET", "/_schema")
+        health = [http.call("GET", p)[:2] for p in ("/healthz", "/readyz")]
+        http.close()
+        n_inputs = len(inputs) if status_i == 200 else None
+        n_listed = len(listed) if status_l == 200 else None
+        check(n_inputs == DS_FILES and n_listed == DS_FILES,
+              f"rest_serving: /v1/inputs listed {n_inputs}, /v2/list_documents {n_listed} files")
+        check(status_s == 200 and set(spec.get("paths", {})) == set(routes),
+              f"rest_serving: /_schema paths {sorted(spec.get('paths', {})) if status_s == 200 else status_s}")
+        check(health == [(200, {"alive": True, "state": "ready"}), (200, {"ready": True, "state": "ready"})],
+              f"rest_serving: /healthz, /readyz answered {health}")
+        launches, route_launches, spans = A.LAUNCHES, dict(A.ROUTE_LAUNCHES), list(launch_log.spans)
+
+        # health: canaries counted, never in the routes' counters
+        canary = H.current().canary_snapshot()
+        sent = {"/v1/retrieve": 2 * len(ds["queries"]), "/v2/answer": len(ds["prompts"]),
+                "/v1/statistics": stats_calls, "/v1/inputs": 1, "/v2/list_documents": 1}
+        totals = {r: routes[r].requests_total for r in sent}
+        check(totals == sent, f"rest_serving: route request counters {totals} != the requests sent {sent}")
+        check(all(canary.get(r, {}).get("requests", 0) > 0 for r in sent),
+              f"rest_serving: canary counters {canary}")
+
+        # device bytes: the hot shards' tensors, the cold tier registered, the allocator
+        status = _get(mon_port, "/status")
+        metrics = _get(mon_port, "/metrics")[1]
+        with tiered._registry_lock:
+            hots = [b.hot for b in tiered._live_tiered]
+        hot_bytes = sum(getattr(h, n).numel() * getattr(h, n).element_size() for h in hots for n in h._TENSORS)
+        gauge_hot = _metric_value(metrics, 'pathway_device_bytes{component="knn_hot"}')
+        check(gauge_hot == hot_bytes, f"rest_serving: knn_hot gauge {gauge_hot} != the hot shards' {hot_bytes} bytes")
+        check(_metric_value(metrics, 'pathway_device_bytes{component="knn_cold"}') is not None,
+              "rest_serving: knn_cold is not on /metrics")
+        backend = status[1]["device"]["memory"]["backend"] if status[0] == 200 else None
+        card = _card_component_bytes()
+        check(backend is not None and backend["bytes_in_use"] >= sum(card.values()),
+              f"rest_serving: CUDA allocator {backend} below the card's registered bytes {card}")
+        out["device_plane"] = {
+            "knn_hot_bytes": hot_bytes, "card_components": card, "backend": backend,
+            "callables": {k: v for k, v in status[1]["device"]["callables"].items()} if status[0] == 200 else None,
+            "pad": status[1]["device"]["pad"] if status[0] == 200 else None,
+        }
+        out["health"] = {"canary": canary, "route_requests": totals}
+
+        # the profiler window on the card
+        out["profiler"] = _profiler_window(port, mon_port, ds)
+
+        # drain: /readyz 503 + Retry-After, /status 503, /healthz still 200
+        H.current().mark_draining("chip_smoke")
+        readyz, status_d, healthz = _get(port, "/readyz"), _get(mon_port, "/status"), _get(port, "/healthz")
+        check(readyz[0] == 503 and readyz[2].get("retry-after") == "5" and readyz[1].get("state") == "draining",
+              f"rest_serving: /readyz while draining answered {readyz[0]} {readyz[1]} {readyz[2].get('retry-after')}")
+        check(status_d[0] == 503 and healthz[0] == 200,
+              f"rest_serving: while draining /status answered {status_d[0]}, /healthz {healthz[0]}")
+        out["draining"] = {"readyz": readyz[0], "retry_after": readyz[2].get("retry-after"),
+                           "status": status_d[0], "healthz": healthz[0]}
+        out.update(inputs_listed=n_inputs, list_documents_listed=n_listed,
+                   routes={r: routes[r].snapshot() for r in sorted(routes)})
+    finally:
+        _stop_run(run)
+        os.environ.pop("PATHWAY_MONITORING_HTTP_PORT", None)
+    expected = 6 * len(spans)
+    check(len(spans) > 0 and route_launches["tensor_core"] == expected and launches == expected,
+          f"rest_serving: bf16 attention launches {route_launches} != {expected} (6 per embedder launch)")
+    out.update(embed_launches=len(spans), embed_buckets=_buckets(spans), attention_launches=launches,
+               attention_launches_by_route=route_launches, attention_launches_expected=expected,
+               builds={k: v for k, v in D._callables_view().items() if k.startswith("build/")})
+    # a text alone (its launch padded to 64 or 128 tokens, keys resident
+    # in the kernel) and in a batch (256 or 512, keys streamed): same bits
+    from pathway_tpu_torch.tools.batch_invariance import length_check
+
+    lengths = length_check(emb._encoder)
+    out["length_invariance"] = lengths
+    check(all(v[0] for n, v in lengths.items() if n.startswith("embed_len_") and isinstance(v, list)
+              and isinstance(v[0], bool)), f"rest_serving: a text's bits depend on its launch's length: {lengths}")
+    for leg, texts in diagnose.items():
+        out[leg] = _diagnose_embed(emb, texts, [q for q, *_r in ds["queries"]])
+        print(f"rest_serving: {leg}:", json.dumps(out[leg]), file=sys.stderr, flush=True)
+
+    out["shed"], out["lifecycle"] = _rest_shed_and_lifecycle(port, emb)
+    emit("rest_serving", **out)
+    return {"launches": route_launches, "metrics": out}
+
+
+#: the planes' settings of phase observability's legs (rest_serving's leg is
+#: the default: every plane on)
+OBS_LEGS = {
+    "planes_off": {"PATHWAY_PROFILE": "off", "PATHWAY_REQUEST_TRACE": "off", "PATHWAY_HEALTH": "off"},
+    "profile_full": {"PATHWAY_PROFILE": "full"},
+}
+
+
+def phase_observability(info: dict, ds: dict, rest: dict) -> dict:
+    """The planes' cost beside the default: for each of OBS_LEGS a fresh
+    server on phase document_store's files (ingest to the end, as in
+    rest_serving), then the RS_CLIENTS-client retrieve leg, every answer
+    held against the in-process one. ``profile_full``: the traced encoder's
+    device-wait split is above 0 and below the leg's wall. Prints
+    requests/s and client p50/p99 of every leg beside rest_serving's
+    default one."""
+    import shutil
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.observability import device as D
+    from pathway_tpu_torch.ops import attention_kernel as A
+
+    emb, launch_log = ds["emb"], ds["launch_log"]
+    out: dict = {"card": info["nvidia_smi"], "requests": len(ds["queries"]), "clients": RS_CLIENTS,
+                 "legs": {"default": {k: rest["metrics"][f"retrieve_{RS_CLIENTS}_clients"][k]
+                                      for k in ("requests_per_s", "client_p50_ms", "client_p99_ms", "wall_s")},
+                          "default_1_client": {k: rest["metrics"]["retrieve_1_clients"][k]
+                                               for k in ("requests_per_s", "client_p50_ms", "client_p99_ms")}}}
+    A.LAUNCHES = 0
+    A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
+    try:
+        for leg_name, env in OBS_LEGS.items():
+            os.environ.update(env)
+            port, mon_port = _free_port(), _free_port()
+            os.environ["PATHWAY_MONITORING_HTTP_PORT"] = str(mon_port)
+            launch_log.spans.clear()
+            launch_log.texts.clear()
+            try:
+                run, routes, ingest, _calls = _serve_store(ds, port)
+                try:
+                    split0 = dict((D.status_summary().get("time_split") or {}).get("encoder.encode_ids") or {})
+                    leg, got = _retrieve_leg(port, ds, RS_CLIENTS, routes["/v1/retrieve"], {}, f"observability {leg_name}")
+                    split1 = dict((D.status_summary().get("time_split") or {}).get("encoder.encode_ids") or {})
+                    rids = sum(1 for a in got if a is not None and a[3])
+                finally:
+                    _stop_run(run)
+            finally:
+                for k in (*env, "PATHWAY_MONITORING_HTTP_PORT"):
+                    os.environ.pop(k, None)
+            row = {k: leg[k] for k in ("requests_per_s", "client_p50_ms", "client_p99_ms", "wall_s",
+                                       "equal_to_in_process")}
+            row.update(ingest_chunks_per_s=ingest["ingest_chunks_per_s"], request_ids=rids,
+                       server=leg["server"])
+            if leg_name == "planes_off":
+                check(rids == 0, f"observability: {rids} answers carry a request id with the planes off")
+            if leg_name == "profile_full":
+                dev_ms = split1.get("device_ms", 0.0) - split0.get("device_ms", 0.0)
+                host_ms = split1.get("host_ms", 0.0) - split0.get("host_ms", 0.0)
+                samples = split1.get("samples", 0) - split0.get("samples", 0)
+                row["encoder_split"] = {"device_ms": dev_ms, "host_ms": host_ms, "samples": samples}
+                check(samples > 0 and 0.0 < dev_ms < leg["wall_s"] * 1e3,
+                      f"observability: encoder.encode_ids device-wait split {dev_ms} ms over {samples} calls, "
+                      f"leg wall {leg['wall_s'] * 1e3} ms")
+            out["legs"][leg_name] = row
+            print(f"observability {leg_name}: {row['requests_per_s']:.2f} requests/s, "
+                  f"p50 {row['client_p50_ms']:.2f} ms, p99 {row['client_p99_ms']:.2f} ms", file=sys.stderr, flush=True)
+        route_launches = dict(A.ROUTE_LAUNCHES)
     finally:
         shutil.rmtree(ds["root"], ignore_errors=True)
+        pw.G.clear()
+    emit("observability", **out)
     return {"launches": route_launches, "metrics": out}
 
 
@@ -2482,12 +2866,18 @@ def main() -> int:
     temporal = phase_temporal(info)
     bert = phase_bert_path(info)
     store = phase_document_store(info)
-    rest = phase_rest_serving(info, store)
+    try:
+        rest = phase_rest_serving(info, store)
+        obs = phase_observability(info, store, rest)
+    finally:
+        import shutil
+
+        shutil.rmtree(store["root"], ignore_errors=True)
 
     launches = {
         "main_path": state["launches"], "f32_path": f32["launches"], "pipeline": pipe["launches"],
         "tiered_pipeline": tier["launches"], "temporal": temporal["launches"], "bert_path": bert["launches"],
-        "document_store": store["launches"], "rest_serving": rest["launches"],
+        "document_store": store["launches"], "rest_serving": rest["launches"], "observability": obs["launches"],
     }
     line = {"kernels": [
         _kernel_entry(kern, "bfloat16", "tensor_core", "bf16, tensor cores (mma.sync, cp.async)", launches),

@@ -91,7 +91,7 @@ from pathway_tpu_torch.internals.parse_graph import G
 from pathway_tpu_torch.internals.errors import ERROR as _ERROR  # noqa: F401
 from pathway_tpu_torch.internals.errors import PENDING
 
-from pathway_tpu_torch import debug, io, stdlib, universes, xpacks
+from pathway_tpu_torch import debug, io, observability, stdlib, universes, xpacks
 from pathway_tpu_torch.stdlib import temporal, indexing, ml, statistical, stateful
 from pathway_tpu_torch.stdlib import utils as utils
 from pathway_tpu_torch.stdlib.utils.async_transformer import AsyncTransformer
@@ -127,6 +127,29 @@ def global_error_log():
     from pathway_tpu_torch.internals.error_log import global_error_log as _gel
 
     return _gel()
+
+
+def set_slo(route: str | None = None, *, p99_ms: float | None = None,
+            availability: float | None = None) -> None:
+    """Declare a serving SLO for the health plane (``PATHWAY_HEALTH``):
+    ``p99_ms`` bounds a route's p99 latency (route=None applies to all
+    routes), ``availability`` sets the pod-wide success-ratio target. The
+    burn-rate evaluator (``observability/health.py``) alerts when the error
+    budget burns faster than the fast AND slow window thresholds."""
+    from pathway_tpu_torch.observability.health import set_slo as _set_slo
+
+    _set_slo(route, p99_ms=p99_ms, availability=availability)
+
+
+def set_monitoring_config(*, server_endpoint: str | None = None, **kwargs) -> None:
+    """Configure trace export. ``trace_file=...`` writes an OTLP/JSON trace
+    document per run (``internals/telemetry.py``), ``metrics_file=...`` an
+    OTLP/JSON metrics document; pass ``None`` explicitly to clear one — calls
+    setting only other knobs leave it alone. ``server_endpoint`` (an OTLP
+    collector URL) is accepted but inert, as in the reference."""
+    from pathway_tpu_torch.internals import telemetry as _telemetry
+
+    _telemetry.set_monitoring_config(**kwargs)
 
 
 __all__ = [
@@ -174,6 +197,9 @@ __all__ = [
     "PENDING",
     "G",
     "global_error_log",
+    "observability",
+    "set_monitoring_config",
+    "set_slo",
     "temporal",
     "stateful",
     "statistical",

@@ -448,8 +448,12 @@ class _CompiledSegment:
                 mask = torch.ones(keys[0].shape, dtype=torch.bool, device=keys[0].device)
             return mask, [env[c] for c in out_names]
 
-        self._device = kernel
-        return kernel
+        from pathway_tpu_torch.observability import device as _dev_prof
+
+        # device plane: call/shape telemetry per fused segment, at the
+        # reference's label
+        self._device = _dev_prof.traced_jit(f"engine.fused_chain/{seg.label}", kernel)
+        return self._device
 
 
 _MISSING = object()

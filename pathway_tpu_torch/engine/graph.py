@@ -9,11 +9,12 @@ sweeps again — so all downstream consequences of a timestamp are drained befor
 next timestamp starts, giving the reference's "every output reflects a known prefix of
 inputs" consistency model.
 
-Carried from ``pathway_tpu/engine/graph.py``. The reference's sweep also feeds
-the live-tracing, request, audit and device-profiling planes and the fault
-plan's input corruption; those planes are not ported yet (ROADMAP Queue 1), so
-their hooks are cut and the sweep keeps only the per-node row and time stats
-and the per-phase attribution (``observability/engine_phases.py``).
+Carried from ``pathway_tpu/engine/graph.py``. The sweep feeds the per-node row
+and time stats, the per-phase attribution (``observability/engine_phases.py``)
+and the live-tracing, request and device-profiling planes as the reference's
+does. The reference's sweep also feeds the audit plane and the fault plan's
+input corruption; those planes are not ported yet (ROADMAP Queue 1), so their
+hooks are cut.
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ import numpy as np
 
 from pathway_tpu_torch.engine.blocks import DeltaBatch, concat_batches
 from pathway_tpu_torch.internals.trace import run_annotated as _run_annotated
+from pathway_tpu_torch.observability import device as _device_prof
 from pathway_tpu_torch.observability import engine_phases as _phases
+from pathway_tpu_torch.observability import requests as _requests
 
 END_OF_STREAM = np.iinfo(np.int64).max  # frontier value after all input closed
 
@@ -214,6 +217,14 @@ class Scheduler:
         self.current_time = 0
         self.on_tick_done: list[Callable[[int], None]] = []
         self.transient = transient
+        # live tracing (observability plane): None when PATHWAY_TRACE=off —
+        # the hot loops below pay exactly one is-not-None test per guard
+        self.tracer = None
+        self._trace_active = False
+        # request-scoped tracing (observability/requests.py): the installed
+        # plane while a request is in flight this tick, else None — sweep
+        # steps pay one is-None test
+        self._rp = None
         from pathway_tpu_torch.engine import fusion as _fusion
 
         # transient = a short-lived inner graph rebuilt per use: chain fusion
@@ -248,11 +259,47 @@ class Scheduler:
         return routed
 
     def _run_node(self, node: Node, time: int) -> None:
+        """One node step: drain, process, route — with the sweep span and the
+        request plane's stage event when those planes are live."""
         inputs = node.drain()
-        node.stats_rows_in += sum(len(b) for b in inputs if b is not None)
+        rows_in = sum(len(b) for b in inputs if b is not None)
+        node.stats_rows_in += rows_in
+        trace = self._trace_active
+        rp = self._rp
+        if trace or rp is not None:
+            w0 = _time.time_ns()
+            # host/device split: traced dispatches inside this node
+            # accumulate their device wait on sampled ticks
+            dev0 = _device_prof.thread_device_wait_ns() if trace else 0
         t0 = _time.perf_counter_ns()
         out = _run_annotated(node, node.process, inputs, time)
-        node.stats_time_ns += _time.perf_counter_ns() - t0
+        elapsed_ns = _time.perf_counter_ns() - t0
+        node.stats_time_ns += elapsed_ns
+        if trace or rp is not None:
+            w1 = _time.time_ns()
+            if rp is not None and (
+                rows_in or any(b is not None and not b.is_empty for b in out)
+            ):
+                # a no-op visit (nothing drained, nothing emitted) touched
+                # no request's rows — don't spend the per-tick ring budget
+                rp.note_stage(time, f"sweep/{node.name}", w0, w1, rows_in)
+        if trace:
+            dev_ns = _device_prof.thread_device_wait_ns() - dev0
+            self.tracer.span(
+                f"sweep/{node.name}",
+                w0,
+                w1,
+                {
+                    "pathway.operator.id": node.node_index,
+                    "pathway.rows_in": rows_in,
+                    "pathway.rows_out": sum(len(b) for b in out if b is not None),
+                    "pathway.device_ms": round(dev_ns / 1e6, 3),
+                },
+            )
+            if dev_ns:
+                _device_prof.stats().note_span_split(
+                    f"sweep/{node.name}", max(0, elapsed_ns - dev_ns), dev_ns
+                )
         self._route(node, out)
 
     def _sweep_legacy(self, time: int) -> bool:
@@ -303,16 +350,47 @@ class Scheduler:
 
     def _run_chain(self, chain, time: int) -> bool:
         """One fused-chain step: drain, hand off member to member, route the
-        tail."""
+        tail. Span + host/device attribution is per CHAIN — the device wait
+        AND any inner traced cold wall are subtracted from the host share so
+        cold seconds stay counted once."""
+        trace = self._trace_active
+        rp = self._rp
+        if trace or rp is not None:
+            w0 = _time.time_ns()
+            dev0 = _device_prof.thread_device_wait_ns() if trace else 0
+            cold0 = _device_prof.thread_cold_s() if trace else 0.0
         t0 = _time.perf_counter_ns()
         tok = _phases.start()
         try:
-            out, processed, _rows_in, _rows_out = chain.execute(time, None)
+            out, processed, rows_in, rows_out = chain.execute(time, None)
         finally:
             _phases.stop(tok, "fused")
         if not processed:
             return False
-        chain.tail.stats_time_ns += _time.perf_counter_ns() - t0
+        elapsed_ns = _time.perf_counter_ns() - t0
+        chain.tail.stats_time_ns += elapsed_ns
+        if rp is not None:
+            rp.note_stage(
+                time, f"sweep/chain{{{chain.label}}}", w0, _time.time_ns(), rows_in
+            )
+        if trace:
+            dev_ns = _device_prof.thread_device_wait_ns() - dev0
+            cold_ns = int((_device_prof.thread_cold_s() - cold0) * 1e9)
+            name = f"sweep/chain{{{chain.label}}}"
+            attrs = {
+                "pathway.operator.id": chain.operator_ids(),
+                "pathway.chain.nodes": len(chain.members),
+                "pathway.rows_in": rows_in,
+                "pathway.rows_out": rows_out,
+                "pathway.device_ms": round(dev_ns / 1e6, 3),
+            }
+            if cold_ns:
+                attrs["pathway.compile_ms"] = round(cold_ns / 1e6, 3)
+            self.tracer.span(name, w0, _time.time_ns(), attrs)
+            if dev_ns:
+                _device_prof.stats().note_span_split(
+                    name, max(0, elapsed_ns - dev_ns - cold_ns), dev_ns
+                )
         self._route(chain.tail, out)
         return True
 
@@ -320,6 +398,21 @@ class Scheduler:
         """Process everything pending at logical ``time`` to quiescence, then
         advance the frontier past it."""
         self.current_time = time
+        # device plane: steps an armed profiler window, stamps the flight
+        # recorder's tick ring (two global reads when profiling is off)
+        _device_prof.tick_hook(time)
+        tracer = self.tracer
+        tick_token = tracer.begin_tick(time) if tracer is not None else None
+        self._trace_active = tick_token is not None
+        # request plane: active for this tick only while a request is in
+        # flight (one global read + one flag read); transient inner graphs
+        # keep their own tick numbering out of the ring
+        rp = None if self.transient else _requests.current()
+        if rp is not None and (not rp.hot or time == END_OF_STREAM):
+            rp = None
+        self._rp = rp
+        if rp is not None:
+            rp.note_tick(time)
         plan = self.plan
         pollers = self.graph.nodes if plan is None else plan.pollers
         for node in pollers:
@@ -345,6 +438,9 @@ class Scheduler:
             _run_annotated(node, node.on_tick_complete, time)
         for cb in self.on_tick_done:
             cb(time)
+        if tick_token is not None:
+            self._trace_active = False
+            tracer.end_tick(time, tick_token)
 
     def close(self) -> None:
         """Input exhausted: flush temporal buffers and fire end callbacks."""

@@ -8,17 +8,18 @@ update_rows/update_cells/restrict/intersect/difference/having; join is an increm
 symmetric hash join with outer-padding accounting; flatten explodes sequence columns.
 All state lives keyed by uint64 row keys, diffs are ±weights.
 
-Carried from ``pathway_tpu/engine/operators.py``. Cut, as planes not ported
-yet (ROADMAP Queue 1): the flow plane's credit-gated ingest and AIMD launch
-cap, the audit plane's sink digests, the lineage plane's key edges, the
-metrics plane's ingest watermarks and sink-latency histograms, and the
-live-tracing span around a microbatch launch.
+Carried from ``pathway_tpu/engine/operators.py``, with the metrics plane's
+ingest watermarks and sink-latency histograms and the live-tracing span around
+a microbatch launch. Cut, as planes not ported yet (ROADMAP Queue 1): the flow
+plane's credit-gated ingest and AIMD launch cap, the audit plane's sink
+digests and the lineage plane's key edges.
 The grouped aggregation routes through ``engine/torch_kernels.py``.
 """
 
 from __future__ import annotations
 
 import threading
+import time as _time_mod
 from collections import OrderedDict
 from typing import Any, Callable, Iterable
 
@@ -136,27 +137,70 @@ class StreamInputNode(Node):
         # input events drained by poll() so far — the operator-snapshot offset:
         # state at a snapshot reflects exactly this many log events
         self.polled_total = 0
+        # watermark probes (observability plane, read by
+        # ``observability.metrics.input_watermarks``): ingest wall clock of
+        # the newest event, oldest still-undrained event (feeds the per-tick
+        # ingest stamp the sink latency histograms subtract), total rows, and
+        # — when the connector declares an event-time column — the event-time
+        # high-water mark
+        self.wm_rows = 0
+        self.wm_ingest_ns: int | None = None
+        self.wm_oldest_pending_ns: int | None = None
+        self.wm_event_time: float | None = None
+        self.event_time_index: int | None = None
+        self.input_name: str | None = None
+
+    def _observe_event_time(self, values: tuple | None) -> None:
+        idx = self.event_time_index
+        if idx is None or values is None:
+            return
+        try:
+            et = float(values[idx])
+        except (TypeError, ValueError, IndexError):
+            return
+        if self.wm_event_time is None or et > self.wm_event_time:
+            self.wm_event_time = et
 
     # called from connector threads
     def push(self, key: int, values: tuple | None, diff: int = 1) -> None:
+        now = _time_mod.time_ns()
         with self._lock:
             self._pending.append((int(key), values, diff))
+            self.wm_rows += 1
+            self.wm_ingest_ns = now
+            if self.wm_oldest_pending_ns is None:
+                self.wm_oldest_pending_ns = now
+            self._observe_event_time(values)
 
     def push_many(self, events: Iterable[tuple[int, tuple | None, int]]) -> None:
         self._append_events(list(events))
 
     def _append_events(self, events: list[tuple[int, tuple | None, int]]) -> None:
-        """One lock + extend for a block of events."""
+        """One lock + extend for a block of events, with the watermark stamps
+        the per-row push path maintains."""
         if not events:
             return
+        now = _time_mod.time_ns()
         with self._lock:
             self._pending.extend(events)
+            self.wm_rows += len(events)
+            self.wm_ingest_ns = now
+            if self.wm_oldest_pending_ns is None:
+                self.wm_oldest_pending_ns = now
+            if self.event_time_index is not None:
+                for _k, values, _d in events:
+                    self._observe_event_time(values)
 
     def poll(self, time: int) -> list[DeltaBatch]:
         with self._lock:
             pending, self._pending = self._pending, []
+            oldest_ns, self.wm_oldest_pending_ns = self.wm_oldest_pending_ns, None
         if time == END_OF_STREAM:
             return []
+        if pending and oldest_ns is not None:
+            from pathway_tpu_torch.observability.metrics import run_metrics
+
+            run_metrics().note_tick_ingest(time, oldest_ns)
         self.polled_total += len(pending)
         if not pending:
             return []
@@ -630,6 +674,7 @@ class MicrobatchApplyNode(Node):
                     lambda items, s=spec: _launch_udf_batch(s, items),
                     max_batch=max_batch,
                     min_bucket=spec.min_bucket,
+                    label=spec.name,
                 )
                 results = d.map([(cell[1], cell[2]) for _, cell in need])
                 for (i, _), rv in zip(need, results):
@@ -817,7 +862,25 @@ class MicrobatchApplyNode(Node):
             return []
         keys = list(self.waiting.keys())[:consume]
         entries = [self.waiting.pop(k) for k in keys]
-        udf_vals = self._launch([e[3] for e in entries])
+        from pathway_tpu_torch import observability as _obs
+
+        tracer = _obs.current()
+        if tracer is not None and tracer.tick_span_id is not None:
+            w0 = _time_mod.time_ns()
+            udf_vals = self._launch([e[3] for e in entries])
+            tracer.span(
+                "microbatch/launch",
+                w0,
+                _time_mod.time_ns(),
+                **{
+                    "pathway.operator.id": self.node_index,
+                    "pathway.rows": consume,
+                    "pathway.only_full": only_full,
+                    "pathway.udfs": ",".join(s.name for s in self.udf_specs),
+                },
+            )
+        else:
+            udf_vals = self._launch([e[3] for e in entries])
         out_keys: list[int] = []
         out_diffs: list[int] = []
         out_rows: list[tuple] = []
@@ -1886,6 +1949,23 @@ class JoinNode(Node):
 # ---------------------------------------------------------------------------- outputs
 
 
+def _observe_sink_latency(node: Node, time: int) -> None:
+    """End-to-end latency probe shared by the sinks: wall time from the
+    oldest event ingested for this tick (stamped by ``StreamInputNode.poll``)
+    to the tick's emission here — accumulated into the sink's log-bucketed
+    histogram (``/metrics`` Prometheus histograms, ``/status`` quantiles)."""
+    from pathway_tpu_torch.observability.metrics import run_metrics
+
+    m = run_metrics()
+    ingest_ns = m.tick_ingest_ns(time)
+    if ingest_ns is None:
+        return  # static tick / no live ingest stamped for this time
+    m.observe_sink_latency(
+        f"{node.name}:{node.node_index}",
+        max(0.0, (_time_mod.time_ns() - ingest_ns) / 1e9),
+    )
+
+
 class SubscribeNode(Node):
     """``pw.io.subscribe`` (reference: ``io/_subscribe.py`` → ``subscribe_table``,
     ``src/engine/graph.rs:543``).
@@ -1950,6 +2030,7 @@ class SubscribeNode(Node):
         # only on_change is gated on the net batch
         if self.on_time_end is not None and time != END_OF_STREAM:
             self.on_time_end(time)
+        _observe_sink_latency(self, time)
 
     def on_end(self):
         if self._on_end is not None:
@@ -2142,6 +2223,7 @@ class CallbackOutputNode(Node):
                 merged = consolidate(merged)
             if merged is not None and not merged.is_empty:
                 self.on_batch(merged, self.columns)
+                _observe_sink_latency(self, time)
         return []
 
     def on_end(self):

@@ -6,10 +6,13 @@ outputs, then either run one batch tick (static mode) or loop — poll connector
 threads, advance the logical time on autocommit ticks (``autocommit_duration_ms``),
 drain the dataflow — until every input is exhausted, then flush and close.
 
-Carried from ``pathway_tpu/engine/runtime.py``. The reference's run also
-installs the fault plan, the live-tracing and health planes, the flow plane's
-ingest credits and persistence replay; none of those planes is ported yet
-(ROADMAP Queue 1), so their hooks are cut.
+Carried from ``pathway_tpu/engine/runtime.py``. The run installs the
+observability planes (``observability.install_from_env``: device profiling,
+request tracing, health, the live tracer) and marks the door ready once the
+connectors start and draining before they stop, as the reference does. The
+reference's run also installs the fault plan, the flow plane's ingest credits
+and persistence replay; those planes are not ported yet (ROADMAP Queue 1), so
+their hooks are cut.
 """
 
 from __future__ import annotations
@@ -20,7 +23,6 @@ from typing import Any, Protocol
 
 from pathway_tpu_torch.engine.graph import Scheduler
 from pathway_tpu_torch.internals.logical import LogicalNode, build_engine_graph
-from pathway_tpu_torch.observability import engine_phases as _phases
 
 
 class TickWakeup:
@@ -130,14 +132,34 @@ class Runtime:
         self._stop_requested = True
 
     def run(self, outputs: list[LogicalNode]) -> Scheduler:
-        _phases.install_from_env()
+        from pathway_tpu_torch import observability as _obs
+
+        _obs.install_from_env(self)
+        try:
+            return self._run(outputs, _obs.current())
+        except BaseException as e:
+            # flight recorder post-mortem (device plane): recent ticks +
+            # device events dumped to PATHWAY_FLIGHT_DIR before the error
+            # propagates
+            _obs.device.on_run_error(e, self)
+            raise
+        finally:
+            _obs.shutdown()
+
+    def _run(self, outputs: list[LogicalNode], tracer) -> Scheduler:
+        from pathway_tpu_torch.observability import health as _health
+
         ctx = build_engine_graph(outputs, runtime=self)
         self.streaming = bool(self.connectors)
         scheduler = Scheduler(ctx.graph)
+        scheduler.tracer = tracer
         self.scheduler = scheduler
 
         for driver in self.connectors:
             driver.start()
+        # connectors are live and the graph is built: this door may now
+        # receive traffic (health plane: starting → ready)
+        _health.mark_ready()
 
         if not self.connectors:
             # static mode: single batch tick
@@ -162,6 +184,9 @@ class Runtime:
                     if elapsed < period:
                         self.wakeup.wait(period - elapsed)
         finally:
+            # doors answer 503 + Retry-After from here on: drain before the
+            # connector stop flushes pending request futures
+            _health.mark_draining("shutdown")
             for driver in self.connectors:
                 driver.stop()
         # a subject may error and close between the failure check and the

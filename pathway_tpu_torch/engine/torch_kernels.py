@@ -30,6 +30,10 @@ other value.
 
 No failure is caught here: a function routed to the card that fails raises,
 so a run can never finish on the CPU after quietly missing the card.
+
+Both functions run through the device plane's ``traced_jit`` at the
+reference's labels, ``engine.grouped/<n>`` (``n`` summed columns) and
+``engine.join_probe``.
 """
 
 from __future__ import annotations
@@ -140,6 +144,31 @@ def _grouped(keys, diffs, cols):
     return order, ks, newg, counts, sums
 
 
+#: n summed columns -> the traced grouped function (one label per n, as the
+#: reference keeps one jitted kernel per n)
+_GROUPED_TRACED: dict[int, Any] = {}
+_PROBE_TRACED: list = []
+
+
+def _grouped_traced(n_cols: int):
+    fn = _GROUPED_TRACED.get(n_cols)
+    if fn is None:
+        from pathway_tpu_torch.observability import device as _dev_prof
+
+        fn = _GROUPED_TRACED[n_cols] = _dev_prof.traced_jit(
+            f"engine.grouped/{n_cols}", _grouped
+        )
+    return fn
+
+
+def _probe_traced():
+    if not _PROBE_TRACED:
+        from pathway_tpu_torch.observability import device as _dev_prof
+
+        _PROBE_TRACED.append(_dev_prof.traced_jit("engine.join_probe", _probe))
+    return _PROBE_TRACED[0]
+
+
 def grouped_sums(
     gkeys: np.ndarray, diffs: np.ndarray, sum_cols: list[np.ndarray]
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, list[np.ndarray]]:
@@ -157,7 +186,7 @@ def grouped_sums(
     keys = _keys_tensor(gkeys, dev)
     d = torch.from_numpy(np.ascontiguousarray(diffs, dtype=np.int64)).to(dev)
     cols = [torch.from_numpy(np.ascontiguousarray(c)).to(dev) for c in sum_cols]
-    order, ks, newg, counts, sums = _grouped(keys, d, cols)
+    order, ks, newg, counts, sums = _grouped_traced(len(cols))(keys, d, cols)
     _note("grouped", dev)
     order = _host(order)
     starts = np.flatnonzero(_host(newg))
@@ -259,7 +288,7 @@ def join_probe(sorted_jk: np.ndarray, q_jk: np.ndarray) -> tuple[np.ndarray, np.
     # auto mode adopts the probe on the host backend (the reference's measured
     # win); explicit devices are honored as given
     dev = _device(force_cpu=flag() == "auto")
-    lo, cnt = _probe(_device_state(sorted_jk, dev), _keys_tensor(q_jk, dev))
+    lo, cnt = _probe_traced()(_device_state(sorted_jk, dev), _keys_tensor(q_jk, dev))
     _note("probe", dev)
     return _host(lo), _host(cnt)
 

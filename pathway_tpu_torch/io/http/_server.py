@@ -31,13 +31,16 @@ The serving tier:
   hanging for the request timeout.
 
 The HTTP/1.1 server under it is the port's own (``_wire.py``, on the
-standard library), answering as aiohttp answers the reference. The planes
-the reference's handlers consult are not ported yet, and every call site
-takes the reference's plane-off path: no request-trace plane (no
-``X-Pathway-Request-Id`` header), no health plane (``/healthz`` and
-``/readyz`` answer ``"health": "off"``, no canary branch), no live tracer,
-no flow plane (``push_admitted``'s gate is always absent) and no fabric or
-shard map (``PATHWAY_SHARDMAP=on`` raises ``later_slice``).
+standard library), answering as aiohttp answers the reference. The handlers
+consult the observability planes as the reference's do: the request-trace
+plane mints a request id per admitted request (``X-Pathway-Request-Id`` on
+every answer), records its flight path and completes it; the health plane
+answers ``/healthz`` and ``/readyz`` from its door state machine and its
+canaries (``X-Pathway-Canary``) short-circuit before any counter or
+admission; the live tracer gets door and respond events. Planes not ported
+yet take the reference's plane-off path: no flow plane (``push_admitted``'s
+gate is always absent) and no fabric or shard map (``PATHWAY_SHARDMAP=on``
+raises ``later_slice``).
 """
 
 from __future__ import annotations
@@ -207,6 +210,12 @@ class _RouteServing:
         with self.lock:
             self.closed = True
             pending, self.futures = self.futures, {}
+        from pathway_tpu_torch.observability import requests as _req_trace
+
+        rp = _req_trace.current()
+        if rp is not None:
+            for key in pending:
+                rp.drop(key)
         by_loop: dict[Any, list] = {}
         for fut, loop, _arrival_ns, _values in pending.values():
             by_loop.setdefault(loop, []).append((fut, _SHUTDOWN))
@@ -387,6 +396,21 @@ def _zerohop_owner_headers() -> dict | None:
     return None
 
 
+def _door_event(state: "_RouteServing", reason: str) -> None:
+    """Trace/request-plane breadcrumbs for a request rejected at the door."""
+    from pathway_tpu_torch import observability as _obs
+    from pathway_tpu_torch.observability import requests as _req_trace
+
+    tracer = _obs.current()
+    if tracer is not None:
+        tracer.event(
+            "serve/shed", {"pathway.route": state.route, "pathway.reason": reason}
+        )
+    rp = _req_trace.current()
+    if rp is not None:
+        rp.note_shed(state.route, reason)
+
+
 def gate_check(
     state: "_RouteServing", headers: Any
 ) -> tuple[int, dict, dict[str, str]] | None:
@@ -396,8 +420,7 @@ def gate_check(
     an exact Retry-After). Returns ``(status, body, headers)`` on rejection,
     else None. Runs before admission and before the body is read, so a
     hostile flood costs one header inspection per request. Counters are
-    exact per process. (The reference also leaves a breadcrumb on its live
-    tracer and request-trace plane; neither is ported.)"""
+    exact per process."""
     from pathway_tpu_torch.fabric import limits as _limits
 
     auth = state.auth
@@ -405,15 +428,18 @@ def gate_check(
         verdict = auth.check(_limits.extract_api_key(headers))
         if verdict == _limits.UNAUTHORIZED:
             state.unauthorized_total += 1
+            _door_event(state, "unauthorized")
             return 401, {"error": "missing api key"}, {}
         if verdict == _limits.FORBIDDEN:
             state.forbidden_total += 1
+            _door_event(state, "forbidden")
             return 403, {"error": "invalid api key"}, {}
     limiter = state.limiter
     if limiter is not None:
         wait = limiter.try_take()
         if wait > 0.0:
             state.limited_total += 1
+            _door_event(state, "rate_limited")
             return (
                 429,
                 {"error": "rate limited", "reason": "rate_limit"},
@@ -723,14 +749,20 @@ class PathwayWebserver:
         async def schema_handler(_request: _wire.Request) -> _wire.Response:
             return _wire.json_response(openapi_spec(self))
 
-        # liveness/readiness as the reference's health plane answers them
-        # while it is off (``observability/health.py``, not ported yet):
-        # unconditional 200s — the contract a load balancer probes
+        # every door serves liveness/readiness from the health plane's door
+        # state machine (unconditional 200s when the plane is off) — the
+        # contract a load balancer probes; user routes win a name collision
         async def healthz_handler(_request: _wire.Request) -> _wire.Response:
-            return _wire.json_response({"alive": True, "health": "off"})
+            from pathway_tpu_torch.observability import health as _health
+
+            status, doc = _health.healthz_payload()
+            return _wire.json_response(doc, status=status)
 
         async def readyz_handler(_request: _wire.Request) -> _wire.Response:
-            return _wire.json_response({"ready": True, "health": "off"})
+            from pathway_tpu_torch.observability import health as _health
+
+            status, doc, headers = _health.readyz_payload()
+            return _wire.json_response(doc, status=status, headers=headers or None)
 
         table.setdefault("/_schema", {}).setdefault("GET", schema_handler)
         for path, h in (("/healthz", healthz_handler), ("/readyz", readyz_handler)):
@@ -895,6 +927,7 @@ def rest_connector(
 
     def _shed_response(reason: str) -> _wire.Response:
         state.shed_total += 1
+        _door_event(state, reason)
         status = 503 if reason == "shutting_down" else 429
         return _wire.json_response(
             {"error": "overloaded", "reason": reason},
@@ -903,6 +936,15 @@ def rest_connector(
         )
 
     async def handler(request: _wire.Request) -> _wire.Response:
+        from pathway_tpu_torch.observability import health as _health
+
+        hp = _health.current()
+        if hp is not None and request.headers.get("X-Pathway-Canary"):
+            # synthetic self-probe: answer from the door state machine and
+            # return BEFORE any user-facing counter or engine work — canaries
+            # must never show up as traffic
+            status, doc = hp.canary_response(route)
+            return _wire.json_response(doc, status=status)
         state.requests_total += 1
         gated = gate_check(state, request.headers)
         if gated is not None:
@@ -933,10 +975,26 @@ def rest_connector(
                 return _shed_response("max_inflight")
             key = mint_local_key(state)
             state.futures[key] = (fut, loop, arrival_ns, values)
+        # request-scoped tracing: the admitted query row's engine key IS the
+        # request id. Registration happens BEFORE the push makes the row
+        # visible to the engine — a fast tick could otherwise resolve (and
+        # try to complete) the request before begin() ran, leaking it in the
+        # live table
+        from pathway_tpu_torch.observability import requests as _req_trace
+
+        rp = _req_trace.current()
+        request_id = rp.begin(key, route, arrival_ns) if rp is not None else None
+        rid_headers = (
+            {"X-Pathway-Request-Id": request_id} if request_id is not None else None
+        )
         fabric_headers = _zerohop_owner_headers()
+        if fabric_headers is not None:
+            rid_headers = {**(rid_headers or {}), **fabric_headers}
         if not state.push_admitted(key, values):
             with state.lock:
                 state.futures.pop(key, None)
+            if rp is not None:
+                rp.drop(key)  # never reached the engine; no flight to trace
             return _shed_response("no_ingest_credit")
         state.schedule_tick()
         try:
@@ -950,14 +1008,21 @@ def rest_connector(
             # retraction)
             with state.lock:
                 ent = state.futures.pop(key, None)
-            if ent is not None and state.delete_completed and state.node is not None:
-                state.node._append_events([(key, values, -1)])
-                state.schedule_tick()
+            if ent is not None:
+                if rp is not None:
+                    rp.complete(key, "cancelled")
+                if state.delete_completed and state.node is not None:
+                    state.node._append_events([(key, values, -1)])
+                    state.schedule_tick()
             raise
         except asyncio.TimeoutError:
             with state.lock:
                 ent = state.futures.pop(key, None)
             state.timeouts_total += 1
+            if rp is not None:
+                # a timed-out request is exactly what tail sampling exists
+                # for — its flight path is kept unconditionally
+                rp.complete(key, "timeout")
             # ent None = the response side won the race and already owns the
             # retraction; retracting again would push an unpaired -1
             if ent is not None and state.delete_completed and state.node is not None:
@@ -966,12 +1031,14 @@ def rest_connector(
                 # retraction happens at response time, which never came)
                 state.node._append_events([(key, values, -1)])
                 state.schedule_tick()
-            return _wire.json_response({"error": "timeout"}, status=504, headers=fabric_headers)
+            return _wire.json_response({"error": "timeout"}, status=504, headers=rid_headers)
         if result is _SHUTDOWN:
+            if rp is not None:
+                rp.drop(key)  # no flight to decompose; the client got a 503
             return _wire.json_response(
-                {"error": "engine shutting down"}, status=503, headers=fabric_headers
+                {"error": "engine shutting down"}, status=503, headers=rid_headers
             )
-        return _wire.json_response(_jsonable(result), headers=fabric_headers)
+        return _wire.json_response(_jsonable(result), headers=rid_headers)
 
     ws._add_route(
         route,
@@ -1026,6 +1093,7 @@ def rest_connector(
             # one vectorized resolution pass per event loop, not a
             # call_soon_threadsafe per row
             by_loop: dict[Any, list] = {}
+            oldest_ns = now_ns
             retracts: list[tuple[int, tuple, int]] = []
             for (fut, loop, arrival_ns, values), key, row in resolved:
                 value = (
@@ -1033,6 +1101,7 @@ def rest_connector(
                 )
                 by_loop.setdefault(loop, []).append((fut, value))
                 state.latency.observe((now_ns - arrival_ns) / 1e9)
+                oldest_ns = min(oldest_ns, arrival_ns)
                 if state.delete_completed:
                     retracts.append((key, values, -1))
             for loop, items in by_loop.items():
@@ -1043,6 +1112,28 @@ def rest_connector(
             state.responses_total += len(resolved)
             state.batches_total += 1
             state.batched_rows_total += len(resolved)
+            from pathway_tpu_torch import observability as _obs
+            from pathway_tpu_torch.observability import requests as _req_trace
+
+            rp = _req_trace.current()
+            if rp is not None:
+                # completion runs the tail-based keep decision per request;
+                # the respond span covers this resolution pass
+                done_ns = _time_mod.time_ns()
+                for _ent, key, _row in resolved:
+                    rp.complete(key, "ok", now_ns, done_ns)
+            tracer = _obs.current()
+            if tracer is not None:
+                tracer.span(
+                    "serve/respond",
+                    oldest_ns,
+                    now_ns,
+                    {
+                        "pathway.route": route,
+                        "pathway.responses": len(resolved),
+                        "pathway.tick": time,
+                    },
+                )
             if retracts and state.node is not None:
                 # retract served query rows (delete_completed_queries): the
                 # server's own bookkeeping, bounded by the in-flight budget,

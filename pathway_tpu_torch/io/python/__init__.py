@@ -256,6 +256,16 @@ class _TimedInputNode(ops.StreamInputNode):
         # every worker's build and across successive pw.run calls on the same
         # fixture — a downstream in-place mutation of a view would corrupt the
         # fixture for other workers/runs
+        # watermark probes (the per-row push path stamps these in push();
+        # this columnarized fast lane must stamp them itself)
+        import time as _t
+
+        now_ns = _t.time_ns()
+        self.wm_rows += emit_until - sl.start
+        self.wm_ingest_ns = now_ns
+        from pathway_tpu_torch.observability.metrics import run_metrics
+
+        run_metrics().note_tick_ingest(time, now_ns)
         batch = DeltaBatch(
             self._keys_arr[sl].copy(),
             self._diffs_arr[sl].copy(),
@@ -298,8 +308,9 @@ def read(
     service_class: str = "interactive",
     **kwargs: Any,
 ) -> Table:
-    # service_class scopes the flow plane and event_time_column the metrics
-    # plane's event-time watermark; neither plane is ported yet
+    # service_class scopes the flow plane (not ported yet) and
+    # event_time_column the metrics plane's event-time watermark, whose
+    # connector side is not carried yet
     arrival_order(service_class)
     if event_time_column is not None:
         raise later_slice("metrics (event_time_column)")
@@ -317,6 +328,7 @@ def read(
 
         def factory() -> Node:
             node = _TimedInputNode(events, columns, np_dtypes, arrays=arrays)
+            node.input_name = name or "stream_fixture"
             holder["node"] = node
             return node
 
@@ -331,6 +343,8 @@ def read(
         node = ops.StreamInputNode(
             columns, np_dtypes, upsert=subject._session_type == "upsert"
         )
+        # the watermark plane's label (``/status`` watermarks, ``/metrics``)
+        node.input_name = name or getattr(subject, "datasource_name", None) or "python"
         subject._node = node
         return node
 

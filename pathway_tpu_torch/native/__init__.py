@@ -69,6 +69,10 @@ def _load(name: str):
             raise RuntimeError(msg)
         build_seconds[name] = time.perf_counter() - t0
         os.replace(tmp, so_path)  # atomic publish; racing winners are identical
+        # the device plane counts each build under ``compiles``
+        from pathway_tpu_torch.observability import device as _dev_prof
+
+        _dev_prof.note_build(f"{name}.c", build_seconds[name])
     spec = importlib.util.spec_from_file_location(name, so_path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)

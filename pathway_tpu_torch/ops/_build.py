@@ -93,6 +93,10 @@ def build(names=None) -> dict[str, float]:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)  # atomic publish: concurrent builders write identical files
+        # the device plane counts each build under ``compiles``
+        from pathway_tpu_torch.observability import device as _dev_prof
+
+        _dev_prof.note_build(SOURCES[name], times[name])
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return times

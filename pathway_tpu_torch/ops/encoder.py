@@ -12,7 +12,11 @@ in masked mean pooling in f32 and an L2 norm. Matrices are ``[in, out]``
 (``x @ W``) as in the JAX package, and activations run in ``cfg.dtype`` with
 the weights cast to it at use. Every attention goes through
 :func:`~pathway_tpu_torch.ops.attention_kernel.attention_short_flat`: the
-Hopper kernel on the card, its plain version on the CPU.
+Hopper kernel on the card, its plain version on the CPU. Every launch goes
+through the device plane's traced entry points (``encoder.encode``,
+``encoder.encode_ids``) and reports its padded tokens and FLOPs, and the
+weights are registered as ``encoder_params`` device bytes, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from torch import nn
 from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.convert import ParamTree, tree_map
 from pathway_tpu_torch.native import try_load as _try_load_native
+from pathway_tpu_torch.observability import device as _dev_prof
 from pathway_tpu_torch.ops._fixed_order import fixed_order_sum
 from pathway_tpu_torch.ops.attention_kernel import HEAD_DIMS, attention_short_flat
 from pathway_tpu_torch.ops.microbatch import LENGTH_MAX_BUCKET, bucket_size
@@ -229,6 +234,12 @@ def encode_ids(params, cfg: EncoderConfig, token_ids: torch.Tensor):
     """ids-only forward: the mask is ``ids != 0`` (pad id 0), and narrow
     integer ids (int16 from the hash tokenizer) widen on the device."""
     return encode(params, cfg, token_ids.long(), token_ids != 0)
+
+
+# device profiling plane: every encoder launch counts toward the per-callable
+# call/shape telemetry on /status (+/metrics) — see observability/device.py
+encode_jit = _dev_prof.traced_jit("encoder.encode", encode)
+encode_ids_jit = _dev_prof.traced_jit("encoder.encode_ids", encode_ids)
 
 
 @functools.cache
@@ -437,19 +448,38 @@ class TorchSentenceEncoder(nn.Module):
         self.param_dtype = param_dtype
         self.params = ParamTree(params).to(self.device)
         self.tokenizer = tokenizer or HashTokenizer(self.cfg.vocab_size, self.cfg.max_len)
+        self._param_count: int | None = None
+        # memory attribution: encoder weights show up as
+        # pathway_device_bytes{component="encoder_params"} while this
+        # instance lives (weakly registered — no lifetime coupling)
+        _dev_prof.register_memory(self, "encoder_params", lambda enc: enc.param_bytes())
 
     @property
     def dimension(self) -> int:
         return self.cfg.d_model
 
     def param_count(self) -> int:
-        return sum(p.numel() for p in self.parameters())
+        if self._param_count is None:
+            self._param_count = sum(p.numel() for p in self.parameters())
+        return self._param_count
 
     def param_bytes(self) -> int:
         return sum(p.numel() * p.element_size() for p in self.parameters())
 
+    def _note_launch(self, ids, mask=None) -> None:
+        """Padding-waste + FLOP accounting for one encoder launch (rough
+        transformer-forward estimate: 2 · params · tokens over the PADDED
+        token grid the device actually runs)."""
+        stats = _dev_prof.stats()
+        if not stats.enabled:
+            return
+        total = int(ids.shape[0]) * int(ids.shape[1])
+        real = int(np.count_nonzero(np.asarray(mask if mask is not None else ids)))
+        stats.note_pad_tokens("encoder", real, total - real)
+        stats.note_flops("encoder", 2.0 * self.param_count() * total)
+
     def forward(self, token_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return encode(self.params, self.cfg, token_ids, mask)
+        return encode_jit(self.params, self.cfg, token_ids, mask)
 
     def _ids(self, ids) -> torch.Tensor:
         if isinstance(ids, np.ndarray):
@@ -459,7 +489,9 @@ class TorchSentenceEncoder(nn.Module):
     @torch.inference_mode()
     def encode_ids_device(self, ids: np.ndarray | torch.Tensor) -> torch.Tensor:
         """Pre-tokenized ids (pad id 0) → embeddings on the device."""
-        return encode_ids(self.params, self.cfg, self._ids(ids))
+        if isinstance(ids, np.ndarray):
+            self._note_launch(ids)
+        return encode_ids_jit(self.params, self.cfg, self._ids(ids))
 
     @torch.inference_mode()
     def encode_texts_device(self, texts: list[str]) -> torch.Tensor:
@@ -467,9 +499,10 @@ class TorchSentenceEncoder(nn.Module):
         host sync. Only the narrow id array crosses to the device when the
         tokenizer's pad id is 0; otherwise its mask is shipped too."""
         ids, mask = self.tokenizer(texts)
+        self._note_launch(ids, mask)
         if getattr(self.tokenizer, "pad_id_zero", False):
-            return encode_ids(self.params, self.cfg, self._ids(ids))
-        return encode(self.params, self.cfg, self._ids(ids).long(), self._ids(mask))
+            return encode_ids_jit(self.params, self.cfg, self._ids(ids))
+        return encode_jit(self.params, self.cfg, self._ids(ids).long(), self._ids(mask))
 
     def encode_texts(self, texts: list[str]) -> np.ndarray:
         if not texts:
@@ -478,7 +511,8 @@ class TorchSentenceEncoder(nn.Module):
 
     @torch.inference_mode()
     def encode_tokens(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        out = encode(self.params, self.cfg, self._ids(ids).long(), self._ids(mask))
+        self._note_launch(ids, mask)
+        out = encode_jit(self.params, self.cfg, self._ids(ids).long(), self._ids(mask))
         return out.cpu().numpy()
 
     @classmethod

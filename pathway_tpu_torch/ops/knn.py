@@ -13,13 +13,19 @@ Differences from the JAX package, none of them visible in results:
   where JAX donates buffers to a functional scatter;
 - scatter batches are not padded to power-of-two buckets, and wide rows are
   not top-k'ed in chunks: both only bounded XLA's compile cache or TPU cost;
-- key bits are stored as int32 bit patterns (torch has no full uint32 ops);
-- hits come back with two fetches instead of one packed array.
+- key bits are stored as int32 bit patterns (torch has no full uint32 ops).
+
+Every device entry point runs through the device plane's ``traced_jit`` at
+the reference's labels (``knn.search``, ``knn.rescore``, ``knn.scatter``,
+``knn.pack_hits``, ``knn.invalidate``), a search reports its FLOPs and padded
+rows, and an index registers its tensors' bytes (``knn_index``, or
+``knn_hot`` for a tiered index's hot shard).
 """
 
 from __future__ import annotations
 
 import enum
+import functools
 import math
 from typing import Any, Sequence
 
@@ -29,6 +35,7 @@ import torch.nn.functional as F
 
 from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.internals.keys import tie_order, tie_order_u64
+from pathway_tpu_torch.observability import device as _dev_prof
 from pathway_tpu_torch.ops._fixed_order import fixed_order_sum
 
 
@@ -171,12 +178,14 @@ def _search_body(
     return _canonical_select(scores, key_bits, k)
 
 
+@functools.partial(_dev_prof.traced_jit, "knn.search")
 @torch.inference_mode()
 def _search_kernel(vectors, norms_sq, valid, key_bits, queries, k: int, metric: str):
     """(scores [Q, k], slot ids [Q, k]) over the resident index."""
     return _search_body(vectors, norms_sq, valid, key_bits, queries, k, metric)
 
 
+@functools.partial(_dev_prof.traced_jit, "knn.rescore")
 @torch.inference_mode()
 def _rescore_kernel(rows, valid, key_bits, queries, k: int, metric: str):
     """Exact top-k over an ad-hoc candidate matrix; row norms use the ingest
@@ -242,8 +251,9 @@ def _decode_hits(
     return out
 
 
+@functools.partial(_dev_prof.traced_jit, "knn.scatter")
 @torch.inference_mode()
-def _scatter_block(vectors, norms_sq, valid, key_bits, slots, bits, rows) -> None:
+def _scatter_block(vectors, norms_sq, valid, key_bits, slots, bits, rows) -> torch.Tensor:
     """One ingest scatter, in place: vectors (cast to the index dtype), f32
     norms computed from the rows BEFORE that cast (so host- and
     device-ingested rows score alike on a non-f32 index), validity and key
@@ -253,11 +263,29 @@ def _scatter_block(vectors, norms_sq, valid, key_bits, slots, bits, rows) -> Non
     norms_sq.index_put_((slots,), _row_sq_norms(rows32))
     valid.index_put_((slots,), torch.ones_like(slots, dtype=torch.bool))
     key_bits.index_put_((slots,), bits)
+    # the last tensor written: the device plane waits on its stream
+    return key_bits
 
 
+@functools.partial(_dev_prof.traced_jit, "knn.pack_hits")
 @torch.inference_mode()
-def _invalidate(valid: torch.Tensor, slots: torch.Tensor) -> None:
+def _pack_hits(scores: torch.Tensor, slot_ids: torch.Tensor) -> torch.Tensor:
+    """Pack (scores [Q, k] f32, ids [Q, k]) into one [Q, 2k] f32 tensor so the
+    results cross to the host in one fetch. Ids are value-cast, exact below
+    2^24."""
+    return torch.cat([scores.float(), slot_ids.float()], dim=1)
+
+
+def _unpack_hits(packed: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    k = packed.shape[1] // 2
+    return packed[:, :k], packed[:, k:].astype(np.int64)
+
+
+@functools.partial(_dev_prof.traced_jit, "knn.invalidate")
+@torch.inference_mode()
+def _invalidate(valid: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     valid.index_put_((slots,), torch.zeros_like(slots, dtype=torch.bool))
+    return valid
 
 
 class BruteForceKnnIndex:
@@ -275,8 +303,10 @@ class BruteForceKnnIndex:
         capacity: int = _MIN_CAPACITY,
         dtype: torch.dtype = torch.float32,
         device=None,
+        component: str = "knn_index",
     ):
         self.device = resolve_device(device)
+        self._mem_component = component
         self.dimension = dimension
         self.metric = KnnMetric(metric) if not isinstance(metric, KnnMetric) else metric
         self.dtype = dtype
@@ -298,6 +328,10 @@ class BruteForceKnnIndex:
         self._pending_invalidate: list[int] = []
         # device-resident staged blocks: (host slots, [m, d] device rows, host key bits)
         self._pending_device: list[tuple[np.ndarray, torch.Tensor, np.ndarray]] = []
+        # memory attribution: index shards appear as
+        # pathway_device_bytes{component="knn_index"} while this instance
+        # lives (tiered indexes label their hot shard "knn_hot")
+        _dev_prof.register_memory(self, component, lambda ix: ix.device_bytes())
 
     def device_bytes(self) -> int:
         """Device bytes of the index tensors (vectors, norms, validity, key bits)."""
@@ -322,6 +356,13 @@ class BruteForceKnnIndex:
             slots = np.fromiter(self._slot_to_key, dtype=np.int64, count=len(self._slot_to_key))
             bits[slots] = _key_bits_of(list(self._slot_to_key.values()))
         self._key_bits = _bits_tensor(bits, self.device)
+        # a restored index re-attributes its device bytes (weak registration
+        # does not survive pickling)
+        _dev_prof.register_memory(
+            self,
+            self.__dict__.get("_mem_component", "knn_index"),
+            lambda ix: ix.device_bytes(),
+        )
 
     # -- capacity ------------------------------------------------------------
     @property
@@ -479,6 +520,14 @@ class BruteForceKnnIndex:
         """(scores [Q, k], slot ids [Q, k]) on the device, with no host sync."""
         self._flush()
         q = self._prep_queries(queries)
+        stats = _dev_prof.stats()
+        if stats.enabled:
+            # rough probe cost: one dot per (query, slot) pair over the PADDED
+            # capacity — the padded-vs-valid gap is exactly the pad waste
+            stats.note_flops(
+                "knn.search", 2.0 * int(q.shape[0]) * self.capacity * self.dimension
+            )
+            stats.note_pad_rows("knn.search", len(self), self.capacity - len(self))
         return _search_kernel(
             self._vectors, self._norms_sq, self._valid, self._key_bits, q,
             k=min(k, self.capacity), metric=self.metric.value,
@@ -487,6 +536,17 @@ class BruteForceKnnIndex:
     def search(self, queries, k: int) -> list[list[tuple[Any, float]]]:
         """Top-k per query as (key, score) lists, best first; scores follow
         the metric's "higher is better" convention (L2SQ is negated). Takes a
-        device tensor directly (e.g. from ``encode_texts_device``)."""
+        device tensor directly (e.g. from ``encode_texts_device``); scores and
+        ids come back packed in one device→host fetch."""
         scores, slot_ids = self.search_device(queries, k)
-        return _decode_hits(scores.cpu().numpy(), slot_ids.cpu().numpy(), self._slot_to_key, k)
+        scores_np, ids_np = self._fetch_hits(scores, slot_ids)
+        return _decode_hits(scores_np, ids_np, self._slot_to_key, k)
+
+    def _fetch_hits(
+        self, scores: torch.Tensor, slot_ids: torch.Tensor
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """One packed device→host fetch when the f32 value-cast of ids stays
+        exact (capacity < 2^24); two plain fetches otherwise."""
+        if self.capacity < (1 << 24):
+            return _unpack_hits(_pack_hits(scores, slot_ids).cpu().numpy())
+        return scores.cpu().numpy(), slot_ids.cpu().numpy()

@@ -4,7 +4,9 @@ Port of ``pathway_tpu/ops/reranker.py``. Query and doc are joined with the
 separator token ``_SEP`` (2) after ``[CLS]`` (1), the token budget is split
 between them as in the reference, all pairs run in one batch padded to a
 power-of-two length bucket, and the head maps the pooled unit vector to one
-f32 logit per pair.
+f32 logit per pair. Launches go through the device plane's traced
+``reranker.score`` and report their padded tokens and FLOPs; the weights are
+registered as ``reranker_params`` device bytes, as in the reference.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from torch import nn
 
 from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.convert import ParamTree
+from pathway_tpu_torch.observability import device as _dev_prof
 from pathway_tpu_torch.ops.encoder import EncoderConfig, HashTokenizer, encode, init_params
 from pathway_tpu_torch.ops.microbatch import LENGTH_MAX_BUCKET, bucket_size
 
@@ -36,6 +39,10 @@ def score(params, cfg: EncoderConfig, token_ids: torch.Tensor, mask: torch.Tenso
     return (pooled @ params["head"]["w"] + params["head"]["b"]).squeeze(-1)
 
 
+# device profiling plane: call/shape telemetry per reranker launch
+score_jit = _dev_prof.traced_jit("reranker.score", score)
+
+
 class TorchCrossEncoder(nn.Module):
     """Batched (query, doc) → relevance score model on ``device`` (default:
     the card); the API mirrors the JAX package's ``JaxCrossEncoder``."""
@@ -54,6 +61,12 @@ class TorchCrossEncoder(nn.Module):
             params = init_reranker_params(self.cfg, torch.Generator().manual_seed(seed))
         self.params = ParamTree(params).to(self.device)
         self.tokenizer = HashTokenizer(self.cfg.vocab_size, self.cfg.max_len)
+        self._param_count: int | None = None
+        _dev_prof.register_memory(
+            self,
+            "reranker_params",
+            lambda ce: sum(p.numel() * p.element_size() for p in ce.parameters()),
+        )
 
     def pair_ids(self, pairs: list[tuple[str, str]]) -> tuple[np.ndarray, np.ndarray]:
         """``[CLS] query [SEP] doc`` ids and mask, [n, L] with L a length bucket."""
@@ -84,7 +97,14 @@ class TorchCrossEncoder(nn.Module):
         if not pairs:
             return np.zeros((0,), dtype=np.float32)
         ids, mask = self.pair_ids(pairs)
-        out = score(
+        stats = _dev_prof.stats()
+        if stats.enabled:
+            if self._param_count is None:
+                self._param_count = sum(p.numel() for p in self.parameters())
+            real = int(mask.sum())
+            stats.note_pad_tokens("reranker", real, ids.size - real)
+            stats.note_flops("reranker", 2.0 * self._param_count * ids.size)
+        out = score_jit(
             self.params, self.cfg,
             torch.from_numpy(ids).to(self.device).long(), torch.from_numpy(mask).to(self.device),
         )

@@ -17,9 +17,10 @@ Carried from ``pathway_tpu/stdlib/indexing/_engine.py``. Backends:
 ``VectorBackend`` (the port's ``ops/knn.py`` index on the card),
 ``BM25Backend`` (host-side inverted index — memory-bound, not FLOP-bound, so
 it stays on the host like the reference's tantivy) and ``LshVectorBackend``
-(host LSH buckets, exact scores). The hooks this node has into planes not
-ported yet are cut: persistence's incremental index snapshots, the fabric's
-replica feed and the request plane's search stage.
+(host LSH buckets, exact scores). A search records the request plane's
+``index/search`` stage while a request is in flight. The hooks this node has
+into planes not ported yet are cut: persistence's incremental index
+snapshots and the fabric's replica feed.
 """
 
 from __future__ import annotations
@@ -315,7 +316,19 @@ class ExternalIndexNode(Node):
             # batched search — TPU-friendly), else just the new ones
             to_answer = list(self._live_queries) if docs_changed else new_queries
         if to_answer:
-            replies = self._answer(to_answer)
+            from pathway_tpu_torch.observability import requests as _requests
+
+            rp = _requests.current()
+            if rp is not None and rp.hot:
+                import time as _t
+
+                w0 = _t.time_ns()
+                replies = self._answer(to_answer)
+                rp.note_stage(
+                    None, "index/search", w0, _t.time_ns(), len(to_answer)
+                )
+            else:
+                replies = self._answer(to_answer)
             for k, reply in zip(to_answer, replies):
                 query_k = self._live_queries[k][1]
                 old = self._emitted.get(k)

@@ -52,10 +52,9 @@ recall class lower until it re-earns promotion.
 Carried from ``pathway_tpu/stdlib/indexing/tiered.py``. In the port the hot
 shard is ``pathway_tpu_torch.ops.knn.BruteForceKnnIndex`` on ``device`` (the
 card by default, or an error without CUDA), cold candidates are rescored by
-``exact_rescore`` on the same device, and hits come back in two fetches. The
-``knn_hot`` / ``knn_cold`` device-memory gauges belong to the observability
-plane, a later slice: they are not registered (``stats()`` still reports both
-byte counts).
+``exact_rescore`` on the same device. The hot shard registers its tensors as
+``knn_hot`` device bytes and the backend its cold tier as ``knn_cold``, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -141,6 +140,7 @@ class TieredKnnBackend(IndexBackend):
             metric=metric,
             capacity=_pad_to_capacity(self.hot_rows),
             device=device,
+            component="knn_hot",
         )
         self.device = self.hot.device
         self.cold = IvfFlatBackend(
@@ -257,9 +257,8 @@ class TieredKnnBackend(IndexBackend):
         hot_lists: list[list] = [[] for _ in items]
         if len(self.hot) > 0:
             scores, ids = self.hot.search_device(qs, fetch)
-            hot_lists = _decode_hits(
-                scores.cpu().numpy(), ids.cpu().numpy(), self.hot._slot_to_key, fetch
-            )
+            s_np, i_np = self.hot._fetch_hits(scores, ids)
+            hot_lists = _decode_hits(s_np, i_np, self.hot._slot_to_key, fetch)
         # cold tier: IVF prunes to candidate KEYS (host); hot residents are
         # excluded (already exactly scored above) and the union is rescored on
         # device by the same kernel body — scoring the union for every query
@@ -385,8 +384,11 @@ class TieredKnnBackend(IndexBackend):
 
 
 def _register(backend: TieredKnnBackend) -> None:
+    from pathway_tpu_torch.observability import device as _dev_prof
+
     with _registry_lock:
         _live_tiered.add(backend)
+    _dev_prof.register_memory(backend, "knn_cold", lambda t: t.cold_bytes())
 
 
 def tier_stats() -> dict[str, Any] | None:

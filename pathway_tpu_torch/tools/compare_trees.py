@@ -24,7 +24,9 @@ import subprocess
 import sys
 import time
 
-PHASES = ("kernels", "main_path", "f32_path", "pipeline", "temporal", "document_store", "rest_serving")
+PHASES = (
+    "kernels", "main_path", "f32_path", "pipeline", "temporal", "document_store", "rest_serving", "observability",
+)
 
 #: phase -> the fields of its chip_smoke line kept in the summary (dotted
 #: paths into nested objects)
@@ -41,6 +43,10 @@ HEADLINES = {
         "ingest_chunks_per_s", "retrieve_1_clients.requests_per_s", "retrieve_1_clients.client_p50_ms",
         "retrieve_1_clients.equal_to_in_process", "retrieve_32_clients.requests_per_s",
         "retrieve_32_clients.client_p50_ms", "retrieve_32_clients.equal_to_in_process", "answer.requests_per_s",
+    ),
+    "observability": tuple(
+        f"legs.{leg}.{k}" for leg in ("planes_off", "profile_full")
+        for k in ("requests_per_s", "client_p50_ms", "client_p99_ms")
     ),
 }
 
@@ -70,10 +76,14 @@ if "temporal" in want and hasattr(cs, "phase_temporal"):
     cs.phase_temporal(info)
 if "document_store" in want or "rest_serving" in want:
     store = cs.phase_document_store(info)
-    if "rest_serving" in want and hasattr(cs, "phase_rest_serving"):
-        cs.phase_rest_serving(info, store)
-    elif isinstance(store, dict) and store.get("root"):
-        shutil.rmtree(store["root"], ignore_errors=True)
+    try:
+        if "rest_serving" in want and hasattr(cs, "phase_rest_serving"):
+            rest = cs.phase_rest_serving(info, store)
+            if "observability" in want and hasattr(cs, "phase_observability"):
+                cs.phase_observability(info, store, rest)
+    finally:
+        if isinstance(store, dict) and store.get("root"):
+            shutil.rmtree(store["root"], ignore_errors=True)
 print("compare_trees: failures", cs.failures, flush=True)
 """
 

@@ -42,12 +42,15 @@ import pathway_tpu.xpacks.llm.servers
 import pathway_tpu_torch
 import pathway_tpu_torch.xpacks.llm.servers
 from pathway_tpu_torch.io.http import _server as port_server
+from torch_http_helpers import free_port, wait_ready
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN_TIMEOUT = 60.0
 #: the response headers that must agree (Date and Server name the moment
 #: and the implementation)
-COMPARED_HEADERS = ("content-type", "content-length", "allow", "retry-after", "connection")
+COMPARED_HEADERS = (
+    "content-type", "content-length", "allow", "retry-after", "connection", "x-pathway-request-id",
+)
 
 
 @pytest.fixture
@@ -55,25 +58,6 @@ def planes_off(monkeypatch):
     monkeypatch.setenv("PATHWAY_REQUEST_TRACE", "off")
     monkeypatch.setenv("PATHWAY_HEALTH", "off")
     return monkeypatch
-
-
-def _free_port() -> int:
-    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
-def _wait_ready(port: int, timeout: float = 15.0) -> None:
-    deadline = time.monotonic() + timeout
-    while time.monotonic() < deadline:
-        try:
-            socket.create_connection(("127.0.0.1", port), timeout=0.5).close()
-            return
-        except OSError:
-            time.sleep(0.02)
-    raise AssertionError(f"server on port {port} never came up")
 
 
 class Client:
@@ -149,7 +133,7 @@ def serve(pw, build, exchanges, monkeypatch, ready=None):
     holds; returns (answers, engine keys minted for them)."""
     mod = ref_server if pw is pathway_tpu else port_server
     pw.G.clear()
-    port = _free_port()
+    port = free_port()
     build(pw, port)
     keys: list[int] = []
     mint = mod.mint_request_key
@@ -172,7 +156,7 @@ def serve(pw, build, exchanges, monkeypatch, ready=None):
     th = threading.Thread(target=target, daemon=True)
     th.start()
     try:
-        _wait_ready(port)
+        wait_ready(port, pw)
         if ready is not None:
             ready(port)
             # the readiness polls minted keys of their own
@@ -295,6 +279,32 @@ def test_rest_connector_route_answers_as_the_reference(planes_off):
     assert answers[14][1] == b'{"alive": true, "health": "off"}'
     assert answers[15][1] == b'{"ready": true, "health": "off"}'
     assert answers[16][2]["connection"] == "close"
+
+
+@pytest.fixture
+def planes_on(monkeypatch):
+    """The reference's defaults: request tracing and health on; its audit
+    and timeline planes off (the port has not carried them)."""
+    monkeypatch.setenv("PATHWAY_REQUEST_TRACE", "on")
+    monkeypatch.setenv("PATHWAY_HEALTH", "on")
+    monkeypatch.setenv("PATHWAY_AUDIT", "off")
+    monkeypatch.setenv("PATHWAY_TIMELINE", "off")
+    return monkeypatch
+
+
+def test_rest_connector_route_answers_as_the_reference_with_planes_on(planes_on):
+    """The same requests with the request-trace and health planes on: equal
+    statuses, bodies and headers, ``X-Pathway-Request-Id`` included (the hex
+    of the same engine key on both sides), and ``/healthz`` / ``/readyz``
+    answered from the door state machine."""
+    answers = assert_same_serving(_echo_route, _send_all(ECHO_REQUESTS), planes_on)
+    statuses = [a[0] for a in answers]
+    assert statuses == [200, 200, 200, 200, 200, 200, 400, 200, 400, 404, 405, 405, 405, 200, 200, 200, 200]
+    routed = [a for a, r in zip(answers, ECHO_REQUESTS) if r[1].startswith("/v1/echo") and a[0] == 200]
+    assert routed and all("x-pathway-request-id" in a[2] for a in routed)
+    assert len({a[2]["x-pathway-request-id"] for a in routed}) == len(routed)
+    assert answers[14][1] == b'{"alive": true, "state": "ready"}'
+    assert answers[15][1] == b'{"ready": true, "state": "ready"}'
 
 
 def test_keep_alive_pipelining_and_connection_close_on_the_wire(planes_off):

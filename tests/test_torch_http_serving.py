@@ -10,9 +10,11 @@ keys (units and through a live route), and a client that hangs up
 mid-request. The monitoring server is a later slice, so the serving counters
 are read from ``serving_status`` / ``serving_prometheus_lines`` directly.
 
-Every server binds a free port from the OS; every client call and every
-``pw.run`` thread has a timeout, and ``request_stop()`` runs in a
-``finally``, so no test can hang the suite.
+Every server binds a port reserved by ``torch_http_helpers.free_port`` and
+is talked to only once ``wait_ready`` holds (``/readyz`` 200 and every route
+of the run configured); every client call and every ``pw.run`` thread has a
+timeout, and ``request_stop()`` runs in a ``finally``, so no test can hang
+the suite.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import pytest
 
 import pathway_tpu_torch as pw
 from pathway_tpu_torch.io.http import _server as S
+from torch_http_helpers import free_port as _free_port
+from torch_http_helpers import wait_ready as _wait_ready
 
 RUN_TIMEOUT = 60.0
 
@@ -41,27 +45,6 @@ def _fresh_port_graph():
     pw.G.clear()
     yield
     pw.G.clear()
-
-
-def _free_port() -> int:
-    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
-def _wait_ready(port: int, timeout: float = 15.0) -> None:
-    """TCP-connect readiness probe (no HTTP request, so request counters stay
-    exact)."""
-    deadline = time.monotonic() + timeout
-    while time.monotonic() < deadline:
-        try:
-            socket.create_connection(("127.0.0.1", port), timeout=0.5).close()
-            return
-        except OSError:
-            time.sleep(0.02)
-    raise AssertionError(f"server on port {port} never came up")
 
 
 def _post(port: int, payload: dict, route: str = "/", timeout: float = 30.0, headers: dict | None = None):
@@ -510,7 +493,9 @@ def test_client_hangup_releases_its_slot_and_retracts_its_row():
         )
         rs = _route_state("/")
         deadline = time.monotonic() + 10
-        while not rs.futures and time.monotonic() < deadline:
+        # the engine must ingest the row in a tick before the hang-up: an
+        # insert and its retraction drained in one tick net to nothing
+        while (not rs.futures or ("blackhole", True) not in events) and time.monotonic() < deadline:
             time.sleep(0.01)
         out["in_flight_before"] = len(rs.futures)
         sock.close()

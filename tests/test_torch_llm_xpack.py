@@ -31,6 +31,7 @@ import pathway_tpu.xpacks.llm  # the builds reach both packages as pw.xpacks.llm
 import pathway_tpu_torch
 from pathway_tpu.debug import _capture as _capture_ref
 from pathway_tpu_torch.debug import _capture as _capture_port
+from torch_http_helpers import free_port
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DIST_TOL = 1e-6
@@ -436,24 +437,18 @@ def test_base_answerer_prompt_holds_the_retrieved_texts_in_order():
     assert [prompt.index(t) for t in texts] == sorted(prompt.index(t) for t in texts)
 
 
-def _free_port() -> int:
-    import socket
-
-    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
-def _serve_until(run_thread, ask, timeout: float = 30.0):
-    """``ask()`` until it returns a non-empty answer (the store indexes its
-    docs in the run's first ticks), then stop the run and join it."""
+def _serve_until(run_thread, ask, port: int, timeout: float = 30.0):
+    """Once the server on ``port`` is ready, ``ask()`` until it returns a
+    non-empty answer (the store indexes its docs in the run's first ticks),
+    then stop the run and join it."""
     import time
+
+    from torch_http_helpers import wait_ready
 
     pw = pathway_tpu_torch
     deadline = time.monotonic() + timeout
     try:
+        wait_ready(port)
         while True:
             try:
                 got = ask()
@@ -486,16 +481,16 @@ def test_servers_are_a_later_slice_and_clients_keep_the_reference_api():
     rag = qa.BaseRAGQuestionAnswerer(FakeChatModel(), store, search_topk=1)
     with pytest.raises(RuntimeError, match="build_server"):
         rag.run_server()
-    port = _free_port()
+    port = free_port()
     rag.build_server("127.0.0.1", port)
     assert isinstance(rag.server, pw.xpacks.llm.servers.QARestServer)
     client = qa.RAGClient(host="127.0.0.1", port=port, timeout=30)
-    hits = _serve_until(rag.run_server(threaded=True), lambda: client.retrieve("kafka topics tables", k=1))
+    hits = _serve_until(rag.run_server(threaded=True), lambda: client.retrieve("kafka topics tables", k=1), port)
     assert [h["text"] for h in hits] == ["Kafka connector reads topics into tables."]
     pw.G.clear()
     store = pw.xpacks.llm.DocumentStore(make_docs(pw), retriever_factory=bm25(pw))
     rag = qa.BaseRAGQuestionAnswerer(FakeChatModel(), store, search_topk=1)
-    port = _free_port()
+    port = free_port()
     rag.build_server("127.0.0.1", port)
     client = qa.RAGClient(host="127.0.0.1", port=port, timeout=30)
 
@@ -503,15 +498,15 @@ def test_servers_are_a_later_slice_and_clients_keep_the_reference_api():
         got = client.answer("kafka topics tables")
         return got if "Kafka connector" in str(got) else None
 
-    assert "Kafka connector reads topics into tables." in _serve_until(rag.run_server(threaded=True), answer)
+    assert "Kafka connector reads topics into tables." in _serve_until(rag.run_server(threaded=True), answer, port)
 
     pw.G.clear()
     server = vs.VectorStoreServer(make_docs(pw), embedder=FakeEmbedder(), index_params={"device": "cpu"})
     assert isinstance(server.document_store, pw.xpacks.llm.DocumentStore)
-    port = _free_port()
+    port = free_port()
     vclient = vs.VectorStoreClient("127.0.0.1", port, timeout=30)
     run = server.run_server("127.0.0.1", port, threaded=True)
-    hits = _serve_until(run, lambda: vclient.query("Bananas are yellow fruit rich in potassium.", k=1))
+    hits = _serve_until(run, lambda: vclient.query("Bananas are yellow fruit rich in potassium.", k=1), port)
     assert [h["text"] for h in hits] == ["Bananas are yellow fruit rich in potassium."]
     pw.G.clear()
 
