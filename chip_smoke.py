@@ -58,7 +58,15 @@ printing one JSON line:
    identical; and the fused chain filter → select → select at 1,000,000
    rows, static and over 20 ticks, on the fused device tier on the card
    (``PATHWAY_FUSE_JAX=on``) against the register program (``off``), bit
-   for bit;
+   for bit, all with the audit plane off; then that chain over 20 ticks on
+   the device tier under ``PATHWAY_AUDIT=full`` (sample 1.0: no block on the
+   card) and at the default ``on`` (the audit-sampled ticks' blocks stay on
+   the host, the others take the card), each stream identical to the
+   audit-off one and no violation;
+   audit_fault: ``PATHWAY_FAULT_PLAN=flip_diff:proc=0,tick=2`` on the docs
+   edge of a small tiered index whose hot shard is on the card: the audit
+   plane catches it at that edge and tick, one flight dump names the
+   operator, key and tick, and the index keeps answering from the card;
 10. temporal: the temporal Table API on a Nexmark-shaped stream
    (``tools/nexmark.py``: Beam's generator defaults, 2% of the bids 1-8 s
    late): Q5 (sliding hot items), Q7 (tumbling highest bid, without a
@@ -66,7 +74,8 @@ printing one JSON line:
    of persons and the auctions they sell) over TEMPORAL_EVENTS events,
    static and in ticks of 65,536, each with the engine's device functions
    on the card (``PATHWAY_ENGINE_JAX=gpu``, ``PATHWAY_FUSE_JAX=on``) and on
-   numpy, the runs spread over worker processes; then asof and interval
+   numpy, the runs spread over worker processes with the audit plane off
+   (an audited tick keeps its fused chains on the host); then asof and interval
    joins, sort/diff and deduplicate on the first 65,536 events. Gates:
    card == numpy update streams, ``grouped`` and ``fused`` routes on the
    card and none on numpy, the static answers and the cutoff's dropped late
@@ -92,8 +101,8 @@ printing one JSON line:
 13. rest_serving: phase 12's files served over HTTP by ``QARestServer``
    (``pw.io.http`` on the port's own HTTP/1.1 server) over the same
    ``DocumentStore`` and ``BaseRAGQuestionAnswerer``, at the port's
-   defaults (the device, request-trace and health planes on) with the
-   monitoring server on a port of its own: ingest until ``/v1/statistics``
+   defaults (the device, audit, request-trace, health and timeline planes
+   on) with the monitoring server on a port of its own: ingest until ``/v1/statistics``
    counts every file and both index nodes hold every chunk; phase 12's
    1,024 retrieve payloads as JSON POSTs from 1 and from 32 concurrent
    keep-alive clients, each answer equal to phase 12's in-process answer
@@ -105,13 +114,20 @@ printing one JSON line:
    while draining, the hot shard's bytes on ``/metrics``, the CUDA
    allocator, per leg traced encoder calls == launches and attention
    launches == 6 x calls and tokens == buckets x lengths, a
-   ``/profile?ticks=4`` window naming the kernel); a shed leg (in-flight
+   ``/profile?ticks=4`` window naming the kernel; no audit violation or
+   shadow divergence, ``/status`` with its audit, timeline and bottleneck
+   sections, the fs input edge's and each index's docs edge's rows on
+   ``/metrics`` equal to the files and the chunks, ``/explain`` walking a
+   retrieve answer back to its hits' source files through parse, split,
+   index and join, ``/timeline`` with the retrieve route's rate inside the
+   32-client leg); a shed leg (in-flight
    budget 8, 64 concurrent requests: 200s + 429s = 64 and the route's
    counters agree) and a lifecycle leg (requests pending at ``stop()``
    answered 503, a restart on the same port); a text embedded with the same
    bits in launches padded to 64, 128, 256 and 512 tokens;
-14. observability: the 32-client retrieve leg again over two fresh servers
-   on the same files, one with the planes off and one with
+14. observability: the 32-client retrieve leg again over three fresh servers
+   on the same files, one with every plane off, one with the audit and
+   timeline planes off and the others at their defaults, and one with
    ``PATHWAY_PROFILE=full`` (the encoder's device-wait split above 0 and
    below the leg's wall), requests/s and p50/p99 beside phase 13's;
 15. the kernels line, with each kernel's launches during phases 4, 6, 7,
@@ -163,7 +179,7 @@ INVARIANCE_CAPACITIES = (4096, 65_536, 1 << 20)
 #: ticks of TEMPORAL_TICK events, the queries, and the rest of the temporal
 #: surface on the first TEMPORAL_SURFACE_EVENTS events
 TEMPORAL_EVENTS_GENERATED = 1_048_576  # the stream; the runs read its first TEMPORAL_EVENTS
-TEMPORAL_EVENTS = 524_288
+TEMPORAL_EVENTS = 393_216  # 6 ticks; cut from 524,288 to keep the whole script near 800 s
 TEMPORAL_TICK = 65_536
 TEMPORAL_SURFACE_EVENTS = 65_536
 TEMPORAL_QUERIES = ("q5", "q7", "q7_cutoff", "q8")
@@ -1195,12 +1211,23 @@ def phase_engine_kernels(info: dict) -> dict:
     functions of ``engine/torch_kernels.py`` on the card and on numpy (its
     fused chains on the register program); then the fused chain filter →
     select → select at ENGINE_ROWS rows on the fused device tier on the card
-    against the register program."""
+    against the register program. These legs run with the audit plane off:
+    they measure the device routes, which an audit-sampled tick does not take
+    (``engine/fusion.py``). Then the audit legs: the fused chain over
+    ENGINE_TICKS ticks on the device tier with ``PATHWAY_AUDIT=full`` at
+    sample 1.0 (no block takes ``fused/<card>``) and at the default ``on``
+    (the unsampled ticks' blocks take it, the sampled ones stay on the
+    host), each stream identical to the audit-off one and neither plane
+    reporting a violation."""
     from pathway_tpu_torch.debug import _capture
     from pathway_tpu_torch.engine import torch_kernels as K
+    from pathway_tpu_torch.observability import audit as AU
+    from pathway_tpu_torch.observability.spans import tick_hash_sampled
     from pathway_tpu_torch.tools.engine_pipeline import build, build_fused_chain
 
-    saved = {k: os.environ.get(k) for k in ("PATHWAY_ENGINE_JAX", "PATHWAY_FUSE_JAX")}
+    saved = {k: os.environ.get(k) for k in ("PATHWAY_ENGINE_JAX", "PATHWAY_FUSE_JAX", "PATHWAY_AUDIT",
+                                            "PATHWAY_AUDIT_SAMPLE")}
+    os.environ["PATHWAY_AUDIT"] = "off"
     card_flag = "gpu" if DEVICE == "cuda" else "cpu"
     runs = {}
     for n_times in (1, ENGINE_TICKS):
@@ -1241,6 +1268,7 @@ def phase_engine_kernels(info: dict) -> dict:
             sync()
             outs[mode] = (deltas, time.perf_counter() - t0, dict(K.ROUTES))
         label = "static" if n_times == 1 else f"{n_times}_ticks"
+        audit_off_ticks = outs["on"]
         same = outs["on"][0] == outs["off"][0] and repr(outs["on"][0]) == repr(outs["off"][0])
         check(same, f"fused chain ({label}): device tier and register program differ")
         check(outs["on"][2].get(f"fused/{DEVICE}", 0) > 0, f"fused chain ({label}): no block took the device tier on {DEVICE}")
@@ -1253,6 +1281,43 @@ def phase_engine_kernels(info: dict) -> dict:
             "routes": outs["on"][2], "identical": same,
         }
     runs["fused_chain"] = fused
+    # the audit legs: the device tier wanted for every block (``on``), the
+    # audit plane at full (every tick sampled) and at its default
+    os.environ["PATHWAY_FUSE_JAX"] = "on"
+    base = fused[f"{ENGINE_TICKS}_ticks"]
+    audited = {}
+    for leg, mode, sample in (("full", "full", "1.0"), ("on", "on", None)):
+        os.environ["PATHWAY_AUDIT"] = mode
+        if sample is None:
+            os.environ.pop("PATHWAY_AUDIT_SAMPLE", None)
+        else:
+            os.environ["PATHWAY_AUDIT_SAMPLE"] = sample
+        K.ROUTES.clear()
+        table = build_fused_chain(ENGINE_ROWS, ENGINE_TICKS)
+        t0 = time.perf_counter()
+        deltas = _capture(table).deltas
+        sync()
+        secs = time.perf_counter() - t0
+        routes = dict(K.ROUTES)
+        plane = AU.current()
+        got = routes.get(f"fused/{DEVICE}", 0)
+        same = deltas == audit_off_ticks[0] and repr(deltas) == repr(audit_off_ticks[0])
+        check(same, f"fused chain under PATHWAY_AUDIT={mode}: its stream differs from the audit-off run")
+        check(plane is not None and plane.violation_counts == {} and plane.divergences == 0,
+              f"fused chain under PATHWAY_AUDIT={mode}: violations {plane and plane.violation_counts}")
+        sampled = [t for t in range(ENGINE_TICKS) if tick_hash_sampled(t, plane.edge_sample)]
+        expected = base["routes"].get(f"fused/{DEVICE}", 0) - len(sampled)
+        if mode == "full":
+            check(got == 0, f"fused chain under PATHWAY_AUDIT=full: {got} blocks took the device tier")
+        else:
+            check(got == expected and 0 < got < base["routes"].get(f"fused/{DEVICE}", 0),
+                  f"fused chain under PATHWAY_AUDIT=on: {got} blocks took the device tier, expected {expected} "
+                  f"(ticks {sampled} audit-sampled)")
+        audited[leg] = {"seconds": secs, "rows_per_s": ENGINE_ROWS / secs, "routes": routes,
+                        "sampled_ticks": sampled, "expected_device_blocks": expected if mode == "on" else 0,
+                        "shadow_ticks": plane.shadow_ticks, "identical": same,
+                        "audit_off_seconds": base["device_tier_s"]}
+    runs["fused_chain_audited"] = audited
     for k, v in saved.items():
         if v is None:
             os.environ.pop(k, None)
@@ -1263,6 +1328,77 @@ def phase_engine_kernels(info: dict) -> dict:
 
     pw.G.clear()
     return runs
+
+
+def phase_audit_fault(info: dict) -> dict:
+    """The audit plane's tripwire on the card's tiered path (the port's copy of
+    ``tests/test_audit.py::test_flip_diff_on_index_input_edge_with_tiered_backend_live``):
+    48 seeded 8-d vectors in 6 ticks of 8 into a ``TieredKnnFactory`` index
+    whose hot shard lives on the card (hot bound 8), one as-of-now query,
+    and ``PATHWAY_FAULT_PLAN=flip_diff:proc=0,tick=2`` negating one docs
+    row's diff. Gates: a ``negative_multiplicity`` violation at the docs
+    input edge at tick 2, one flight dump naming the operator, key and tick,
+    the index still answering from the card (hot hits counted)."""
+    import tempfile
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.observability import audit as AU
+    from pathway_tpu_torch.stdlib.indexing import TieredKnnFactory
+    from pathway_tpu_torch.stdlib.indexing import tiered
+
+    os.makedirs(SCRATCH, exist_ok=True)
+    flight = tempfile.mkdtemp(prefix="audit_fault_", dir=SCRATCH)
+    saved = {k: os.environ.get(k) for k in ("PATHWAY_FAULT_PLAN", "PATHWAY_FLIGHT_DIR")}
+    os.environ["PATHWAY_FAULT_PLAN"] = "flip_diff:proc=0,tick=2"
+    os.environ["PATHWAY_FLIGHT_DIR"] = flight
+    try:
+        with tiered._registry_lock:
+            hits0 = tiered._counters["hits_total"]
+        pw.G.clear()
+        rng = np.random.default_rng(21)
+        vecs = rng.normal(size=(48, 8)).astype(np.float32)
+        docs = pw.debug.table_from_rows(pw.schema_from_types(emb=np.ndarray),
+                                        [(v, i // 8, 1) for i, v in enumerate(vecs)], is_stream=True)
+        factory = TieredKnnFactory(dimensions=8, hot_rows=8, min_train=10**9, device=DEVICE)
+        index = factory.build_index(docs.emb, docs)
+        qs = pw.debug.table_from_rows(pw.schema_from_types(emb=np.ndarray), [(vecs[3],)])
+        r = index.inner_index.query_as_of_now(qs.emb, number_of_matches=2)
+        replies: list = []
+        pw.io.subscribe(r, on_change=lambda key, row, time, is_addition: replies.append(row) if is_addition else None)
+        pw.run(monitoring_level="none")
+        with tiered._registry_lock:
+            hot_devices = sorted({str(b.hot.device) for b in tiered._live_tiered})
+        plane = AU.current()
+        found = [v for v in plane.violations if v["kind"] == "negative_multiplicity"]
+        v = found[0] if found else {}
+        check(bool(found) and v.get("tick") == 2 and v.get("key") is not None
+              and str(v.get("operator", "")).startswith("stream_fixture"),
+              f"audit_fault: the flipped diff was not caught at the docs edge at tick 2: {list(plane.violations)}")
+        dumps = sorted(f for f in os.listdir(flight) if f.startswith("flight_p0_"))
+        doc = json.load(open(os.path.join(flight, dumps[0]))) if dumps else {}
+        extra = doc.get("extra") or {}
+        check(len(dumps) == 1 and doc.get("reason") == "audit_violation"
+              and extra.get("tick") == 2 and extra.get("key") == v.get("key")
+              and str(extra.get("operator", "")).startswith("stream_fixture")
+              and any(e.get("kind") == "audit_violation" for e in doc.get("events", [])),
+              f"audit_fault: flight dumps {dumps}: reason {doc.get('reason')}, extra {extra}")
+        with tiered._registry_lock:
+            hits = tiered._counters["hits_total"] - hits0
+        check(bool(replies) and hits >= 2 and hot_devices and all(d.startswith(DEVICE) for d in hot_devices),
+              f"audit_fault: replies {len(replies)}, hot hits {hits}, hot shards on {hot_devices}")
+        out = {"violation": {k: v.get(k) for k in ("kind", "operator", "key", "tick", "detail")},
+               "violations_by_kind": dict(plane.violation_counts), "flight_dump": {"reason": doc.get("reason"),
+               "extra": {k: extra.get(k) for k in ("operator", "key", "tick")}}, "replies": len(replies),
+               "hot_hits": hits, "hot_shard_devices": hot_devices}
+    finally:
+        for k, val in saved.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+        pw.G.clear()
+    emit("audit_fault", card=info["nvidia_smi"], **out)
+    return out
 
 
 def _capture_all(tables: dict) -> tuple[dict, float]:
@@ -1400,6 +1536,10 @@ def _temporal_job(job: tuple) -> tuple:
     engine, fuse = ("0", "off") if route == "numpy" else (route, "on")
     os.environ["PATHWAY_ENGINE_JAX"] = engine
     os.environ["PATHWAY_FUSE_JAX"] = fuse
+    # the phase holds the card's routes against numpy's: an audit-sampled
+    # tick keeps its fused chains on the host (phase engine_kernels prices
+    # the audit plane on the device tier)
+    os.environ["PATHWAY_AUDIT"] = "off"
     ev = {c: v[:n_events] for c, v in nx.generate(generated, seed=0).items()}
     tables = nx.build(pw, query, ev, tick if mode == "ticks" else None)
     K.ROUTES.clear()
@@ -1419,7 +1559,8 @@ def phase_temporal(info: dict) -> dict:
     (``0``, ``off``); then the rest of the surface (asof and interval joins,
     sort/diff, deduplicate) on the first TEMPORAL_SURFACE_EVENTS events.
     The runs are host-bound Python, so they run TEMPORAL_WORKERS at a time,
-    each in a worker process of its own that times its run.
+    each in a worker process of its own that times its run, with the audit
+    plane off (an audit-sampled tick keeps a fused chain on the host).
     Gates: card == numpy update streams; ``grouped`` and ``fused`` on the
     card, no torch function on numpy; the static answers and the cutoff's
     drops equal ``_nexmark_model``; ticks == static where no behavior acts."""
@@ -2447,6 +2588,93 @@ def _profiler_window(port: int, mon_port: int, ds: dict) -> dict:
             "trace_file": os.path.relpath(D.last_trace(), os.path.dirname(SCRATCH)) if D.last_trace() else None}
 
 
+#: retrieve answers of the RS_CLIENTS-client leg explained on /explain, the
+#: newest first: the lineage rings keep each edge's newest
+#: PATHWAY_LINEAGE_KEYS (default 4,096) output keys, so an older answer's
+#: chunk edges may be evicted
+EXPLAIN_ANSWERS = 64
+#: the key-deriving operators a retrieve answer's walk back to its source
+#: file crosses: parse and split (``flatten``), the join of its hits with the
+#: chunks (``ix``) and the regrouping of its hits (``groupby``); the index
+#: (``external_index``) keeps the query's key and is on the walk too
+EXPLAIN_OPERATORS = ("flatten", "ix", "groupby")
+
+
+def _audit_timeline_gates(mon_port: int, ds: dict, answers: list, leg_t0: float, leg_t1: float) -> dict:
+    """The audit and timeline planes on the served store (both on by default):
+    no violation and no shadow divergence; ``/status`` with the ``audit``,
+    ``timeline`` and ``bottleneck`` sections; per-edge cardinality on
+    ``/metrics`` with the fs input edge's rows out equal to the files and each
+    index's docs edge's rows out equal to the chunks; ``/explain`` on
+    retrieve answers naming their hits' source files through parse, split,
+    index and join; ``/timeline?metric=`` with the retrieve route's rate at two
+    or more points inside the RS_CLIENTS-client leg."""
+    import pathway_tpu_torch as pw
+
+    st, status, _h = _get(mon_port, "/status")
+    metrics = _get(mon_port, "/metrics")[1]
+    audit = status.get("audit", {}) if st == 200 else {}
+    check(st == 200 and all(k in status for k in ("audit", "timeline", "bottleneck")),
+          f"rest_serving: /status sections {sorted(status) if st == 200 else st} lack audit, timeline or bottleneck")
+    check(audit.get("enabled") is True and audit.get("violations_total") == 0 and audit.get("divergences") == 0
+          and audit.get("shadow_ticks", 0) > 0,
+          f"rest_serving: audit violations {audit.get('violations_by_kind')}, divergences {audit.get('divergences')}, "
+          f"shadow ticks {audit.get('shadow_ticks')}")
+    # per-edge cardinality: the fs input and each index's docs edge
+    graph = pw.internals.run.current_runtime().scheduler.graph
+    fs_ids = [n.node_index for n in graph.nodes if n.name == "static_input"]
+    docs_ids = [src for src, conns in graph.edges.items() for ci, port in conns
+                if graph.nodes[ci].name == "external_index" and port == 0]
+    fs_rows = [_metric_value(metrics, f'pathway_operator_rows_total{{op="static_input",id="{i}",dir="out"}}')
+               for i in fs_ids]
+    docs_rows = [_metric_value(metrics, f'pathway_operator_rows_total{{op="{graph.nodes[i].name}",id="{i}",dir="out"}}')
+                 for i in docs_ids]
+    check(fs_rows == [DS_FILES] and len(docs_rows) == 2 and all(r == ds["chunks"] for r in docs_rows),
+          f"rest_serving: /metrics edge rows: fs input {fs_rows} (files {DS_FILES}), index docs edges {docs_rows} "
+          f"(chunks {ds['chunks']})")
+    # /explain: a retrieve answer's key, walked back to its hits' files
+    listing = _get(mon_port, "/explain")[1]
+    sinks = listing.get("sinks", []) if isinstance(listing, dict) else []
+    explained, named, walked = 0, 0, None
+    for ans in reversed([a for a in answers if a is not None and a[0] == 200 and a[3]][-EXPLAIN_ANSWERS:]):
+        paths = {h["metadata"]["path"] for h in ans[1]}
+        for sink in sinks:
+            stx, doc, _h = _get(mon_port, f"/explain?sink={sink}&key=0x{ans[3]}")
+            if stx == 200 and doc.get("ok") and doc.get("output") is not None:
+                break
+        else:
+            continue
+        explained += 1
+        ops = {p["operator"] for p in doc["path"] if p["derives_keys"]}
+        ops_seen = {p["operator"] for p in doc["path"]}
+        found = set()
+        for i in doc["inputs"]:
+            md = i["row"].get("_metadata")
+            if isinstance(md, str):
+                md = json.loads(md)
+            if isinstance(md, dict) and md.get("path") in paths:
+                found.add(md["path"])
+        if found and all(op in ops for op in EXPLAIN_OPERATORS) and "external_index" in ops_seen:
+            named += 1
+            if walked is None:
+                walked = {"sink": doc["sink"], "key": doc["key"], "hits": len(paths), "files_named": len(found),
+                          "operators": [p["operator"] for p in doc["path"]],
+                          "inputs": sorted({i["input"] for i in doc["inputs"]})}
+    check(named > 0, f"rest_serving: /explain named no retrieve answer's source file ({explained} answers "
+                     f"explained of the newest {EXPLAIN_ANSWERS}, sinks {sinks})")
+    # /timeline: the retrieve route's rate during the RS_CLIENTS-client leg
+    tl = _get(mon_port, f"/timeline?metric=route_qps:/v1/retrieve&since={leg_t0 - 1.0}")[1]
+    inside = [p for p in tl.get("points", []) if leg_t0 <= p["t"] <= leg_t1 + 1.0 and p["v"] > 0]
+    check(len(inside) >= 2, f"rest_serving: /timeline has {len(inside)} retrieve-rate points inside the "
+                            f"{RS_CLIENTS}-client leg ({len(tl.get('points', []))} since its start)")
+    return {"audit": {k: audit.get(k) for k in ("mode", "sample", "violations_total", "divergences", "shadow_ticks",
+                                                "lineage")},
+            "edge_rows": {"fs_input": fs_rows, "index_docs": docs_rows},
+            "explain": {"explained": explained, "named_source_file": named, "first": walked},
+            "timeline": {"status": status.get("timeline"), "retrieve_rate_points": inside},
+            "bottleneck": status.get("bottleneck")}
+
+
 def phase_rest_serving(info: dict, ds: dict) -> dict:
     """The live-RAG store over HTTP at the port's defaults, which are the
     reference's: the device, request-trace and health planes on, and the
@@ -2461,7 +2689,8 @@ def phase_rest_serving(info: dict, ds: dict) -> dict:
     answer (texts, metadata, score bits); DS_QA ``/v2/answer`` requests, each
     prompt holding its DS_K texts in order; ``/v1/inputs``,
     ``/v2/list_documents``, ``/_schema``, ``/healthz`` and ``/readyz``.
-    The planes' gates: a unique ``X-Pathway-Request-Id`` on every answer and
+    The planes' gates (``_audit_timeline_gates`` for the audit and timeline
+    planes): a unique ``X-Pathway-Request-Id`` on every answer and
     the flight path of every kept id on ``/request?id=`` (microbatch and
     index stages); canaries counted and never in a route's counters;
     ``/readyz`` 503 with ``Retry-After`` while the door drains; the hot
@@ -2490,7 +2719,8 @@ def phase_rest_serving(info: dict, ds: dict) -> dict:
     port, mon_port = _free_port(), _free_port()
     os.environ["PATHWAY_MONITORING_HTTP_PORT"] = str(mon_port)
     out: dict = {"card": info["nvidia_smi"], "files": DS_FILES, "chunks": ds["chunks"],
-                 "planes": {"profile": "on", "request_trace": "on", "health": "on", "monitoring_port": mon_port}}
+                 "planes": {"profile": "on", "request_trace": "on", "health": "on", "audit": "on", "timeline": "on",
+                            "monitoring_port": mon_port}}
     diagnose: dict = {}  # leg -> texts whose answer differed, embedded again once the counts are read
     # --- the QA server: counts from 0 -------------------------------------
     A.LAUNCHES = 0
@@ -2505,11 +2735,16 @@ def phase_rest_serving(info: dict, ds: dict) -> dict:
         retrieve = routes["/v1/retrieve"]
         for clients in (1, RS_CLIENTS):
             c0 = _leg_counts(launch_log)
+            leg_t0 = time.time()
             leg, got = _retrieve_leg(port, ds, clients, retrieve, diagnose, "rest_serving")
+            leg_t1 = time.time()
             leg["calls"] = _check_leg_calls(f"rest_serving retrieve {clients}", c0, _leg_counts(launch_log),
                                             launch_log, emb, layers)
             out[f"retrieve_{clients}_clients"] = leg
             ids += [a[3] if a is not None else None for a in got]
+        # the audit and timeline planes, read right after the RS_CLIENTS leg
+        # (the lineage rings then hold its answers)
+        out["audit_timeline"] = _audit_timeline_gates(mon_port, ds, got, leg_t0, leg_t1)
 
         # answer: each prompt holds its DS_K retrieved texts in order
         answer = routes["/v2/answer"]
@@ -2654,7 +2889,9 @@ def phase_rest_serving(info: dict, ds: dict) -> dict:
 #: the planes' settings of phase observability's legs (rest_serving's leg is
 #: the default: every plane on)
 OBS_LEGS = {
-    "planes_off": {"PATHWAY_PROFILE": "off", "PATHWAY_REQUEST_TRACE": "off", "PATHWAY_HEALTH": "off"},
+    "planes_off": {"PATHWAY_PROFILE": "off", "PATHWAY_REQUEST_TRACE": "off", "PATHWAY_HEALTH": "off",
+                   "PATHWAY_AUDIT": "off", "PATHWAY_TIMELINE": "off"},
+    "audit_timeline_off": {"PATHWAY_AUDIT": "off", "PATHWAY_TIMELINE": "off"},
     "profile_full": {"PATHWAY_PROFILE": "full"},
 }
 
@@ -2663,7 +2900,11 @@ def phase_observability(info: dict, ds: dict, rest: dict) -> dict:
     """The planes' cost beside the default: for each of OBS_LEGS a fresh
     server on phase document_store's files (ingest to the end, as in
     rest_serving), then the RS_CLIENTS-client retrieve leg, every answer
-    held against the in-process one. ``profile_full``: the traced encoder's
+    held against the in-process one. ``planes_off``: every plane off, no
+    request id on an answer. ``audit_timeline_off``: the audit and timeline
+    planes off and the others at their defaults, so the leg beside the
+    default prices those two planes; ``/status`` has no timeline section and
+    an audit section that says off. ``profile_full``: the traced encoder's
     device-wait split is above 0 and below the leg's wall. Prints
     requests/s and client p50/p99 of every leg beside rest_serving's
     default one."""
@@ -2695,6 +2936,9 @@ def phase_observability(info: dict, ds: dict, rest: dict) -> dict:
                     leg, got = _retrieve_leg(port, ds, RS_CLIENTS, routes["/v1/retrieve"], {}, f"observability {leg_name}")
                     split1 = dict((D.status_summary().get("time_split") or {}).get("encoder.encode_ids") or {})
                     rids = sum(1 for a in got if a is not None and a[3])
+                    st, status, _h = _get(mon_port, "/status")
+                    sections = sorted(status) if st == 200 else []
+                    audit_section = status.get("audit") if st == 200 else None
                 finally:
                     _stop_run(run)
             finally:
@@ -2704,8 +2948,14 @@ def phase_observability(info: dict, ds: dict, rest: dict) -> dict:
                                        "equal_to_in_process")}
             row.update(ingest_chunks_per_s=ingest["ingest_chunks_per_s"], request_ids=rids,
                        server=leg["server"])
+            row["status_sections"] = sections
             if leg_name == "planes_off":
                 check(rids == 0, f"observability: {rids} answers carry a request id with the planes off")
+            if leg_name == "audit_timeline_off":
+                check(rids == len(got) and "timeline" not in sections and "bottleneck" not in sections
+                      and audit_section == {"enabled": False, "mode": "off"},
+                      f"observability: audit and timeline off: {rids} request ids, /status sections {sections}, "
+                      f"audit {audit_section}")
             if leg_name == "profile_full":
                 dev_ms = split1.get("device_ms", 0.0) - split0.get("device_ms", 0.0)
                 host_ms = split1.get("host_ms", 0.0) - split0.get("host_ms", 0.0)
@@ -2853,26 +3103,37 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    info = phase_device()
-    phase_build()
-    kern = phase_kernels()
-    state = phase_main_path(synth_docs(N_DOCS))
-    phase_checks(state)
+    walls: dict = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            walls[name] = round(time.perf_counter() - t0, 3)
+
+    info = timed("device", phase_device)
+    timed("build", phase_build)
+    kern = timed("kernels", phase_kernels)
+    state = timed("main_path", phase_main_path, synth_docs(N_DOCS))
+    timed("checks", phase_checks, state)
     del state["index"]
-    f32 = phase_f32_path(state, info)
-    pipe = phase_pipeline(info)
-    tier = phase_tiered(info)
-    phase_engine_kernels(info)
-    temporal = phase_temporal(info)
-    bert = phase_bert_path(info)
-    store = phase_document_store(info)
+    f32 = timed("f32_path", phase_f32_path, state, info)
+    pipe = timed("pipeline", phase_pipeline, info)
+    tier = timed("tiered", phase_tiered, info)
+    timed("engine_kernels", phase_engine_kernels, info)
+    timed("audit_fault", phase_audit_fault, info)
+    temporal = timed("temporal", phase_temporal, info)
+    bert = timed("bert_path", phase_bert_path, info)
+    store = timed("document_store", phase_document_store, info)
     try:
-        rest = phase_rest_serving(info, store)
-        obs = phase_observability(info, store, rest)
+        rest = timed("rest_serving", phase_rest_serving, info, store)
+        obs = timed("observability", phase_observability, info, store, rest)
     finally:
         import shutil
 
         shutil.rmtree(store["root"], ignore_errors=True)
+    emit("phase_walls", seconds=walls, total=round(sum(walls.values()), 3))
 
     launches = {
         "main_path": state["launches"], "f32_path": f32["launches"], "pipeline": pipe["launches"],

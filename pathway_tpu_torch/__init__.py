@@ -91,7 +91,7 @@ from pathway_tpu_torch.internals.parse_graph import G
 from pathway_tpu_torch.internals.errors import ERROR as _ERROR  # noqa: F401
 from pathway_tpu_torch.internals.errors import PENDING
 
-from pathway_tpu_torch import debug, io, observability, stdlib, universes, xpacks
+from pathway_tpu_torch import debug, io, observability, resilience, stdlib, universes, xpacks
 from pathway_tpu_torch.stdlib import temporal, indexing, ml, statistical, stateful
 from pathway_tpu_torch.stdlib import utils as utils
 from pathway_tpu_torch.stdlib.utils.async_transformer import AsyncTransformer
@@ -198,6 +198,7 @@ __all__ = [
     "G",
     "global_error_log",
     "observability",
+    "resilience",
     "set_monitoring_config",
     "set_slo",
     "temporal",

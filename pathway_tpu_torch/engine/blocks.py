@@ -7,8 +7,8 @@ array, int64 diff (±weight) array, and a dict of columnar value arrays, all sha
 logical timestamp. Relational kernels are vectorized over whole blocks;
 consolidation is a sort + segmented reduction over (key, row-digest).
 
-Carried from ``pathway_tpu/engine/blocks.py``; the audit plane's canonical-form
-check on every consolidated batch is cut with that plane.
+Carried from ``pathway_tpu/engine/blocks.py``, with the audit plane's
+canonical-form check on every consolidated batch (``PATHWAY_AUDIT=full``).
 """
 
 from __future__ import annotations
@@ -20,6 +20,14 @@ import numpy as np
 from pathway_tpu_torch.internals import dtype as dt
 from pathway_tpu_torch.internals.keys import hash_column, row_keys, splitmix64
 from pathway_tpu_torch.observability import engine_phases as _phases
+
+
+def _audit_current():
+    # late import: blocks is imported before the observability package's
+    # audit module finishes loading in some import orders
+    from pathway_tpu_torch.observability.audit import current
+
+    return current()
 
 
 class DeltaBatch:
@@ -243,6 +251,11 @@ def consolidate(batch: DeltaBatch, unique_hint: bool = False) -> DeltaBatch:
     tok = _phases.start()
     out = _consolidate_impl(batch, unique_hint)
     _phases.stop(tok, "consolidate")
+    aud = _audit_current()
+    if aud is not None:
+        # PATHWAY_AUDIT=full: verify the canonical/net-free contract on every
+        # consolidated batch (no-op in "on" mode — see check_canonical)
+        aud.check_canonical(out, "consolidate")
     return out
 
 

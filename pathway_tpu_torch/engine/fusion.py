@@ -39,8 +39,13 @@ jitted, buffer-donating XLA kernel per segment. The port's differences:
   and falls back to numpy for the rest of the process;
 - torch has no buffer donation (reference ``jax_kernels._donate_active``):
   each tick's blocks are freed after the launch and the caching allocator
-  hands their blocks to the next tick;
-- the audit plane's per-member edge recordings are cut with that plane.
+  hands their blocks to the next tick.
+
+An audit-edge-sampled tick (``aud`` non-None) keeps a segment on the host
+program, as in the reference: the device tier's single lane mask cannot
+attribute per-member edge counts, so ``run`` skips ``_run_device`` there and
+the register program or the numpy path record them (``_note_edges``). An
+unaudited tick's route is unchanged.
 
 ``PATHWAY_FUSE=off`` restores the one-node-per-step sweep exactly.
 
@@ -136,8 +141,11 @@ class ComposedSegment:
         self._device_cfg: tuple | None = None
 
     # ---------------------------------------------------------------- execute
-    def run(self, batch: DeltaBatch, time: int) -> DeltaBatch:
-        """Execute the segment over one block."""
+    def run(self, batch: DeltaBatch, time: int, aud: Any = None) -> DeltaBatch:
+        """Execute the segment over one block. ``aud`` non-None = this tick
+        is audit-edge-sampled: per-member (keys, diffs) edge recordings are
+        emitted exactly as the member-by-member sweep would (the monitors
+        read only keys/diffs/len of each edge batch)."""
         if not len(batch):
             return batch
         names = list(batch.data.keys())
@@ -149,10 +157,12 @@ class ComposedSegment:
         if ent is None:
             # outside the whitelist (object columns, UDFs, excluded ops):
             # stage-by-stage eval_expr, still one sweep step
-            return self._run_numpy(batch, time)
-        if self._device_wanted(len(batch)):
+            return self._run_numpy(batch, time, aud)
+        if aud is None and self._device_wanted(len(batch)):
+            # audited ticks stay on the host program: the device tier's
+            # single lane mask cannot attribute per-member edge counts
             return self._run_device(ent, batch, time)
-        return self._run_fast(ent.fast, batch, time)
+        return self._run_fast(ent.fast, batch, time, aud)
 
     def _device_wanted(self, n: int) -> bool:
         """Reference ``_jax_wanted``: ``on`` always, ``auto`` for blocks of at
@@ -173,7 +183,9 @@ class ComposedSegment:
             mode = self._device_cfg = (cfg.fuse_jax, cfg.fuse_jax_min_rows)
         return mode
 
-    def _run_fast(self, prog, batch: DeltaBatch, time: int) -> DeltaBatch:
+    def _run_fast(
+        self, prog, batch: DeltaBatch, time: int, aud: Any = None
+    ) -> DeltaBatch:
         """Flat compiled register program: same ufuncs and values as the
         generic VM, none of its recursion, per-op errstate, per-stage dict
         rebuilds or per-filter compactions. Filters fold into ONE lane mask
@@ -192,6 +204,7 @@ class ComposedSegment:
         regs: list = [data[c] for c in prog.in_names]
         mask: np.ndarray | None = None
         counts: list[int] = [n]  # survivor count at each filter boundary
+        masks: list | None = [] if aud is not None else None
         # each instruction carries its owning member node: a raise inside the
         # compiled program (the whitelist should preclude one, but numpy can
         # still fail structurally) must attribute to the MEMBER, not fall
@@ -211,6 +224,8 @@ class ComposedSegment:
                             m = np.full(n, bool(m))
                         mask = m if mask is None else mask & m
                         counts.append(int(mask.sum()))
+                        if masks is not None:
+                            masks.append(mask)
         except Exception as e:
             owner = getattr(_trace._tls, "node", None)
             if owner is not None and owner is not prev_node:
@@ -245,9 +260,32 @@ class ComposedSegment:
                 ci += 1
             if node is not self.nodes[-1] and counts[ci]:
                 node.stats_rows_out += counts[ci]
+        if masks is not None:
+            edges = [(keys, diffs)]
+            for m in masks:
+                i = np.flatnonzero(m)
+                edges.append((keys[i], diffs[i]))
+            self._note_edges(aud, edges)
         return DeltaBatch(out_keys, out_diffs, out, time)
 
-    def _run_numpy(self, batch: DeltaBatch, time: int) -> DeltaBatch:
+    def _note_edges(self, aud, edges: list) -> None:
+        """Per-member edge recordings for an audit-sampled tick: members
+        between two filters all see the post-filter (keys, diffs)."""
+        from pathway_tpu_torch.engine import operators as ops
+
+        i = 0
+        cur = _EdgeView(*edges[0])
+        for st in self.stages:
+            node = st[1]
+            ins = [cur]
+            if isinstance(node, ops.FilterNode):
+                i += 1
+                cur = _EdgeView(*edges[min(i, len(edges) - 1)])
+            aud.note_edge(node, ins, [cur])
+
+    def _run_numpy(
+        self, batch: DeltaBatch, time: int, aud: Any = None
+    ) -> DeltaBatch:
         from pathway_tpu_torch.engine.expression_vm import EvalContext, eval_expr
         from pathway_tpu_torch.internals import trace as _trace
 
@@ -255,6 +293,7 @@ class ComposedSegment:
         diffs = batch.diffs
         data = batch.data
         n = len(keys)
+        edges: list | None = [(keys, diffs)] if aud is not None else None
         prev_node = getattr(_trace._tls, "node", None)
         try:
             for st in self.stages:
@@ -283,6 +322,8 @@ class ComposedSegment:
                         diffs = diffs[idx]
                         data = {c: a[idx] for c, a in data.items()}
                         n = len(keys)
+                        if edges is not None:
+                            edges.append((keys, diffs))
                     elif st[0] == "rowwise":
                         ctx = EvalContext(_make_lookup(data, keys), n)
                         data = {
@@ -300,6 +341,8 @@ class ComposedSegment:
                     node.stats_rows_out += n
         finally:
             _trace._tls.node = prev_node
+        if edges is not None:
+            self._note_edges(aud, edges)
         return DeltaBatch(keys, diffs, data, time)
 
     # ------------------------------------------------------------ compilation
@@ -459,6 +502,21 @@ class _CompiledSegment:
 _MISSING = object()
 
 
+class _EdgeView:
+    """Lightweight (keys, diffs) view handed to the audit plane's edge
+    monitors for fused-segment members — ``_EdgeStats.note`` reads exactly
+    ``keys``/``diffs``/``len`` of each edge batch."""
+
+    __slots__ = ("keys", "diffs")
+
+    def __init__(self, keys: np.ndarray, diffs: np.ndarray):
+        self.keys = keys
+        self.diffs = diffs
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+
 def _as_col(v, n: int) -> np.ndarray:
     """A fast-program result as a column: arrays pass through, a scalar
     (pure-const expression) broadcasts to the block length — the array
@@ -492,7 +550,9 @@ class FusedChain:
         self.tail = members[-1]
         self.pos = self.tail.node_index
         self.label = "+".join(m.name for m in members)
-        # units: composable runs collapsed into ComposedSegments
+        # units: composable runs collapsed into ComposedSegments (segments
+        # serve audit-sampled ticks too — they reconstruct exact per-member
+        # edge recordings, see ComposedSegment._note_edges)
         self.units = self._build_units(members)
 
     def _build_units(self, members: list[Node]) -> list[tuple]:
@@ -540,9 +600,13 @@ class FusedChain:
         self,
         time: int,
         lock: "threading.Lock | None",
+        aud: Any = None,
     ) -> tuple[list[DeltaBatch], bool, int, int]:
         """Run the chain to its tail; returns ``(tail_out, processed,
-        rows_in, rows_out)``."""
+        rows_in, rows_out)``. ``aud`` non-None = this tick is edge-sampled:
+        every unit emits the per-member edge recordings the unfused sweep
+        would (node units via ``note_edge`` directly, segments via their
+        stage-boundary (keys, diffs) views)."""
         units = self.units
         carry: DeltaBatch | None = None
         processed = False
@@ -579,7 +643,7 @@ class FusedChain:
                     rows_in_total += len(batch_in)
                     for n_ in seg.nodes if ins is None else seg.nodes[1:]:
                         self._stamp(n_, batch_in.time, step_lat)
-                    result = seg.run(batch_in, time)
+                    result = seg.run(batch_in, time, aud)
                     if len(result):
                         carry = result
                         if ui == last:
@@ -601,6 +665,8 @@ class FusedChain:
                 rows_in_total += rows_in
                 node.stats_rows_in += rows_in
                 emitted = _run_annotated(node, node.process, ins, time)
+                if aud is not None:
+                    aud.note_edge(node, ins, emitted)
                 emitted = [b for b in emitted if b is not None and not b.is_empty]
                 if ui == last:
                     out = emitted

@@ -11,10 +11,9 @@ inputs" consistency model.
 
 Carried from ``pathway_tpu/engine/graph.py``. The sweep feeds the per-node row
 and time stats, the per-phase attribution (``observability/engine_phases.py``)
-and the live-tracing, request and device-profiling planes as the reference's
-does. The reference's sweep also feeds the audit plane and the fault plan's
-input corruption; those planes are not ported yet (ROADMAP Queue 1), so their
-hooks are cut.
+and the live-tracing, request, device-profiling and audit planes, and the
+fault plan corrupts freshly polled blocks before the audit monitors see
+them, as the reference's does.
 """
 
 from __future__ import annotations
@@ -27,9 +26,11 @@ import numpy as np
 
 from pathway_tpu_torch.engine.blocks import DeltaBatch, concat_batches
 from pathway_tpu_torch.internals.trace import run_annotated as _run_annotated
+from pathway_tpu_torch.observability import audit as _audit
 from pathway_tpu_torch.observability import device as _device_prof
 from pathway_tpu_torch.observability import engine_phases as _phases
 from pathway_tpu_torch.observability import requests as _requests
+from pathway_tpu_torch.resilience import faults as _faults
 
 END_OF_STREAM = np.iinfo(np.int64).max  # frontier value after all input closed
 
@@ -258,9 +259,10 @@ class Scheduler:
                 routed = True
         return routed
 
-    def _run_node(self, node: Node, time: int) -> None:
-        """One node step: drain, process, route — with the sweep span and the
-        request plane's stage event when those planes are live."""
+    def _run_node(self, node: Node, time: int, aud) -> None:
+        """One node step: drain, process, route — with the sweep span, the
+        request plane's stage event and, on an audit-edge-sampled tick
+        (``aud`` non-None), the edge's cardinality recording."""
         inputs = node.drain()
         rows_in = sum(len(b) for b in inputs if b is not None)
         node.stats_rows_in += rows_in
@@ -300,16 +302,20 @@ class Scheduler:
                 _device_prof.stats().note_span_split(
                     f"sweep/{node.name}", max(0, elapsed_ns - dev_ns), dev_ns
                 )
+        if aud is not None:
+            # audit plane: per-edge cardinality/selectivity counters
+            aud.note_edge(node, inputs, out)
         self._route(node, out)
 
     def _sweep_legacy(self, time: int) -> bool:
         """One full topo scan, one node per step. Active under
         ``PATHWAY_FUSE=off`` (plan is None)."""
         any_work = False
+        aud = self._edge_audit()
         for node in self.graph.nodes:
             if not node.has_pending():
                 continue
-            self._run_node(node, time)
+            self._run_node(node, time, aud)
             any_work = True
         return any_work
 
@@ -324,6 +330,7 @@ class Scheduler:
         heap = sorted(dirty)
         dirty.clear()
         self._heap = heap
+        aud = self._edge_audit()
         any_work = False
         by_pos = self.plan.by_pos
         last = -1
@@ -336,19 +343,27 @@ class Scheduler:
                 step = by_pos[pos]
                 chain = step.chain
                 if chain is not None:
-                    if self._run_chain(chain, time):
+                    if self._run_chain(chain, time, aud):
                         any_work = True
                     continue
                 node = step.node
                 if not node.has_pending():
                     continue
-                self._run_node(node, time)
+                self._run_node(node, time, aud)
                 any_work = True
         finally:
             self._heap = None
         return any_work
 
-    def _run_chain(self, chain, time: int) -> bool:
+    @staticmethod
+    def _edge_audit():
+        """The audit plane when this tick records edge cardinality, else
+        None: the recording rides the plane's deterministic tick sample, so
+        an unsampled tick pays this one flag read."""
+        aud = _audit.current()
+        return aud if aud is not None and aud.edge_sampled else None
+
+    def _run_chain(self, chain, time: int, aud) -> bool:
         """One fused-chain step: drain, hand off member to member, route the
         tail. Span + host/device attribution is per CHAIN — the device wait
         AND any inner traced cold wall are subtracted from the host share so
@@ -362,7 +377,7 @@ class Scheduler:
         t0 = _time.perf_counter_ns()
         tok = _phases.start()
         try:
-            out, processed, rows_in, rows_out = chain.execute(time, None)
+            out, processed, rows_in, rows_out = chain.execute(time, None, aud)
         finally:
             _phases.stop(tok, "fused")
         if not processed:
@@ -413,10 +428,20 @@ class Scheduler:
         self._rp = rp
         if rp is not None:
             rp.note_tick(time)
+        aud = _audit.current()
+        if aud is not None:
+            aud.begin_tick(time)
         plan = self.plan
         pollers = self.graph.nodes if plan is None else plan.pollers
         for node in pollers:
             polled = _run_annotated(node, node.poll, time)
+            if polled:
+                # fault plan (flip_diff/drop_retract) corrupts BEFORE the
+                # audit monitors observe — the tripwire sees exactly what the
+                # engine will
+                polled = _faults.corrupt_polled(0, time, polled)
+                if aud is not None:
+                    aud.observe_input(node, polled, time)
             self._route(node, polled)
         while self._sweep(time):
             pass

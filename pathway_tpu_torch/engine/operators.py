@@ -10,9 +10,9 @@ All state lives keyed by uint64 row keys, diffs are ±weights.
 
 Carried from ``pathway_tpu/engine/operators.py``, with the metrics plane's
 ingest watermarks and sink-latency histograms and the live-tracing span around
-a microbatch launch. Cut, as planes not ported yet (ROADMAP Queue 1): the flow
-plane's credit-gated ingest and AIMD launch cap, the audit plane's sink
-digests and the lineage plane's key edges.
+a microbatch launch, the audit plane's sink digests and the lineage plane's
+key edges. Cut, as a plane not ported yet (ROADMAP Queue 1): the flow plane's
+credit-gated ingest and AIMD launch cap.
 The grouped aggregation routes through ``engine/torch_kernels.py``.
 """
 
@@ -40,7 +40,9 @@ from pathway_tpu_torch.engine.blocks import (
 )
 from pathway_tpu_torch.engine import torch_kernels
 from pathway_tpu_torch.engine.colstore import ColumnarKeyedStore, ColumnarMultimap, SortedCounts
+from pathway_tpu_torch.observability import audit as _audit
 from pathway_tpu_torch.observability import engine_phases as _phases
+from pathway_tpu_torch.observability import lineage as _lineage
 from pathway_tpu_torch.engine.graph import END_OF_STREAM, SOLO, Node
 from pathway_tpu_torch.engine.reducers_impl import ReducerImpl
 from pathway_tpu_torch.internals.keys import combine_keys, row_keys, splitmix64
@@ -335,6 +337,9 @@ class ReindexNode(Node):
         if batch is None:
             return []
         new_keys = self.key_program(batch)
+        lin = _lineage.current()
+        if lin is not None:
+            lin.record_edge(self, new_keys, batch.keys)
         return [batch.with_keys(new_keys)]
 
 
@@ -379,6 +384,9 @@ class ConcatNode(Node):
             batch = batch.select_columns(self.columns)
             if self.salts is not None:
                 new_keys = splitmix64(batch.keys ^ np.uint64(self.salts[port]))
+                lin = _lineage.current()
+                if lin is not None:
+                    lin.record_edge(self, new_keys, batch.keys)
                 batch = batch.with_keys(new_keys)
             out.append(batch)
         return out
@@ -429,6 +437,11 @@ class FlattenNode(Node):
                 other_idx.append(i)
         data = {self.flatten_col: make_column(flat_vals, np.dtype(object))}
         idx = np.asarray(other_idx, dtype=np.int64)
+        lin = _lineage.current()
+        if lin is not None and len(idx):
+            lin.record_edge(
+                self, np.asarray(keys_out, dtype=np.uint64), batch.keys[idx]
+            )
         for c in self.other_cols:
             data[c] = batch.data[c][idx]
         return [
@@ -1005,6 +1018,10 @@ class GroupByNode(Node):
             gkeys = np.full(len(batch), self.GLOBAL_KEY, dtype=np.uint64)
         else:
             gkeys = row_keys([batch.data[c] for c in self.group_cols], n=len(batch))
+        lin = _lineage.current()
+        if lin is not None and len(gkeys):
+            # lineage: a group key derives from the input row keys it absorbs
+            lin.record_edge(self, gkeys, batch.keys)
         return gkeys
 
     def _vector_first_load(self, batch: DeltaBatch, time: int) -> list[DeltaBatch] | None:
@@ -1805,6 +1822,9 @@ class JoinNode(Node):
             out_keys = rk if self.left_id_only else splitmix64(rk ^ np.uint64(0xA0B0))
         else:
             out_keys = splitmix64(rk ^ np.uint64(0xB0A0))
+        lin = _lineage.current()
+        if lin is not None and len(rk):
+            lin.record_edge(self, out_keys, rk)
         none_col = np.full(len(rk), None, dtype=object)
         data: dict[str, np.ndarray] = {}
         data[lid] = rk if side == 0 else none_col
@@ -1834,6 +1854,11 @@ class JoinNode(Node):
         else:
             lk, rk, l_cols, r_cols = o_rk, my_rk, o_cols, my_cols
         out_keys = lk if self.left_id_only else combine_keys(lk, rk)
+        lin = _lineage.current()
+        if lin is not None and len(out_keys):
+            # a matched join row derives from BOTH side rows
+            lin.record_edge(self, out_keys, lk)
+            lin.record_edge(self, out_keys, rk)
         data: dict[str, np.ndarray] = {lid: lk, rid: rk}
         for name, arr in zip(l_names, l_cols):
             data[name] = arr
@@ -2004,6 +2029,12 @@ class SubscribeNode(Node):
     def process(self, inputs, time):
         batch = inputs[0]
         if batch is not None:
+            aud = _audit.current()
+            if aud is not None:
+                # raw-side incremental digest: accumulated from the deltas as
+                # they arrive, BEFORE the tick netting below — the shadow
+                # audit's independent path through the consolidation machinery
+                aud.on_sink_delta(self, batch)
             self._pending.append(batch)
         return []
 
@@ -2018,6 +2049,10 @@ class SubscribeNode(Node):
         net = None
         for b in batches:
             net = merge_consolidated(net, consolidate(b))
+        aud = _audit.current()
+        if aud is not None:
+            # net-side fold + invariant checks + sampled shadow compare
+            aud.on_sink_net(self, net, time)
         if net is not None and len(net) and self.on_change is not None:
             for key, diff, row in net.rows():
                 row_dict = dict(zip(self.columns, row))
@@ -2209,6 +2244,9 @@ class CallbackOutputNode(Node):
         # written order is independent of worker count / block arrival order
         batch = inputs[0]
         if batch is not None and not batch.is_empty:
+            aud = _audit.current()
+            if aud is not None:
+                aud.on_sink_delta(self, batch)  # raw-side digest (see SubscribeNode)
             self._tick_buffer.append(batch)
         return []
 
@@ -2221,6 +2259,9 @@ class CallbackOutputNode(Node):
                 # topology); consolidate returns canonical (key, diff) order, so
                 # output is byte-identical for any thread/process layout
                 merged = consolidate(merged)
+            aud = _audit.current()
+            if aud is not None:
+                aud.on_sink_net(self, merged, time)
             if merged is not None and not merged.is_empty:
                 self.on_batch(merged, self.columns)
                 _observe_sink_latency(self, time)

@@ -6,13 +6,14 @@ outputs, then either run one batch tick (static mode) or loop — poll connector
 threads, advance the logical time on autocommit ticks (``autocommit_duration_ms``),
 drain the dataflow — until every input is exhausted, then flush and close.
 
-Carried from ``pathway_tpu/engine/runtime.py``. The run installs the
-observability planes (``observability.install_from_env``: device profiling,
-request tracing, health, the live tracer) and marks the door ready once the
-connectors start and draining before they stop, as the reference does. The
-reference's run also installs the fault plan, the flow plane's ingest credits
-and persistence replay; those planes are not ported yet (ROADMAP Queue 1), so
-their hooks are cut.
+Carried from ``pathway_tpu/engine/runtime.py``. The run installs the fault
+plan (``PATHWAY_FAULT_PLAN``) and the observability planes
+(``observability.install_from_env``: device profiling, audit, request
+tracing, health, timeline, the live tracer), marks the door ready once the
+connectors start and draining before they stop, and skips a tick a
+``drop_poll`` fault names, as the reference does. The reference's run also
+installs the flow plane's ingest credits and persistence replay; those
+planes are not ported yet (ROADMAP Queue 1), so their hooks are cut.
 """
 
 from __future__ import annotations
@@ -133,7 +134,9 @@ class Runtime:
 
     def run(self, outputs: list[LogicalNode]) -> Scheduler:
         from pathway_tpu_torch import observability as _obs
+        from pathway_tpu_torch.resilience import faults as _faults
 
+        _faults.install_from_env()
         _obs.install_from_env(self)
         try:
             return self._run(outputs, _obs.current())
@@ -148,6 +151,7 @@ class Runtime:
 
     def _run(self, outputs: list[LogicalNode], tracer) -> Scheduler:
         from pathway_tpu_torch.observability import health as _health
+        from pathway_tpu_torch.resilience import faults as _faults
 
         ctx = build_engine_graph(outputs, runtime=self)
         self.streaming = bool(self.connectors)
@@ -163,6 +167,7 @@ class Runtime:
 
         if not self.connectors:
             # static mode: single batch tick
+            _faults.on_tick_start(0, 0)
             scheduler.run_tick(0)
             scheduler.close()
             return scheduler
@@ -173,6 +178,12 @@ class Runtime:
         try:
             while not self._stop_requested:
                 t0 = _time.perf_counter()
+                if _faults.on_tick_start(0, tick):
+                    # drop_poll fault: this tick is skipped entirely — events
+                    # keep buffering in the input nodes for the next tick
+                    tick += 1
+                    _time.sleep(period)
+                    continue
                 scheduler.run_tick(tick)
                 tick += 1
                 check_connector_failures(self.connectors)

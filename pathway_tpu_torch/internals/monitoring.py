@@ -11,11 +11,10 @@ already count rows in/out and processing time; this module aggregates them into
   port from ``PATHWAY_MONITORING_HTTP_PORT``, default 20000).
 
 Carried from ``pathway_tpu/internals/monitoring.py`` with imports rewritten.
-The sections of planes the port has not carried yet (flow, delivery, audit,
-cluster aggregation, elastic, fabric, timeline, bottleneck, the embedding
-memo) are absent from ``/status`` and ``/metrics``, as in a reference run
-with those planes off; ``/timeline``, ``/scale`` and ``/explain`` answer 501
-with the ``later slice`` message.
+The sections of planes the port has not carried yet (flow, delivery,
+cluster aggregation, elastic, fabric, the embedding memo) are absent from
+``/status`` and ``/metrics``, as in a reference run with those planes off;
+``/scale`` answers 501 with the ``later slice`` message.
 """
 
 from __future__ import annotations
@@ -124,6 +123,15 @@ def run_stats(runtime) -> dict[str, Any]:
     # ratios, memory attribution, host/device time split, recompile-storm
     # warnings (PATHWAY_PROFILE, on by default)
     stats["device"] = _obs.device.status_summary(runtime)
+    # data-plane audit (PATHWAY_AUDIT, on by default): invariant violations,
+    # shadow-audit divergences, per-operator-edge cardinality/selectivity,
+    # lineage ring occupancy
+    aud = _obs.audit.current()
+    stats["audit"] = (
+        aud.status_summary(runtime)
+        if aud is not None
+        else {"enabled": False, "mode": "off"}
+    )
     # tiered-index plane: hot/cold residency, exact hot-hit ratio and
     # promotion/demotion counters (present only while a tiered index lives)
     ts = _obs.device.index_tier_stats()
@@ -167,6 +175,17 @@ def run_stats(runtime) -> dict[str, Any]:
     health = _health.status(runtime)
     if health is not None:
         stats["health"] = health
+    # pod timeline plane (PATHWAY_TIMELINE): ring occupancy + the ranked
+    # bottleneck verdict (the series themselves are served by /timeline)
+    from pathway_tpu_torch.observability import bottleneck as _bottleneck
+    from pathway_tpu_torch.observability import timeline as _timeline
+
+    tplane = _timeline.current()
+    if tplane is not None:
+        stats["timeline"] = tplane.status_summary()
+        verdict = _bottleneck.status(runtime)
+        if verdict is not None:
+            stats["bottleneck"] = verdict
     return stats
 
 
@@ -277,6 +296,10 @@ def prometheus_text(runtime) -> str:
         lines.extend(rp.prometheus_lines())
     # ---- device profiling plane (compiles, pad waste, memory, FLOPs) --------
     lines.extend(_obs.device.prometheus_lines(runtime))
+    # ---- data-plane audit (edge cardinality, violations, divergences) -------
+    aud = _obs.audit.current()
+    if aud is not None:
+        lines.extend(aud.prometheus_lines(runtime))
     # ---- cluster membership: the elastic plane is not carried, and the port
     # runs one process (``make_runtime`` refuses more) — only the gauge the
     # reference always emits
@@ -289,6 +312,21 @@ def prometheus_text(runtime) -> str:
     from pathway_tpu_torch.observability import health as _health
 
     lines.extend(_health.prometheus_lines(runtime))
+    # ---- pod timeline plane (recorder counters + bottleneck verdict) --------
+    from pathway_tpu_torch.observability import timeline as _timeline
+
+    tplane = _timeline.current()
+    if tplane is not None:
+        lines.append("# HELP pathway_timeline_samples_total Timeline recorder steps taken")
+        lines.append("# TYPE pathway_timeline_samples_total counter")
+        lines.append(f"pathway_timeline_samples_total {tplane.samples_total}")
+        top = (tplane.bottleneck or {}).get("top")
+        if top is not None:
+            lines.append("# HELP pathway_bottleneck_score Score of the current top throughput-bound-by verdict")
+            lines.append("# TYPE pathway_bottleneck_score gauge")
+            lines.append(
+                f'pathway_bottleneck_score{{{_fmt_label(cause=top["cause"])}}} {top["score"]}'
+            )
     # ---- per-operator row-level error counters ------------------------------
     from pathway_tpu_torch.internals import error_log as _error_log
 
@@ -324,6 +362,37 @@ def _profile_payload(query: str) -> bytes:
     return json.dumps(_device.request_profile(ticks, path)).encode()
 
 
+def _explain_payload(runtime, query: str) -> bytes:
+    """``/explain?sink=<label>&key=<output key>``: walk the operator graph
+    backward from a sink row through the lineage rings — contributing input
+    rows, operator path, originating trace span ids. Requires the audit
+    plane's lineage store (``PATHWAY_AUDIT=on`` + ``PATHWAY_LINEAGE_KEYS>0``)."""
+    from urllib.parse import parse_qs, unquote
+
+    from pathway_tpu_torch.observability import lineage as _lineage
+
+    qs = parse_qs(query)
+    store = _lineage.current()
+    if store is None:
+        return json.dumps(
+            {
+                "ok": False,
+                "error": "lineage is off (PATHWAY_AUDIT=off or PATHWAY_LINEAGE_KEYS=0)",
+            }
+        ).encode()
+    sink = unquote(qs["sink"][0]) if qs.get("sink") else None
+    if not sink:
+        return json.dumps(
+            {"ok": False, "error": "missing sink=", "sinks": store.sink_labels()}
+        ).encode()
+    try:
+        key = int(qs["key"][0], 0)
+    except (KeyError, ValueError, IndexError):
+        return json.dumps({"ok": False, "error": "missing or non-integer key="}).encode()
+    doc = store.explain(getattr(runtime, "scheduler", None), sink, key)
+    return json.dumps(doc, default=str).encode()
+
+
 def _trace_payload(query: str) -> bytes:
     """``/trace?since=<cursor>`` body: live spans recorded after the cursor
     (OTLP span dicts) + the next cursor, so a poller tails the span stream
@@ -352,13 +421,24 @@ def _trace_payload(query: str) -> bytes:
     return json.dumps(doc).encode()
 
 
+def _timeline_payload(query: str) -> bytes:
+    """``/timeline?metric=&since=&step=&proc=`` body: the timeline plane's
+    cursor response (``proc=<pid>`` = that process's ring, default = this
+    process). ``{"enabled": false}`` with the plane off."""
+    from urllib.parse import parse_qs
+
+    from pathway_tpu_torch.observability import timeline as _timeline
+
+    plane = _timeline.current()
+    if plane is None:
+        return json.dumps({"enabled": False, "points": [], "next": None}).encode()
+    return json.dumps(plane.payload(parse_qs(query))).encode()
+
+
 #: routes of planes the port has not carried yet: 501 with the later-slice
-#: message (the reference serves them from its audit/lineage, elastic and
-#: timeline planes)
+#: message (the reference serves it from its elastic plane)
 _LATER_SLICE_ROUTES = {
-    "/explain": "observability.lineage",
     "/scale": "elastic",
-    "/timeline": "observability.timeline",
 }
 
 
@@ -487,6 +567,12 @@ class MonitoringHttpServer:
                     ctype = "application/json"
                 elif path.rstrip("/") == "/request":
                     body = _request_payload(query)
+                    ctype = "application/json"
+                elif path.rstrip("/") == "/explain":
+                    body = _explain_payload(rt, query)
+                    ctype = "application/json"
+                elif path.rstrip("/") == "/timeline":
+                    body = _timeline_payload(query)
                     ctype = "application/json"
                 elif path.rstrip("/") in _LATER_SLICE_ROUTES:
                     from pathway_tpu_torch.internals.later_slice import later_slice

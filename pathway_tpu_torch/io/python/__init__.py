@@ -19,7 +19,7 @@ from pathway_tpu_torch.engine import operators as ops
 from pathway_tpu_torch.engine.graph import Node
 from pathway_tpu_torch.internals import schema as schema_mod
 from pathway_tpu_torch.internals.keys import row_keys, sequential_keys
-from pathway_tpu_torch.internals.later_slice import arrival_order, later_slice
+from pathway_tpu_torch.internals.later_slice import arrival_order
 from pathway_tpu_torch.internals.logical import LogicalNode
 from pathway_tpu_torch.internals.table import Table
 from pathway_tpu_torch.internals.universe import Universe
@@ -263,6 +263,14 @@ class _TimedInputNode(ops.StreamInputNode):
         now_ns = _t.time_ns()
         self.wm_rows += emit_until - sl.start
         self.wm_ingest_ns = now_ns
+        if self.event_time_index is not None:
+            col = self._data_arrs[self.columns[self.event_time_index]][sl]
+            try:
+                et = float(max(col))
+                if self.wm_event_time is None or et > self.wm_event_time:
+                    self.wm_event_time = et
+            except (TypeError, ValueError):
+                pass
         from pathway_tpu_torch.observability.metrics import run_metrics
 
         run_metrics().note_tick_ingest(time, now_ns)
@@ -308,16 +316,18 @@ def read(
     service_class: str = "interactive",
     **kwargs: Any,
 ) -> Table:
-    # service_class scopes the flow plane (not ported yet) and
-    # event_time_column the metrics plane's event-time watermark, whose
-    # connector side is not carried yet
+    # service_class scopes the flow plane (not ported yet)
     arrival_order(service_class)
-    if event_time_column is not None:
-        raise later_slice("metrics (event_time_column)")
     columns = schema.column_names()
     np_dtypes = schema.np_dtypes()
     subject._columns = columns
     subject._pk_cols = schema.primary_key_columns()
+    # observability: the named column drives this input's EVENT-TIME watermark
+    # (``/metrics`` pathway_input_watermark, the audit plane's watermark
+    # monotonicity monitor; default is processing time)
+    event_time_index = (
+        columns.index(event_time_column) if event_time_column is not None else None
+    )
 
     if isinstance(subject, _StaticStreamSubject):
         holder: dict[str, Any] = {}
@@ -328,6 +338,7 @@ def read(
 
         def factory() -> Node:
             node = _TimedInputNode(events, columns, np_dtypes, arrays=arrays)
+            node.event_time_index = event_time_index
             node.input_name = name or "stream_fixture"
             holder["node"] = node
             return node
@@ -343,6 +354,7 @@ def read(
         node = ops.StreamInputNode(
             columns, np_dtypes, upsert=subject._session_type == "upsert"
         )
+        node.event_time_index = event_time_index
         # the watermark plane's label (``/status`` watermarks, ``/metrics``)
         node.input_name = name or getattr(subject, "datasource_name", None) or "python"
         subject._node = node

@@ -10,6 +10,12 @@ run END; this package watches the pipeline *while it runs*:
   on by default);
 - ``requests`` — per-request flight paths with tail-based keep
   (``PATHWAY_REQUEST_TRACE``, on by default);
+- ``audit``    — invariant monitors at operator edges, per-edge cardinality,
+  sampled shadow audits, with row ``lineage`` for ``/explain``
+  (``PATHWAY_AUDIT``, on by default);
+- ``timeline`` — the recorder thread's derived rate and quantile points for
+  ``/timeline``, with the ``bottleneck`` verdict (``PATHWAY_TIMELINE``, on
+  by default);
 - ``health``   — the door state machine, canaries, SLO burn rates and
   detectors, with ``alerts`` (``PATHWAY_HEALTH``, on by default);
 - ``spans``    — head-sampled tick/operator/device spans, ring-buffered for
@@ -23,11 +29,9 @@ Lifecycle: the runtime's ``run()`` calls :func:`install_from_env` and
 :func:`shutdown` in its run wrapper; ``current()`` is the hot-path accessor —
 **None when tracing is off**, so engine loops pay one ``is None`` test.
 
-Carried from ``pathway_tpu/observability/__init__.py``. The reference also
-installs the audit plane (with ``lineage``) and the timeline plane (with
-``bottleneck``), and rolls cluster summaries up in ``aggregate``; the port has
-not carried those yet (ROADMAP Queue 1), so none is installed whatever
-``PATHWAY_AUDIT`` or ``PATHWAY_TIMELINE`` say.
+Carried from ``pathway_tpu/observability/__init__.py``; the planes install
+and shut down in the reference's order. Left out: ``aggregate``, the cluster
+rollup of peers' heartbeat summaries (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -36,12 +40,16 @@ import secrets
 
 from pathway_tpu_torch.observability import (
     alerts,
+    audit,
+    bottleneck,
     device,
     engine_phases,
     health,
+    lineage,
     metrics,
     requests,
     spans,
+    timeline,
 )
 from pathway_tpu_torch.observability.metrics import (
     BUCKET_BOUNDS_S,
@@ -78,8 +86,8 @@ def run_trace_id() -> str:
 
 def install_from_env(runtime=None) -> Tracer | None:
     """Install the run's live telemetry (called by the runtime's ``run``):
-    reset the per-run metrics state, install the device, request-trace and
-    health planes, and build a tracer when ``PATHWAY_TRACE`` is on.
+    reset the per-run metrics state, install the device, audit,
+    request-trace, health and timeline planes, and build a tracer when ``PATHWAY_TRACE`` is on.
     Idempotent per run — a previous run's tracer is closed first."""
     global _tracer
     from pathway_tpu_torch.internals.config import get_pathway_config
@@ -88,6 +96,9 @@ def install_from_env(runtime=None) -> Tracer | None:
     # device profiling plane (call/build/pad/memory accounting, flight
     # recorder, profiler windows) — on by default, independent of PATHWAY_TRACE
     device.install_from_env(runtime)
+    # data-plane audit (invariant monitors, cardinality gauges, shadow audits,
+    # row lineage) — on by default, independent of the other planes
+    audit.install_from_env(runtime)
     # request-scoped tracing (per-request flight paths, tail-based sampling) —
     # on by default; off installs no plane, hot loops pay one is-None test
     requests.install_from_env(runtime)
@@ -98,6 +109,10 @@ def install_from_env(runtime=None) -> Tracer | None:
     # pod health & SLO plane (door state machine, canaries, burn-rate alerts,
     # incident bundles) — on by default; off installs nothing
     health.install_from_env(runtime)
+    # pod timeline plane (history rings, segment spill, bottleneck
+    # attribution) — on by default; off constructs no plane. After health so
+    # the recorder can sample canary/alert state from step one.
+    timeline.install_from_env(runtime)
     if _tracer is not None:
         try:
             _tracer.close(emit_root=False)
@@ -127,10 +142,12 @@ def shutdown() -> None:
     sink). The device plane's profiler window closes here: a CUDA error
     there propagates; nothing else raises."""
     global _tracer
+    timeline.shutdown()
     health.shutdown()
     try:
         device.shutdown()
     finally:
+        audit.shutdown()
         requests.shutdown()
         if _tracer is not None:
             try:
@@ -147,13 +164,16 @@ __all__ = [
     "SpanBuffer",
     "Tracer",
     "alerts",
+    "audit",
     "backlog_gauges",
+    "bottleneck",
     "current",
     "derive_trace_id",
     "device",
     "engine_phases",
     "health",
     "input_watermarks",
+    "lineage",
     "install_from_env",
     "metrics",
     "requests",
@@ -161,4 +181,5 @@ __all__ = [
     "run_trace_id",
     "shutdown",
     "spans",
+    "timeline",
 ]

@@ -17,8 +17,9 @@ site pays one ``is None`` test.
 Carried from ``pathway_tpu/observability/alerts.py`` with imports rewritten.
 The Slack sink needs ``io.slack``, which the port has not carried: asking for
 it (``PATHWAY_ALERT_SLACK_CHANNEL`` and ``_TOKEN``) raises ``later_slice``.
-Bundles leave out the shard map, membership, replica and timeline sections,
-whose planes the port does not have yet.
+Bundles carry the timeline plane's lead-up window and the bottleneck verdict
+at capture time, and leave out the shard map, membership and replica
+sections, whose planes the port does not have yet.
 """
 
 from __future__ import annotations
@@ -430,6 +431,18 @@ def write_incident_bundle(alert: dict, runtime: Any, out_dir: str) -> str | None
         doc["serving"] = _srv.serving_status(runtime)
     except Exception:
         pass
+    # the timeline plane: the bundle captures the LEAD-UP, not just the
+    # moment — the last minutes of derived points + the ranked bottleneck
+    # verdict at capture time
+    try:
+        from pathway_tpu_torch.observability import timeline as _timeline
+
+        tplane = _timeline.current()
+        if tplane is not None:
+            doc["timeline_window"] = tplane.recent_points()
+            doc["bottleneck"] = tplane.bottleneck
+    except Exception:
+        pass
     path = os.path.join(
         out_dir,
         f"incident-{_sanitize(alert['alert'])}-"
@@ -500,6 +513,17 @@ def merge_pod_bundles(runtime, registry: AlertRegistry | None) -> list[str]:
                 frs, key=lambda f: (f.get("process_id") or 0, f.get("fired_unix") or 0)
             ),
         }
+        try:
+            from pathway_tpu_torch.observability import timeline as _timeline
+
+            tplane = _timeline.current()
+            if tplane is not None:
+                doc["pod_timeline_window"] = tplane.pod_points(
+                    since=first - 120.0
+                )
+                doc["bottleneck"] = tplane.bottleneck
+        except Exception:
+            pass
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(
             out_dir,

@@ -748,6 +748,35 @@ def shutdown() -> None:
         _stop_profile_locked()
 
 
+def heartbeat_summary() -> dict[str, Any] | None:
+    """The compact device block (reference ``heartbeat_summary``): builds,
+    shapes, pad rows, registered bytes and the host/device split, read from
+    counters the plane already keeps — it waits on no CUDA event and calls
+    nothing of CUDA, so the timeline's recorder thread may read it. The
+    timeline plane samples it; the cluster heartbeat that also carries it in
+    the reference is not ported (ROADMAP Queue 1 item 6)."""
+    st = _stats
+    if not st.enabled:
+        return None
+    callables = _callables_view()
+    with st.lock:
+        pad = [sum(v[0] for v in st.pad.values()), sum(v[1] for v in st.pad.values())]
+        split_host = sum(v[0] for v in st.split.values())
+        split_dev = sum(v[1] for v in st.split.values())
+        compile_s = st.process_compile_s
+    return {
+        "compiles": sum(c["compiles"] for c in callables.values()),
+        "compile_s": round(sum(c["compile_s"] for c in callables.values()), 4),
+        "process_compile_s": round(compile_s, 4),
+        "shapes_max": max((c["shapes"] for c in callables.values()), default=0),
+        "storm": any(c["storm"] for c in callables.values()),
+        "pad_rows": pad,
+        "device_bytes": sum(memory_components().values()),
+        "host_ms": round(split_host / 1e6, 3),
+        "device_ms": round(split_dev / 1e6, 3),
+    }
+
+
 # ------------------------------------------------------------------ summaries
 
 

@@ -25,7 +25,8 @@ import sys
 import time
 
 PHASES = (
-    "kernels", "main_path", "f32_path", "pipeline", "temporal", "document_store", "rest_serving", "observability",
+    "kernels", "main_path", "f32_path", "pipeline", "engine_kernels", "audit_fault", "temporal", "document_store",
+    "rest_serving", "observability",
 )
 
 #: phase -> the fields of its chip_smoke line kept in the summary (dotted
@@ -34,6 +35,11 @@ HEADLINES = {
     "main_path": ("embed_index_docs_per_s", "rag_query_p50_ms", "rag_query_rerank_p50_ms", "knn1m_query16_p50_ms"),
     "f32_path": ("f32_embed_index_docs_per_s",),
     "pipeline": ("ingest_docs_per_s", "query_rows_per_s"),
+    "engine_kernels": (
+        "fused_chain.20_ticks.device_tier_s", "fused_chain.20_ticks.register_program_s",
+        "fused_chain_audited.full.seconds", "fused_chain_audited.on.seconds",
+    ),
+    "audit_fault": ("violation.tick", "hot_hits"),
     "temporal": tuple(
         f"{q}.{mode}.{route}_events_per_s"
         for q in ("q5", "q7", "q7_cutoff", "q8") for mode in ("static", "ticks") for route in ("gpu", "numpy")
@@ -45,7 +51,7 @@ HEADLINES = {
         "retrieve_32_clients.client_p50_ms", "retrieve_32_clients.equal_to_in_process", "answer.requests_per_s",
     ),
     "observability": tuple(
-        f"legs.{leg}.{k}" for leg in ("planes_off", "profile_full")
+        f"legs.{leg}.{k}" for leg in ("planes_off", "audit_timeline_off", "profile_full")
         for k in ("requests_per_s", "client_p50_ms", "client_p99_ms")
     ),
 }
@@ -72,6 +78,10 @@ if "main_path" in want or "f32_path" in want:
     del state
 if "pipeline" in want:
     cs.phase_pipeline(info)
+if "engine_kernels" in want:
+    cs.phase_engine_kernels(info)
+if "audit_fault" in want and hasattr(cs, "phase_audit_fault"):
+    cs.phase_audit_fault(info)
 if "temporal" in want and hasattr(cs, "phase_temporal"):
     cs.phase_temporal(info)
 if "document_store" in want or "rest_serving" in want:

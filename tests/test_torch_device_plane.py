@@ -15,9 +15,10 @@ recorder, the recompile-storm alert, weak registration, the ``full`` mode
 split, off mode, the ``/profile`` window (``torch.profiler`` on CPU
 tensors) and the ``/status`` device section. Times are never compared.
 
-Reference runs set ``PATHWAY_AUDIT=off`` and ``PATHWAY_TIMELINE=off`` (the
-port has neither plane yet) through ``monkeypatch``, which both packages
-read.
+Both sides run with ``PATHWAY_AUDIT=off`` and ``PATHWAY_TIMELINE=off`` (set
+with ``monkeypatch``, which both packages read), as they did before the port
+carried those planes; the ``_at_default_planes`` case runs both at their
+defaults.
 """
 
 from __future__ import annotations
@@ -403,20 +404,53 @@ def test_profile_window_via_endpoint_closes_after_its_ticks(tmp_path):
         assert "traceEvents" in json.load(fh)
 
 
-def test_run_status_device_section_and_families_match():
-    stats = {}
-    for name, pw, mon in (("ref", pathway_tpu, ref_mon), ("port", pathway_tpu_torch, port_mon)):
+def test_run_status_device_section_and_families_match(monkeypatch):
+    """The device section's keys and the device families on ``/metrics``
+    match. The plane's per-callable state is process-lifetime, so each side
+    starts from a fresh plane (what earlier tests in the process compiled,
+    and the storm warnings of their shape sets, stay out) and compiles one
+    traced call at a fresh shape itself."""
+    _status_and_families(monkeypatch)
+
+
+def test_run_status_device_section_and_families_match_at_default_planes(monkeypatch):
+    """The same at both packages' default planes (the audit and timeline
+    planes on): the audit sections' keys match too."""
+    monkeypatch.delenv("PATHWAY_AUDIT")
+    monkeypatch.delenv("PATHWAY_TIMELINE")
+    audits = _status_and_families(monkeypatch)
+    assert audits["port"] == audits["ref"] and audits["port"][0] is True
+
+
+def _status_and_families(monkeypatch) -> dict:
+    import weakref
+
+    traced = {
+        "ref": lambda: ref_dev.traced_jit("test.families", jax.jit(lambda x: x + 1)),
+        "port": lambda: port_dev.traced_jit("test.families", lambda x: x + 1),
+    }
+    inputs = {"ref": lambda: jnp.ones(5), "port": lambda: torch.ones(5)}
+    stats, audits, keep = {}, {}, []
+    for name, pw, mon, dev in (("ref", pathway_tpu, ref_mon, ref_dev), ("port", pathway_tpu_torch, port_mon, port_dev)):
+        monkeypatch.setattr(dev, "_stats", dev.DeviceStats())
+        monkeypatch.setattr(dev, "_wrappers", weakref.WeakSet())
         pw.G.clear()
         t = pw.debug.table_from_rows(pw.schema_from_types(x=int), [(i, i // 8, 1) for i in range(64)], is_stream=True)
         t = t.with_columns(m=t.x % 3)
         g = t.groupby(t.m).reduce(s=pw.reducers.sum(t.x))
         pw.io.subscribe(g, on_change=lambda **k: None)
         pw.run(monitoring_level="none")
+        fn = traced[name]()
+        fn(inputs[name]())
+        keep.append(fn)  # the plane holds its wrappers weakly
         rt = pw.internals.run.current_runtime()
-        stats[name] = (mon.run_stats(rt)["device"], mon.prometheus_text(rt))
+        status = mon.run_stats(rt)
+        audits[name] = (status["audit"]["enabled"], sorted(status["audit"]))
+        stats[name] = (status["device"], mon.prometheus_text(rt))
         pw.G.clear()
     (rd, rtext), (pd, ptext) = stats["ref"], stats["port"]
     assert pd["enabled"] and pd["mode"] == rd["mode"] == "on"
     assert sorted(pd) == sorted(rd)
     for fam in ("pathway_jit_compiles_total", "pathway_jit_compile_seconds_total", "pathway_device_bytes"):
         assert (fam in ptext) == (fam in rtext) == True  # noqa: E712
+    return audits

@@ -13,8 +13,9 @@ as traffic, both the door and the monitoring server answer ``/healthz``,
 ``/status`` and ``/metrics`` with 503 and ``Retry-After``. The port has no
 Slack connector yet: asking for the Slack sink raises ``later_slice``.
 
-Reference runs set ``PATHWAY_AUDIT=off`` and ``PATHWAY_TIMELINE=off``
-through ``monkeypatch``, which both packages read. Every server binds a port
+Both sides run with ``PATHWAY_AUDIT=off`` and ``PATHWAY_TIMELINE=off`` (set
+with ``monkeypatch``, which both packages read) but in the
+``_at_default_planes`` case. Every server binds a port
 reserved by ``torch_http_helpers.free_port``.
 """
 
@@ -197,7 +198,25 @@ def test_evaluate_fires_resolves_and_bundles_once(monkeypatch, tmp_path):
     """Availability burn over injected samples: both windows over threshold
     fire ``slo_availability_burn`` (page), a refresh writes no second bundle,
     recovery auto-resolves — the same sequence on both sides."""
+    _evaluate_sequence(monkeypatch, tmp_path, timeline_on=False)
+
+
+def test_evaluate_fires_resolves_and_bundles_once_at_default_planes(monkeypatch, tmp_path):
+    """The same at both packages' default planes: with the timeline plane
+    installed, the bundle also carries its lead-up window and the bottleneck
+    verdict, equal on both sides."""
+    monkeypatch.delenv("PATHWAY_AUDIT")
+    monkeypatch.delenv("PATHWAY_TIMELINE")
+    monkeypatch.setenv("PATHWAY_TIMELINE_STEP_MS", "60000")  # no recorder step during the case
+    windows = _evaluate_sequence(monkeypatch, tmp_path, timeline_on=True)
+    assert windows["port"] == windows["ref"]
+    assert windows["port"][0] == [{"t": 1000.0, "serve_qps": 4.0}]
+
+
+def _evaluate_sequence(monkeypatch, tmp_path, timeline_on: bool) -> dict:
     from pathway_tpu.observability import requests as ref_req
+    from pathway_tpu.observability import timeline as ref_timeline
+    from pathway_tpu_torch.observability import timeline as port_timeline
     from pathway_tpu_torch.observability import requests as port_req
 
     monkeypatch.setenv("PATHWAY_SLO_AVAILABILITY", "0.999")
@@ -205,9 +224,13 @@ def test_evaluate_fires_resolves_and_bundles_once(monkeypatch, tmp_path):
     for req in (ref_req, port_req):
         monkeypatch.setattr(req, "_plane", None)
         monkeypatch.setattr(req, "_last", None)
-    seq = {}
+    seq, windows = {}, {}
+    timelines = {"ref": ref_timeline, "port": port_timeline}
     for name, (health, alerts, cfg) in SIDES.items():
         monkeypatch.setenv("PATHWAY_INCIDENT_DIR", str(tmp_path / name))
+        tplane = timelines[name].install_from_env(None) if timeline_on else None
+        if tplane is not None:
+            tplane.points.append({"t": 1000.0, "serve_qps": 4.0})
         plane = health.HealthPlane(cfg())
         plane.registry = alerts.AlertRegistry(plane.cfg)
         samples = iter([
@@ -227,10 +250,13 @@ def test_evaluate_fires_resolves_and_bundles_once(monkeypatch, tmp_path):
         out.append((len(bundles), doc["kind"], doc["alert"]["alert"], "flight" in doc,
                     plane.registry.fired_total))
         seq[name] = out
+        windows[name] = (doc.get("timeline_window"), doc.get("bottleneck"))
+        timelines[name].shutdown()
     assert seq["port"] == seq["ref"]
     assert seq["port"][-1] == (1, "pathway_incident_bundle", "slo_availability_burn", True,
                                {"slo_availability_burn": 1})
     assert seq["port"][3][3] == []  # resolved after recovery
+    return windows
 
 
 def test_detectors_and_slo_declarations_match(monkeypatch):

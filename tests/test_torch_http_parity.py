@@ -283,8 +283,8 @@ def test_rest_connector_route_answers_as_the_reference(planes_off):
 
 @pytest.fixture
 def planes_on(monkeypatch):
-    """The reference's defaults: request tracing and health on; its audit
-    and timeline planes off (the port has not carried them)."""
+    """Request tracing and health on, the audit and timeline planes pinned
+    off (the case as it ran before the port carried them)."""
     monkeypatch.setenv("PATHWAY_REQUEST_TRACE", "on")
     monkeypatch.setenv("PATHWAY_HEALTH", "on")
     monkeypatch.setenv("PATHWAY_AUDIT", "off")
@@ -305,6 +305,26 @@ def test_rest_connector_route_answers_as_the_reference_with_planes_on(planes_on)
     assert len({a[2]["x-pathway-request-id"] for a in routed}) == len(routed)
     assert answers[14][1] == b'{"alive": true, "state": "ready"}'
     assert answers[15][1] == b'{"ready": true, "state": "ready"}'
+
+
+@pytest.fixture
+def planes_default(monkeypatch):
+    """Both packages' defaults: every plane on (request tracing, health,
+    audit, timeline)."""
+    for k in ("PATHWAY_REQUEST_TRACE", "PATHWAY_HEALTH", "PATHWAY_AUDIT", "PATHWAY_TIMELINE"):
+        monkeypatch.delenv(k, raising=False)
+    return monkeypatch
+
+
+def test_rest_connector_route_answers_as_the_reference_at_default_planes(planes_default):
+    """The same requests at both packages' default planes: equal statuses,
+    bodies and headers, request ids included."""
+    answers = assert_same_serving(_echo_route, _send_all(ECHO_REQUESTS), planes_default)
+    statuses = [a[0] for a in answers]
+    assert statuses == [200, 200, 200, 200, 200, 200, 400, 200, 400, 404, 405, 405, 405, 200, 200, 200, 200]
+    routed = [a for a, r in zip(answers, ECHO_REQUESTS) if r[1].startswith("/v1/echo") and a[0] == 200]
+    assert routed and all("x-pathway-request-id" in a[2] for a in routed)
+    assert answers[14][1] == b'{"alive": true, "state": "ready"}'
 
 
 def test_keep_alive_pipelining_and_connection_close_on_the_wire(planes_off):

@@ -10,13 +10,13 @@ series name, and the value of every count series) is equal; the console
 summary, the live dashboard, the OTLP trace and metrics exports and
 ``set_monitoring_config``; ``pw.run(with_http_server=True)`` serving
 ``/status`` and ``/metrics`` during a run, the serving section of a served
-route, and the routes of planes not ported yet (``/timeline``, ``/scale``,
-``/explain``) answering 501 with the ``later slice`` message. Times are never
-compared.
+route, ``/timeline`` and ``/explain`` answering as the reference's do, and
+the route of a plane not ported yet (``/scale``) answering 501 with the
+``later slice`` message. Times are never compared.
 
-Reference runs set ``PATHWAY_AUDIT=off`` and ``PATHWAY_TIMELINE=off``
-through ``monkeypatch``. Every server binds a port reserved by
-``torch_http_helpers.free_port``.
+Both sides run with ``PATHWAY_AUDIT=off`` and ``PATHWAY_TIMELINE=off`` (set
+with ``monkeypatch``) but in the ``_at_default_planes`` case. Every server
+binds a port reserved by ``torch_http_helpers.free_port``.
 """
 
 from __future__ import annotations
@@ -34,7 +34,9 @@ import pytest
 import pathway_tpu
 import pathway_tpu_torch
 from pathway_tpu.internals import monitoring as ref_mon
+from pathway_tpu.internals import telemetry as ref_telemetry
 from pathway_tpu_torch.internals import monitoring as port_mon
+from pathway_tpu_torch.internals import telemetry as port_telemetry
 from torch_http_helpers import free_port, release_port, wait_ready
 
 SIDES = {"ref": (pathway_tpu, ref_mon), "port": (pathway_tpu_torch, port_mon)}
@@ -46,6 +48,13 @@ def _env(monkeypatch):
     monkeypatch.setenv("PATHWAY_TIMELINE", "off")
     for k in ("PATHWAY_TRACE_FILE", "PATHWAY_METRICS_FILE", "PATHWAY_MONITORING_HTTP_PORT"):
         monkeypatch.delenv(k, raising=False)
+    # ``set_monitoring_config(trace_file=None)`` disables an export for the
+    # rest of the process, and a file that ran earlier in the same worker
+    # (the reference's tests/test_monitoring.py) leaves it so: each test
+    # starts from the environment's settings
+    for telemetry in (ref_telemetry, port_telemetry):
+        monkeypatch.setattr(telemetry, "_trace_file_override", telemetry._UNSET)
+        monkeypatch.setattr(telemetry, "_metrics_file_override", telemetry._UNSET)
     yield
     for pw, _mon in SIDES.values():
         pw.G.clear()
@@ -87,8 +96,14 @@ _COUNT_SERIES = ("pathway_operator_rows_in_total", "pathway_operator_rows_out_to
                  "pathway_input_rows_ingested_total", "pathway_operator_errors_total")
 
 
-#: the device plane's families: process-lifetime counters of every callable
-_PROCESS_SERIES = ("pathway_jit_", "pathway_pad_", "pathway_device_")
+#: process-lifetime families, which count the whole process's earlier work
+#: and not the run's: the device plane's counters of every callable, the
+#: tiered-index gauges of every live backend, and the reference's embedder
+#: memo counters of every live embedder (a plane the port does not carry;
+#: a reference file that ran earlier in the same worker leaves its embedders
+#: alive)
+_PROCESS_SERIES = ("pathway_jit_", "pathway_pad_", "pathway_device_", "pathway_index_",
+                   "pathway_embedder_memo_")
 
 
 def _series(text: str) -> tuple[list[str], list[str]]:
@@ -121,6 +136,29 @@ def test_static_run_stats_and_metrics_match_the_reference():
     assert "groupby" in {o["operator"] for o in out["port"][0]}
 
 
+def test_static_run_stats_and_metrics_match_the_reference_at_default_planes(monkeypatch):
+    """The static run at both packages' default planes (the audit plane and
+    the timeline's recorder on): the same, and the audit sections (per-edge
+    cardinality, violations, lineage occupancy) and their series equal."""
+    monkeypatch.delenv("PATHWAY_AUDIT")
+    monkeypatch.delenv("PATHWAY_TIMELINE")
+    out = {}
+    for name, (pw, mon) in SIDES.items():
+        _static(pw)
+        pw.run(monitoring_level="none")
+        rt = pw.internals.run.current_runtime()
+        stats = mon.run_stats(rt)
+        text = mon.prometheus_text(rt)
+        audit_lines = [line for line in text.splitlines() if line.startswith(("pathway_operator_rows_total",
+                       "pathway_operator_selectivity", "pathway_audit_"))]
+        out[name] = (_ops(stats), stats["rows_in_total"], stats["rows_out_total"], stats["errors"],
+                     _series(text)[1], stats["audit"], audit_lines)
+    assert out["port"] == out["ref"]
+    audit = out["port"][5]
+    assert audit["enabled"] and audit["mode"] == "on" and audit["violations_total"] == 0
+    assert audit["lineage"]["recorded_pairs"] > 0 and out["port"][6]
+
+
 def test_streaming_probes_and_series_match_the_reference():
     """Per-operator rows, last times and lags, the input's ingest count and
     the set of exposition series are equal under a multi-tick stream; every
@@ -136,8 +174,8 @@ def test_streaming_probes_and_series_match_the_reference():
         wms = [{k: w[k] for k in ("input", "rows_ingested")} for w in stats["watermarks"]]
         names, counts = _series(mon.prometheus_text(rt))
         # the sink latency histogram's buckets hold wall times: keep names
-        # only; the device plane's per-callable series count the whole
-        # process's earlier work (test_torch_device_plane compares them)
+        # only; the process-lifetime series count the whole process's
+        # earlier work (test_torch_device_plane compares the device plane's)
         names = [n for n in names if not n.startswith(_PROCESS_SERIES)]
         out[name] = (_ops(stats), wms, sorted(set(names)), counts, sorted(stats["sink_latency"]))
     assert out["port"] == out["ref"]
@@ -271,9 +309,14 @@ def test_http_server_status_metrics_and_later_slice_routes():
     assert out["port"][:3] == out["ref"][:3]
     assert out["port"][0] == [] and "groupby" in {o["operator"] for o in out["port"][1]}
     other = out["port"][3]
-    assert other["/timeline"] == (501, json.dumps({"ok": False, "error": "later slice: observability.timeline"}))
+    # the audit and timeline planes are off on both sides here: their routes
+    # answer as the reference's do with the planes off
+    # (tests/test_torch_lineage.py and test_torch_timeline.py serve them on)
+    assert other["/timeline"] == out["ref"][3]["/timeline"] == (
+        200, json.dumps({"enabled": False, "points": [], "next": None}))
+    assert other["/explain"] == out["ref"][3]["/explain"]
+    assert other["/explain"][0] == 200 and json.loads(other["/explain"][1])["ok"] is False
     assert other["/scale"] == (501, json.dumps({"ok": False, "error": "later slice: elastic"}))
-    assert other["/explain"] == (501, json.dumps({"ok": False, "error": "later slice: observability.lineage"}))
     assert other["/nope"][0] == out["ref"][3]["/nope"][0] == 404
     assert other["/trace"] == out["ref"][3]["/trace"] == (200, json.dumps({"enabled": False, "spans": [], "next": 0}))
 

@@ -12,8 +12,10 @@ Times are never compared: decompositions and span times are wall clocks.
 
 Every server binds a port reserved by ``torch_http_helpers.free_port`` and
 is talked to once ``wait_ready`` holds; every ``pw.run`` thread is joined
-with a bound. Reference runs set ``PATHWAY_AUDIT=off`` and
-``PATHWAY_TIMELINE=off`` (planes the port has not carried yet).
+with a bound. Both sides run with ``PATHWAY_AUDIT=off`` and
+``PATHWAY_TIMELINE=off``, as before the port carried those planes
+(``tests/test_torch_http_parity.py`` serves a route at every plane's
+default).
 """
 
 from __future__ import annotations

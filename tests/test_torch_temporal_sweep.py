@@ -12,11 +12,11 @@ Left out, and why:
 - ``test_temporal_sweep_cluster_matches_thread`` and
   ``test_session_merge_and_prev_next_cluster_matches_thread`` run two
   processes; the port's multi-process runtime is ROADMAP Queue 1 item 6.
-- The reference runs the sweep under its audit plane (``PATHWAY_AUDIT=full``),
-  which the port does not carry (Queue 1 item 4). Here the reference still
-  runs with ``full`` and its monitors must report no violation, and the port
-  is held to the reference's output; ``test_reference_rows_do_not_depend_on_audit``
-  shows that the reference's rows are the same with the plane on and off.
+
+Both packages run the sweep under their audit planes (``PATHWAY_AUDIT=full``,
+as the reference's file does), and neither plane's monitors may report a
+violation; ``test_reference_rows_do_not_depend_on_audit`` shows that each
+package's rows are the same with the plane on and off.
 """
 
 from __future__ import annotations
@@ -24,7 +24,9 @@ from __future__ import annotations
 import pytest
 
 import pathway_tpu
+import pathway_tpu_torch
 from pathway_tpu.observability import audit as audit_mod
+from pathway_tpu_torch.observability import audit as port_audit_mod
 from pathway_tpu_torch.engine.graph import END_OF_STREAM
 from test_torch_engine_parity import update_stream
 from test_torch_temporal import assert_consistent, rows, same_stream, same_streams
@@ -38,8 +40,9 @@ CUTOFF = 5
 def _full_audit(monkeypatch):
     monkeypatch.setenv("PATHWAY_AUDIT", "full")
     yield
-    plane = audit_mod.current()
-    assert plane is not None and plane.violation_counts == {}
+    for mod in (audit_mod, port_audit_mod):
+        plane = mod.current()
+        assert plane is not None and plane.violation_counts == {}
 
 
 def _window_counts(late_tick_time: int, wm_t: int, late_t: int = 9):
@@ -267,14 +270,15 @@ def test_session_merge_and_prev_next_pipeline_on_one_process():
 
 @pytest.mark.parametrize("pipeline", ["sweep", "session_sort"])
 def test_reference_rows_do_not_depend_on_audit(monkeypatch, pipeline):
-    """The port carries no audit plane: the reference's rows are the same
-    with its plane off as with ``full``, so holding the port to the
-    reference's output under ``full`` holds it to the plane-off output too."""
+    """Each package's rows are the same with its plane off as with ``full``,
+    so holding the port to the reference's output under ``full`` holds it
+    to the plane-off output too."""
     build = {"sweep": _sweep_pipeline, "session_sort": _session_sort_pipeline}[pipeline]
-    full = update_stream(pathway_tpu, build)
-    monkeypatch.setenv("PATHWAY_AUDIT", "off")
-    off = update_stream(pathway_tpu, build)
-    assert audit_mod.current() is None
-    assert off == full
-    monkeypatch.setenv("PATHWAY_AUDIT", "full")
-    update_stream(pathway_tpu, build)  # reinstall the plane the fixture checks
+    for pw, mod in ((pathway_tpu, audit_mod), (pathway_tpu_torch, port_audit_mod)):
+        full = update_stream(pw, build)
+        monkeypatch.setenv("PATHWAY_AUDIT", "off")
+        off = update_stream(pw, build)
+        assert mod.current() is None
+        assert off == full
+        monkeypatch.setenv("PATHWAY_AUDIT", "full")
+        update_stream(pw, build)  # reinstall the plane the fixture checks
