@@ -179,7 +179,7 @@ INVARIANCE_CAPACITIES = (4096, 65_536, 1 << 20)
 #: ticks of TEMPORAL_TICK events, the queries, and the rest of the temporal
 #: surface on the first TEMPORAL_SURFACE_EVENTS events
 TEMPORAL_EVENTS_GENERATED = 1_048_576  # the stream; the runs read its first TEMPORAL_EVENTS
-TEMPORAL_EVENTS = 393_216  # 6 ticks; cut from 524,288 to keep the whole script near 800 s
+TEMPORAL_EVENTS = 262_144  # 4 ticks; cut from 524,288 to keep the whole script near 850 s (PERF.md section 4)
 TEMPORAL_TICK = 65_536
 TEMPORAL_SURFACE_EVENTS = 65_536
 TEMPORAL_QUERIES = ("q5", "q7", "q7_cutoff", "q8")
@@ -2156,7 +2156,7 @@ def phase_document_store(info: dict) -> dict:
     answers = {(r["query"], r["filepath_globpattern"]): _hits(r["result"]) for r in res}
     return {"launches": route_launches, "metrics": out, "root": root, "corpus": corpus, "queries": queries,
             "prompts": prompts, "answers": answers, "chunks": len(chunks), "emb": emb, "launch_log": launch_log,
-            "splitter": splitter}
+            "splitter": splitter, "chunk_list": chunks}
 
 
 def _free_port() -> int:
@@ -2366,12 +2366,16 @@ def _check_leg_calls(leg: str, before: tuple, after: tuple, launch_log, emb, lay
             "encoder_tokens": tokens, "buckets_x_lengths": want_tokens}
 
 
-def _serve_store(ds: dict, port: int) -> tuple:
+def _serve_store(ds: dict, port: int, mode: str = "static", rows_probe: list | None = None,
+                 poll_statistics: bool = True) -> tuple:
     """``QARestServer`` over a fresh ``DocumentStore`` on phase document_store's
-    files, run with the monitoring server (``PATHWAY_MONITORING_HTTP_PORT``)
-    until ingest finishes: ``/v1/statistics`` counts every file and both
-    index nodes hold every chunk. Returns (the run thread, the routes'
-    serving states, ingest numbers, the statistics calls sent)."""
+    files (``pw.io.fs.read`` in ``mode``), run with the monitoring server
+    (``PATHWAY_MONITORING_HTTP_PORT``) until ingest finishes:
+    ``/v1/statistics`` counts every file (polled every 50 ms, unless
+    ``poll_statistics`` is false) and both index nodes hold every chunk.
+    Returns (the run thread, the routes' serving states, ingest numbers, the
+    statistics calls sent); ``rows_probe`` gets the function that counts
+    the rows of this server's index nodes."""
     import gc
 
     import pathway_tpu_torch as pw
@@ -2394,12 +2398,14 @@ def _serve_store(ds: dict, port: int) -> tuple:
 
     factory = None if DEVICE == "cuda" else TieredKnnFactory(embedder=emb, device=DEVICE)
     store = DocumentStore(
-        pw.io.fs.read(ds["corpus"], format="binary", mode="static", with_metadata=True),
+        pw.io.fs.read(ds["corpus"], format="binary", mode=mode, with_metadata=True),
         retriever_factory=factory, embedder=emb, splitter=ds["splitter"],
     )
     rag = BaseRAGQuestionAnswerer(FakeChatModel(), store, search_topk=DS_K)
     rag.build_server("127.0.0.1", port)
     routes = {st.route: st for st in rag.server.webserver._route_states()}
+    if rows_probe is not None:
+        rows_probe.append(new_index_rows)
     t0 = time.perf_counter()
     run = rag.run_server(threaded=True, with_http_server=True)
     _wait_listening(port)
@@ -2407,7 +2413,7 @@ def _serve_store(ds: dict, port: int) -> tuple:
     files_s = indexed_s = None
     stats_calls = 0
     deadline = time.monotonic() + 900
-    while time.monotonic() < deadline and files_s is None:
+    while poll_statistics and time.monotonic() < deadline and files_s is None:
         status, stats, *_ = http.call("POST", "/v1/statistics", {})
         stats_calls += 1
         if status == 200 and stats.get("file_count") == DS_FILES:
@@ -2421,7 +2427,7 @@ def _serve_store(ds: dict, port: int) -> tuple:
             indexed_s = time.perf_counter() - t0
         else:
             time.sleep(0.02)
-    check(files_s is not None and indexed_s is not None,
+    check((files_s is not None or not poll_statistics) and indexed_s is not None,
           f"rest_serving: ingest never finished (files at {files_s}, index rows {new_index_rows()})")
     check(new_index_rows() == 2 * ds["chunks"],
           f"rest_serving: the index nodes hold {new_index_rows()} rows, expected 2 x {ds['chunks']}")
@@ -2908,8 +2914,6 @@ def phase_observability(info: dict, ds: dict, rest: dict) -> dict:
     device-wait split is above 0 and below the leg's wall. Prints
     requests/s and client p50/p99 of every leg beside rest_serving's
     default one."""
-    import shutil
-
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.observability import device as D
     from pathway_tpu_torch.ops import attention_kernel as A
@@ -2969,10 +2973,255 @@ def phase_observability(info: dict, ds: dict, rest: dict) -> dict:
                   f"p50 {row['client_p50_ms']:.2f} ms, p99 {row['client_p99_ms']:.2f} ms", file=sys.stderr, flush=True)
         route_launches = dict(A.ROUTE_LAUNCHES)
     finally:
-        shutil.rmtree(ds["root"], ignore_errors=True)
         pw.G.clear()
     emit("observability", **out)
     return {"launches": route_launches, "metrics": out}
+
+
+FLOW_BACKFILL_FILES = 2048
+FLOW_SHED_ROWS = 4096
+FLOW_SHED_BOUND = 256
+FLOW_SAMPLE_S = 0.05  # /status sampling period during the backfill
+FLOW_BUCKETS = (8, 16, 32, 64, 128, 256)  # launch buckets the AIMD controller may choose below 512
+
+
+def _backfill_files(root: str, n: int) -> list[tuple[str, str]]:
+    """``n`` new files for the watched directory, from phase document_store's
+    generator with seed 1: (path under ``root/corpus/backfill``, text)."""
+    rng = np.random.default_rng(1)
+    vocab = [f"word{i}" for i in range(5000)]
+    return [
+        (os.path.join(root, "corpus", "backfill", f"b{i:05d}.txt"),
+         " ".join(rng.choice(vocab, size=int(rng.integers(DS_WORDS[0], DS_WORDS[1] + 1)))))
+        for i in range(n)
+    ]
+
+
+def _write_files(files: list[tuple[str, str]], staging: str) -> None:
+    """Each file written beside the watched tree, then renamed into it, so
+    the streaming reader never sees a half-written file."""
+    os.makedirs(staging, exist_ok=True)
+    for i, (path, text) in enumerate(files):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = os.path.join(staging, os.path.basename(path))
+        with open(tmp, "w", encoding="utf-8") as f:
+            f.write(text)
+        # a fixed mtime: the fs metadata's modified_at is then the same in
+        # every leg that writes the file
+        os.utime(tmp, (1_700_000_000 + i, 1_700_000_000 + i))
+        os.replace(tmp, path)
+
+
+def _flow_server_leg(ds: dict, mode: str, backfill: list, bf_chunks: int) -> dict:
+    """One fresh ``QARestServer`` over a streaming ``pw.io.fs`` read of phase
+    document_store's files (the reader's default ``bulk`` class) under
+    ``PATHWAY_FLOW=mode`` at the default knobs: ingest to the end, then the
+    RS_CLIENTS-client retrieve leg while FLOW_BACKFILL_FILES new files are
+    renamed into the watched tree, ``/status`` sampled every FLOW_SAMPLE_S;
+    once the backfill is indexed, the same payloads again. Returns the
+    leg's numbers, the settled answers (comparable text) and the samples."""
+    import shutil
+    import threading
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.ops import attention_kernel as A
+
+    shutil.rmtree(os.path.dirname(backfill[0][0]), ignore_errors=True)
+    port, mon_port = _free_port(), _free_port()
+    env = {"PATHWAY_FLOW": mode, "PATHWAY_MONITORING_HTTP_PORT": str(mon_port)}
+    os.environ.update(env)
+    A.LAUNCHES = 0
+    A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
+    probe: list = []
+    out: dict = {"mode": mode}
+    try:
+        # no interactive request during the initial ingest: with the plane
+        # on, a 20 Hz /v1/statistics poll breaches the SLO and the AIMD
+        # controller embeds the corpus in 8-row launches (PERF.md section 6)
+        run, routes, ingest, _calls = _serve_store(ds, port, mode="streaming", rows_probe=probe,
+                                                   poll_statistics=False)
+        out["ingest_chunks_per_s"] = ingest["ingest_chunks_per_s"]
+        index_rows = probe[0]
+        try:
+            samples: list = []
+            stop = threading.Event()
+
+            def sample() -> None:
+                while not stop.is_set():
+                    st, status, _h = _get(mon_port, "/status")
+                    if st == 200 and isinstance(status, dict):
+                        samples.append((status.get("flow") or {}).get("inputs") or [])
+                    stop.wait(FLOW_SAMPLE_S)
+
+            sampler = threading.Thread(target=sample, daemon=True)
+            writer = threading.Thread(target=_write_files, args=(backfill, os.path.join(ds["root"], "staging")),
+                                      daemon=True)
+            jobs = [("POST", "/v1/retrieve", {"query": q, "k": k, "metadata_filter": m, "filepath_globpattern": g})
+                    for q, k, m, g in ds["queries"]]
+            want_rows = 2 * (ds["chunks"] + bf_chunks)
+            sampler.start()
+            t0 = time.perf_counter()
+            writer.start()
+            during = _fan_out(port, jobs, RS_CLIENTS)
+            wall = time.perf_counter() - t0
+            deadline = time.monotonic() + 600
+            while time.monotonic() < deadline and index_rows() < want_rows:
+                time.sleep(0.02)
+            settle_s = time.perf_counter() - t0
+            writer.join(timeout=60)
+            stop.set()
+            sampler.join(timeout=10)
+            check(index_rows() == want_rows,
+                  f"flow {mode}: the index nodes hold {index_rows()} rows after the backfill, expected {want_rows}")
+            http = _Http(port)
+            _st, stats, *_ = http.call("POST", "/v1/statistics", {})
+            http.close()
+            check(isinstance(stats, dict) and stats.get("file_count") == DS_FILES + len(backfill),
+                  f"flow {mode}: /v1/statistics counts {stats} files after the backfill")
+            settled = _fan_out(port, jobs, RS_CLIENTS)
+            st_status, status, _h = _get(mon_port, "/status")
+            st_metrics, metrics, _h = _get(mon_port, "/metrics")
+            plane = pw.flow.current()
+            decisions = list(plane.controller.decisions) if plane is not None else []
+        finally:
+            _stop_run(run)
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    ok = sum(1 for a in during if a is not None and a[0] == 200)
+    check(ok == len(jobs), f"flow {mode}: {ok}/{len(jobs)} retrieve requests answered 200 during the backfill")
+    ok = sum(1 for a in settled if a is not None and a[0] == 200)
+    check(ok == len(jobs), f"flow {mode}: {ok}/{len(jobs)} retrieve requests answered 200 after the backfill")
+    out.update(_client_leg(during, wall))
+    out.update(backfill_files=len(backfill), backfill_chunks=bf_chunks, backfill_settle_s=settle_s,
+               backfill_chunks_per_s=bf_chunks / settle_s, status_samples=len(samples),
+               attention_launches=dict(A.ROUTE_LAUNCHES))
+    text = metrics if isinstance(metrics, str) else (metrics.decode() if isinstance(metrics, bytes) else "")
+    flow_series = sorted({ln.split("{")[0].split(" ")[0] for ln in text.splitlines() if ln.startswith("pathway_flow_")})
+    flow = status.get("flow") if st_status == 200 and isinstance(status, dict) else None
+    if mode == "on":
+        check(flow is not None, f"flow on: /status has no flow section ({st_status})")
+        check(len(flow_series) == 5, f"flow on: /metrics flow series {flow_series}")
+        over = [(g["input"], g["queued"] + g["in_flight"], g["effective_bound"])
+                for inputs in samples for g in inputs if g["queued"] + g["in_flight"] > g["effective_bound"]]
+        check(samples and all(inputs for inputs in samples[-1:]) and not over,
+              f"flow on: {len(samples)} /status samples, over the bound: {over[:4]}")
+        check(flow is not None and flow["shed_rows_total"] == 0, f"flow on: shed {flow and flow['shed_rows_total']}")
+        ctl = (flow or {}).get("controller") or {}
+        lo, hi = ctl.get("min_bucket", 8), ctl.get("max_bucket", 0)
+        bad = [d for d in decisions if not lo <= d["target"] <= hi]
+        check(decisions and not bad, f"flow on: {len(decisions)} controller decisions, outside [{lo}, {hi}]: {bad[:4]}")
+        trajectory = []
+        for d in decisions:
+            if not trajectory or trajectory[-1][1] != d["target"]:
+                trajectory.append((d["tick"], d["target"]))
+        peak = max((g["queued"] + g["in_flight"] for inputs in samples for g in inputs), default=0)
+        out.update(
+            inputs=[{k: g[k] for k in ("input", "service_class", "bound", "admitted_rows", "shed_rows",
+                                       "cancelled_rows", "blocked_ms")} for g in flow["inputs"]] if flow else None,
+            peak_queued_plus_in_flight=peak, decisions=len(decisions),
+            actions={a: sum(1 for d in decisions if d["action"] == a) for a in ("increase", "decrease", "hold")},
+            bucket_trajectory=trajectory[-64:], flow_series=flow_series,
+        )
+    else:
+        check(flow is None and not flow_series, f"flow off: /status flow {flow}, /metrics {flow_series}")
+    return {"metrics": out, "settled": [_comparable(a[1]) if a is not None and a[0] == 200 else None
+                                        for a in settled]}
+
+
+def phase_flow(info: dict, ds: dict) -> dict:
+    """The flow plane on the served live-RAG path. First the store's
+    embedder on 512 chunks in one launch against launches of each of
+    FLOW_BUCKETS rows (the buckets the AIMD controller may pick): the same
+    bits. Then two fresh servers (``_flow_server_leg``), ``PATHWAY_FLOW=on``
+    at the default knobs (65,536-row queues, ``block``, a 250 ms SLO, bulk
+    minimum 64) and ``off``, each taking the RS_CLIENTS-client retrieve leg
+    during a FLOW_BACKFILL_FILES-file backfill. Gates: after the backfill,
+    the ``on`` server's 1,024 answers equal the ``off`` server's (texts,
+    metadata without ``seen_at``, score bits); no ``/status`` sample over a
+    bound; no row shed; every controller decision inside [min, max]; ``flow``
+    on ``/status`` and ``pathway_flow_*`` on ``/metrics`` (and neither with
+    ``off``). Then a shed leg: ``PATHWAY_FLOW_POLICY=shed``,
+    ``PATHWAY_INPUT_QUEUE_ROWS`` = FLOW_SHED_BOUND, FLOW_SHED_ROWS chunks
+    pushed at once into the embedder: the shed count equals the rows pushed
+    less the rows ingested. Prints retrieve p50/p99 during the backfill on
+    against off, backfill chunks/s, the bucket trajectory and the attention
+    launches."""
+    import shutil
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import monitoring as M
+    from pathway_tpu_torch.ops import attention_kernel as A
+
+    emb = ds["emb"]
+    texts = [c for _p, c in ds["chunk_list"][:512]]
+    whole = emb._encoder.encode_texts(texts)
+    invariance = {}
+    for rows in FLOW_BUCKETS:
+        parts = np.concatenate([emb._encoder.encode_texts(texts[i : i + rows]) for i in range(0, 512, rows)])
+        same = bool(np.array_equal(whole.view(np.uint32), parts.view(np.uint32)))
+        invariance[f"embed_{rows}_rows_vs_512"] = same
+        check(same, f"flow: the store's embedder gives other bits in {rows}-row launches than in one of 512")
+
+    backfill = _backfill_files(ds["root"], FLOW_BACKFILL_FILES)
+    bf_chunks = sum(len(ds["splitter"].func(text)) for _p, text in backfill)
+    out: dict = {"card": info["nvidia_smi"], "files": DS_FILES, "backfill_files": FLOW_BACKFILL_FILES,
+                 "clients": RS_CLIENTS, "requests": len(ds["queries"]), "batch_invariance": invariance}
+    legs = {}
+    try:
+        for mode in ("on", "off"):
+            legs[mode] = _flow_server_leg(ds, mode, backfill, bf_chunks)
+            out[mode] = legs[mode]["metrics"]
+            m = legs[mode]["metrics"]
+            print(f"flow {mode}: retrieve during the backfill p50 {m['client_p50_ms']:.2f} ms, "
+                  f"p99 {m['client_p99_ms']:.2f} ms; backfill {m['backfill_chunks_per_s']:.1f} chunks/s",
+                  file=sys.stderr, flush=True)
+    finally:
+        shutil.rmtree(os.path.dirname(backfill[0][0]), ignore_errors=True)
+    same = sum(1 for a, b in zip(legs["on"]["settled"], legs["off"]["settled"]) if a is not None and a == b)
+    check(same == len(ds["queries"]),
+          f"flow: {same}/{len(ds['queries'])} settled answers of the on server equal the off server's")
+    out["settled_answers_equal"] = same
+    launches = {k: legs["on"]["metrics"]["attention_launches"].get(k, 0)
+                + legs["off"]["metrics"]["attention_launches"].get(k, 0) for k in A.ROUTE_LAUNCHES}
+
+    # shed: a 4,096-chunk flood into a 256-row queue
+    env = {"PATHWAY_FLOW": "on", "PATHWAY_FLOW_POLICY": "shed", "PATHWAY_INPUT_QUEUE_ROWS": str(FLOW_SHED_BOUND)}
+    os.environ.update(env)
+    A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
+    flood = [c for _p, c in ds["chunk_list"][:FLOW_SHED_ROWS]]
+    try:
+        pw.G.clear()
+
+        class Flood(pw.io.python.ConnectorSubject):
+            def run(self):
+                self.next_batch([{"text": c} for c in flood])
+
+        t = pw.io.python.read(Flood(), schema=pw.schema_from_types(text=str), name="flood")
+        vecs = t.select(v=emb(t.text))
+        seen = [0]
+
+        def on_change(key, row, time, is_addition):
+            seen[0] += 1 if is_addition else -1
+
+        pw.io.subscribe(vecs, on_change=on_change)
+        pw.run(monitoring_level="none")
+        st = M.run_stats(pw.internals.run.current_runtime())
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        pw.G.clear()
+    g = next(x for x in st["flow"]["inputs"] if x["input"].startswith("flood"))
+    ingested = next(w["rows_ingested"] for w in st["watermarks"] if w["input"].startswith("flood"))
+    check(g["shed_rows"] == FLOW_SHED_ROWS - ingested and g["shed_rows"] > 0 and seen[0] == ingested,
+          f"flow shed: {g['shed_rows']} shed, {ingested} ingested, {seen[0]} embedded of {FLOW_SHED_ROWS}")
+    out["shed"] = {"pushed": FLOW_SHED_ROWS, "bound": FLOW_SHED_BOUND, "shed_rows": g["shed_rows"],
+                   "ingested": ingested, "embedded": seen[0], "status_shed_rows_total": st["flow"]["shed_rows_total"]}
+    for k, v in A.ROUTE_LAUNCHES.items():
+        launches[k] = launches.get(k, 0) + v
+    out["attention_launches"] = launches
+    emit("flow", **out)
+    return {"launches": launches, "metrics": out}
 
 
 def _rest_shed_and_lifecycle(port: int, emb) -> tuple[dict, dict]:
@@ -3055,6 +3304,353 @@ def _rest_shed_and_lifecycle(port: int, emb) -> tuple[dict, dict]:
                       "restart_same_port": again[0]}
 
 
+GRAPH_SCALE = 13  # R-MAT scale, cut from 18 (PERF.md section 4); Graph500's smallest class is 26
+GRAPH_EDGE_FACTOR = 16  # Graph500's edge factor
+GRAPH_STEPS = 5
+GRAPH_CHURN = 0.01  # the incremental tick deletes and adds this share of the edges
+GRAPH_SMALL_SCALE = 12  # bellman_ford: 4,096 vertices
+GRAPH_LOUVAIN_SCALE = 8  # louvain: 256 vertices (cut from 4,096: PERF.md)
+GRAPH_LOUVAIN_EDGE_FACTOR = 4
+RMAT_INITIATOR = (0.57, 0.19, 0.19, 0.05)  # Graph500's Kronecker initiator A, B, C, D
+
+
+def rmat_edges(scale: int, n_edges: int, rng) -> tuple[np.ndarray, np.ndarray]:
+    """``n_edges`` R-MAT edges over ``2**scale`` vertices with Graph500's
+    initiator: each of ``scale`` bit levels picks a quadrant with
+    probabilities A, B, C, D (no noise, no label permutation)."""
+    a, b, c, _d = RMAT_INITIATOR
+    u = np.zeros(n_edges, np.int64)
+    v = np.zeros(n_edges, np.int64)
+    for level in range(scale):
+        r = rng.random(n_edges)
+        down = r >= a + b  # quadrant C or D: the source's bit is set
+        right = ((r >= a) & (r < a + b)) | (r >= a + b + c)  # B or D: the target's bit
+        u |= down.astype(np.int64) << level
+        v |= right.astype(np.int64) << level
+    return u, v
+
+
+def pagerank_model(u: np.ndarray, v: np.ndarray, steps: int) -> dict[int, int]:
+    """``stdlib.graphs.pagerank``'s integer iteration in numpy: every endpoint
+    starts at 6,000; a vertex of out-degree d sends ``rank * 5 // (d * 6)``
+    along each out-edge (duplicates count); the new rank is its inflow plus
+    1,000; ``steps`` rounds, or fewer where a round changes nothing."""
+    verts = np.unique(np.concatenate([u, v]))
+    ui, vi = np.searchsorted(verts, u), np.searchsorted(verts, v)
+    deg = np.bincount(ui, minlength=len(verts)).astype(np.int64)
+    rank = np.full(len(verts), 6_000, np.int64)
+    safe = np.maximum(deg, 1)
+    for _ in range(steps):
+        flow = np.where(deg > 0, (rank * 5) // (safe * 6), 0)
+        inflow = np.zeros(len(verts), np.int64)
+        np.add.at(inflow, vi, flow[ui])
+        new = inflow + 1_000
+        if np.array_equal(new, rank):
+            break
+        rank = new
+    return dict(zip(verts.tolist(), rank.tolist()))
+
+
+class _EventCount:
+    """The length and the last time of a columnar timed fixture: all that
+    its connector reads of the event list (the rows stay in arrays)."""
+
+    def __init__(self, n: int, last_time: int):
+        self.n, self.last_time = n, last_time
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i):
+        return (self.last_time,)
+
+
+def _columnar_stream(pw, columns: dict, keys: np.ndarray, times: np.ndarray, diffs: np.ndarray, name: str):
+    """A timed input table straight from numpy columns (one tick per distinct
+    time), without a Python tuple per row: ``pw.debug``'s timed fixture fed
+    its columnarized arrays."""
+    from pathway_tpu_torch.internals.logical import LogicalNode
+    from pathway_tpu_torch.internals.table import Table
+    from pathway_tpu_torch.internals.universe import Universe
+    from pathway_tpu_torch.io.python import _TimedDriver, _TimedInputNode
+
+    order = np.argsort(times, kind="stable")
+    cols = list(columns)
+    schema = pw.schema_from_types(**{c: int for c in cols})
+    arrays = (times[order].astype(np.int64), keys[order].astype(np.uint64), diffs[order].astype(np.int64),
+              {c: np.asarray(columns[c])[order].astype(np.int64) for c in cols})
+    events = _EventCount(len(order), int(times.max()) if len(times) else 0)
+    holder: dict = {}
+
+    def factory():
+        node = _TimedInputNode(events, cols, schema.np_dtypes(), arrays=arrays)
+        node.input_name = name
+        holder["node"] = node
+        return node
+
+    def hook(node, runtime):
+        if runtime is not None:
+            runtime.register_connector(_TimedDriver(holder))
+
+    return Table(LogicalNode(factory, [], name=name, runtime_hook=hook), schema, Universe())
+
+
+def _graph_run(route: str, fn, profile: bool = False) -> tuple:
+    """``fn()`` (building a table from a cleared graph) captured under
+    ``PATHWAY_ENGINE_JAX=route`` with the audit and timeline planes off:
+    (the capture, seconds, the engine routes it took, the profiler's device
+    ms or None)."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import torch_kernels as K
+
+    env = {"PATHWAY_ENGINE_JAX": route, "PATHWAY_AUDIT": "off", "PATHWAY_TIMELINE": "off"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    K.ROUTES.clear()
+    try:
+        pw.G.clear()
+        table = fn(pw)
+        device_ms = None
+        if profile and DEVICE == "cuda":
+            import torch
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile as _profile
+
+            with _profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                cap = pw.debug._capture(table)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            device_ms = sum(ev.device_time_total / 1e3 for ev in prof.key_averages()
+                            if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0)
+        else:
+            t0 = time.perf_counter()
+            cap = pw.debug._capture(table)
+            secs = time.perf_counter() - t0
+        return cap, secs, dict(K.ROUTES), device_ms
+    finally:
+        pw.G.clear()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _final(deltas, until: int | None = None) -> dict:
+    """key -> row of an update stream's net state (up to time ``until``)."""
+    net: dict = {}
+    for t, k, d, row in deltas:
+        if until is not None and t > until:
+            continue
+        net[(k, row)] = net.get((k, row), 0) + d
+    out: dict = {}
+    for (k, row), n in net.items():
+        if n:
+            check(n == 1 and k not in out, f"graphs: key {k} holds {n} copies of {row}")
+            out[k] = row
+    return out
+
+
+def phase_graphs(info: dict) -> dict:
+    """``stdlib.graphs`` on the engine: ``pagerank(steps=GRAPH_STEPS)`` on an
+    R-MAT graph (Graph500's initiator, edge factor 16, ``2**GRAPH_SCALE``
+    vertices, built with numpy from seed 0), then one incremental tick that
+    deletes GRAPH_CHURN of the edges and adds as many new ones; with the
+    engine's device functions on the card (``PATHWAY_ENGINE_JAX=gpu``) and
+    on the host (``cpu``). Gates: card ranks == host ranks == the numpy
+    model of the same integer iteration, exactly, after each tick; the card
+    run took the grouped and probe routes on the card. Then
+    ``bellman_ford`` on a 4,096-vertex R-MAT graph and
+    ``louvain_communities(levels=2)`` on a 256-vertex one
+    (integer-valued float lengths and weights, so every sum is exact in any
+    order): card == host. Prints seconds, edges/s, the card run's
+    device idle share and the routes taken."""
+    from pathway_tpu_torch.internals.keys import row_keys, sequential_keys
+
+    card = "gpu" if DEVICE == "cuda" else "cpu"
+    dev = "cuda" if DEVICE == "cuda" else "cpu"
+    rng = np.random.default_rng(0)
+    n_v = 1 << GRAPH_SCALE
+    n_e = GRAPH_EDGE_FACTOR * n_v
+    t_gen = time.perf_counter()
+    u, v = rmat_edges(GRAPH_SCALE, n_e, rng)
+    churn = int(n_e * GRAPH_CHURN)
+    gone = np.sort(rng.choice(n_e, size=churn, replace=False))
+    nu, nv = rmat_edges(GRAPH_SCALE, churn, rng)
+    keep = np.ones(n_e, bool)
+    keep[gone] = False
+    u2, v2 = np.concatenate([u[keep], nu]), np.concatenate([v[keep], nv])
+    model0, model1 = pagerank_model(u, v, GRAPH_STEPS), pagerank_model(u2, v2, GRAPH_STEPS)
+    gen_s = time.perf_counter() - t_gen
+    keys = sequential_keys(0, n_e + churn)
+    all_u, all_v = np.concatenate([u, u[gone], nu]), np.concatenate([v, v[gone], nv])
+    all_k = np.concatenate([keys[:n_e], keys[:n_e][gone], keys[n_e:]])
+    times = np.concatenate([np.zeros(n_e, np.int64), np.full(2 * churn, 2, np.int64)])
+    diffs = np.concatenate([np.ones(n_e, np.int64), -np.ones(churn, np.int64), np.ones(churn, np.int64)])
+
+    def pagerank(pw):
+        raw = _columnar_stream(pw, {"ui": all_u, "vi": all_v}, all_k, times, diffs, "rmat_edges")
+        edges = raw.select(u=raw.pointer_from(raw.ui), v=raw.pointer_from(raw.vi))
+        return pw.stdlib.graphs.pagerank.pagerank(edges, steps=GRAPH_STEPS)
+
+    out: dict = {"card": info["nvidia_smi"], "scale": GRAPH_SCALE, "vertices": n_v, "edges": n_e,
+                 "edge_factor": GRAPH_EDGE_FACTOR, "steps": GRAPH_STEPS, "churn_edges": churn,
+                 "endpoints": len(model0), "generate_and_model_s": gen_s}
+    cap_card, card_s, card_routes, device_ms = _graph_run(card, pagerank, profile=True)
+    cap_host, host_s, host_routes, _ = _graph_run("cpu", pagerank)
+    vert_keys = {}
+    for model in (model0, model1):
+        ids = np.fromiter(model, np.int64, count=len(model))
+        vert_keys.update(zip(ids.tolist(), row_keys([ids], n=len(ids)).tolist()))
+    want0 = {vert_keys[i]: (r,) for i, r in model0.items()}
+    want1 = {vert_keys[i]: (r,) for i, r in model1.items()}
+    for name, cap in (("card", cap_card), ("host", cap_host)):
+        got0, got1 = _final(cap.deltas, until=0), _final(cap.deltas)
+        got0 = {int(k): tuple(int(x) for x in row) for k, row in got0.items()}
+        got1 = {int(k): tuple(int(x) for x in row) for k, row in got1.items()}
+        check(got0 == want0, f"graphs pagerank ({name}) tick 0: {sum(got0.get(k) == r for k, r in want0.items())}"
+              f"/{len(want0)} ranks equal the numpy model")
+        check(got1 == want1, f"graphs pagerank ({name}) after the churn tick: "
+              f"{sum(got1.get(k) == r for k, r in want1.items())}/{len(want1)} ranks equal the numpy model")
+    check(cap_card.deltas == cap_host.deltas, "graphs pagerank: the card's update stream differs from the host's")
+    if DEVICE == "cuda":
+        check(card_routes.get("grouped/cuda", 0) > 0 and card_routes.get("probe/cuda", 0) > 0,
+              f"graphs pagerank: the card run's routes {card_routes} miss grouped/cuda or probe/cuda")
+    check(not any(r.endswith("/cuda") for r in host_routes), f"graphs pagerank: the host run took {host_routes}")
+    edge_rows = n_e + 2 * churn
+    out["pagerank"] = {
+        f"{card}_s": card_s, "cpu_s": host_s,
+        f"{card}_edges_per_s": edge_rows * GRAPH_STEPS / card_s, "cpu_edges_per_s": edge_rows * GRAPH_STEPS / host_s,
+        f"{card}_routes": card_routes, "cpu_routes": host_routes,
+        "device_ms": device_ms, "device_idle_share": None if device_ms is None else 1.0 - device_ms / (card_s * 1e3),
+        "updates": len(cap_card.deltas), "equal_to_model": True,
+    }
+    print(f"graphs pagerank: {n_e} edges, {card} {card_s:.1f} s, cpu {host_s:.1f} s", file=sys.stderr, flush=True)
+
+    # bellman_ford and louvain on small R-MAT graphs: card == host
+    def small_graph(scale: int, edge_factor: int, seed: int) -> tuple:
+        g_rng = np.random.default_rng(seed)
+        gu, gv = rmat_edges(scale, edge_factor << scale, g_rng)
+        return 1 << scale, gu, gv, g_rng.integers(1, 8, size=len(gu))
+
+    def columns(pw, cols, name):
+        m = len(next(iter(cols.values())))
+        return _columnar_stream(pw, cols, sequential_keys(0, m), np.zeros(m, np.int64), np.ones(m, np.int64), name)
+
+    def vertices(pw, n):
+        t = columns(pw, {"i": np.arange(n, dtype=np.int64)}, "rmat_vertices")
+        return t.with_id_from(t.i)
+
+    bf = small_graph(GRAPH_SMALL_SCALE, GRAPH_EDGE_FACTOR, 1)
+    lv = small_graph(GRAPH_LOUVAIN_SCALE, GRAPH_LOUVAIN_EDGE_FACTOR, 2)
+
+    def bellman(pw):
+        n, gu, gv, lengths = bf
+        vs = vertices(pw, n)
+        vs = vs.select(is_source=vs.i == 0)
+        raw = columns(pw, {"ui": gu, "vi": gv, "len": lengths}, "rmat_lengths")
+        edges = raw.select(u=vs.pointer_from(raw.ui), v=vs.pointer_from(raw.vi), dist=raw.len * 1.0)
+        return pw.stdlib.graphs.bellman_ford.bellman_ford(vs, edges)
+
+    def louvain(pw):
+        n, gu, gv, weights = lv
+        vs = vertices(pw, n)
+        raw = columns(pw, {"ui": gu, "vi": gv, "w": weights}, "rmat_weights")
+        fwd = raw.select(u=vs.pointer_from(raw.ui), v=vs.pointer_from(raw.vi), weight=raw.w * 1.0)
+        bwd = raw.select(u=vs.pointer_from(raw.vi), v=vs.pointer_from(raw.ui), weight=raw.w * 1.0)
+        graph = pw.stdlib.graphs.WeightedGraph.from_vertices_and_weighted_edges(vs.select(), fwd.concat_reindex(bwd))
+        return pw.stdlib.graphs.louvain_communities.louvain_communities(graph, levels=2)
+
+    for name, fn, (sv, su_, _v, _w) in (("bellman_ford", bellman, bf), ("louvain", louvain, lv)):
+        c_cap, c_s, c_routes, _ = _graph_run(card, fn)
+        h_cap, h_s, h_routes, _ = _graph_run("cpu", fn)
+        same = _final(c_cap.deltas) == _final(h_cap.deltas)
+        check(same, f"graphs {name}: the card's final rows differ from the host's")
+        rows = _final(h_cap.deltas)
+        out[name] = {f"{card}_s": c_s, "cpu_s": h_s, f"{card}_routes": c_routes, "rows": len(rows),
+                     "vertices": sv, "edges": len(su_), "identical": same}
+        if name == "bellman_ford":
+            reach = sum(1 for (d,) in rows.values() if np.isfinite(d))
+            out[name]["reachable"] = reach
+            check(0 < reach <= sv, f"graphs bellman_ford: {reach} reachable vertices")
+        else:
+            out[name]["communities"] = len({row for row in rows.values()})
+            check(1 < out[name]["communities"] < sv, f"graphs louvain: {out[name]['communities']} communities")
+        print(f"graphs {name}: {card} {c_s:.1f} s, cpu {h_s:.1f} s", file=sys.stderr, flush=True)
+    emit("graphs", **out)
+    return out
+
+
+KNN_INDEX_QUERIES = 256
+KNN_INDEX_K = 10
+# LSH of the legacy KNNIndex on the main path's unit-norm embeddings: 16 ORed
+# bands of 8 ANDed projections, bucket length 1 (a unit vector's projection
+# is N(0, 1)); euclidean distance, which ranks unit vectors as cosine does
+KNN_INDEX_LSH = {"n_or": 16, "n_and": 8, "bucket_length": 1.0}
+
+
+def main_path_embeddings(index, n: int) -> np.ndarray:
+    """The vectors the main path indexed under keys 0..n-1, from its
+    brute-force index on the card, as f32 on the host."""
+    import torch
+
+    rows = torch.tensor([index._key_to_slot[k] for k in range(n)], device=index._vectors.device)
+    return index._vectors[rows].float().cpu().numpy()
+
+
+def _knn_index_run(vecs: np.ndarray, queries: np.ndarray, route: str) -> tuple:
+    """``stdlib.ml.KNNIndex`` over ``vecs`` answering ``queries`` (flat rows
+    with distances) under ``PATHWAY_ENGINE_JAX=route``: (query -> [(doc,
+    dist)] nearest first, seconds)."""
+    def build(pw):
+        data = pw.debug.table_from_rows(pw.schema_from_types(emb=np.ndarray, doc=int),
+                                        [(v, i) for i, v in enumerate(vecs)])
+        index = pw.stdlib.ml.KNNIndex(data.emb, data, n_dimensions=vecs.shape[1], **KNN_INDEX_LSH)
+        qs = pw.debug.table_from_rows(pw.schema_from_types(emb=np.ndarray, q=int),
+                                      [(v, i) for i, v in enumerate(queries)])
+        res = index.get_nearest_items(qs.emb, k=KNN_INDEX_K, collapse_rows=False, with_distances=True)
+        return res.select(q=qs.ix(res.query_id).q, doc=res.doc, dist=res.dist)
+
+    cap, secs, _routes, _ = _graph_run(route, build)
+    hits: dict = {}
+    for (q, doc, dist) in _final(cap.deltas).values():
+        hits.setdefault(int(q), []).append((float(dist), int(doc)))
+    return {q: [(d, s) for s, d in sorted(h)] for q, h in hits.items()}, secs
+
+
+def phase_knn_index(info: dict, vecs: np.ndarray) -> dict:
+    """The legacy ``stdlib.ml.KNNIndex`` (LSH buckets on the engine, numpy
+    distances) on the main path's 8,192 embeddings made on the card:
+    KNN_INDEX_QUERIES queries (every 32nd doc's vector), k = KNN_INDEX_K,
+    with the engine's device functions on the card and on the host. Gate:
+    the card run's neighbours and distances equal the host run's on the
+    same vectors copied to the host, and each query finds its own doc
+    first. Prints recall@10 against the port's ``BruteForceKnnIndex`` on
+    the card (no gate)."""
+    from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
+
+    card = "gpu" if DEVICE == "cuda" else "cpu"
+    queries = vecs[:: len(vecs) // KNN_INDEX_QUERIES][:KNN_INDEX_QUERIES]
+    q_docs = list(range(0, len(vecs), len(vecs) // KNN_INDEX_QUERIES))[:KNN_INDEX_QUERIES]
+    got_card, card_s = _knn_index_run(vecs, queries, card)
+    got_host, host_s = _knn_index_run(vecs.copy(), queries.copy(), "cpu")
+    check(got_card == got_host, "knn_index: the card run's neighbours differ from the host run's")
+    self_first = sum(1 for q, d in enumerate(q_docs) if got_card.get(q) and got_card[q][0][0] == d)
+    check(self_first == len(q_docs), f"knn_index: {self_first}/{len(q_docs)} queries find their own doc first")
+    brute = BruteForceKnnIndex(dimension=vecs.shape[1], capacity=len(vecs), device=DEVICE)
+    brute.add_batch(list(range(len(vecs))), vecs)
+    truth = [[int(k) for k, _s in hits] for hits in brute.search(queries, KNN_INDEX_K)]
+    found = sum(len({d for d, _ in got_card.get(q, [])} & set(t)) for q, t in enumerate(truth))
+    out = {"card": info["nvidia_smi"], "rows": len(vecs), "dim": int(vecs.shape[1]), "queries": len(queries),
+           "k": KNN_INDEX_K, **KNN_INDEX_LSH, f"{card}_s": card_s, "cpu_s": host_s,
+           f"{card}_queries_per_s": len(queries) / card_s, "identical": got_card == got_host,
+           "self_first": self_first, "recall_at_10_vs_brute_force": found / (len(queries) * KNN_INDEX_K),
+           "mean_hits": sum(len(h) for h in got_card.values()) / len(queries)}
+    emit("knn_index", **out)
+    return out
+
+
 def _kernel_entry(records: list[dict], dtype: str, route: str, what: str, launches: dict) -> dict:
     """One route of the attention kernel on the kernels line: its time at the
     embed shape, and its largest error over every checked case of its dtype
@@ -3117,6 +3713,7 @@ def main() -> int:
     kern = timed("kernels", phase_kernels)
     state = timed("main_path", phase_main_path, synth_docs(N_DOCS))
     timed("checks", phase_checks, state)
+    bench_vecs = main_path_embeddings(state["index"], N_DOCS)
     del state["index"]
     f32 = timed("f32_path", phase_f32_path, state, info)
     pipe = timed("pipeline", phase_pipeline, info)
@@ -3129,16 +3726,20 @@ def main() -> int:
     try:
         rest = timed("rest_serving", phase_rest_serving, info, store)
         obs = timed("observability", phase_observability, info, store, rest)
+        flow = timed("flow", phase_flow, info, store)
     finally:
         import shutil
 
         shutil.rmtree(store["root"], ignore_errors=True)
+    timed("graphs", phase_graphs, info)
+    timed("knn_index", phase_knn_index, info, bench_vecs)
     emit("phase_walls", seconds=walls, total=round(sum(walls.values()), 3))
 
     launches = {
         "main_path": state["launches"], "f32_path": f32["launches"], "pipeline": pipe["launches"],
         "tiered_pipeline": tier["launches"], "temporal": temporal["launches"], "bert_path": bert["launches"],
         "document_store": store["launches"], "rest_serving": rest["launches"], "observability": obs["launches"],
+        "flow": flow["launches"],
     }
     line = {"kernels": [
         _kernel_entry(kern, "bfloat16", "tensor_core", "bf16, tensor cores (mma.sync, cp.async)", launches),

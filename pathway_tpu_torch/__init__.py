@@ -30,9 +30,11 @@ fused device tier of chain fusion, and the LLM xpack's RAG surface
 DocumentStore, question answering and its REST servers), and the temporal
 and stateful Table API (windows, behaviors, interval/asof/as-of-now and window
 joins, sort/diff, deduplicate, interpolate, gradual broadcast, ``pw.temporal``,
-``pw.stateful``, ``pw.utils``, ``AsyncTransformer``). The other planes
-raise ``NotImplementedError("later slice: <plane>")`` where a call reaches
-them.
+``pw.stateful``, ``pw.utils``, ``AsyncTransformer``), the flow plane
+(``pw.flow``: credit gates, interactive/bulk admission, the AIMD microbatch
+controller, under ``PATHWAY_FLOW=on``), ``pw.iterate``, ``stdlib.graphs`` and
+``stdlib.ml``. The other planes raise ``NotImplementedError("later slice:
+<plane>")`` where a call reaches them.
 
 Entry points that touch a model or an index run on the card unless the caller
 passes ``device="cpu"``. Importing the package loads no ``torch``: a UDF, an
@@ -92,18 +94,18 @@ from pathway_tpu_torch.internals.errors import ERROR as _ERROR  # noqa: F401
 from pathway_tpu_torch.internals.errors import PENDING
 
 from pathway_tpu_torch import debug, io, observability, resilience, stdlib, universes, xpacks
-from pathway_tpu_torch.stdlib import temporal, indexing, ml, statistical, stateful
+from pathway_tpu_torch import flow
+from pathway_tpu_torch.stdlib import temporal, indexing, ml, graphs, statistical, stateful
 from pathway_tpu_torch.stdlib import utils as utils
 from pathway_tpu_torch.stdlib.utils.async_transformer import AsyncTransformer
 from pathway_tpu_torch.stdlib.utils.pandas_transformer import pandas_transformer
 import pathway_tpu_torch.xpacks.llm  # noqa: E402,F401  (pw.xpacks.llm)
+from pathway_tpu_torch.internals.iterate import iterate, iterate_universe
 from pathway_tpu_torch.internals.later_slice import cut_callable as _cut
 from pathway_tpu_torch.internals.later_slice import cut_class as _cut_class
 
 # the reference's surface over planes still to port: each raises
 # NotImplementedError("later slice: <plane>") when called (ROADMAP Queue 1)
-iterate = _cut("iterate", "iterate")
-iterate_universe = _cut_class("iterate", "iterate_universe")
 sql = _cut("sql", "sql")
 load_yaml = _cut("yaml_loader", "load_yaml")
 export_table = _cut("exported", "export_table")
@@ -197,6 +199,7 @@ __all__ = [
     "PENDING",
     "G",
     "global_error_log",
+    "flow",
     "observability",
     "resilience",
     "set_monitoring_config",

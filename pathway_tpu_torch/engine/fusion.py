@@ -158,7 +158,7 @@ class ComposedSegment:
             # outside the whitelist (object columns, UDFs, excluded ops):
             # stage-by-stage eval_expr, still one sweep step
             return self._run_numpy(batch, time, aud)
-        if aud is None and self._device_wanted(len(batch)):
+        if aud is None and ent.device_ok and self._device_wanted(len(batch)):
             # audited ticks stay on the host program: the device tier's
             # single lane mask cannot attribute per-member edge counts
             return self._run_device(ent, batch, time)
@@ -397,7 +397,11 @@ class ComposedSegment:
         prog = _FastProgram(
             list(in_names), instrs, [(name, j) for name, j in slots.items()]
         )
-        return _CompiledSegment(prog, list(in_names), list(cur.keys()))
+        # a column torch cannot hold (objects, strings, datetimes) keeps the
+        # block on the register program: the reference's JAX tier fails on
+        # it and falls back to numpy for the process, to the same values
+        device_ok = all(np.dtype(dtypes[c]).kind in _DEVICE_KINDS for c in in_names)
+        return _CompiledSegment(prog, list(in_names), list(cur.keys()), device_ok)
 
     def _run_device(self, ent: "_CompiledSegment", batch: DeltaBatch, time: int) -> DeltaBatch:
         """Reference ``_seg_run_jax``: the block padded to its power-of-two
@@ -453,12 +457,14 @@ class _CompiledSegment:
     """One (segment, input dtype signature) compilation: the flat numpy
     program plus the lazily built device kernel for the same stages."""
 
-    __slots__ = ("fast", "in_names", "out_names", "_device")
+    __slots__ = ("fast", "in_names", "out_names", "device_ok", "_device")
 
-    def __init__(self, fast: list[tuple], in_names: list[str], out_names: list[str]):
+    def __init__(self, fast: list[tuple], in_names: list[str], out_names: list[str], device_ok: bool):
         self.fast = fast
         self.in_names = in_names
         self.out_names = out_names
+        #: every input column has a torch dtype (the device tier can take it)
+        self.device_ok = device_ok
         self._device: Callable | None = None
 
     def device_kernel(self, seg: "ComposedSegment") -> Callable:
@@ -500,6 +506,9 @@ class _CompiledSegment:
 
 
 _MISSING = object()
+
+#: numpy dtype kinds the device tier's lanes carry (``to_torch_lanes``)
+_DEVICE_KINDS = "biufc"
 
 
 class _EdgeView:

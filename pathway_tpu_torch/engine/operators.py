@@ -11,8 +11,7 @@ All state lives keyed by uint64 row keys, diffs are ±weights.
 Carried from ``pathway_tpu/engine/operators.py``, with the metrics plane's
 ingest watermarks and sink-latency histograms and the live-tracing span around
 a microbatch launch, the audit plane's sink digests and the lineage plane's
-key edges. Cut, as a plane not ported yet (ROADMAP Queue 1): the flow plane's
-credit-gated ingest and AIMD launch cap.
+key edges and the flow plane's credit-gated ingest and AIMD launch cap.
 The grouped aggregation routes through ``engine/torch_kernels.py``.
 """
 
@@ -84,6 +83,16 @@ class StreamInputNode(Node):
 
     snapshot_attrs = ("_state",)
 
+    #: flow plane opt-in: live connector queues are credit-gated when
+    #: ``PATHWAY_FLOW=on``; deterministic timed fixtures opt out (they replay
+    #: pre-timed events, not a live producer)
+    flow_gated = True
+
+    #: set (as an instance attribute) by the persistence input-log wrapper:
+    #: its log captures events BEFORE the gate, so gating must stand down on
+    #: that node (see ``_push_gated``)
+    flow_ungated = False
+
     #: set (as an instance attribute) by serving connectors under the shard
     #: map (``PATHWAY_SHARDMAP=on``): every fabric door pushes requests into
     #: its OWN process's copy of this node, so exchange must route each row
@@ -135,6 +144,17 @@ class StreamInputNode(Node):
         self.upsert = upsert
         self._lock = threading.Lock()
         self._pending: list[tuple[int, tuple | None, int]] = []  # (key, values, diff)
+        # flow control (``pathway_tpu_torch/flow``): the credit gate bounding this
+        # queue, or None when the plane is off — push/poll pay one is-None test
+        from pathway_tpu_torch import flow as _flow
+
+        self.service_class = _flow.INTERACTIVE
+        self.flow_gate = _flow.register_input(self)
+        # shed-policy pairing memory: (key, values) -> count of SHED inserts,
+        # so a later retract of a shed row is absorbed instead of reaching
+        # the engine as an unpaired -1 (negative multiplicity). Bounded;
+        # overflow falls back to the documented append-mostly caveat.
+        self._shed_pairs: dict = {}
         self._state: dict[int, tuple] = {}  # upsert sessions remember current row
         # input events drained by poll() so far — the operator-snapshot offset:
         # state at a snapshot reflects exactly this many log events
@@ -165,6 +185,10 @@ class StreamInputNode(Node):
 
     # called from connector threads
     def push(self, key: int, values: tuple | None, diff: int = 1) -> None:
+        gate = self.flow_gate
+        if gate is not None:
+            self._push_gated([(int(key), values, diff)], gate)
+            return
         now = _time_mod.time_ns()
         with self._lock:
             self._pending.append((int(key), values, diff))
@@ -175,7 +199,12 @@ class StreamInputNode(Node):
             self._observe_event_time(values)
 
     def push_many(self, events: Iterable[tuple[int, tuple | None, int]]) -> None:
-        self._append_events(list(events))
+        events = list(events)
+        gate = self.flow_gate
+        if gate is not None:
+            self._push_gated(events, gate)
+            return
+        self._append_events(events)
 
     def _append_events(self, events: list[tuple[int, tuple | None, int]]) -> None:
         """One lock + extend for a block of events, with the watermark stamps
@@ -193,10 +222,151 @@ class StreamInputNode(Node):
                 for _k, values, _d in events:
                     self._observe_event_time(values)
 
-    def poll(self, time: int) -> list[DeltaBatch]:
+    # ---- flow-gated ingest (PATHWAY_FLOW=on) ----
+    def _push_gated(self, events: list, gate) -> None:
+        """Credit-gated ingest: inserts acquire one credit per row (blocking
+        the producer or shedding overflow per ``PATHWAY_FLOW_POLICY``); a
+        retract whose insert is still queued cancels it in place and RETURNS
+        the insert's credit — the pair never reaches the engine."""
+        if self.flow_ungated:
+            # the persistence input-log wrapper set this flag: its log
+            # captures every event BEFORE it reaches this gate, so a shed or
+            # cancelled event would exist in the durable log but never in
+            # polled_total, corrupting the epoch offset arithmetic — and
+            # blocking here can deadlock seekable sources, whose sync_lock
+            # is held across push while the persistence flush wants it on
+            # the tick path. Persisted inputs therefore bypass credit gating
+            # (the input log already bounds replay; poll-side priority
+            # budgets still apply, they only defer draining).
+            self._append_events(events)
+            return
+        n = len(events)
+        i = 0
+        while i < n:
+            ev = events[i]
+            if ev[2] < 0 or ev[1] is None:
+                # retracts — and upsert DELETE tombstones (values=None) — are
+                # never shed: their insert is already in downstream state and
+                # dropping the removal would leave a phantom row forever. A
+                # retract whose insert was itself SHED is absorbed instead
+                # (the engine must not see an unpaired -1); otherwise
+                # admit_retract bypasses the shed overflow check.
+                if (
+                    not self._try_cancel_queued(ev, gate)
+                    and not self._absorb_shed_retract(ev, gate)
+                    and gate.admit_retract()
+                ):
+                    self._append_events([ev])
+                i += 1
+                continue
+            j = i
+            while j < n and events[j][2] >= 0 and events[j][1] is not None:
+                j += 1
+            while i < j:
+                chunk = events[i : min(j, i + gate.chunk_rows())]
+                take = gate.admit(len(chunk))
+                if take:
+                    self._append_events(chunk[:take])
+                if take < len(chunk):
+                    self._note_shed(chunk[take:])
+                i += len(chunk)
+
+    #: bounded size of the shed-pair memory; past it, retracts of shed rows
+    #: fall back to the documented append-mostly shed caveat
+    _SHED_PAIRS_MAX = 65536
+
+    def _note_shed(self, dropped: list) -> None:
+        """Remember shed inserts by (key, values) so their retracts can be
+        absorbed later. Unhashable values (array payloads) are skipped."""
+        pairs = self._shed_pairs
+        for k, v, d in dropped:
+            if len(pairs) >= self._SHED_PAIRS_MAX:
+                return
+            try:
+                pk = (k, v)
+                pairs[pk] = pairs.get(pk, 0) + d
+            except TypeError:
+                continue
+
+    def _absorb_shed_retract(self, ev: tuple, gate) -> bool:
+        """A retract whose matching insert was shed cancels against the
+        shed-pair memory — counted as shed so produced == admitted + shed."""
+        if ev[2] != -1 or not self._shed_pairs:
+            return False
+        try:
+            pk = (ev[0], ev[1])
+            count = self._shed_pairs.get(pk, 0)
+        except TypeError:
+            return False
+        if count <= 0:
+            return False
+        if count == 1:
+            del self._shed_pairs[pk]
+        else:
+            self._shed_pairs[pk] = count - 1
+        gate.note_absorbed_retract()
+        return True
+
+    #: newest queued entries scanned for a retract-cancel match. The cancel is
+    #: purely an optimization (an unmatched pair flows to the engine and nets
+    #: out there), so capping the scan keeps retract-heavy streams off an
+    #: O(retracts × queue-bound) cliff while still catching the common
+    #: insert-then-immediately-retract pattern.
+    _CANCEL_SCAN_WINDOW = 256
+
+    def _try_cancel_queued(self, ev: tuple, gate) -> bool:
+        """Cancel the newest still-queued insert matching a retract's key and
+        values (bounded backward scan under the node lock). Multiset sessions
+        only: in an upsert session the queued ``(k, v1, +1)`` is a REPLACE of
+        the settled ``v0`` and its ``-1`` a delete — cancelling the pair would
+        resurrect ``v0`` instead of deleting ``k``."""
+        key, values, diff = ev
+        if diff != -1 or self.upsert:
+            return False
         with self._lock:
-            pending, self._pending = self._pending, []
-            oldest_ns, self.wm_oldest_pending_ns = self.wm_oldest_pending_ns, None
+            floor = max(0, len(self._pending) - self._CANCEL_SCAN_WINDOW) - 1
+            for idx in range(len(self._pending) - 1, floor, -1):
+                k2, v2, d2 = self._pending[idx]
+                if k2 != key or d2 != 1:
+                    continue
+                try:
+                    match = v2 == values
+                except Exception:
+                    match = False
+                if match:
+                    del self._pending[idx]
+                    break
+            else:
+                return False
+        gate.cancel(1)
+        return True
+
+    def poll(self, time: int) -> list[DeltaBatch]:
+        gate = self.flow_gate
+        with self._lock:
+            budget = gate.budget if gate is not None else None
+            if (
+                budget is not None
+                and time != END_OF_STREAM
+                and budget < len(self._pending)
+            ):
+                # priority admission: drain only this tick's budget. The
+                # drained rows include the queue's oldest, so THIS tick's
+                # ingest stamp is exact; the tail (strictly newer rows whose
+                # exact arrival times aren't retained) re-stamps to now —
+                # slightly understating tail age beats reusing the drained
+                # stamp forever, which would grow every sink's measured
+                # latency monotonically under sustained budgeted draining
+                # and wedge the AIMD controller at full throttle
+                pending = self._pending[:budget]
+                self._pending = self._pending[budget:]
+                oldest_ns = self.wm_oldest_pending_ns
+                self.wm_oldest_pending_ns = _time_mod.time_ns()
+            else:
+                pending, self._pending = self._pending, []
+                oldest_ns, self.wm_oldest_pending_ns = self.wm_oldest_pending_ns, None
+        if gate is not None and pending and time != END_OF_STREAM:
+            gate.on_drain(len(pending))
         if time == END_OF_STREAM:
             return []
         if pending and oldest_ns is not None:
@@ -678,7 +848,7 @@ class MicrobatchApplyNode(Node):
         from pathway_tpu_torch.ops.microbatch import MicrobatchDispatcher
 
         n = len(all_cells)
-        max_batch = self.max_batch
+        max_batch = self._effective_max_batch()
         out = [[None] * len(self.udf_specs) for _ in range(n)]
         for j, spec in enumerate(self.udf_specs):
             need = [(i, all_cells[i][j]) for i in range(n) if all_cells[i][j][0] == "args"]
@@ -722,9 +892,21 @@ class MicrobatchApplyNode(Node):
         ins = np.flatnonzero(batch.diffs > 0)
         if len(ins):
             out.extend(self._enqueue(batch, ins, time))
-        if len(self.waiting) >= self.max_batch:
+        if len(self.waiting) >= self._effective_max_batch():
             out.extend(self._flush(time, only_full=True))
         return out
+
+    def _effective_max_batch(self) -> int:
+        """Launch bucket for this flush: the static ``max_batch`` cap, tuned
+        down live by the flow plane's AIMD controller when sinks approach
+        their latency SLO (``pathway_tpu_torch/flow/controller.py``). Smaller
+        buckets change launch SHAPES only — values stay byte-identical."""
+        from pathway_tpu_torch import flow as _flow
+
+        plane = _flow.current()
+        if plane is None:
+            return self.max_batch
+        return max(1, min(self.max_batch, plane.target_batch()))
 
     def _entry_sig(self, pass_vals: tuple, cells: list) -> tuple:
         """Flat input signature of an entry — pass-through values + every UDF
@@ -869,7 +1051,7 @@ class MicrobatchApplyNode(Node):
 
     def _flush(self, time, only_full: bool = False):
         n = len(self.waiting)
-        max_batch = self.max_batch
+        max_batch = self._effective_max_batch()
         consume = (n // max_batch) * max_batch if only_full else n
         if consume == 0:
             return []
@@ -2003,6 +2185,11 @@ class SubscribeNode(Node):
 
     name = "subscribe"
 
+    #: sink marker + service class: the flow plane's AIMD controller reads
+    #: latency histograms only from ``interactive``-class sinks (the ones the
+    #: SLO governs); ``pw.io.subscribe(..., service_class="bulk")`` opts out
+    is_sink = True
+
     def exchange_key(self, port):
         # default: sources/sinks live on worker 0. With ``route_by`` set
         # (shard-map zero-hop serving), callbacks instead fire on the worker
@@ -2019,6 +2206,7 @@ class SubscribeNode(Node):
         route_by: Callable | None = None,
     ):
         super().__init__(n_inputs=1)
+        self.service_class = "interactive"
         self.columns = columns
         self.on_change = on_change
         self.on_time_end = on_time_end
@@ -2201,6 +2389,8 @@ class CallbackOutputNode(Node):
 
     name = "output"
 
+    is_sink = True  # flow controller SLO scope (see SubscribeNode)
+
     def exchange_key(self, port):
         if self.sharded:
             return lambda batch: batch.keys  # co-locate by row key shard
@@ -2214,8 +2404,13 @@ class CallbackOutputNode(Node):
         sharded: bool = False,
         sink_state: Callable | None = None,
         restore_sink: Callable | None = None,
+        service_class: str = "interactive",
     ):
         super().__init__(n_inputs=1)
+        # flow plane SLO scope (see SubscribeNode): a bulk-class writer (e.g.
+        # an fsync-bound audit mirror) must not drag the AIMD bucket down on
+        # behalf of traffic that doesn't care about latency
+        self.service_class = service_class
         self.columns = columns
         self.on_batch = on_batch
         self.on_done = on_done

@@ -11,9 +11,11 @@ plan (``PATHWAY_FAULT_PLAN``) and the observability planes
 (``observability.install_from_env``: device profiling, audit, request
 tracing, health, timeline, the live tracer), marks the door ready once the
 connectors start and draining before they stop, and skips a tick a
-``drop_poll`` fault names, as the reference does. The reference's run also
-installs the flow plane's ingest credits and persistence replay; those
-planes are not ported yet (ROADMAP Queue 1), so their hooks are cut.
+``drop_poll`` fault names, as the reference does. It installs the flow
+plane (``PATHWAY_FLOW``) before the graph builds, steps it after every tick
+and shuts it down in its ``finally``. The reference's run also replays
+persistence; that plane is not ported yet (ROADMAP Queue 1), so its hook is
+cut.
 """
 
 from __future__ import annotations
@@ -133,11 +135,15 @@ class Runtime:
         self._stop_requested = True
 
     def run(self, outputs: list[LogicalNode]) -> Scheduler:
+        from pathway_tpu_torch import flow as _flow
         from pathway_tpu_torch import observability as _obs
         from pathway_tpu_torch.resilience import faults as _faults
 
         _faults.install_from_env()
         _obs.install_from_env(self)
+        # flow plane before the graph builds: ingest gates attach as the
+        # StreamInputNodes are constructed
+        _flow.install_from_env(self)
         try:
             return self._run(outputs, _obs.current())
         except BaseException as e:
@@ -148,6 +154,9 @@ class Runtime:
             raise
         finally:
             _obs.shutdown()
+            # closing the gates wakes producers blocked on credit, so
+            # connector threads can exit even after a failed run
+            _flow.shutdown()
 
     def _run(self, outputs: list[LogicalNode], tracer) -> Scheduler:
         from pathway_tpu_torch.observability import health as _health
@@ -158,6 +167,16 @@ class Runtime:
         scheduler = Scheduler(ctx.graph)
         scheduler.tracer = tracer
         self.scheduler = scheduler
+
+        from pathway_tpu_torch import flow as _flow
+
+        plane = _flow.current()
+        if plane is not None:
+            # after the tick settles: replenish ingest credits, step the AIMD
+            # controller, plan the next tick's admission budgets
+            scheduler.on_tick_done.append(
+                lambda t: plane.on_tick_complete(self, t)
+            )
 
         for driver in self.connectors:
             driver.start()

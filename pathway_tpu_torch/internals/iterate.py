@@ -18,10 +18,9 @@ would need differential's 2-D timestamps to re-derive the interior anyway. Only
 the net output-vs-previous delta crosses back into the outer dataflow, so
 downstream sees clean retraction semantics no matter how many inner rounds ran.
 
-Carried from ``pathway_tpu/internals/iterate.py`` because ``Table.interpolate``
-runs its fixed point (``stdlib/statistical/_interpolate.py``). The public
-``pw.iterate`` / ``pw.iterate_universe`` and ``stdlib.graphs`` are a later slice
-and raise ``later_slice("iterate")`` at the package surface.
+Carried from ``pathway_tpu/internals/iterate.py``. It is ``pw.iterate`` /
+``pw.iterate_universe``, and runs the fixed points of ``stdlib.graphs`` and
+``Table.interpolate`` (``stdlib/statistical/_interpolate.py``).
 """
 
 from __future__ import annotations

@@ -11,8 +11,8 @@ already count rows in/out and processing time; this module aggregates them into
   port from ``PATHWAY_MONITORING_HTTP_PORT``, default 20000).
 
 Carried from ``pathway_tpu/internals/monitoring.py`` with imports rewritten.
-The sections of planes the port has not carried yet (flow, delivery,
-cluster aggregation, elastic, fabric, the embedding memo) are absent from
+The sections of planes the port has not carried yet (delivery, cluster
+aggregation, elastic, fabric, the embedding memo) are absent from
 ``/status`` and ``/metrics``, as in a reference run with those planes off;
 ``/scale`` answers 501 with the ``later slice`` message.
 """
@@ -119,6 +119,14 @@ def run_stats(runtime) -> dict[str, Any]:
         # event log the OTLP exports consume (``internals/telemetry.py``)
         "resilience": resilience_summary(),
     }
+    # flow-control plane (PATHWAY_FLOW=on): per-input credit/occupancy/shed
+    # counters and the AIMD controller's recent decisions — shedding is only
+    # acceptable because every drop is visible here
+    from pathway_tpu_torch import flow as _flow
+
+    flow_status = _flow.status(runtime)
+    if flow_status is not None:
+        stats["flow"] = flow_status
     # device profiling plane: per-callable compile/shape telemetry, pad-waste
     # ratios, memory attribution, host/device time split, recompile-storm
     # warnings (PATHWAY_PROFILE, on by default)
@@ -264,6 +272,34 @@ def prometheus_text(runtime) -> str:
             lines.append(
                 f'pathway_backlog_rows{{{_fmt_label(queue=b["queue"])}}} {b["rows"]}'
             )
+    # ---- flow-control plane (credits, sheds, controller) --------------------
+    flow = stats.get("flow")
+    if flow:
+        lines.append("# HELP pathway_flow_queued_rows Rows holding credit in a connector ingest queue")
+        lines.append("# TYPE pathway_flow_queued_rows gauge")
+        for g in flow["inputs"]:
+            lines.append(
+                f'pathway_flow_queued_rows{{{_fmt_label(input=g["input"], service_class=g["service_class"])}}} {g["queued"] + g["in_flight"]}'
+            )
+        lines.append("# HELP pathway_flow_credits_available Remaining ingest credits of a connector queue")
+        lines.append("# TYPE pathway_flow_credits_available gauge")
+        for g in flow["inputs"]:
+            avail = max(0, g["effective_bound"] - g["queued"] - g["in_flight"])
+            lines.append(
+                f'pathway_flow_credits_available{{{_fmt_label(input=g["input"])}}} {avail}'
+            )
+        lines.append("# HELP pathway_flow_shed_rows_total Rows dropped by the shed overflow policy")
+        lines.append("# TYPE pathway_flow_shed_rows_total counter")
+        for g in flow["inputs"]:
+            lines.append(
+                f'pathway_flow_shed_rows_total{{{_fmt_label(input=g["input"])}}} {g["shed_rows"]}'
+            )
+        lines.append("# HELP pathway_flow_target_batch Microbatch launch bucket chosen by the AIMD controller")
+        lines.append("# TYPE pathway_flow_target_batch gauge")
+        lines.append(f'pathway_flow_target_batch {flow["controller"]["target_batch"]}')
+        lines.append("# HELP pathway_flow_pressure Flow-control pressure in [0,1] (latency-vs-SLO blended with queue occupancy)")
+        lines.append("# TYPE pathway_flow_pressure gauge")
+        lines.append(f'pathway_flow_pressure {flow["pressure"]}')
     # ---- per-sink end-to-end latency histograms -----------------------------
     snaps = _obs.run_metrics().sink_snapshots()
     if snaps:

@@ -595,14 +595,19 @@ class Table:
         on_change: Callable | None = None,
         on_time_end: Callable | None = None,
         on_end: Callable | None = None,
+        service_class: str = "interactive",
         route_by: Callable | None = None,
     ) -> LogicalNode:
         cols = self.column_names()
 
         def factory() -> ops.SubscribeNode:
-            return ops.SubscribeNode(
+            n = ops.SubscribeNode(
                 cols, on_change, on_time_end, on_end, route_by=route_by
             )
+            # flow plane SLO scope: the AIMD controller watches only
+            # interactive-class sinks' latency histograms
+            n.service_class = service_class
+            return n
 
         node = LogicalNode(factory, [self._node], name="subscribe")
         return node

@@ -5,12 +5,11 @@
 new/changed files from a connector thread, emitting rows as they appear (object
 deletions are detected and retracted, mirroring the reference's metadata trackers).
 
-Carried from ``pathway_tpu/io/fs.py``. The planes it reaches that are not
-ported: the flow plane's service classes (a reader's class is accepted and
-served in arrival order, as the reference serves it with the plane off; a
-writer's must be ``"interactive"``), the delivery ledger
+Carried from ``pathway_tpu/io/fs.py``. A reader's and a writer's
+``service_class`` scope the flow plane (``pathway_tpu_torch/flow``). The
+planes it reaches that are not ported, the delivery ledger
 (``delivery="exactly_once"``) and the elastic plane's removal of stale sink
-parts raise ``later_slice``.
+parts, raise ``later_slice``.
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ from pathway_tpu_torch.engine.blocks import DeltaBatch
 from pathway_tpu_torch.engine.graph import Node
 from pathway_tpu_torch.internals import schema as schema_mod
 from pathway_tpu_torch.internals.keys import row_keys, sequential_keys
-from pathway_tpu_torch.internals.later_slice import interactive_only, later_slice
+from pathway_tpu_torch.internals.later_slice import later_slice
 from pathway_tpu_torch.internals.logical import LogicalNode
 from pathway_tpu_torch.internals.table import Table, table_from_static_data
 
@@ -137,8 +136,7 @@ def read(
 
     # directory ingestion is the canonical backfill workload: default to the
     # flow plane's bulk class so interactive query streams overtake a document
-    # re-scan at tick granularity (pass service_class="interactive" to opt out;
-    # until the flow plane is ported, every class is served in arrival order)
+    # re-scan at tick granularity (pass service_class="interactive" to opt out)
     return py_read(
         _FsSubject(),
         schema=schema,
@@ -181,14 +179,20 @@ def write(
     disk per process (no cross-process close ordering) — consume them as a
     part-file set, Spark-style.
 
-    ``delivery="exactly_once"`` (the delivery ledger) and
-    ``service_class="bulk"`` (the flow plane's SLO) belong to planes that
-    are not ported yet and raise ``later_slice``."""
-    interactive_only(service_class)
+    ``service_class="bulk"`` excludes this writer's end-to-end latency from
+    the flow plane's SLO (an fsync-bound audit mirror must not drag the AIMD
+    microbatch bucket down). ``delivery="exactly_once"`` (the delivery
+    ledger) belongs to a plane that is not ported yet and raises
+    ``later_slice``."""
+    from pathway_tpu_torch.flow import validate_service_class
+
+    service_class = validate_service_class(service_class)
     if _delivery_mode(delivery) == "exactly_once":
         raise later_slice("delivery (delivery='exactly_once')")
     if sharded:
-        return _write_sharded(table, filename, format=format, **kwargs)
+        return _write_sharded(
+            table, filename, format=format, service_class=service_class, **kwargs
+        )
     parent = os.path.dirname(os.path.abspath(filename))
     if not os.path.isdir(parent):
         # fail at graph build like the eager-open era did, not mid-run
@@ -278,6 +282,7 @@ def write(
             on_done if owner else None,
             sink_state=sink_state if owner else None,
             restore_sink=restore_sink if owner else None,
+            service_class=service_class,
         )
 
     LogicalNode(factory, [table._node], name=f"fs_write:{filename}")._register_as_output()
@@ -334,6 +339,7 @@ def _write_sharded(
     filename: str,
     *,
     format: str,  # noqa: A002
+    service_class: str = "interactive",
     **kwargs: Any,
 ) -> None:
     """Per-worker sink shards + ordered merge-commit.
@@ -554,6 +560,7 @@ def _write_sharded(
             sharded=True,
             sink_state=sink_state,
             restore_sink=restore_sink,
+            service_class=service_class,
         )
 
     LogicalNode(factory, [table._node], name=f"fs_write:{filename}")._register_as_output()

@@ -12,7 +12,9 @@ and not retracted.
 The serving tier:
 
 - **Admission**: every route carries a bounded in-flight budget
-  (``PATHWAY_SERVE_MAX_INFLIGHT``); overload is shed with a fast ``429`` +
+  (``PATHWAY_SERVE_MAX_INFLIGHT``) and, with the flow plane on, checks its
+  input's ``interactive``-class :class:`~pathway_tpu_torch.flow.credit.IngestGate`
+  for credit; overload is shed with a fast ``429`` +
   ``Retry-After`` and an exact counter instead of an unbounded futures dict.
   Per-route token buckets and API keys (``fabric/limits.py``) run first.
 - **Arrival-driven query ticks**: arrival schedules an engine tick through
@@ -37,10 +39,10 @@ plane mints a request id per admitted request (``X-Pathway-Request-Id`` on
 every answer), records its flight path and completes it; the health plane
 answers ``/healthz`` and ``/readyz`` from its door state machine and its
 canaries (``X-Pathway-Canary``) short-circuit before any counter or
-admission; the live tracer gets door and respond events. Planes not ported
-yet take the reference's plane-off path: no flow plane (``push_admitted``'s
-gate is always absent) and no fabric or shard map (``PATHWAY_SHARDMAP=on``
-raises ``later_slice``).
+admission; the live tracer gets door and respond events; with the flow
+plane on, ``push_admitted`` takes the route input's ingest credit. Planes
+not ported yet take the reference's plane-off path: no fabric or shard map
+(``PATHWAY_SHARDMAP=on`` raises ``later_slice``).
 """
 
 from __future__ import annotations
@@ -243,8 +245,10 @@ class _RouteServing:
         """Push one admitted query row into the engine. With the flow plane
         on, the route input's ``interactive``-class ``IngestGate`` credit is
         taken NON-BLOCKINGLY first — a saturated pod sheds here (fast,
-        counted, explicit 429). The flow plane is not ported yet, so the
-        node carries no ``flow_gate`` and every push is admitted."""
+        counted, explicit 429) rather than silently dropping a row whose
+        response future is already registered, or stalling the shared event
+        loop on the blocking credit path. The append itself bypasses
+        ``push``'s gating (the credit is already ours)."""
         node = self.node
         assert node is not None, "rest_connector: engine not running"
         gate = getattr(node, "flow_gate", None)

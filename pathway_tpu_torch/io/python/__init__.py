@@ -19,7 +19,6 @@ from pathway_tpu_torch.engine import operators as ops
 from pathway_tpu_torch.engine.graph import Node
 from pathway_tpu_torch.internals import schema as schema_mod
 from pathway_tpu_torch.internals.keys import row_keys, sequential_keys
-from pathway_tpu_torch.internals.later_slice import arrival_order
 from pathway_tpu_torch.internals.logical import LogicalNode
 from pathway_tpu_torch.internals.table import Table
 from pathway_tpu_torch.internals.universe import Universe
@@ -184,7 +183,12 @@ class _TimedInputNode(ops.StreamInputNode):
     every tick emits an array slice — no per-event Python in the run loop.
     When persistence hooks the node's push functions (input logging), the
     per-event push path is kept so the log sees every event.
-"""
+
+    Not flow-gated: the fixture replays a deterministic pre-timed event list
+    (no live producer to backpressure), and gating it would perturb the exact
+    logical times the tests pin."""
+
+    flow_gated = False
 
     def __init__(self, events, columns, np_dtypes, upsert=False, arrays=None):
         super().__init__(columns, np_dtypes, upsert=upsert)
@@ -316,8 +320,12 @@ def read(
     service_class: str = "interactive",
     **kwargs: Any,
 ) -> Table:
-    # service_class scopes the flow plane (not ported yet)
-    arrival_order(service_class)
+    from pathway_tpu_torch.flow import validate_service_class
+
+    # flow plane (PATHWAY_FLOW=on): ``interactive`` streams always drain at
+    # tick start; ``bulk`` (backfill) streams are budget-throttled under
+    # pressure so query traffic overtakes them at tick granularity
+    service_class = validate_service_class(service_class)
     columns = schema.column_names()
     np_dtypes = schema.np_dtypes()
     subject._columns = columns
@@ -340,6 +348,7 @@ def read(
             node = _TimedInputNode(events, columns, np_dtypes, arrays=arrays)
             node.event_time_index = event_time_index
             node.input_name = name or "stream_fixture"
+            node.service_class = service_class
             holder["node"] = node
             return node
 
@@ -357,6 +366,7 @@ def read(
         node.event_time_index = event_time_index
         # the watermark plane's label (``/status`` watermarks, ``/metrics``)
         node.input_name = name or getattr(subject, "datasource_name", None) or "python"
+        node.service_class = service_class
         subject._node = node
         return node
 
@@ -389,9 +399,10 @@ def read_partitioned(
     normal key exchange. Under a single-worker runtime this degenerates to
     ``read(make_subject(0, 1), ...)``.
     """
+    from pathway_tpu_torch.flow import validate_service_class
     from pathway_tpu_torch.internals.logical import current_build
 
-    arrival_order(service_class)
+    service_class = validate_service_class(service_class)
     columns = schema.column_names()
     np_dtypes = schema.np_dtypes()
 
@@ -407,6 +418,7 @@ def read_partitioned(
         )
         node.local_source = True  # poll on the owning worker, not worker 0
         node.source_worker = w
+        node.service_class = service_class
         subject._node = node
         if ctx is not None and ctx.register is not None:
             ctx.register(_SubjectDriver(subject))

@@ -24,10 +24,11 @@ Carried from ``pathway_tpu/observability/timeline.py`` with imports
 rewritten. The device split is read from the port's device plane
 (``device.heartbeat_summary``: counters the planes already keep), so the
 recorder thread never waits on a CUDA event and never initialises CUDA.
-Left out, with the planes they read: the flow plane's pressure
-(``flow.heartbeat_summary``, ROADMAP Queue 1 item 5), the delivery ledger's
-depth (``delivery.heartbeat_summary``, item 7), and the cluster's peer merge
-and heartbeat piggyback (``_merge_peers``, ``heartbeat_summary``, item 6):
+The flow plane's pressure is read from ``flow.heartbeat_summary`` when the
+plane is on. Left out, with the planes they read: the delivery ledger's
+depth (``delivery.heartbeat_summary``, ROADMAP Queue 1 item 3), and the
+cluster's peer merge and heartbeat piggyback (``_merge_peers``,
+``heartbeat_summary``, item 4):
 the port runs one process, so the pod series is this process's, as in a
 single-process reference run.
 """
@@ -114,6 +115,11 @@ def _raw_sample(runtime) -> dict[str, Any]:
     from pathway_tpu_torch.observability import device as _device
 
     raw["device"] = _device.heartbeat_summary()
+    from pathway_tpu_torch import flow as _flow
+
+    fplane = _flow.current()
+    if fplane is not None:
+        raw["flow"] = fplane.heartbeat_summary()
     from pathway_tpu_torch.observability import health as _health
 
     raw["health"] = _health.heartbeat_summary()

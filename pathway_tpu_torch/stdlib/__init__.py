@@ -1,9 +1,10 @@
-"""Standard library (reference ``python/pathway/stdlib/``): indexing, the LSH
-bucketers of ``ml``, temporal, ordered, stateful, statistical and utils.
-Graphs, the rest of ml and viz are a later slice.
+"""Standard library (reference ``python/pathway/stdlib/``): graphs, indexing,
+ml, temporal, ordered, stateful, statistical and utils. ``viz`` is a later
+slice.
 """
 
 from pathway_tpu_torch.stdlib import (
+    graphs,
     indexing,
     ml,
     ordered,
@@ -13,4 +14,13 @@ from pathway_tpu_torch.stdlib import (
     utils,
 )
 
-__all__ = ["indexing", "ml", "ordered", "stateful", "statistical", "temporal", "utils"]
+__all__ = [
+    "graphs",
+    "indexing",
+    "ml",
+    "ordered",
+    "stateful",
+    "statistical",
+    "temporal",
+    "utils",
+]

@@ -9,8 +9,7 @@ the classic parallel list-ranking trick, which matters when the fixed point is
 a dataflow round, not a loop iteration.
 
 Carried from ``pathway_tpu/stdlib/statistical/_interpolate.py``. It runs the
-fixed point of ``internals/iterate.py`` directly: ``pw.iterate`` itself is a
-later slice at the package surface.
+fixed point of ``internals/iterate.py`` (``pw.iterate``) directly.
 """
 
 from __future__ import annotations

@@ -7,13 +7,15 @@ only if the ops a batched UDF or the index runs are batch-invariant. This
 prints one JSON line comparing, at the pipeline's widths (the ``minilm``
 embedder, the 4-layer reranker, 384-d f32 KNN over 4096 docs):
 
-- the embedder on 512 docs in one launch against launches of 8, 64, 128 and
-  256 rows, and beside it each intermediate of the pooling tail: the last
+- the embedder on 512 docs in one launch against launches of 8, 16, 32, 64,
+  128 and 256 rows (every bucket the flow plane's AIMD controller may pick
+  below 512), and beside it each intermediate of the pooling tail: the last
   LN's output, the masked sum over tokens and the L2 norm, each both as
   ``ops/encoder.py::pool`` takes it (``fixed_order_sum``) and as a torch
   reduction (``sum(dim=1)``, ``norm(dim=-1)``), so a difference is traced to
   its op;
-- the reranker on 640 pairs in one launch against 512 + 128 and 10 x 64;
+- the reranker on 640 pairs in one launch against 512 + 128, 10 x 64 and
+  launches of 8, 16, 32, 128 and 256 pairs;
 - the KNN search of 512 queries at once against batches of 1, 16 and 64
   (``ops/knn.py`` runs its score product in fixed 16-query chunks and sums
   norms in one fixed order), an index ingested in 8-row blocks against one
@@ -80,7 +82,7 @@ def main() -> int:
 
     e512 = enc.encode_texts(docs[:512])
     tails = _pooling_tail(enc, docs[:512], 512)
-    for c in (8, 64, 128, 256):
+    for c in (8, 16, 32, 64, 128, 256):
         parts = np.concatenate([enc.encode_texts(docs[i : i + c]) for i in range(0, 512, c)])
         out[f"embed_{c}_rows_vs_512"] = _same(e512, parts)
         part_tails = _pooling_tail(enc, docs[:512], c)
@@ -93,6 +95,10 @@ def main() -> int:
     s640 = ce.score_pairs(pairs)
     out["rerank_512_128_vs_640"] = _same(s640, np.concatenate([ce.score_pairs(pairs[:512]), ce.score_pairs(pairs[512:])]))
     out["rerank_10x64_vs_640"] = _same(s640, np.concatenate([ce.score_pairs(pairs[i : i + 64]) for i in range(0, 640, 64)]))
+    for c in (8, 16, 32, 128, 256):
+        out[f"rerank_{c}_rows_vs_640"] = _same(
+            s640, np.concatenate([ce.score_pairs(pairs[i : i + c]) for i in range(0, 640, c)])
+        )
 
     index = BruteForceKnnIndex(dimension=384, capacity=4096)
     index.add_batch(list(range(4096)), np.concatenate([enc.encode_texts(docs[i : i + 512]) for i in range(0, 4096, 512)]))

@@ -26,7 +26,7 @@ import time
 
 PHASES = (
     "kernels", "main_path", "f32_path", "pipeline", "engine_kernels", "audit_fault", "temporal", "document_store",
-    "rest_serving", "observability",
+    "rest_serving", "observability", "flow", "graphs", "knn_index",
 )
 
 #: phase -> the fields of its chip_smoke line kept in the summary (dotted
@@ -50,6 +50,11 @@ HEADLINES = {
         "retrieve_1_clients.equal_to_in_process", "retrieve_32_clients.requests_per_s",
         "retrieve_32_clients.client_p50_ms", "retrieve_32_clients.equal_to_in_process", "answer.requests_per_s",
     ),
+    "flow": tuple(f"{mode}.{k}" for mode in ("on", "off") for k in (
+        "client_p50_ms", "client_p99_ms", "backfill_chunks_per_s")) + ("settled_answers_equal", "shed.shed_rows"),
+    "graphs": ("pagerank.gpu_s", "pagerank.cpu_s", "pagerank.gpu_edges_per_s", "pagerank.device_idle_share",
+               "bellman_ford.gpu_s", "louvain.gpu_s"),
+    "knn_index": ("gpu_s", "cpu_s", "recall_at_10_vs_brute_force"),
     "observability": tuple(
         f"legs.{leg}.{k}" for leg in ("planes_off", "audit_timeline_off", "profile_full")
         for k in ("requests_per_s", "client_p50_ms", "client_p99_ms")
@@ -70,8 +75,10 @@ info = cs.phase_device()
 cs.phase_build()
 if "kernels" in want:
     cs.phase_kernels()
-if "main_path" in want or "f32_path" in want:
+if "main_path" in want or "f32_path" in want or "knn_index" in want:
     state = cs.phase_main_path(cs.synth_docs(cs.N_DOCS))
+    if "knn_index" in want and hasattr(cs, "phase_knn_index"):
+        cs.phase_knn_index(info, cs.main_path_embeddings(state["index"], cs.N_DOCS))
     del state["index"]
     if "f32_path" in want:
         cs.phase_f32_path(state, info)
@@ -84,13 +91,17 @@ if "audit_fault" in want and hasattr(cs, "phase_audit_fault"):
     cs.phase_audit_fault(info)
 if "temporal" in want and hasattr(cs, "phase_temporal"):
     cs.phase_temporal(info)
-if "document_store" in want or "rest_serving" in want:
+if "graphs" in want and hasattr(cs, "phase_graphs"):
+    cs.phase_graphs(info)
+if "document_store" in want or "rest_serving" in want or "flow" in want:
     store = cs.phase_document_store(info)
     try:
         if "rest_serving" in want and hasattr(cs, "phase_rest_serving"):
             rest = cs.phase_rest_serving(info, store)
             if "observability" in want and hasattr(cs, "phase_observability"):
                 cs.phase_observability(info, store, rest)
+        if "flow" in want and hasattr(cs, "phase_flow"):
+            cs.phase_flow(info, store)
     finally:
         if isinstance(store, dict) and store.get("root"):
             shutil.rmtree(store["root"], ignore_errors=True)

@@ -336,13 +336,21 @@ def test_microbatch_auto_stream_equals_off(monkeypatch):
 
 
 def test_unported_planes_raise_later_slice():
+    # the flow plane is ported: a bulk-class subscriber sees what the
+    # reference's sees
+    seen = {}
+    for pw in (pathway_tpu, pathway_tpu_torch):
+        pw.G.clear()
+        got = seen[pw.__name__] = []
+        bulk = pw.debug.table_from_markdown(_MD)
+        pw.io.subscribe(bulk, lambda key, row, time, is_addition, got=got: got.append((key, row, time, is_addition)),
+                        service_class="bulk")
+        pw.run()
+        pw.G.clear()
+    assert seen["pathway_tpu_torch"] == seen["pathway_tpu"] and len(seen["pathway_tpu"]) == 5
     t = pathway_tpu_torch.debug.table_from_markdown(_MD)
-    with pytest.raises(NotImplementedError, match="later slice: iterate"):
-        pathway_tpu_torch.iterate(lambda t: t, t=t)
     with pytest.raises(NotImplementedError, match="later slice: sql"):
         pathway_tpu_torch.sql("SELECT v FROM t", t=t)
-    with pytest.raises(NotImplementedError, match="later slice: flow"):
-        pathway_tpu_torch.io.subscribe(t, lambda **kw: None, service_class="bulk")
     pathway_tpu_torch.io.subscribe(t, lambda **kw: None)
     with pytest.raises(NotImplementedError, match="later slice: persistence"):
         pathway_tpu_torch.run(persistence_config=object())

@@ -261,6 +261,33 @@ def test_device_tier_failure_raises(monkeypatch):
     assert K.ROUTES == {}
 
 
+@pytest.mark.parametrize("kind", ["object", "str", "datetime"])
+def test_columns_torch_cannot_hold_keep_the_register_program(kind):
+    """A block carrying a column torch has no dtype for (a vector of
+    objects, strings, datetimes), which the chain's stages drop, runs the
+    register program: the reference's JAX tier fails on it and falls back
+    to numpy, to the same values."""
+    keys, diffs, data = _block()
+    data["o"] = {
+        "object": np.array([np.arange(i % 3) for i in range(N_ROWS)] + [None], dtype=object)[:-1],
+        "str": np.array([f"s{i}" for i in range(N_ROWS)]),
+        "datetime": np.arange(N_ROWS).astype("datetime64[s]"),
+    }[kind]
+    flt, outs = _bin(">", _col("x"), ("const", 0.0)), {"b": _col("b"), "xy": _bin("*", _col("x"), _col("y"))}
+    got = {}
+    for mode in ("on", "off"):
+        seg = _segment(TF, TO, TE, flt, outs)
+        seg._device_cfg = (mode, 0)
+        got[mode] = seg.run(TB.DeltaBatch(keys, diffs, dict(data), 0), 0)
+    assert K.ROUTES == {}
+    ref = _segment(JF, JO, JE, flt, outs)
+    ref._jax_cfg = ("off", 0, False)
+    want = ref.run(JB.DeltaBatch(keys, diffs, dict(data), 0), 0)
+    for out in got.values():
+        assert out.keys.tobytes() == want.keys.tobytes() and out.diffs.tobytes() == want.diffs.tobytes()
+        assert _bits(out) == _bits(want)
+
+
 def test_device_tier_without_cuda_raises(monkeypatch):
     """Unpinned, the device tier is the card: without CUDA it raises rather
     than running on the CPU."""

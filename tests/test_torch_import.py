@@ -39,6 +39,27 @@ def test_port_imports_without_jax_or_reference_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_flow_graphs_and_ml_import_without_jax_or_reference_package():
+    """The flow plane, ``stdlib.graphs`` and ``stdlib.ml`` (its lazy ``hmm``
+    and ``datasets`` too) load neither JAX nor the reference package, and
+    ``stdlib.ml`` needs no ``networkx``."""
+    proc = _run(
+        "import sys\n"
+        "sys.modules['networkx'] = None\n"
+        "import pathway_tpu_torch as pw\n"
+        "import pathway_tpu_torch.flow, pathway_tpu_torch.stdlib.graphs, pathway_tpu_torch.stdlib.ml\n"
+        "assert pw.flow.current() is None\n"
+        "assert callable(pw.stdlib.ml.hmm.create_hmm_reducer)\n"
+        "assert callable(pw.stdlib.ml.datasets.load_lsh_test_data)\n"
+        "assert callable(pw.stdlib.graphs.pagerank.pagerank) and callable(pw.iterate)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'pathway_tpu' or m.startswith('pathway_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_package_import_loads_no_torch():
     proc = _run(
         "import sys\n"

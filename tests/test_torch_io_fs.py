@@ -180,18 +180,23 @@ def test_read_without_schema_needs_a_text_format(tree):
         pathway_tpu_torch.io.fs.read(str(tree), format="csv", mode="static")
 
 
-def test_reader_service_classes_are_served_in_arrival_order(tree):
-    """fs.read's streaming default is the flow plane's ``bulk`` class: with
-    the plane not ported, every reader class is served in arrival order (the
-    reference's behaviour with its plane off), and an unknown class is
-    refused as the reference refuses it."""
-    pw = pathway_tpu_torch
+@pytest.mark.parametrize("flow", ["off", "on"])
+def test_reader_service_classes_are_served_in_arrival_order(tree, flow, monkeypatch):
+    """fs.read's streaming default is the flow plane's ``bulk`` class. With
+    the plane off every reader class is served in arrival order; with it on
+    (``PATHWAY_FLOW=on``) the gated reads give the reference's rows and
+    keys. An unknown class is refused as the reference refuses it."""
+    monkeypatch.setenv("PATHWAY_FLOW", flow)
     for sc in ("bulk", "interactive", " BULK "):
-        pw.G.clear()
-        t = pw.io.plaintext.read(str(tree / "b" / "*.txt"), _bounded=True, service_class=sc)
-        assert len(final_rows([(0, k, d, r) for (_t, k, d, r) in pw.debug._capture(t).deltas])) == 4
+        got = {}
+        for pw in (pathway_tpu_torch, pathway_tpu):
+            pw.G.clear()
+            t = pw.io.plaintext.read(str(tree / "b" / "*.txt"), _bounded=True, service_class=sc)
+            got[pw] = final_rows([(0, k, d, r) for (_t, k, d, r) in pw.debug._capture(t).deltas])
+            pw.G.clear()
+        assert got[pathway_tpu_torch] == got[pathway_tpu] and len(got[pathway_tpu_torch]) == 4
     with pytest.raises(ValueError, match="service_class must be one of"):
-        pw.io.fs.read(str(tree), format="binary", service_class="batch")
+        pathway_tpu_torch.io.fs.read(str(tree), format="binary", service_class="batch")
 
 
 # ----------------------------------------------------------------------- writes
@@ -244,10 +249,17 @@ def test_null_sink_runs_the_pipeline(tmp_path):
 
 
 def test_writer_cut_sites_raise_later_slice(tmp_path, monkeypatch):
+    # the flow plane is ported: a bulk-class writer writes the reference's bytes
+    written = []
+    for side in (pathway_tpu_torch, pathway_tpu):
+        side.G.clear()
+        side.io.fs.write(_md(side), str(tmp_path / f"{side.__name__}.csv"), service_class="bulk")
+        side.run()
+        side.G.clear()
+        written.append((tmp_path / f"{side.__name__}.csv").read_bytes())
+    assert written[0] == written[1] and written[0]
     pw = pathway_tpu_torch
     t = _md(pw)
-    with pytest.raises(NotImplementedError, match="later slice: flow"):
-        pw.io.fs.write(t, str(tmp_path / "o.csv"), service_class="bulk")
     with pytest.raises(NotImplementedError, match="later slice: delivery"):
         pw.io.fs.write(t, str(tmp_path / "o.csv"), delivery="exactly_once")
     monkeypatch.setenv("PATHWAY_DELIVERY", "exactly_once")

@@ -55,6 +55,15 @@ def _env(monkeypatch):
     for telemetry in (ref_telemetry, port_telemetry):
         monkeypatch.setattr(telemetry, "_trace_file_override", telemetry._UNSET)
         monkeypatch.setattr(telemetry, "_metrics_file_override", telemetry._UNSET)
+    # a reshard restore (tests/test_elastic.py, test_elastic_migrate.py) keeps
+    # its stats for the rest of the process, and every later exposition of
+    # the reference then carries pathway_elastic_reshard_* (a plane the port
+    # does not carry); the flow plane is retained after a run for post-run
+    # /status. Each test starts with neither.
+    monkeypatch.setattr(pathway_tpu.elastic, "_LAST_RESHARD", {})
+    monkeypatch.delenv("PATHWAY_FLOW", raising=False)
+    for pw, _mon in SIDES.values():
+        monkeypatch.setattr(pw.flow, "_plane", None)
     yield
     for pw, _mon in SIDES.values():
         pw.G.clear()
@@ -69,7 +78,11 @@ def _static(pw):
 
 
 def _streaming(pw):
-    """A multi-tick stream: three blocks of 20 rows, pushed in order."""
+    """A multi-tick stream: three blocks of 20 rows, pushed in order. Each
+    block lands in one push and the next waits until a tick has drained it,
+    so every run takes the same three data ticks whatever the host's load
+    (the per-operator row counts depend on how the rows split into ticks);
+    20 ms between blocks keep the run long enough for a live redraw."""
     pw.G.clear()
 
     class S(pw.Schema):
@@ -77,10 +90,12 @@ def _streaming(pw):
 
     class Subj(pw.io.python.ConnectorSubject):
         def run(self):
-            for i in range(60):
-                self.next(x=i)
-                if i % 20 == 19:
-                    time.sleep(0.02)
+            for start in range(0, 60, 20):
+                self.next_batch([{"x": i} for i in range(start, start + 20)])
+                deadline = time.monotonic() + 30.0
+                while self._node.polled_total < start + 20 and time.monotonic() < deadline:
+                    time.sleep(0.001)
+                time.sleep(0.02)
 
     t = pw.io.python.read(Subj(), schema=S)
     t = t.with_columns(m=t.x % 5)
