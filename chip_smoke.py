@@ -98,6 +98,22 @@ printing one JSON line:
    in order); a 1,024-file streaming read whose answers equal a static
    read's; 64 files each of PDF, DOCX, HTML and Markdown through their
    parsers, each marker phrase retrieved first;
+12b. persistence: phase 12's files in two halves through ``pw.io.fs``
+   (streaming) into the same ``DocumentStore`` over ``TieredKnnFactory``
+   (the default hot bound, which holds every chunk), with a filesystem persistence
+   backend in ``operator_persisting`` mode and two jsonlines sinks with
+   ``delivery="exactly_once"``: run A ingests the first half and ends; run B
+   restores the operator snapshots and the index from its base and delta
+   chunks, takes the second half, then answers phase 12's 1,024 retrieve
+   rows. Gates: run B's answers equal an uninterrupted run's (keys, texts,
+   metadata, score bits); run B embeds exactly the second half's chunks and
+   the queries (embedder rows, attention launches == 6 x embedder
+   launches); each exactly-once file holds every row once, equal to the
+   uninterrupted run's. It prints the base and delta bytes, the snapshot
+   seconds at close, the restore seconds and the seconds from ``pw.run`` to
+   run B's first answer for ``operator_persisting`` (a 5 s snapshot
+   cadence) and ``persisting`` (input replay, which re-embeds the first
+   half);
 13. rest_serving: phase 12's files served over HTTP by ``QARestServer``
    (``pw.io.http`` on the port's own HTTP/1.1 server) over the same
    ``DocumentStore`` and ``BaseRAGQuestionAnswerer``, at the port's
@@ -131,7 +147,7 @@ printing one JSON line:
    ``PATHWAY_PROFILE=full`` (the encoder's device-wait split above 0 and
    below the leg's wall), requests/s and p50/p99 beside phase 13's;
 15. the kernels line, with each kernel's launches during phases 4, 6, 7,
-   8's pipeline, 10, 11, 12, 13 and 14.
+   8's pipeline, 10, 11, 12, 12b's run B, 13, 14 and the flow phase.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without it. TF32 is off for every matmul (``allow_tf32 = False``), so the f32
@@ -179,7 +195,7 @@ INVARIANCE_CAPACITIES = (4096, 65_536, 1 << 20)
 #: ticks of TEMPORAL_TICK events, the queries, and the rest of the temporal
 #: surface on the first TEMPORAL_SURFACE_EVENTS events
 TEMPORAL_EVENTS_GENERATED = 1_048_576  # the stream; the runs read its first TEMPORAL_EVENTS
-TEMPORAL_EVENTS = 262_144  # 4 ticks; cut from 524,288 to keep the whole script near 850 s (PERF.md section 4)
+TEMPORAL_EVENTS = 131_072  # 2 ticks; cut from 524,288 to keep the whole script near 850 s (PERF.md section 4)
 TEMPORAL_TICK = 65_536
 TEMPORAL_SURFACE_EVENTS = 65_536
 TEMPORAL_QUERIES = ("q5", "q7", "q7_cutoff", "q8")
@@ -2159,6 +2175,385 @@ def phase_document_store(info: dict) -> dict:
             "splitter": splitter, "chunk_list": chunks}
 
 
+PERSIST_SNAPSHOT_MS = 5_000  # operator snapshot cadence in runs A and B (delta chunks), plus the one at close
+
+
+def _persist_split(ds: dict, root: str) -> tuple[str, list, list, list[str]]:
+    """Hard links of phase document_store's files (mtimes kept) under
+    ``root/docs``: files 0 .. DS_FILES/2-1 under ``h0/`` now, the others
+    under ``h1/`` when the caller links them, each in its directory
+    ``d<i % DS_SUBDIRS>``, so a sorted scan lists the first half first (the
+    input log's prefix). Returns the docs dir, the two halves' chunk texts
+    and the second half's (source, link) paths."""
+    import shutil
+
+    half = DS_FILES // 2
+    by_path: dict[str, list[str]] = {}
+    for path, chunk in ds["chunk_list"]:
+        by_path.setdefault(path, []).append(chunk)
+    docs = os.path.join(root, "docs")
+    shutil.rmtree(root, ignore_errors=True)
+    first, second, pending = [], [], []
+    for i in range(DS_FILES):
+        src = os.path.join(ds["corpus"], f"d{i % DS_SUBDIRS:02d}", f"f{i:05d}.txt")
+        dest = os.path.join(docs, "h0" if i < half else "h1", f"d{i % DS_SUBDIRS:02d}", f"f{i:05d}.txt")
+        (first if i < half else second).extend(by_path[src])
+        if i < half:
+            _link(src, dest)
+        else:
+            pending.append((src, dest))
+    return docs, first, second, pending
+
+
+def _link(src: str, dest: str) -> None:
+    import shutil
+
+    os.makedirs(os.path.dirname(dest), exist_ok=True)
+    try:
+        os.link(src, dest)
+    except OSError:
+        shutil.copy2(src, dest)
+
+
+def _index_rows_since(earlier: set) -> int:
+    from pathway_tpu_torch.stdlib.indexing import tiered
+
+    with tiered._registry_lock:
+        live = [b for b in tiered._live_tiered if id(b) not in earlier]
+    return sum(b.stats()["hot_rows"] + b.stats()["cold_rows"] for b in live)
+
+
+def _persist_run(ds: dict, docs_dir: str, backend, out_dir: str, mode: str, factory,
+                 query_rows: list, want_rows: int | None, interval_ms: int = PERSIST_SNAPSHOT_MS) -> dict:
+    """One ``pw.run`` of the persisted RAG graph: ``pw.io.fs`` (streaming,
+    bounded) over ``docs_dir`` → ``DocumentStore`` (phase document_store's
+    ``minilm`` embedder and splitter) over ``factory``; a query connector
+    that, once the index holds ``want_rows`` rows, sends ``query_rows`` in
+    DS_TICK-row ticks to ``retrieve_query``; the answers and the chunks
+    written by ``pw.io.jsonlines`` (``delivery="exactly_once"`` under
+    ``operator_persisting``). Returns the answers, the host clocks, the
+    embedder's launches and the persistence layer's own timings."""
+    import gc
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.ops import attention_kernel as A
+    from pathway_tpu_torch.persistence import snapshots
+    from pathway_tpu_torch.stdlib.indexing import tiered
+    from pathway_tpu_torch.xpacks.llm import DocumentStore
+
+    pw.G.clear()
+    gc.collect()
+    with tiered._registry_lock:
+        earlier = {id(b) for b in tiered._live_tiered}
+    got: dict = {"answers": {}, "t_first": None, "t_push": None, "t_last": None}
+    delivery = "exactly_once" if mode == "operator_persisting" else "off"
+    docs = pw.io.fs.read(docs_dir, format="binary", with_metadata=True, _bounded=True, name="persist_docs")
+    store = DocumentStore(docs, retriever_factory=factory, embedder=ds["emb"], splitter=ds["splitter"])
+
+    class Queries(pw.io.python.ConnectorSubject):
+        def run(self):
+            if not query_rows:
+                return
+            deadline = time.monotonic() + 900
+            while _index_rows_since(earlier) < want_rows and time.monotonic() < deadline:
+                time.sleep(0.02)
+            got["t_push"] = time.perf_counter()
+            for lo in range(0, len(query_rows), DS_TICK):
+                for q in query_rows[lo : lo + DS_TICK]:
+                    self.next(query=q[0], k=q[1], metadata_filter=q[2], filepath_globpattern=q[3])
+                time.sleep(0.05)
+
+    q = pw.io.python.read(Queries(), schema=DocumentStore.RetrieveQuerySchema, name="persist_queries")
+    answers = q.select(q.query, q.filepath_globpattern, result=store.retrieve_query(q).with_universe_of(q).result)
+
+    clock = time.perf_counter
+
+    def on_answer(key, row, time, is_addition):  # noqa: A002 - subscribe passes time=
+        if is_addition:
+            if got["t_first"] is None:
+                got["t_first"] = clock()
+            got["answers"][int(key)] = (row["query"], row["filepath_globpattern"], _comparable(_hits(row["result"])))
+            got["t_last"] = clock()
+
+    pw.io.subscribe(answers, on_answer)
+    pw.io.jsonlines.write(
+        answers.select(answers.query, hits=pw.apply(lambda r: _comparable(_hits(r)), answers.result)),
+        os.path.join(out_dir, "answers.jsonl"), delivery=delivery,
+    )
+    chunks = store.chunked_docs
+    pw.io.jsonlines.write(
+        chunks.select(path=pw.apply(lambda m: _json_value(m)["path"], chunks.metadata), text=chunks.text),
+        os.path.join(out_dir, "chunks.jsonl"), delivery=delivery,
+    )
+
+    timings: dict = {"save_s": [], "restore_s": None, "replay_s": None, "close_s": None,
+                     "put": {"base": 0, "delta": 0}, "tick_done_s": []}
+    P, O, S = snapshots.Persistence, snapshots._OperatorSnapshots, snapshots.SnapshotStore
+    saved = (P._save_operators, P._replay_all, P.on_close, O.restore, S.put_chunk, P.on_tick_done)
+
+    def put_chunk(self, name, payload):  # the index's chunk bytes written, by kind
+        timings["put"][name.split("_", 1)[0]] += len(payload)
+        return saved[4](self, name, payload)
+
+    def clocked(fn, key, append=False):
+        def wrapper(self, *a):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a)
+            finally:
+                sync()
+                dt = time.perf_counter() - t0
+                if append:
+                    timings[key].append((a[0] if a else None, dt))
+                else:
+                    timings[key] = dt
+        return wrapper
+
+    P._save_operators = clocked(saved[0], "save_s", append=True)
+    P._replay_all = clocked(saved[1], "replay_s")
+    P.on_close = clocked(saved[2], "close_s")
+    O.restore = clocked(saved[3], "restore_s")
+    S.put_chunk = put_chunk
+    P.on_tick_done = clocked(saved[5], "tick_done_s", append=True)
+    launch_log = ds["launch_log"]
+    launch_log.spans.clear()
+    launch_log.texts.clear()
+    A.LAUNCHES = 0
+    A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
+    try:
+        t0 = time.perf_counter()
+        pw.run(
+            monitoring_level="none",
+            persistence_config=pw.persistence.Config(
+                backend=backend,
+                persistence_mode=mode,
+                snapshot_interval_ms=interval_ms,
+            ),
+        )
+        sync()
+        t1 = time.perf_counter()
+    finally:
+        P._save_operators, P._replay_all, P.on_close, O.restore, S.put_chunk, P.on_tick_done = saved
+    from pathway_tpu_torch.observability import device as dev
+
+    pad = dev.status_summary().get("pad", {})
+    got.update(
+        t0=t0, t1=t1, timings=timings,
+        launches=A.LAUNCHES, route_launches=dict(A.ROUTE_LAUNCHES),
+        spans=list(launch_log.spans), texts=list(launch_log.texts),
+        real_rows=sum(v["real_rows"] for k, v in pad.items() if k.startswith("udf:")),
+        index_rows=_index_rows_since(earlier),
+    )
+    pw.G.clear()
+    return got
+
+
+def _json_value(v):
+    return v.value if hasattr(v, "value") else v
+
+
+def _jsonl_rows(path: str) -> list[str]:
+    """A jsonlines sink's rows without their ``time`` field (the tick a row
+    landed in follows the host clock), sorted."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            rec.pop("time", None)
+            rows.append(json.dumps(rec, sort_keys=True))
+    return sorted(rows)
+
+
+def _aux_bytes(store_dir: str) -> dict:
+    out = {"base_bytes": 0, "delta_bytes": 0, "base_chunks": 0, "delta_chunks": 0, "store_bytes": 0}
+    for dirpath, _dirs, files in os.walk(store_dir):
+        for fn in files:
+            size = os.path.getsize(os.path.join(dirpath, fn))
+            out["store_bytes"] += size
+            for kind in ("base", "delta"):
+                if fn.startswith(kind + "_") and f"{os.sep}aux{os.sep}" in dirpath + os.sep:
+                    out[f"{kind}_bytes"] += size
+                    out[f"{kind}_chunks"] += 1
+    return out
+
+
+def _spread(xs: list) -> dict:
+    return {"n": len(xs), "sum": round(sum(xs), 3), "max": round(max(xs), 4) if xs else None}
+
+
+def phase_persistence(info: dict, ds: dict) -> dict:
+    """Persistence and exactly-once delivery on the served live-RAG path:
+    phase document_store's corpus in two halves through ``pw.io.fs``
+    (streaming) → ``DocumentStore`` (``minilm``, bf16, ``TieredKnnFactory``
+    at the default hot bound, which holds every chunk) with a filesystem
+    backend in ``operator_persisting`` mode and two jsonlines sinks with
+    ``delivery="exactly_once"``. Run A ingests the first half and ends at
+    settle; run B restores (operator snapshots, the index from its base and
+    delta chunks), takes the second half, then answers phase document_store's
+    1,024 retrieve rows. Gates: run B's answers (keys, texts, metadata, score
+    bits) equal an uninterrupted run's on the same files; run B embeds
+    exactly the second half's chunks and the queries (embedder rows and
+    attention launches); each exactly-once file holds every row once and
+    equals the uninterrupted run's. The same two runs in ``persisting`` mode
+    (input replay: run B re-embeds the first half) for contrast.
+
+    Every chunk sits in the hot shard, so the cold tier is never searched
+    and an IVF trained at any point cannot change an answer. Below the
+    corpus, the tiered search rescores the union of a query batch's cold
+    candidates for every query of the batch, so a directory-filtered answer
+    would depend on which queries share a tick."""
+    import shutil
+    import tempfile
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.persistence.backends import MemoryBackend
+    from pathway_tpu_torch.stdlib.indexing.retrievers import TieredKnnFactory
+
+    emb = ds["emb"]
+    root = os.path.join(SCRATCH, "persistence")
+    stores = tempfile.mkdtemp(prefix="pathway_persistence_")  # the filesystem backends
+    docs_dir, first, second, pending = _persist_split(ds, os.path.join(root, "corpus"))
+    # phase document_store's queries; a directory filter names the same
+    # directory in either half
+    queries = [(t, k, f, g if g is None else g.replace(ds["corpus"], os.path.join(docs_dir, "h*")))
+               for t, k, f, g in ds["queries"]]
+    env_before = os.environ.get("PATHWAY_PERSISTENT_STORAGE")
+
+    def store_factory():  # rest_serving's store: the default hot bound
+        return TieredKnnFactory(embedder=emb, device=DEVICE)
+
+    def leg(name: str, mode: str, factory, interval_ms: int = PERSIST_SNAPSHOT_MS) -> dict:
+        store_dir = os.path.join(stores, name)
+        backend = pw.persistence.Backend.filesystem(store_dir)
+        out_dir = os.path.join(root, name, "out")  # runs A and B write the same sink files
+        os.makedirs(out_dir, exist_ok=True)
+        t0 = time.perf_counter()
+        a = _persist_run(ds, docs_dir, backend, out_dir, mode, factory(), [], None, interval_ms)
+        n_nodes = max(1, round(a["index_rows"] / max(1, len(first))))
+        for src, dest in pending:
+            _link(src, dest)
+        b = _persist_run(ds, docs_dir, backend, out_dir, mode, factory(), queries,
+                         n_nodes * (len(first) + len(second)), interval_ms)
+        walls[name] = time.perf_counter() - t0
+        for _src, dest in pending:  # the second half leaves for the next leg's run A
+            os.remove(dest)
+        return {"a": a, "b": b, "n_nodes": n_nodes, "aux": _aux_bytes(store_dir), "out_dir": out_dir}
+
+    walls: dict = {}
+    try:
+        op = leg("operator", "operator_persisting", store_factory)
+        # the uninterrupted run: the same graph on both halves at once, its
+        # state in a memory backend (where it persists does not change what
+        # it answers or writes) at the same snapshot cadence: with snapshots
+        # at close only, the exactly-once sinks stage one epoch a tick and
+        # stop the run at PATHWAY_DELIVERY_MAX_STAGED_EPOCHS (512) unpublished
+        for src, dest in pending:
+            _link(src, dest)
+        whole_dir = os.path.join(root, "whole")
+        os.makedirs(whole_dir, exist_ok=True)
+        t0 = time.perf_counter()
+        MemoryBackend.clear("chip_smoke_persistence")
+        whole = _persist_run(ds, docs_dir, pw.persistence.Backend("memory", "chip_smoke_persistence"), whole_dir,
+                             "operator_persisting", store_factory(), queries,
+                             op["n_nodes"] * (len(first) + len(second)))
+        MemoryBackend.clear("chip_smoke_persistence")
+        walls["whole"] = time.perf_counter() - t0
+        for _src, dest in pending:
+            os.remove(dest)
+        rep = leg("replay", "persisting", store_factory)
+    finally:
+        shutil.rmtree(stores, ignore_errors=True)
+        if env_before is None:
+            os.environ.pop("PATHWAY_PERSISTENT_STORAGE", None)
+        else:
+            os.environ["PATHWAY_PERSISTENT_STORAGE"] = env_before
+
+    b = op["b"]
+    # gate 1: run B answers as the uninterrupted run does
+    same = b["answers"] == whole["answers"]
+    differ = [k for k in whole["answers"] if b["answers"].get(k) != whole["answers"][k]]
+    first_diff = (_first_difference(json.loads(b["answers"][differ[0]][2]), json.loads(whole["answers"][differ[0]][2]))
+                  if differ and differ[0] in b["answers"] else None)
+    check(len(whole["answers"]) == DS_QUERIES and same,
+          f"persistence: run B's answers differ from the uninterrupted run's ({len(b['answers'])}/"
+          f"{len(whole['answers'])} answered, {len(differ)} differ, first {differ[:1]}: {first_diff})")
+    self_ok = sum(1 for qq, _g, hits in b["answers"].values() if json.loads(hits) and json.loads(hits)[0]["text"] == qq)
+    # gate 2: run B embedded the second half's chunks and the queries, nothing of the first half
+    push = b["t_push"] or b["t1"]
+    before_q = {t for (s, _e, _n), batch in zip(b["spans"], b["texts"]) if s < push for t in batch}
+    first_only = set(first) - set(second)
+    reembedded = len(before_q & first_only)
+    want_rows = op["n_nodes"] * len(second) + DS_QUERIES
+    check(before_q == set(second) and reembedded == 0,
+          f"persistence: run B embedded {len(before_q)} distinct texts before its queries, expected the second "
+          f"half's {len(set(second))} ({reembedded} of the first half again)")
+    check(b["real_rows"] == want_rows,
+          f"persistence: run B's embedder took {b['real_rows']} rows, expected {want_rows} "
+          f"({op['n_nodes']} x {len(second)} chunks + {DS_QUERIES} queries)")
+    check(b["launches"] == 6 * len(b["spans"]) and b["route_launches"].get("tensor_core") == b["launches"]
+          and b["launches"] > 0,
+          f"persistence: run B's attention launches {b['route_launches']} != 6 x {len(b['spans'])} embedder launches")
+    # gate 3: each exactly-once file holds every row once, equal to the uninterrupted run's
+    files = {}
+    for fn, n_want in (("answers.jsonl", DS_QUERIES), ("chunks.jsonl", len(first) + len(second))):
+        got_rows = _jsonl_rows(os.path.join(op["out_dir"], fn))
+        want = _jsonl_rows(os.path.join(whole_dir, fn))
+        once = len(got_rows) == len(set(got_rows)) == n_want and all(json.loads(r)["diff"] == 1 for r in got_rows)
+        files[fn] = {"rows": len(got_rows), "unique": len(set(got_rows)), "equal_to_uninterrupted": got_rows == want}
+        check(once and got_rows == want,
+              f"persistence: {fn} holds {len(got_rows)} rows ({len(set(got_rows))} unique), expected {n_want} once, "
+              f"equal to the uninterrupted run's: {got_rows == want}")
+
+    def numbers(lg: dict) -> dict:
+        bb = lg["b"]
+        tm = bb["timings"]
+        at_close = [s for t, s in lg["a"]["timings"]["save_s"] if t == -1]
+        return {
+            **lg["aux"],
+            "base_bytes_written": lg["a"]["timings"]["put"]["base"] + bb["timings"]["put"]["base"],
+            "delta_bytes_written": lg["a"]["timings"]["put"]["delta"] + bb["timings"]["put"]["delta"],
+            "snapshot_at_close_s_run_a": at_close[0] if at_close else None,
+            "close_s_run_a": lg["a"]["timings"]["close_s"],
+            "restore_s": tm["restore_s"],
+            "replay_s": tm["replay_s"],
+            "run_b_to_first_answer_s": (bb["t_first"] - bb["t0"]) if bb["t_first"] else None,
+            "run_b_s": bb["t1"] - bb["t0"],
+            "run_a_s": lg["a"]["t1"] - lg["a"]["t0"],
+            "run_b_embedder_rows": bb["real_rows"],
+            "run_b_embedder_launches": len(bb["spans"]),
+            "run_b_attention_launches": bb["launches"],
+            "periodic_snapshots": len(lg["a"]["timings"]["save_s"]) + len(bb["timings"]["save_s"]),
+            "save_s_run_b": [round(x, 3) for _t, x in bb["timings"]["save_s"]],
+            "tick_done_s_run_b": _spread([x for _t, x in bb["timings"]["tick_done_s"]]),
+            "tick_done_s_run_a": _spread([x for _t, x in lg["a"]["timings"]["tick_done_s"]]),
+            "run_b_push_to_last_answer_s": (bb["t_last"] - bb["t_push"]) if bb["t_last"] and bb["t_push"] else None,
+            "run_b_to_push_s": (bb["t_push"] - bb["t0"]) if bb["t_push"] else None,
+        }
+
+    legs = {"operator_persisting": numbers(op), "persisting": numbers(rep)}
+    for mode, nums in legs.items():
+        for key in ("base_bytes", "delta_bytes", "base_bytes_written", "delta_bytes_written",
+                    "snapshot_at_close_s_run_a", "restore_s", "run_b_to_first_answer_s"):
+            emit("persistence_number", mode=mode, name=key, value=nums[key], card=info["nvidia_smi"])
+    out = {
+        "card": info["nvidia_smi"],
+        "files": DS_FILES, "first_half_chunks": len(first), "second_half_chunks": len(second),
+        "index_nodes": op["n_nodes"], "snapshot_interval_ms": PERSIST_SNAPSHOT_MS,
+        "answers_equal_uninterrupted": same, "answers_differ": len(differ), "self_hits": self_ok,
+        "run_b_distinct_texts_before_queries": len(before_q), "first_half_reembedded": reembedded,
+        "run_b_embedder_rows": b["real_rows"], "run_b_embedder_rows_expected": want_rows,
+        "run_b_attention_launches": b["launches"], "run_b_attention_launches_by_route": b["route_launches"],
+        "exactly_once_files": files,
+        "uninterrupted_s": whole["t1"] - whole["t0"],
+        "uninterrupted_to_first_answer_s": (whole["t_first"] - whole["t0"]) if whole["t_first"] else None,
+        "legs": legs,
+        "walls_s": walls,
+    }
+    emit("persistence", **out)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": b["route_launches"], "metrics": out}
+
+
 def _free_port() -> int:
     import socket
 
@@ -3724,6 +4119,7 @@ def main() -> int:
     bert = timed("bert_path", phase_bert_path, info)
     store = timed("document_store", phase_document_store, info)
     try:
+        persist = timed("persistence", phase_persistence, info, store)
         rest = timed("rest_serving", phase_rest_serving, info, store)
         obs = timed("observability", phase_observability, info, store, rest)
         flow = timed("flow", phase_flow, info, store)
@@ -3739,7 +4135,7 @@ def main() -> int:
         "main_path": state["launches"], "f32_path": f32["launches"], "pipeline": pipe["launches"],
         "tiered_pipeline": tier["launches"], "temporal": temporal["launches"], "bert_path": bert["launches"],
         "document_store": store["launches"], "rest_serving": rest["launches"], "observability": obs["launches"],
-        "flow": flow["launches"],
+        "flow": flow["launches"], "persistence": persist["launches"],
     }
     line = {"kernels": [
         _kernel_entry(kern, "bfloat16", "tensor_core", "bf16, tensor cores (mma.sync, cp.async)", launches),

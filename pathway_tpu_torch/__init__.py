@@ -33,8 +33,13 @@ joins, sort/diff, deduplicate, interpolate, gradual broadcast, ``pw.temporal``,
 ``pw.stateful``, ``pw.utils``, ``AsyncTransformer``), the flow plane
 (``pw.flow``: credit gates, interactive/bulk admission, the AIMD microbatch
 controller, under ``PATHWAY_FLOW=on``), ``pw.iterate``, ``stdlib.graphs`` and
-``stdlib.ml``. The other planes raise ``NotImplementedError("later slice:
-<plane>")`` where a call reaches them.
+``stdlib.ml``, persistence (``pw.persistence``: input logs, operator
+snapshots, the index's incremental snapshots) with exactly-once delivery
+(``pw.delivery``, ``pw.io.fs.write(..., delivery="exactly_once")``), and the
+rest of the Table API surface (``pw.sql``, ``pw.load_yaml``,
+``pw.export_table``/``import_table``, the row-transformer API, interactive
+mode, ``pw.universes``, ``stdlib.viz``). The other planes raise
+``NotImplementedError("later slice: <plane>")`` where a call reaches them.
 
 Entry points that touch a model or an index run on the card unless the caller
 passes ``device="cpu"``. Importing the package loads no ``torch``: a UDF, an
@@ -89,11 +94,12 @@ from pathway_tpu_torch.internals.udfs import (
     udf,
 )
 from pathway_tpu_torch.internals.run import MonitoringLevel, run, run_all
+from pathway_tpu_torch.internals.exported import ExportedTable, export_table, import_table
 from pathway_tpu_torch.internals.parse_graph import G
 from pathway_tpu_torch.internals.errors import ERROR as _ERROR  # noqa: F401
 from pathway_tpu_torch.internals.errors import PENDING
 
-from pathway_tpu_torch import debug, io, observability, resilience, stdlib, universes, xpacks
+from pathway_tpu_torch import debug, delivery, io, observability, persistence, resilience, stdlib, universes, xpacks
 from pathway_tpu_torch import flow
 from pathway_tpu_torch.stdlib import temporal, indexing, ml, graphs, statistical, stateful
 from pathway_tpu_torch.stdlib import utils as utils
@@ -101,26 +107,7 @@ from pathway_tpu_torch.stdlib.utils.async_transformer import AsyncTransformer
 from pathway_tpu_torch.stdlib.utils.pandas_transformer import pandas_transformer
 import pathway_tpu_torch.xpacks.llm  # noqa: E402,F401  (pw.xpacks.llm)
 from pathway_tpu_torch.internals.iterate import iterate, iterate_universe
-from pathway_tpu_torch.internals.later_slice import cut_callable as _cut
-from pathway_tpu_torch.internals.later_slice import cut_class as _cut_class
-
-# the reference's surface over planes still to port: each raises
-# NotImplementedError("later slice: <plane>") when called (ROADMAP Queue 1)
-sql = _cut("sql", "sql")
-load_yaml = _cut("yaml_loader", "load_yaml")
-export_table = _cut("exported", "export_table")
-import_table = _cut("exported", "import_table")
-ExportedTable = _cut_class("exported", "ExportedTable")
-enable_interactive_mode = _cut("interactive", "enable_interactive_mode")
-live = _cut("interactive", "live")
-LiveTable = _cut_class("interactive", "LiveTable")
-ClassArg = _cut_class("row_transformer", "ClassArg")
-transformer = _cut("row_transformer", "transformer")
-attribute = _cut("row_transformer", "attribute")
-input_attribute = _cut("row_transformer", "input_attribute")
-input_method = _cut("row_transformer", "input_method")
-method = _cut("row_transformer", "method")
-output_attribute = _cut("row_transformer", "output_attribute")
+from pathway_tpu_torch.internals.yaml_loader import load_yaml
 
 __version__ = "0.1.0"
 
@@ -129,6 +116,28 @@ def global_error_log():
     from pathway_tpu_torch.internals.error_log import global_error_log as _gel
 
     return _gel()
+
+
+def sql(query: str, **tables):
+    from pathway_tpu_torch.internals.sql import sql as _sql
+
+    return _sql(query, **tables)
+
+
+from pathway_tpu_torch.internals.interactive import (  # noqa: E402
+    LiveTable,
+    enable_interactive_mode,
+    live,
+)
+from pathway_tpu_torch.internals.row_transformer import (  # noqa: E402
+    ClassArg,
+    attribute,
+    input_attribute,
+    input_method,
+    method,
+    output_attribute,
+    transformer,
+)
 
 
 def set_slo(route: str | None = None, *, p99_ms: float | None = None,
@@ -200,6 +209,8 @@ __all__ = [
     "G",
     "global_error_log",
     "flow",
+    "delivery",
+    "persistence",
     "observability",
     "resilience",
     "set_monitoring_config",

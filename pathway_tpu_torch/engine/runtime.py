@@ -13,9 +13,11 @@ tracing, health, timeline, the live tracer), marks the door ready once the
 connectors start and draining before they stop, and skips a tick a
 ``drop_poll`` fault names, as the reference does. It installs the flow
 plane (``PATHWAY_FLOW``) before the graph builds, steps it after every tick
-and shuts it down in its ``finally``. The reference's run also replays
-persistence; that plane is not ported yet (ROADMAP Queue 1), so its hook is
-cut.
+and shuts it down in its ``finally``. With persistence attached
+(``pw.run(persistence_config=...)``, ``persistence/snapshots.py``) it restores
+operator snapshots and replays the input logs before the connectors start,
+commits after every tick and snapshots at close, as the reference does; an
+exactly-once sink without persistence is refused.
 """
 
 from __future__ import annotations
@@ -127,6 +129,7 @@ class Runtime:
         #: their autocommit deadline; static runs have exactly one tick and
         #: must flush at its frontier
         self.streaming = False
+        self.persistence: Any = None  # set by pathway_tpu_torch.persistence.attach
 
     def register_connector(self, driver: ConnectorDriver) -> None:
         self.connectors.append(driver)
@@ -168,6 +171,23 @@ class Runtime:
         scheduler.tracer = tracer
         self.scheduler = scheduler
 
+        if self.persistence is None and any(
+            getattr(node, "delivery_writer", None) is not None
+            for _lnode, node in ctx.build_order
+        ):
+            raise RuntimeError(
+                "delivery='exactly_once' sinks need persistence: the ledger "
+                "stages output in the persistence backend and publishes at "
+                "operator-snapshot recovery points — pass "
+                "persistence_config=pw.persistence.Config(..., "
+                "persistence_mode='operator_persisting') to pw.run"
+            )
+        if self.persistence is not None:
+            # replay snapshots into input nodes before live reads (reference:
+            # rewind to sentinel, then seek, src/connectors/mod.rs:100-105)
+            self.persistence.on_graph_built(ctx)
+            scheduler.on_tick_done.append(self.persistence.on_tick_done)
+
         from pathway_tpu_torch import flow as _flow
 
         plane = _flow.current()
@@ -189,6 +209,8 @@ class Runtime:
             _faults.on_tick_start(0, 0)
             scheduler.run_tick(0)
             scheduler.close()
+            if self.persistence is not None:
+                self.persistence.on_close()
             return scheduler
 
         tick = 0
@@ -224,4 +246,6 @@ class Runtime:
         # can't exit cleanly on silently truncated input
         check_connector_failures(self.connectors)
         scheduler.close()
+        if self.persistence is not None:
+            self.persistence.on_close()
         return scheduler

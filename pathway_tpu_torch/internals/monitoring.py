@@ -11,8 +11,10 @@ already count rows in/out and processing time; this module aggregates them into
   port from ``PATHWAY_MONITORING_HTTP_PORT``, default 20000).
 
 Carried from ``pathway_tpu/internals/monitoring.py`` with imports rewritten.
-The sections of planes the port has not carried yet (delivery, cluster
-aggregation, elastic, fabric, the embedding memo) are absent from
+The exactly-once delivery plane's section is on both (``delivery``, the
+``pathway_delivery_*`` series). The sections of planes the port has not
+carried yet (cluster aggregation, elastic, fabric, the embedding memo) are
+absent from
 ``/status`` and ``/metrics``, as in a reference run with those planes off;
 ``/scale`` answers 501 with the ``later slice`` message.
 """
@@ -119,6 +121,14 @@ def run_stats(runtime) -> dict[str, Any]:
         # event log the OTLP exports consume (``internals/telemetry.py``)
         "resilience": resilience_summary(),
     }
+    # exactly-once delivery plane: per-sink staged/published frontiers,
+    # uncommitted-epoch depth and publish failures (present only when a sink
+    # opted into delivery="exactly_once")
+    from pathway_tpu_torch import delivery as _delivery
+
+    delivery_summary = _delivery.run_summary(runtime)
+    if delivery_summary is not None:
+        stats["delivery"] = delivery_summary
     # flow-control plane (PATHWAY_FLOW=on): per-input credit/occupancy/shed
     # counters and the AIMD controller's recent decisions — shedding is only
     # acceptable because every drop is visible here
@@ -363,6 +373,10 @@ def prometheus_text(runtime) -> str:
             lines.append(
                 f'pathway_bottleneck_score{{{_fmt_label(cause=top["cause"])}}} {top["score"]}'
             )
+    # ---- exactly-once delivery plane (staged/published/uncommitted) ---------
+    from pathway_tpu_torch import delivery as _delivery_mod
+
+    lines.extend(_delivery_mod.prometheus_lines(runtime))
     # ---- per-operator row-level error counters ------------------------------
     from pathway_tpu_torch.internals import error_log as _error_log
 

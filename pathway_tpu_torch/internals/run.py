@@ -6,14 +6,15 @@ global graph, tree-shake, instantiate the engine dataflow, and drive it to compl
 (streaming sources run until exhausted or stopped).
 
 Carried from ``pathway_tpu/internals/run.py`` with the monitoring server, the
-live dashboard, the run-end summary and the OTLP trace export. The planes that
-are not ported yet (multi-worker runtimes, persistence, interactive mode) are
-cut: asking for one raises ``NotImplementedError("later slice: <plane>")``.
+live dashboard, the run-end summary, the OTLP trace export, persistence
+(``persistence_config``, and the recording roots ``PATHWAY_REPLAY_STORAGE`` /
+``PATHWAY_PERSISTENT_STORAGE`` + ``PATHWAY_RECORD``) and interactive mode. The
+multi-worker runtimes are not ported yet: asking for one raises
+``NotImplementedError("later slice: <plane>")``.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Any
 
 from pathway_tpu_torch.engine.runtime import Runtime
@@ -69,8 +70,11 @@ def run(
     terminate_on_error: bool | None = None,
     n_workers: int | None = None,
     **kwargs: Any,
-) -> None:
+) -> "InteractiveRunHandle | None":
     """Execute every output (sink/subscribe/debug) registered so far.
+
+    Returns ``None``, except in interactive mode where the run continues on a
+    daemon thread and an ``InteractiveRunHandle`` is returned.
 
     The run installs the device-profiling, request-trace and health planes
     (``PATHWAY_PROFILE``, ``PATHWAY_REQUEST_TRACE``, ``PATHWAY_HEALTH``, each
@@ -79,9 +83,10 @@ def run(
     ``/healthz``, ``/readyz`` and ``/alerts`` from
     :class:`~pathway_tpu_torch.internals.monitoring.MonitoringHttpServer`
     while the run lives (port ``PATHWAY_MONITORING_HTTP_PORT``, default
-    20000; its bound address is on ``/status`` under ``monitoring``). The
-    reference's persistence and interactive mode are planes not ported yet:
-    asking for persistence raises."""
+    20000; its bound address is on ``/status`` under ``monitoring``).
+    ``persistence_config=pw.persistence.Config(...)`` logs inputs and, in
+    ``operator_persisting`` mode, snapshots operator state, so a restart
+    resumes where the last run committed (``persistence/snapshots.py``)."""
     global _last_runtime
     if not G.outputs:
         import warnings
@@ -89,10 +94,6 @@ def run(
         warnings.warn("pw.run(): no outputs registered; nothing to do")
         return
     cfg = get_pathway_config()
-    if persistence_config is not None or cfg.replay_storage or (
-        cfg.persistent_storage and os.environ.get("PATHWAY_RECORD")
-    ):
-        raise later_slice("persistence")
     # per-run telemetry: the resilience event log (and its exports/status
     # views) describes THIS run, not every run this process ever did
     from pathway_tpu_torch.internals import telemetry as _telemetry
@@ -104,6 +105,25 @@ def run(
         autocommit_duration_ms=autocommit_duration_ms,
     )
     _last_runtime = runtime
+    if persistence_config is None:
+        # CLI contract: `spawn --record` / `replay` point PATHWAY_PERSISTENT_STORAGE /
+        # PATHWAY_REPLAY_STORAGE at a recording root (reference: cli.py:253 + config.py)
+        import os as _os
+
+        auto_root = cfg.replay_storage or (
+            cfg.persistent_storage if _os.environ.get("PATHWAY_RECORD") else None
+        )
+        if auto_root is not None:
+            from pathway_tpu_torch import persistence as _p
+
+            persistence_config = _p.Config(
+                backend=_p.Backend.filesystem(auto_root),
+                continue_after_replay=cfg.continue_after_replay,
+            )
+    if persistence_config is not None:
+        from pathway_tpu_torch.persistence import attach_persistence
+
+        attach_persistence(runtime, persistence_config)
     from pathway_tpu_torch.internals import errors as _errors
 
     http_server = None
@@ -121,6 +141,45 @@ def run(
         terminate_on_error = cfg.terminate_on_error
     prev_policy = _errors.get_error_policy()
     _errors.set_error_policy(terminate_on_error)
+    from pathway_tpu_torch.internals import interactive as _interactive
+
+    if _interactive.is_interactive_mode_enabled():
+        # notebook mode: the runtime loops on a daemon thread; LiveTables
+        # update as ticks land and the handle stops the run
+        import threading as _threading
+        import time as _time
+
+        outputs = list(G.outputs)
+        t_start_ns = _time.time_ns()
+
+        def _bg():
+            ok = False
+            try:
+                runtime.run(outputs)
+                ok = True
+            finally:
+                if not ok:
+                    from pathway_tpu_torch.internals.exported import fail_close_exports
+
+                    fail_close_exports(runtime)
+                # the error policy is NOT restored here (restoring a
+                # process-global from a daemon thread would race a later
+                # pw.run on the main thread) — the handle restores it from
+                # stop()/join(), i.e. on the thread that owns the policy
+                if http_server is not None:
+                    http_server.stop()
+                _telemetry.maybe_export_run_trace(runtime, t_start_ns)
+
+        th = _threading.Thread(target=_bg, daemon=True)
+        th.start()
+
+        def _restore():
+            # restore only if the policy is still the one THIS run set —
+            # a later pw.run (or another handle) may own the global by now
+            if _errors.get_error_policy() == terminate_on_error:
+                _errors.set_error_policy(prev_policy)
+
+        return _interactive.InteractiveRunHandle(runtime, th, on_finish=_restore)
 
     import time as _time
 
@@ -129,9 +188,15 @@ def run(
     t_start_ns = _time.time_ns()
     level = monitoring_level if isinstance(monitoring_level, str) else "auto"
     dashboard = LiveDashboard(runtime, level).start()
+    ok = False
     try:
         runtime.run(list(G.outputs))
+        ok = True
     finally:
+        if not ok:
+            from pathway_tpu_torch.internals.exported import fail_close_exports
+
+            fail_close_exports(runtime)
         _errors.set_error_policy(prev_policy)
         if http_server is not None:
             http_server.stop()

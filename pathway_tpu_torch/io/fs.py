@@ -7,9 +7,9 @@ deletions are detected and retracted, mirroring the reference's metadata tracker
 
 Carried from ``pathway_tpu/io/fs.py``. A reader's and a writer's
 ``service_class`` scope the flow plane (``pathway_tpu_torch/flow``). The
-planes it reaches that are not ported, the delivery ledger
-(``delivery="exactly_once"``) and the elastic plane's removal of stale sink
-parts, raise ``later_slice``.
+plane it reaches that is not ported, the elastic plane's removal of stale
+sink parts, raises ``later_slice``. ``delivery="exactly_once"`` writes
+through the delivery ledger (``pathway_tpu_torch/delivery``).
 """
 
 from __future__ import annotations
@@ -181,14 +181,29 @@ def write(
 
     ``service_class="bulk"`` excludes this writer's end-to-end latency from
     the flow plane's SLO (an fsync-bound audit mirror must not drag the AIMD
-    microbatch bucket down). ``delivery="exactly_once"`` (the delivery
-    ledger) belongs to a plane that is not ported yet and raises
-    ``later_slice``."""
+    microbatch bucket down).
+
+    ``delivery="exactly_once"`` re-expresses the writer over the delivery
+    ledger: formatted lines stage durably per epoch and append to the file
+    only at operator-snapshot recovery points, guarded by the
+    ``<filename>.delivery`` offset sidecar (truncate-to-offset on re-publish)
+    — the file's bytes are identical across SIGKILL/restart. Not combinable
+    with ``sharded=True`` (the ledger funnels through the SOLO sink path)."""
     from pathway_tpu_torch.flow import validate_service_class
 
     service_class = validate_service_class(service_class)
-    if _delivery_mode(delivery) == "exactly_once":
-        raise later_slice("delivery (delivery='exactly_once')")
+    from pathway_tpu_torch import delivery as _delivery
+
+    if _delivery.resolve_mode(delivery) == "exactly_once":
+        if sharded:
+            raise ValueError(
+                "fs.write: delivery='exactly_once' routes every row through "
+                "the SOLO delivery ledger and cannot be combined with "
+                "sharded=True"
+            )
+        return _write_ledger(
+            table, filename, format=format, service_class=service_class
+        )
     if sharded:
         return _write_sharded(
             table, filename, format=format, service_class=service_class, **kwargs
@@ -288,16 +303,42 @@ def write(
     LogicalNode(factory, [table._node], name=f"fs_write:{filename}")._register_as_output()
 
 
-def _delivery_mode(delivery: str | None) -> str:
-    """The writer's delivery mode: an explicit ``delivery=`` wins, else
-    ``PATHWAY_DELIVERY`` (default ``off``)."""
-    if delivery is None:
-        from pathway_tpu_torch.internals.config import get_pathway_config
+def _write_ledger(
+    table: Table,
+    filename: str,
+    *,
+    format: str,  # noqa: A002
+    service_class: str = "interactive",
+) -> None:
+    """The fs sink re-expressed over the delivery ledger API: rows buffer as
+    formatted lines, stage per epoch, and the FsDeliveryTransport appends them
+    behind the offset sidecar at recovery points."""
+    from pathway_tpu_torch import delivery as _delivery
 
-        delivery = get_pathway_config().delivery
-    if delivery not in ("off", "exactly_once"):
-        raise ValueError(f"delivery={delivery!r}: expected 'off' or 'exactly_once'")
-    return delivery
+    parent = os.path.dirname(os.path.abspath(filename))
+    if not os.path.isdir(parent):
+        raise FileNotFoundError(f"fs.write: output directory does not exist: {parent}")
+    cols = table.column_names()
+    line_fn, header = _row_formatter(format, cols)
+    transport = _delivery.FsDeliveryTransport(filename, header=header)
+    writer = _delivery.LedgerWriter(f"fs.{filename}", transport)
+
+    def on_batch(batch: DeltaBatch, columns: list[str]) -> None:
+        for _key, diff, row in batch.rows():
+            writer.append(0, line_fn(row, batch.time, diff))
+
+    def factory() -> Node:
+        node = ops.CallbackOutputNode(
+            cols,
+            on_batch,
+            sink_state=writer.sink_state,
+            restore_sink=writer.restore_sink,
+            service_class=service_class,
+        )
+        node.delivery_writer = writer
+        return node
+
+    LogicalNode(factory, [table._node], name=f"fs_write:{filename}")._register_as_output()
 
 
 def _row_formatter(format: str, cols: list[str]):  # noqa: A002

@@ -32,10 +32,11 @@ to the plane never existing, and the door endpoints degrade to
 unconditional 200s.
 
 Carried from ``pathway_tpu/observability/health.py`` with imports rewritten.
-The port has no fabric, elastic or delivery plane yet (ROADMAP Queue 1), so
-this plane sees them absent, as a single-process reference run with them off
-does: no fabric link canaries, and no replica-lag, autoscaler-thrash or
-sink-commit-stall detector (each reads only its plane's state).
+The port has no fabric or elastic plane yet (ROADMAP Queue 1), so this plane
+sees them absent, as a single-process reference run with them off does: no
+fabric link canaries, and no replica-lag or autoscaler-thrash detector (each
+reads only its plane's state). The sink-commit-stall detector reads the
+delivery plane, as in the reference.
 """
 
 from __future__ import annotations
@@ -621,6 +622,35 @@ class HealthPlane:
                             ),
                         }
                     )
+        except Exception:
+            pass
+        # sink commit stall: a staged-but-unpublished delivery epoch whose age
+        # exceeds the bound — the sink's transport keeps failing and exactly-
+        # once output is piling up in the ledger
+        try:
+            from pathway_tpu_torch import delivery as _delivery
+
+            plane = _delivery.plane_of(self.runtime)
+            if plane is not None:
+                now_unix = _time.time()
+                for w in plane.writers:
+                    oldest = w.oldest_unpublished_unix()
+                    if oldest is None:
+                        continue
+                    age = now_unix - oldest
+                    if age > cfg.alert_sink_stall_s:
+                        breaches.append(
+                            {
+                                "alert": "sink_commit_stall",
+                                "fingerprint": w.sink_id,
+                                "summary": (
+                                    f"sink {w.sink_id} has unpublished output "
+                                    f"staged {age:.0f}s ago ({w.depth()} "
+                                    f"epochs deep; last error: "
+                                    f"{w.last_publish_error})"
+                                ),
+                            }
+                        )
         except Exception:
             pass
         return breaches

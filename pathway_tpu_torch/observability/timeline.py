@@ -25,10 +25,10 @@ rewritten. The device split is read from the port's device plane
 (``device.heartbeat_summary``: counters the planes already keep), so the
 recorder thread never waits on a CUDA event and never initialises CUDA.
 The flow plane's pressure is read from ``flow.heartbeat_summary`` when the
-plane is on. Left out, with the planes they read: the delivery ledger's
-depth (``delivery.heartbeat_summary``, ROADMAP Queue 1 item 3), and the
+plane is on, and the delivery ledger's depth from
+``delivery.heartbeat_summary``. Left out, with the plane it reads: the
 cluster's peer merge and heartbeat piggyback (``_merge_peers``,
-``heartbeat_summary``, item 4):
+``heartbeat_summary``, ROADMAP Queue 1 item 4):
 the port runs one process, so the pod series is this process's, as in a
 single-process reference run.
 """
@@ -120,6 +120,9 @@ def _raw_sample(runtime) -> dict[str, Any]:
     fplane = _flow.current()
     if fplane is not None:
         raw["flow"] = fplane.heartbeat_summary()
+    from pathway_tpu_torch import delivery as _delivery
+
+    raw["delivery"] = _delivery.heartbeat_summary(runtime)
     from pathway_tpu_torch.observability import health as _health
 
     raw["health"] = _health.heartbeat_summary()

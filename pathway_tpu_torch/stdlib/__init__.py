@@ -1,6 +1,5 @@
 """Standard library (reference ``python/pathway/stdlib/``): graphs, indexing,
-ml, temporal, ordered, stateful, statistical and utils. ``viz`` is a later
-slice.
+ml, temporal, ordered, stateful, statistical, utils and viz.
 """
 
 from pathway_tpu_torch.stdlib import (
@@ -12,6 +11,7 @@ from pathway_tpu_torch.stdlib import (
     statistical,
     temporal,
     utils,
+    viz,
 )
 
 __all__ = [
@@ -23,4 +23,5 @@ __all__ = [
     "statistical",
     "temporal",
     "utils",
+    "viz",
 ]

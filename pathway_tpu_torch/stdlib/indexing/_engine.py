@@ -18,9 +18,13 @@ Carried from ``pathway_tpu/stdlib/indexing/_engine.py``. Backends:
 ``BM25Backend`` (host-side inverted index — memory-bound, not FLOP-bound, so
 it stays on the host like the reference's tantivy) and ``LshVectorBackend``
 (host LSH buckets, exact scores). A search records the request plane's
-``index/search`` stage while a request is in flight. The hooks this node has
-into planes not ported yet are cut: persistence's incremental index
-snapshots and the fabric's replica feed.
+``index/search`` stage while a request is in flight. ``ExternalIndexNode``
+snapshots its backend O(delta) under operator persistence (a compacted base
+plus the mutation log since, ``PATHWAY_INDEX_SNAPSHOT`` and
+``PATHWAY_INDEX_COMPACT_FRAC``), as the reference does; restoring replays the
+deltas through ``backend.add``/``remove``, so a brute-force index on the card
+gets the live index's slot assignment back. The fabric's replica feed, a
+plane not ported yet, is cut.
 """
 
 from __future__ import annotations
@@ -201,8 +205,19 @@ class ExternalIndexNode(Node):
 
     name = "external_index"
 
-    # _filter_cache (compiled callables) is rebuilt lazily, not persisted
+    # _filter_cache (compiled callables) is rebuilt lazily, not persisted.
+    # The backend payload is NOT in snapshot_attrs: query bookkeeping
+    # (_live_queries/_emitted/_tok) snapshots as small positional state while
+    # the backend persists through the incremental chunk-store protocol below
+    # (delta log + periodic compacted base) — re-pickling a 1M×384 index on
+    # the card every snapshot tick is a device-to-host copy of ~1.5 GB per
+    # interval.
     snapshot_attrs = ("_live_queries", "_emitted", "_tok")
+
+    #: opt into the persistence layer's generation-independent SnapshotStore
+    #: (persistence/snapshots.py): snapshot_state_store / restore_state_store
+    #: are called with a per-(worker, node) chunk store
+    uses_snapshot_store = True
 
     def exchange_key(self, port):
         from pathway_tpu_torch.engine.graph import BROADCAST, SOLO
@@ -225,6 +240,147 @@ class ExternalIndexNode(Node):
         import os as _os
 
         self._tok = int.from_bytes(_os.urandom(8), "little")
+        # -- incremental snapshot state (persistence plane) -------------------
+        # flipped on by Persistence.on_graph_built under operator persistence;
+        # off by default so non-persisted runs never grow an op log
+        self.snapshot_log_enabled = False
+        self._delta_log: list[tuple] = []  # ("a", key, item, meta) | ("r", key)
+        self._snap_base: str | None = None  # current compacted-base chunk name
+        self._snap_deltas: list[str] = []  # delta chunk names since the base
+        self._snap_base_bytes = 0
+        self._snap_delta_bytes = 0
+        self._snap_seq = 0
+        # backend mutations applied / covered by persisted chunks: lets a
+        # log-less (snapshot-at-close) save skip the base rewrite when nothing
+        # changed since the last one
+        self._snap_mutations = 0
+        self._snap_covered = 0
+
+    # -- operator snapshots (O(delta) discipline) ----------------------------
+    def snapshot_state(self):
+        """Store-less fallback (direct callers / non-store persistence paths):
+        small positional state plus the whole backend."""
+        state = {a: getattr(self, a) for a in self.snapshot_attrs}
+        state["backend_whole"] = self.backend
+        return state
+
+    def restore_state(self, state):
+        state = dict(state)
+        backend = state.pop("backend_whole", None)
+        if backend is not None:
+            self.backend = backend
+        for a, v in state.items():
+            setattr(self, a, v)
+
+    def snapshot_state_store(self, store):
+        """Incremental snapshot: persist only the mutation delta log since the
+        last snapshot tick; write a fresh compacted base only when the
+        accumulated deltas exceed ``PATHWAY_INDEX_COMPACT_FRAC`` of the base
+        bytes (or none exists yet). The generation entry carries just the
+        chunk manifest + query bookkeeping — restore loads the base and
+        replays the deltas in order."""
+        import pickle as _pickle
+
+        from pathway_tpu_torch.internals.config import get_pathway_config
+
+        state = {a: getattr(self, a) for a in self.snapshot_attrs}
+        cfg = get_pathway_config()
+        if cfg.index_snapshot == "whole":
+            state["backend_whole"] = self.backend
+            self._delta_log = []
+            # drop the chunk-chain bookkeeping: the store's referenced set is
+            # empty this tick, so post-commit GC deletes the aux chunks — a
+            # later delta-mode snapshot must start a fresh base, not commit a
+            # manifest naming deleted chunks
+            self._snap_base = None
+            self._snap_deltas = []
+            self._snap_base_bytes = 0
+            self._snap_delta_bytes = 0
+            return state
+        payload = _pickle.dumps(self._delta_log) if self._delta_log else None
+        new_bytes = len(payload) if payload is not None else 0
+        need_base = (
+            self._snap_base is None
+            # no live delta log (snapshot-at-close runs keep it disabled):
+            # a base rewrite is the only durable form of unsaved mutations
+            or (
+                not self.snapshot_log_enabled
+                and self._snap_mutations > self._snap_covered
+            )
+            or (
+                self._snap_delta_bytes + new_bytes
+                > cfg.index_compact_frac * self._snap_base_bytes
+            )
+        )
+        if need_base:
+            base_payload = _pickle.dumps(self.backend)
+            name = f"base_{self._snap_seq:08d}"
+            self._snap_seq += 1
+            store.put_chunk(name, base_payload)
+            self._snap_base = name
+            self._snap_base_bytes = len(base_payload)
+            self._snap_deltas = []
+            self._snap_delta_bytes = 0
+            self._snap_covered = self._snap_mutations
+        elif payload is not None:
+            name = f"delta_{self._snap_seq:08d}"
+            self._snap_seq += 1
+            store.put_chunk(name, payload)
+            self._snap_deltas.append(name)
+            self._snap_delta_bytes += new_bytes
+            self._snap_covered = self._snap_mutations
+        self._delta_log = []
+        store.reference(self._snap_base)
+        for name in self._snap_deltas:
+            store.reference(name)
+        state["backend_chunks"] = {
+            "base": self._snap_base,
+            "deltas": list(self._snap_deltas),
+            "base_bytes": self._snap_base_bytes,
+            "delta_bytes": self._snap_delta_bytes,
+            "seq": self._snap_seq,
+        }
+        return state
+
+    def restore_state_store(self, state, store):
+        import pickle as _pickle
+
+        state = dict(state)
+        chunks = state.pop("backend_chunks", None)
+        backend = state.pop("backend_whole", None)
+        for a, v in state.items():
+            setattr(self, a, v)
+        if backend is not None:  # whole-pickle snapshot (escape-hatch mode)
+            self.backend = backend
+            return
+        if chunks is None:
+            return  # nothing persisted for the backend (fresh store)
+        raw = store.get_chunk(chunks["base"])
+        if raw is None:
+            raise RuntimeError(
+                f"index snapshot base chunk {chunks['base']!r} missing from "
+                "persistent storage (was the aux prefix deleted externally?)"
+            )
+        self.backend = _pickle.loads(raw)
+        for name in chunks["deltas"]:
+            ops_raw = store.get_chunk(name)
+            if ops_raw is None:
+                raise RuntimeError(
+                    f"index snapshot delta chunk {name!r} missing from "
+                    "persistent storage"
+                )
+            for op in _pickle.loads(ops_raw):
+                if op[0] == "a":
+                    self.backend.add(op[1], op[2], op[3])
+                else:
+                    self.backend.remove(op[1])
+        # resume the chunk chain where the snapshot left it
+        self._snap_base = chunks["base"]
+        self._snap_deltas = list(chunks["deltas"])
+        self._snap_base_bytes = chunks["base_bytes"]
+        self._snap_delta_bytes = chunks["delta_bytes"]
+        self._snap_seq = chunks["seq"]
+        self._delta_log = []
 
     def _filter(self, expr):
         if expr not in self._filter_cache:
@@ -265,19 +421,31 @@ class ExternalIndexNode(Node):
     def process(self, inputs, time):
         docs, queries = inputs
         docs_changed = False
+        # under operator persistence the exact backend mutation sequence is
+        # recorded; the snapshot tick flushes it as one delta chunk (restore =
+        # base pickle + in-order replay, so the rebuilt backend is the state
+        # the live one had — including slot assignment)
+        log = self._delta_log if self.snapshot_log_enabled else None
         if docs is not None:
             # removals first: consolidation may reorder a same-key (-1, +1)
             # upsert pair arbitrarily, and remove() is keyed by key alone — an
             # add-then-remove ordering would silently drop the updated doc
             for i in range(len(docs)):
                 if docs.diffs[i] < 0:
-                    self.backend.remove(int(docs.keys[i]))
+                    key = int(docs.keys[i])
+                    if log is not None:
+                        log.append(("r", key))
+                    self.backend.remove(key)
             for i in range(len(docs)):
                 if docs.diffs[i] > 0:
-                    self.backend.add(
-                        int(docs.keys[i]), docs.data["__item"][i], docs.data["__meta"][i]
-                    )
+                    key = int(docs.keys[i])
+                    item = docs.data["__item"][i]
+                    meta = docs.data["__meta"][i]
+                    if log is not None:
+                        log.append(("a", key, item, meta))
+                    self.backend.add(key, item, meta)
             docs_changed = len(docs) > 0
+            self._snap_mutations += len(docs)
 
         out_keys: list[int] = []
         out_diffs: list[int] = []

@@ -26,7 +26,7 @@ import time
 
 PHASES = (
     "kernels", "main_path", "f32_path", "pipeline", "engine_kernels", "audit_fault", "temporal", "document_store",
-    "rest_serving", "observability", "flow", "graphs", "knn_index",
+    "persistence", "rest_serving", "observability", "flow", "graphs", "knn_index",
 )
 
 #: phase -> the fields of its chip_smoke line kept in the summary (dotted
@@ -55,6 +55,10 @@ HEADLINES = {
     "graphs": ("pagerank.gpu_s", "pagerank.cpu_s", "pagerank.gpu_edges_per_s", "pagerank.device_idle_share",
                "bellman_ford.gpu_s", "louvain.gpu_s"),
     "knn_index": ("gpu_s", "cpu_s", "recall_at_10_vs_brute_force"),
+    "persistence": tuple(
+        f"legs.{mode}.{k}" for mode in ("operator_persisting", "operator_persisting_at_close", "persisting")
+        for k in ("base_bytes", "delta_bytes", "restore_s", "run_b_to_first_answer_s")
+    ) + ("answers_equal_uninterrupted", "first_half_reembedded"),
     "observability": tuple(
         f"legs.{leg}.{k}" for leg in ("planes_off", "audit_timeline_off", "profile_full")
         for k in ("requests_per_s", "client_p50_ms", "client_p99_ms")
@@ -93,9 +97,11 @@ if "temporal" in want and hasattr(cs, "phase_temporal"):
     cs.phase_temporal(info)
 if "graphs" in want and hasattr(cs, "phase_graphs"):
     cs.phase_graphs(info)
-if "document_store" in want or "rest_serving" in want or "flow" in want:
+if "document_store" in want or "rest_serving" in want or "flow" in want or "persistence" in want:
     store = cs.phase_document_store(info)
     try:
+        if "persistence" in want and hasattr(cs, "phase_persistence"):
+            cs.phase_persistence(info, store)
         if "rest_serving" in want and hasattr(cs, "phase_rest_serving"):
             rest = cs.phase_rest_serving(info, store)
             if "observability" in want and hasattr(cs, "phase_observability"):

@@ -104,6 +104,10 @@ def _docs(n, words=30, seed=0):
     return [" ".join(rng.choice(vocab, size=words)) for _ in range(n)]
 
 
+def _delta_bytes(now: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in now.items()}
+
+
 # ------------------------------------------------ the pipeline, both packages
 
 
@@ -132,6 +136,11 @@ def test_rag_pipeline_device_accounting_matches_reference(monkeypatch):
     out = {}
     for name, pw, dev in (("ref", pathway_tpu, ref_dev), ("port", pathway_tpu_torch, port_dev)):
         pw.G.clear()
+        # registered bytes are process-lifetime (every live owner counts): an
+        # encoder an earlier file on this worker left alive must not count,
+        # so the run's own bytes are the delta over a collected baseline
+        gc.collect()
+        mem0 = dev.memory_components()
         if pw is pathway_tpu:
             emb = JEmbedder(JConfig(**TINY, dtype=jnp.float32), seed=0)
             rr = JReranker(JConfig(**TINY, dtype=jnp.float32), seed=1)
@@ -154,7 +163,7 @@ def test_rag_pipeline_device_accounting_matches_reference(monkeypatch):
             "counts": _delta(_counts(dev), before),
             "pad": summary["pad"],
             "flops": summary["flops"]["by_label"],
-            "memory": dev.memory_components(),
+            "memory": _delta_bytes(dev.memory_components(), mem0),
         }
         pw.G.clear()
     ref, port = out["ref"], out["port"]

@@ -39,6 +39,31 @@ def test_port_imports_without_jax_or_reference_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_persistence_and_table_surface_import_without_jax_or_reference_package():
+    """``pw.persistence``, ``pw.delivery``, ``pw.sql`` and the rest of the
+    Table API surface load neither JAX nor the reference package, and the
+    package imports without PyYAML: only ``pw.load_yaml`` needs it, and
+    there it raises an ImportError naming it."""
+    proc = _run(
+        "import sys\n"
+        "sys.modules['yaml'] = None\n"
+        "import pathway_tpu_torch\n"
+        "pathway_tpu_torch.persistence; pathway_tpu_torch.sql\n"
+        "import pathway_tpu_torch.persistence.snapshots, pathway_tpu_torch.delivery\n"
+        "import pathway_tpu_torch.stdlib.viz, pathway_tpu_torch.internals.row_transformer\n"
+        "try:\n"
+        "    pathway_tpu_torch.load_yaml('a: 1')\n"
+        "    sys.exit('load_yaml ran without PyYAML')\n"
+        "except ImportError as e:\n"
+        "    assert 'PyYAML' in str(e), e\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'pathway_tpu' or m.startswith('pathway_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_flow_graphs_and_ml_import_without_jax_or_reference_package():
     """The flow plane, ``stdlib.graphs`` and ``stdlib.ml`` (its lazy ``hmm``
     and ``datasets`` too) load neither JAX nor the reference package, and

@@ -258,14 +258,23 @@ def test_writer_cut_sites_raise_later_slice(tmp_path, monkeypatch):
         side.G.clear()
         written.append((tmp_path / f"{side.__name__}.csv").read_bytes())
     assert written[0] == written[1] and written[0]
+    # the delivery ledger is ported: an exactly-once writer (by argument or
+    # by PATHWAY_DELIVERY) builds, and a run without operator persistence is
+    # refused as in the reference
+    for side in (pathway_tpu_torch, pathway_tpu):
+        side.G.clear()
+        side.io.fs.write(_md(side), str(tmp_path / "eo.csv"), delivery="exactly_once")
+        with pytest.raises(RuntimeError, match="need persistence"):
+            side.run()
+        side.G.clear()
+        monkeypatch.setenv("PATHWAY_DELIVERY", "exactly_once")
+        side.io.csv.write(_md(side), str(tmp_path / "eo.csv"))
+        with pytest.raises(RuntimeError, match="need persistence"):
+            side.run()
+        monkeypatch.delenv("PATHWAY_DELIVERY")
+        side.G.clear()
     pw = pathway_tpu_torch
     t = _md(pw)
-    with pytest.raises(NotImplementedError, match="later slice: delivery"):
-        pw.io.fs.write(t, str(tmp_path / "o.csv"), delivery="exactly_once")
-    monkeypatch.setenv("PATHWAY_DELIVERY", "exactly_once")
-    with pytest.raises(NotImplementedError, match="later slice: delivery"):
-        pw.io.csv.write(t, str(tmp_path / "o.csv"))
-    monkeypatch.delenv("PATHWAY_DELIVERY")
     with pytest.raises(ValueError, match="expected 'off' or 'exactly_once'"):
         pw.io.fs.write(t, str(tmp_path / "o.csv"), delivery="twice")
     with pytest.raises(FileNotFoundError, match="output directory does not exist"):

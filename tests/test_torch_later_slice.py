@@ -1,8 +1,10 @@
-"""The port's later-slice guard: the temporal and stateful Table methods and
-``pw.iterate`` / ``pw.iterate_universe`` are ported, the planes still to port
-raise ``NotImplementedError("later slice:
-...")`` where a call reaches them, and importing the temporal stdlib loads
-no JAX."""
+"""The port's later-slice guard: the temporal and stateful Table methods,
+``pw.iterate`` / ``pw.iterate_universe`` and the rest of the Table API surface
+(``pw.sql``, ``pw.load_yaml``, exported tables, the row transformer,
+universes, ``pw.live``) are ported, the planes still to port (the S3 backend,
+the Kafka and Postgres delivery transports, an elastic reshard) raise
+``NotImplementedError("later slice: ...")`` where a call reaches them, and
+importing the temporal stdlib loads no JAX."""
 
 from __future__ import annotations
 
@@ -67,12 +69,108 @@ def test_ported_table_method_no_longer_raises_later_slice(method):
     pw.G.clear()
 
 
+def _elastic_persisted_run():
+    """A persisted run under ``PATHWAY_ELASTIC``: the reference re-buckets
+    the input logs by key range at restore; the port refuses."""
+    import os
+
+    pw.G.clear()
+    pw.io.subscribe(_table(), lambda **kw: None)
+    prev = os.environ.get("PATHWAY_ELASTIC")
+    os.environ["PATHWAY_ELASTIC"] = "manual"
+    try:
+        pw.run(persistence_config=pw.persistence.Config(backend=pw.persistence.Backend.mock()))
+    finally:
+        if prev is None:
+            os.environ.pop("PATHWAY_ELASTIC", None)
+        else:
+            os.environ["PATHWAY_ELASTIC"] = prev
+
+
+def _rows(table, col="v"):
+    return sorted(pw.debug.table_to_pandas(table)[col].tolist())
+
+
+def _transformer():
+    class Out(pw.Schema):
+        ret: int
+
+    @pw.transformer
+    class plus_one:
+        class table(pw.ClassArg, output=Out):
+            v = pw.input_attribute()
+
+            @pw.output_attribute
+            def ret(self) -> int:
+                return self.v + 1
+
+    return _rows(plus_one(_table()).table, "ret")
+
+
+def _class_arg():
+    row = type("Row", (pw.ClassArg,), {"v": pw.input_attribute()})
+    return issubclass(row, pw.ClassArg)
+
+
+def _export_import():
+    exported = pw.export_table(_table())
+    pw.run(monitoring_level="none")
+    pw.G.clear()
+    return _rows(pw.import_table(exported))
+
+
+def _export_table():
+    exported = pw.export_table(_table())
+    pw.run(monitoring_level="none")
+    return (exported.closed, exported.column_names)
+
+
+def _universes():
+    t = _table()
+    other = pw.debug.table_from_markdown(
+        """
+        t | v | g
+        1 | 99 | z
+        """
+    )
+    pw.universes.promise_is_subset_of(other, t)
+    return _rows(t.restrict(other))
+
+
+def _live():
+    live = pw.live(_table())
+    pw.run(monitoring_level="none")
+    return sorted(live.to_pandas()["v"].tolist())
+
+
 #: a package-level entry a later slice ported -> a call of it that runs
 PORTED_SURFACE = {
-    "iterate": lambda: pw.iterate(lambda t: t.with_columns(v=t.v // 2), iteration_limit=2, t=_table()),
-    "iterate_universe": lambda: pw.iterate(
+    "iterate": lambda: _rows(pw.iterate(lambda t: t.with_columns(v=t.v // 2), iteration_limit=2, t=_table())),
+    "iterate_universe": lambda: _rows(pw.iterate(
         lambda t: t.filter(t.v > 15), t=pw.iterate_universe(_table())
-    ),
+    )),
+    "sql": lambda: _rows(pw.sql("SELECT v FROM t WHERE v > 15", t=_table())),
+    "load_yaml": lambda: pw.load_yaml("a: 1"),
+    "ClassArg": _class_arg,
+    "transformer": _transformer,
+    "import_table": _export_import,
+    "export_table": _export_table,
+    "universes": _universes,
+    "live": _live,
+}
+
+#: what each ported entry's call gives
+PORTED_SURFACE_RESULT = {
+    "iterate": [2, 5, 7],
+    "iterate_universe": [20, 30],
+    "sql": [20, 30],
+    "load_yaml": {"a": 1},
+    "ClassArg": True,
+    "transformer": [11, 21, 31],
+    "import_table": [10, 20, 30],
+    "export_table": (True, ["t", "v", "g"]),
+    "universes": [10],
+    "live": [10, 20, 30],
 }
 
 
@@ -80,24 +178,28 @@ PORTED_SURFACE = {
 def test_ported_surface_entry_runs(entry):
     pw.G.clear()
     try:
-        out = PORTED_SURFACE[entry]()
+        got = PORTED_SURFACE[entry]()
     except NotImplementedError as e:  # pragma: no cover - the failure reported
         pytest.fail(f"pw.{entry} raised {e!r}")
-    values = sorted(pw.debug.table_to_pandas(out)["v"].tolist())
-    assert values == {"iterate": [2, 5, 7], "iterate_universe": [20, 30]}[entry]
+    assert got == PORTED_SURFACE_RESULT[entry]
     pw.G.clear()
 
 
 #: still-cut entry -> a call that reaches it, and the plane it names
 CUT = {
-    "sql": (lambda: pw.sql("SELECT v FROM t", t=_table()), "sql"),
-    "load_yaml": (lambda: pw.load_yaml("a: 1"), "yaml_loader"),
-    "ClassArg": (lambda: type("Row", (pw.ClassArg,), {}), "row_transformer"),
-    "transformer": (lambda: pw.transformer(object), "row_transformer"),
-    "import_table": (lambda: pw.import_table(None), "exported"),
-    "export_table": (lambda: pw.export_table(_table()), "exported"),
-    "universes": (lambda: pw.universes.promise_is_subset_of(_table(), _table()), "universes"),
-    "live": (lambda: pw.live(_table()), "interactive"),
+    "persistence.Backend.s3": (
+        lambda: pw.persistence.last_committed_epoch(pw.persistence.Backend.s3("bucket/root")),
+        "io.s3",
+    ),
+    "delivery.KafkaDeliveryTransport": (
+        lambda: pw.delivery.KafkaDeliveryTransport({"bootstrap.servers": "localhost:9092"}, "t"),
+        "io.kafka",
+    ),
+    "delivery.PostgresDeliveryTransport": (
+        lambda: pw.delivery.PostgresDeliveryTransport({}, {}),
+        "io.postgres",
+    ),
+    "elastic reshard": (_elastic_persisted_run, "elastic"),
 }
 
 
