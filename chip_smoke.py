@@ -35,7 +35,7 @@ printing one JSON line:
 7. pipeline: the same loop written against ``import pathway_tpu_torch as pw``
    and run by the engine (``pw.debug`` streams → ``SentenceTransformerEmbedder``
    through the cross-tick microbatcher → ``BruteForceKnnFactory`` index →
-   ``query_as_of_now`` → flatten → ``CrossEncoderReranker``): 65,536 docs and
+   ``query_as_of_now`` → flatten → ``CrossEncoderReranker``): 32,768 docs and
    then 1,024 queries in 64-row ticks, with its checks (self-retrieval, a
    direct search over the embeddings the pipeline emitted, rerank scores
    against the cross-encoder, microbatch off == auto at 4,096 docs);
@@ -43,7 +43,7 @@ printing one JSON line:
    tier, cold candidates rescored on the card) on ``knn_bench``'s clustered
    384-d corpus: first the index-rows check of ``tools/batch_invariance.py``
    (the same scores in a brute-force index of any capacity and in the cold
-   rescore); then at 262,144 rows, 4x the default hot bound of 65,536, with
+   rescore); then at 131,072 rows, 2x the default hot bound of 65,536, with
    an exact cold tier, its top-10 must equal a card-resident brute-force
    index's in keys and score bits, before and after ``maintain()``; then
    its serving rates at 16, 256 and 1,024 queries a batch beside the
@@ -88,13 +88,13 @@ printing one JSON line:
    attention call on the f32 route at hd 32) and indexed, with its checks
    (64 embeddings against the CPU path, 8,192/8,192 self-hits, the bert
    entry of ``tools/batch_invariance.py``);
-12. document_store: 8,192 UTF-8 files in 64 directories read by
+12. document_store: 4,096 UTF-8 files in 64 directories read by
    ``pw.io.fs`` into ``DocumentStore`` (``minilm`` embedder,
    ``TokenCountSplitter(50, 200)``, the default ``TieredKnnFactory``); 1,024
    ``retrieve_query`` rows in 64-row ticks (256 filtered to a directory),
    ``statistics_query``, ``inputs_query`` and 256 prompts through
    ``BaseRAGQuestionAnswerer``, with its checks (self-hits, filtered hits
-   inside their glob, 8,192 files counted, each prompt holding its k texts
+   inside their glob, 4,096 files counted, each prompt holding its k texts
    in order); a 1,024-file streaming read whose answers equal a static
    read's; 64 files each of PDF, DOCX, HTML and Markdown through their
    parsers, each marker phrase retrieved first;
@@ -146,8 +146,30 @@ printing one JSON line:
    timeline planes off and the others at their defaults, and one with
    ``PATHWAY_PROFILE=full`` (the encoder's device-wait split above 0 and
    below the leg's wall), requests/s and p50/p99 beside phase 13's;
-15. the kernels line, with each kernel's launches during phases 4, 6, 7,
-   8's pipeline, 10, 11, 12, 12b's run B, 13, 14 and the flow phase.
+15. multiworker (after the flow, graphs and knn_index phases): the RAG path
+   on several workers, four legs. Threads: phase 7's loop at 16,384 docs and
+   1,024 queries through ``pw.run(n_workers=4)`` (the thread-sharded
+   runtime) against one worker, each under ``torch.profiler``: answers
+   equal in keys, order and score bits; ingest docs/s, query rows/s,
+   attention launches and the device's idle share of each. Exchange:
+   phase 9's filter → join → groupby at 1,000,000 rows in 20 ticks on 4
+   workers with the on-device exchange plane forced on
+   (``PATHWAY_DEVICE_EXCHANGE=on``, plain and fused, 4 logical shards on the
+   card) against the host plane: the same multiset of updates; rows
+   exchanged, exchanges, rows netted, seconds. Sharded search:
+   ``ShardedBruteForceKnnIndex`` at 1,000,000 x 384 f32 over 4 shards on
+   the card, with a block of 1,000 identical rows, against
+   ``BruteForceKnnIndex``: top-10 equal in keys and score bits at Q = 16
+   and 1,024, the tied query's hits the block's first keys in the canonical
+   order; Q = 16 p50 ms of both. Cluster: ``tools/rag_cluster.py`` at 4,096
+   docs and 256 queries on 2 processes x 2 threads sharing the card, with
+   a filesystem persistence backend, against one worker in this process:
+   the same answers; then the same cluster under ``resilience.Supervisor``
+   with ``PATHWAY_FAULT_PLAN=kill:proc=1,tick=66``: the restarted cluster's
+   answers equal the uninterrupted run's;
+16. the kernels line, with each kernel's launches during phases 4, 6, 7,
+   8's pipeline, 10, 11, 12, 12b's run B, 13, 14, the flow phase and 15
+   (the cluster processes' counts read from their output).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without it. TF32 is off for every matmul (``allow_tf32 = False``), so the f32
@@ -173,7 +195,7 @@ INDEX_ROWS = 1_000_000
 FILL_CHUNK = 8192
 N_QUERIES = 30
 #: the pipeline phase: docs and queries in ticks of streaming_bench's size
-PIPE_DOCS = 65_536
+PIPE_DOCS = 32_768  # cut from 65,536 to pay for phase multiworker (PERF.md section 4)
 PIPE_QUERIES = 1024
 PIPE_TICK = 64
 PIPE_K = 10
@@ -181,10 +203,10 @@ PIPE_SAME_DOCS = 4096  # microbatch off == auto at this size
 #: the engine_kernels phase: engine_bench's pipeline
 ENGINE_ROWS = 1_000_000
 ENGINE_TICKS = 20
-#: the tiered phase: knn_bench's corpus at 4x the default hot bound
+#: the tiered phase: knn_bench's corpus at 2x the default hot bound
 #: (``PATHWAY_INDEX_HOT_ROWS``, internals/config.py), its query batches, and
 #: the pipeline at 4x a 16,384-row hot bound
-TIER_CORPUS = 262_144
+TIER_CORPUS = 131_072  # cut from 262,144 (4x the hot bound) to pay for phase multiworker
 TIER_HOT = 65_536
 TIER_QUERIES = 64
 TIER_Q_BATCHES = (16, 256, 1024)
@@ -204,7 +226,7 @@ TEMPORAL_WORKERS = 6  # processes running the phase's 18 runs, longest first
 BERT_DOCS = 8192
 BERT_BATCH = 1024
 #: the document_store phase: a file corpus read by pw.io.fs into DocumentStore
-DS_FILES = 8192
+DS_FILES = 4096  # cut from 8,192 to pay for phase multiworker (PERF.md section 4)
 DS_SUBDIRS = 64
 DS_WORDS = (600, 1000)
 DS_QUERIES = 1024
@@ -1048,7 +1070,7 @@ def phase_tiered(info: dict) -> dict:
     out["index_rows_check"] = rows_check
     out["index_rows_check_s"] = time.perf_counter() - t0
 
-    # 1. identity gate: 4x the hot bound, exact cold tier; the devices the
+    # 1. identity gate: 2x the hot bound, exact cold tier; the devices the
     # hot search and the cold rescore ran on are recorded
     ran_on: dict[str, set] = {"hot_search": set(), "cold_rescore": set()}
 
@@ -3373,7 +3395,7 @@ def phase_observability(info: dict, ds: dict, rest: dict) -> dict:
     return {"launches": route_launches, "metrics": out}
 
 
-FLOW_BACKFILL_FILES = 2048
+FLOW_BACKFILL_FILES = 1024  # cut from 2,048 with DS_FILES
 FLOW_SHED_ROWS = 4096
 FLOW_SHED_BOUND = 256
 FLOW_SAMPLE_S = 0.05  # /status sampling period during the backfill
@@ -4046,6 +4068,443 @@ def phase_knn_index(info: dict, vecs: np.ndarray) -> dict:
     return out
 
 
+MW_DOCS = 16_384
+MW_QUERIES = 1024
+MW_WORKERS = 4
+MW_SEARCH_ROWS = 1_000_000
+MW_SEARCH_TIED = 1000  # rows 1000..1999 are one vector: ties at the k boundary
+MW_SEARCH_SHARDS = 4
+MW_SEARCH_REPS = 20
+MW_CLUSTER_DOCS = 4096
+MW_CLUSTER_QUERIES = 256
+MW_CLUSTER_THREADS = 2
+MW_KILL_TICK = 66  # the 3rd of the 4 query ticks (64 doc ticks come first)
+MW_CLUSTER_TIMEOUT_S = 300
+
+
+def _bits_rows(rows: dict) -> dict:
+    """Captured rows with every float as its IEEE bits, so equality is
+    equality of bits."""
+    def conv(v):
+        if isinstance(v, float):
+            return ("f64", np.float64(v).view(np.uint64).item())
+        if isinstance(v, tuple):
+            return tuple(conv(x) for x in v)
+        return v
+    return {int(k): conv(v) for k, v in rows.items()}
+
+
+def _mw_rag_run(emb, rr, docs: list[str], queries: list[str], n_workers: int) -> dict:
+    """One capture of the RAG loop on ``n_workers`` workers under the
+    profiler: rows, seconds, ingest and query split, device ms, launches."""
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.debug import _capture
+    from pathway_tpu_torch.ops import attention_kernel as A
+    from pathway_tpu_torch.stdlib.indexing import BruteForceKnnFactory
+    from pathway_tpu_torch.tools import rag_pipeline
+
+    elog, rlog = _LaunchLog(emb), _LaunchLog(rr)
+    pw.G.clear()
+    table = rag_pipeline.build(
+        pw, embedder=emb, index_factory=BruteForceKnnFactory(embedder=emb, device=DEVICE),
+        reranker=rr, docs=docs, queries=queries, tick_rows=PIPE_TICK, k=PIPE_K,
+    )
+    A.LAUNCHES = 0
+    A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
+    device_ms = None
+    if DEVICE == "cuda":
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as _profile
+
+        with _profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rows = _capture(table, n_workers=n_workers).rows
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        device_ms = sum(ev.device_time_total / 1e3 for ev in prof.key_averages()
+                        if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0)
+    else:
+        t0 = time.perf_counter()
+        rows = _capture(table, n_workers=n_workers).rows
+        t1 = time.perf_counter()
+    launches, route_launches = A.LAUNCHES, dict(A.ROUTE_LAUNCHES)
+    pw.G.clear()
+    e_spans = sorted(elog.spans, key=lambda sp: sp[1])
+    r_spans = list(rlog.spans)
+    seen, t_ingest = 0, t1
+    for _a, b, n in e_spans:
+        seen += n
+        if seen >= len(docs):
+            t_ingest = b
+            break
+    expected = 6 * len(e_spans) + 4 * len(r_spans)
+    check(launches == expected, f"multiworker threads ({n_workers} workers): attention launches {launches} "
+          f"!= expected {expected}")
+    return {
+        "rows": rows, "route_launches": route_launches,
+        "metrics": {
+            "workers": n_workers, "run_s": t1 - t0, "ingest_s": t_ingest - t0, "query_s": t1 - t_ingest,
+            "ingest_docs_per_s": len(docs) / (t_ingest - t0),
+            "query_rows_per_s": len(queries) / max(t1 - t_ingest, 1e-9),
+            "embed_launches": len(e_spans), "embed_buckets": _buckets(e_spans),
+            "rerank_launches": len(r_spans), "attention_launches": launches,
+            "attention_launches_expected": expected, "device_ms": device_ms,
+            "device_idle_share": None if device_ms is None else 1.0 - device_ms / ((t1 - t0) * 1e3),
+            "captured_rows": len(rows),
+        },
+    }
+
+
+def _update_multiset(deltas) -> list:
+    """An update stream as the sorted list of its (time, key, diff, row)
+    updates: equal streams up to the order in which workers delivered
+    them."""
+    return sorted(deltas)
+
+
+def _mw_exchange_run(n_rows: int, n_ticks: int, n_workers: int, mode: str, fused: str) -> dict:
+    """engine_kernels' filter → join → groupby on the thread-sharded runtime
+    with ``PATHWAY_DEVICE_EXCHANGE=mode`` (``_FUSED=fused``): deltas,
+    seconds and the plane's counters."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import operators as ops
+    from pathway_tpu_torch.internals import errors as _errors
+    from pathway_tpu_torch.internals.logical import LogicalNode
+    from pathway_tpu_torch.parallel.sharded import ShardedRuntime
+    from pathway_tpu_torch.tools.engine_pipeline import build
+
+    os.environ["PATHWAY_DEVICE_EXCHANGE"] = mode
+    os.environ["PATHWAY_DEVICE_EXCHANGE_FUSED"] = fused
+    table = build(n_rows, n_ticks)
+    holder = {}
+
+    def factory(cols=table.column_names()):
+        holder["n"] = ops.CaptureNode(cols)
+        return holder["n"]
+
+    lnode = LogicalNode(factory, [table._node], name="capture")
+    rt = ShardedRuntime(n_workers=n_workers, autocommit_duration_ms=5)
+    prev = _errors.get_error_policy()
+    _errors.set_error_policy(False)
+    try:
+        t0 = time.perf_counter()
+        rt.run([lnode])
+        sync()
+        secs = time.perf_counter() - t0
+    finally:
+        _errors.set_error_policy(prev)
+        pw.G.clear()
+    plane = rt.device_plane
+    return {
+        "deltas": holder["n"].deltas, "seconds": secs,
+        "rows_exchanged": plane.rows_exchanged if plane is not None else 0,
+        "collectives": plane.collectives if plane is not None else 0,
+        "rows_netted": plane.rows_netted if plane is not None else 0,
+        "shard_devices": None if plane is None or plane.mesh is None
+        else sorted({str(d) for d in plane.mesh.devices.flat}),
+    }
+
+
+def _cluster_port(processes: int) -> int:
+    """A base port whose cluster ports (coordinator, each process's block
+    link, the heartbeat monitor) are all free now."""
+    import socket
+
+    for _ in range(64):
+        probe = socket.socket()
+        probe.bind(("127.0.0.1", 0))
+        base = probe.getsockname()[1]
+        probe.close()
+        socks = []
+        try:
+            for p in range(base, base + processes + 2):
+                s = socket.socket()
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                s.bind(("127.0.0.1", p))
+                socks.append(s)
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError("no free cluster ports")
+
+
+def _rag_cluster_argv(out: str, docs: int, queries: int, persist: str | None = None) -> list[str]:
+    argv = [sys.executable, "-m", "pathway_tpu_torch.tools.rag_cluster", "--out", out, "--docs", str(docs),
+            "--queries", str(queries), "--tick", str(PIPE_TICK), "--k", str(PIPE_K), "--device", DEVICE]
+    if persist:
+        argv += ["--persist", persist]
+    return argv
+
+
+def _cluster_env(extra: dict | None = None) -> dict:
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]),
+               PATHWAY_PROCESSES="2", PATHWAY_THREADS=str(MW_CLUSTER_THREADS), PATHWAY_BARRIER_TIMEOUT="120",
+               PATHWAY_MICROBATCH_FLUSH_MS="3600000")
+    env.update(extra or {})
+    return env
+
+
+def _launch_cluster(argv: list[str], env: dict) -> tuple[list[int], list[str], float]:
+    """Both processes of a 2-process cluster: (exit codes, outputs, seconds).
+    Every process is waited for with a timeout and killed after it."""
+    env = dict(env, PATHWAY_FIRST_PORT=str(_cluster_port(2)))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv, env=dict(env, PATHWAY_PROCESS_ID=str(pid)), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for pid in range(2)]
+    outs, codes = [], []
+    deadline = time.monotonic() + MW_CLUSTER_TIMEOUT_S
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            out, _ = p.communicate()
+        outs.append(out or "")
+        codes.append(p.returncode)
+    return codes, outs, time.perf_counter() - t0
+
+
+def _net_csv(path: str) -> dict:
+    """Net multiplicity of each row of a csv sink (every column but time and
+    diff)."""
+    import csv
+
+    state: dict = {}
+    with open(path) as fh:
+        for rec in csv.DictReader(fh):
+            key = tuple(v for k, v in sorted(rec.items()) if k not in ("time", "diff"))
+            state[key] = state.get(key, 0) + int(rec["diff"])
+    return {k: v for k, v in state.items() if v != 0}
+
+
+def _cluster_launches(outs: list[str]) -> int:
+    total = 0
+    for out in outs:
+        for line in out.splitlines():
+            if line.startswith("rag_cluster:") and "attention launches" in line:
+                total += int(line.split("attention launches")[1].split()[0])
+    return total
+
+
+def phase_multiworker(info: dict) -> dict:
+    """The live-RAG path on several workers, four legs; see the module
+    docstring. Threads: ``pw.run(n_workers=MW_WORKERS)`` against one worker,
+    answers equal in keys, order and score bits. Exchange: the exchange plane
+    forced on (plain and fused) with MW_WORKERS shards on the card against
+    the host plane, captured outputs equal. Sharded search: a 4-shard index
+    against the single index, top-10 equal in keys and score bits. Cluster:
+    a 2-process cluster (MW_CLUSTER_THREADS threads each) against one
+    worker, then a ``kill`` fault under ``resilience.Supervisor`` with a
+    filesystem persistence backend against the uninterrupted run."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pathway_tpu_torch.internals.keys import tie_order
+    from pathway_tpu_torch.ops import attention_kernel as A
+    from pathway_tpu_torch.ops.encoder import EncoderConfig
+    from pathway_tpu_torch.ops.knn import BruteForceKnnIndex, ShardedBruteForceKnnIndex
+    from pathway_tpu_torch.parallel.mesh import device_mesh
+    from pathway_tpu_torch.resilience import Supervisor
+    from pathway_tpu_torch.tools import rag_cluster
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker
+
+    out: dict = {"card": info["nvidia_smi"]}
+    walls: dict = {}
+    t_leg = time.perf_counter()
+    keys = ("PATHWAY_MICROBATCH", "PATHWAY_MICROBATCH_FLUSH_MS", "PATHWAY_DEVICE_EXCHANGE",
+            "PATHWAY_DEVICE_EXCHANGE_FUSED", "PATHWAY_AUDIT", "PATHWAY_ENGINE_JAX")
+    saved = {k: os.environ.get(k) for k in keys}
+    launches = dict.fromkeys(A.ROUTE_LAUNCHES, 0)
+    try:
+        # --- 1. threads ----------------------------------------------------------
+        os.environ["PATHWAY_MICROBATCH"] = "auto"
+        os.environ["PATHWAY_MICROBATCH_FLUSH_MS"] = "3600000"
+        emb = SentenceTransformerEmbedder("minilm", seed=0, device=DEVICE)
+        rr_cfg = EncoderConfig(vocab_size=32768, d_model=384, n_heads=6, n_layers=4, d_ff=1536, max_len=256)
+        rr = CrossEncoderReranker(rr_cfg, seed=1, device=DEVICE)
+        docs = synth_docs(MW_DOCS)
+        queries = docs[:MW_QUERIES]
+        emb._encoder.encode_texts(docs[:512])
+        rr._model.score_pairs([(q, d) for q, d in zip(queries[:512], docs[1:513])])
+        sync()
+        one = _mw_rag_run(emb, rr, docs, queries, 1)
+        many = _mw_rag_run(emb, rr, docs, queries, MW_WORKERS)
+        for run in (one, many):
+            for route, n in run["route_launches"].items():
+                launches[route] += n
+        same = _bits_rows(one["rows"]) == _bits_rows(many["rows"])
+        check(len(one["rows"]) == MW_QUERIES * PIPE_K,
+              f"multiworker threads: {len(one['rows'])} rows at one worker, expected {MW_QUERIES * PIPE_K}")
+        if not same:
+            diff = [k for k in one["rows"] if _bits_rows({k: one["rows"][k]}) != _bits_rows({k: many["rows"].get(k)})]
+            check(False, f"multiworker threads: {MW_WORKERS} workers' answers differ from one worker's in "
+                  f"{len(diff)} of {len(one['rows'])} rows (keys, order or score bits)")
+        check(many["route_launches"]["tensor_core"] > 0,
+              f"multiworker threads: {MW_WORKERS} workers launched no tensor-core attention kernel")
+        out["threads"] = {"docs": MW_DOCS, "queries": MW_QUERIES, "tick_rows": PIPE_TICK, "k": PIPE_K,
+                          "one_worker": one["metrics"], f"{MW_WORKERS}_workers": many["metrics"],
+                          "answers_equal": same}
+        print(f"multiworker threads: 1 worker {one['metrics']['run_s']:.1f} s, {MW_WORKERS} workers "
+              f"{many['metrics']['run_s']:.1f} s, equal {same}", file=sys.stderr, flush=True)
+        del one, many
+        walls["threads"], t_leg = time.perf_counter() - t_leg, time.perf_counter()
+
+        # --- 2. exchange -----------------------------------------------------------
+        os.environ["PATHWAY_AUDIT"] = "off"
+        os.environ.pop("PATHWAY_ENGINE_JAX", None)
+        host = _mw_exchange_run(ENGINE_ROWS, ENGINE_TICKS, MW_WORKERS, "off", "off")
+        host_updates = _update_multiset(host["deltas"])
+        legs = {"host_plane": host}
+        for name, fused in (("device_plane", "off"), ("device_plane_fused", "on")):
+            legs[name] = _mw_exchange_run(ENGINE_ROWS, ENGINE_TICKS, MW_WORKERS, "on", fused)
+            got = legs[name]
+            # workers hand blocks to the capture in the order their sweeps
+            # finish, so the captured output is the multiset of updates
+            got["identical"] = _update_multiset(got["deltas"]) == host_updates
+            check(got["identical"], f"multiworker exchange ({name}): the captured output differs from the host plane's")
+            check(got["rows_exchanged"] > 0 and got["collectives"] > 0,
+                  f"multiworker exchange ({name}): the plane moved no rows")
+            if DEVICE == "cuda":
+                check(got["shard_devices"] == ["cuda:0"],
+                      f"multiworker exchange ({name}): shards on {got['shard_devices']}, not the card")
+        check(legs["device_plane_fused"]["rows_netted"] >= 0, "multiworker exchange: rows netted below 0")
+        out["exchange"] = {
+            "rows": ENGINE_ROWS, "ticks": ENGINE_TICKS, "shards": MW_WORKERS,
+            "out_updates": len(host["deltas"]),
+            **{name: {k: v for k, v in leg.items() if k != "deltas"} for name, leg in legs.items()},
+            "identical": all(leg.get("identical", True) for leg in legs.values()),
+        }
+        print(f"multiworker exchange: host {host['seconds']:.1f} s, plane "
+              f"{legs['device_plane']['seconds']:.1f} s, fused {legs['device_plane_fused']['seconds']:.1f} s",
+              file=sys.stderr, flush=True)
+        del legs, host
+        walls["exchange"], t_leg = time.perf_counter() - t_leg, time.perf_counter()
+
+        # --- 3. sharded search ---------------------------------------------------------
+        corpus = make_corpus(MW_SEARCH_ROWS, 384, seed=5)
+        corpus[MW_SEARCH_TIED : 2 * MW_SEARCH_TIED] = corpus[MW_SEARCH_TIED]
+        rng = np.random.default_rng(6)
+        qs = corpus[rng.integers(0, MW_SEARCH_ROWS, 1024)] + 0.05 * rng.normal(size=(1024, 384)).astype(np.float32)
+        qs[0] = corpus[MW_SEARCH_TIED]  # a query hitting the tied block head-on
+        key_list = list(range(MW_SEARCH_ROWS))
+        rows_dev = torch.from_numpy(corpus).to(DEVICE)
+        single = BruteForceKnnIndex(384, capacity=MW_SEARCH_ROWS, device=DEVICE)
+        single.add_batch_device(key_list, rows_dev)
+        mesh = device_mesh(n_shards=MW_SEARCH_SHARDS)
+        sharded = ShardedBruteForceKnnIndex(384, mesh, capacity=MW_SEARCH_ROWS)
+        sharded.add_batch_device(key_list, rows_dev)
+        del rows_dev
+        search = {"rows": MW_SEARCH_ROWS, "dim": 384, "shards": MW_SEARCH_SHARDS, "tied_rows": MW_SEARCH_TIED,
+                  "capacity": sharded.capacity, "shard_devices": sorted({str(d) for d in mesh.devices.flat})}
+        for q in (16, 1024):
+            a, b = single.search(qs[:q], PIPE_K), sharded.search(qs[:q], PIPE_K)
+            bits = lambda hits: [[(k, np.float32(s).view(np.uint32).item()) for k, s in h] for h in hits]  # noqa: E731
+            eq = bits(a) == bits(b)
+            check(eq, f"multiworker sharded search: top-{PIPE_K} at Q={q} differs from the single index")
+            search[f"q{q}_equal"] = eq
+        tied = [k for k, _s in sharded.search(qs[:1], PIPE_K)[0]]
+        search["tied_query_hits"] = tied
+        block = sorted(range(MW_SEARCH_TIED, 2 * MW_SEARCH_TIED), key=tie_order)[:PIPE_K]
+        check(tied == block, f"multiworker sharded search: the tied query's hits {tied} are not the block's "
+              f"first {PIPE_K} keys in the canonical tie order {block}")
+        for name, ix in (("single", single), ("sharded", sharded)):
+            times = []
+            for _ in range(MW_SEARCH_REPS):
+                t0 = time.perf_counter()
+                s_, i_ = ix.search_device(qs[:16], PIPE_K)
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            search[f"{name}_q16_p50_ms"] = statistics.median(times)
+        out["sharded_search"] = search
+        del single, sharded, corpus
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        walls["sharded_search"], t_leg = time.perf_counter() - t_leg, time.perf_counter()
+
+        # --- 4. cluster ------------------------------------------------------------------
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+        try:
+            solo = os.path.join(tmp, "solo.csv")
+            A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
+            rag_cluster.main(["--out", solo, "--docs", str(MW_CLUSTER_DOCS), "--queries", str(MW_CLUSTER_QUERIES),
+                              "--tick", str(PIPE_TICK), "--k", str(PIPE_K), "--device", DEVICE])
+            for route, n in A.ROUTE_LAUNCHES.items():
+                launches[route] += n
+            want = _net_csv(solo)
+            check(len(want) == MW_CLUSTER_QUERIES * PIPE_K,
+                  f"multiworker cluster: one worker wrote {len(want)} answers, expected "
+                  f"{MW_CLUSTER_QUERIES * PIPE_K}")
+            dist = os.path.join(tmp, "dist.csv")
+            codes, outs, secs = _launch_cluster(
+                _rag_cluster_argv(dist, MW_CLUSTER_DOCS, MW_CLUSTER_QUERIES, os.path.join(tmp, "p_dist")),
+                _cluster_env())
+            check(codes == [0, 0], f"multiworker cluster: exit codes {codes}: " + " | ".join(o[-800:] for o in outs))
+            got = _net_csv(dist) if os.path.exists(dist) else {}
+            check(got == want, f"multiworker cluster: the 2-process answers differ from one worker's "
+                  f"({len(set(got) ^ set(want))} rows)")
+            cluster_launches = _cluster_launches(outs)
+            launches["tensor_core"] += cluster_launches
+            kill_out = os.path.join(tmp, "killed.csv")
+            env = _cluster_env({"PATHWAY_FAULT_PLAN": f"kill:proc=1,tick={MW_KILL_TICK}"})
+            t0 = time.perf_counter()
+            sup = Supervisor(
+                _rag_cluster_argv(kill_out, MW_CLUSTER_DOCS, MW_CLUSTER_QUERIES, os.path.join(tmp, "p_kill")),
+                processes=2, threads=MW_CLUSTER_THREADS, first_port=_cluster_port(2), max_restarts=2,
+                backoff_s=0.2, env=env, log_dir=os.path.join(tmp, "logs"),
+            )
+            result = sup.run()
+            kill_s = time.perf_counter() - t0
+            check(result.restarts == 1 and result.attempts[0]["exit_codes"][1] == -9,
+                  f"multiworker cluster kill: attempts {[a['exit_codes'] for a in result.attempts]}")
+            killed = _net_csv(kill_out) if os.path.exists(kill_out) else {}
+            check(killed == got, f"multiworker cluster kill: the restarted cluster's answers differ from the "
+                  f"uninterrupted run's ({len(set(killed) ^ set(got))} rows)")
+            logs = []
+            for path in result.log_paths:
+                with open(path) as fh:
+                    logs.append(fh.read())
+            restart_launches = _cluster_launches(logs)
+            launches["tensor_core"] += restart_launches
+            replayed = [ln.split("replayed")[1].strip() for lg in logs for ln in lg.splitlines()
+                        if ln.startswith("rag_cluster:") and "replayed" in ln]
+            out["cluster"] = {
+                "docs": MW_CLUSTER_DOCS, "queries": MW_CLUSTER_QUERIES, "processes": 2,
+                "threads": MW_CLUSTER_THREADS, "answers": len(got), "equal_to_one_worker": got == want,
+                "cluster_s": secs, "attention_launches": cluster_launches,
+                "kill": {"fault": f"kill:proc=1,tick={MW_KILL_TICK}", "restarts": result.restarts,
+                         "exit_codes": [a["exit_codes"] for a in result.attempts], "seconds": kill_s,
+                         "equal_to_uninterrupted": killed == got, "attention_launches": restart_launches,
+                         "replayed_events_by_process": replayed},
+            }
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        walls["cluster"] = time.perf_counter() - t_leg
+        out["leg_seconds"] = walls
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        import pathway_tpu_torch as pw
+
+        pw.G.clear()
+    emit("multiworker", **out)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "metrics": out}
+
+
 def _kernel_entry(records: list[dict], dtype: str, route: str, what: str, launches: dict) -> dict:
     """One route of the attention kernel on the kernels line: its time at the
     embed shape, and its largest error over every checked case of its dtype
@@ -4129,13 +4588,14 @@ def main() -> int:
         shutil.rmtree(store["root"], ignore_errors=True)
     timed("graphs", phase_graphs, info)
     timed("knn_index", phase_knn_index, info, bench_vecs)
+    multi = timed("multiworker", phase_multiworker, info)
     emit("phase_walls", seconds=walls, total=round(sum(walls.values()), 3))
 
     launches = {
         "main_path": state["launches"], "f32_path": f32["launches"], "pipeline": pipe["launches"],
         "tiered_pipeline": tier["launches"], "temporal": temporal["launches"], "bert_path": bert["launches"],
         "document_store": store["launches"], "rest_serving": rest["launches"], "observability": obs["launches"],
-        "flow": flow["launches"], "persistence": persist["launches"],
+        "flow": flow["launches"], "persistence": persist["launches"], "multiworker": multi["launches"],
     }
     line = {"kernels": [
         _kernel_entry(kern, "bfloat16", "tensor_core", "bf16, tensor cores (mma.sync, cp.async)", launches),

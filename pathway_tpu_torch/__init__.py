@@ -38,7 +38,11 @@ snapshots, the index's incremental snapshots) with exactly-once delivery
 (``pw.delivery``, ``pw.io.fs.write(..., delivery="exactly_once")``), and the
 rest of the Table API surface (``pw.sql``, ``pw.load_yaml``,
 ``pw.export_table``/``import_table``, the row-transformer API, interactive
-mode, ``pw.universes``, ``stdlib.viz``). The other planes raise
+mode, ``pw.universes``, ``stdlib.viz``), and multi-worker execution
+(``pw.run(n_workers=N)`` on threads, a ``PATHWAY_PROCESSES`` cluster over
+TCP, the on-device key exchange, the sharded KNN index, heartbeats and
+``pw.resilience.Supervisor``; ``pathway_tpu_torch.parallel``). The other
+planes raise
 ``NotImplementedError("later slice: <plane>")`` where a call reaches them.
 
 Entry points that touch a model or an index run on the card unless the caller

@@ -1116,10 +1116,16 @@ class MicrobatchApplyNode(Node):
             # static run: exactly one tick — flush at its frontier (emissions
             # re-enter the same logical time, matching the inline path)
             return True
-        conns = getattr(rt, "connectors", None)
-        if conns and all(d.is_finished() for d in conns):
-            # drain tick: sources exhausted, nothing more will accumulate
-            return True
+        # drain tick: sources exhausted, nothing more will accumulate (a
+        # cluster runtime answers for every process's sources)
+        finished = getattr(rt, "sources_finished", None)
+        if finished is not None:
+            if finished():
+                return True
+        else:
+            conns = getattr(rt, "connectors", None)
+            if conns and all(d.is_finished() for d in conns):
+                return True
         first = next(iter(self.waiting.values()))
         deadline = self.flush_ms
         if deadline is None:

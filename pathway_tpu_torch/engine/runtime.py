@@ -110,6 +110,19 @@ def check_connector_failures(connectors) -> None:
             raise RuntimeError(f"input connector failed: {e!r}") from e
 
 
+def refuse_unpersisted_delivery(persistence, nodes) -> None:
+    """An exactly-once sink (a node carrying a ``delivery_writer``) needs
+    persistence: refuse the run without it."""
+    if persistence is None and any(getattr(n, "delivery_writer", None) is not None for n in nodes):
+        raise RuntimeError(
+            "delivery='exactly_once' sinks need persistence: the ledger "
+            "stages output in the persistence backend and publishes at "
+            "operator-snapshot recovery points — pass "
+            "persistence_config=pw.persistence.Config(..., "
+            "persistence_mode='operator_persisting') to pw.run"
+        )
+
+
 class Runtime:
     def __init__(
         self,
@@ -171,17 +184,7 @@ class Runtime:
         scheduler.tracer = tracer
         self.scheduler = scheduler
 
-        if self.persistence is None and any(
-            getattr(node, "delivery_writer", None) is not None
-            for _lnode, node in ctx.build_order
-        ):
-            raise RuntimeError(
-                "delivery='exactly_once' sinks need persistence: the ledger "
-                "stages output in the persistence backend and publishes at "
-                "operator-snapshot recovery points — pass "
-                "persistence_config=pw.persistence.Config(..., "
-                "persistence_mode='operator_persisting') to pw.run"
-            )
+        refuse_unpersisted_delivery(self.persistence, ctx.graph.nodes)
         if self.persistence is not None:
             # replay snapshots into input nodes before live reads (reference:
             # rewind to sentinel, then seek, src/connectors/mod.rs:100-105)

@@ -26,10 +26,10 @@ are constructed) and :func:`shutdown` in its teardown; :func:`current` is the
 hot-path accessor — **None when the plane is off**, so engine loops pay one
 ``is None`` test.
 
-Carried from ``pathway_tpu/flow/__init__.py`` with imports rewritten. The
-port runs one process, so :meth:`FlowPlane.cluster_signal` and
-:meth:`FlowPlane.apply_cluster_signal` are carried but see no peers: nothing
-calls them until the cluster plane lands (ROADMAP Queue 1).
+Carried from ``pathway_tpu/flow/__init__.py`` with imports rewritten. On a
+cluster, :meth:`FlowPlane.cluster_signal` merges the peers' gate occupancy
+on the coordinator and :meth:`FlowPlane.apply_cluster_signal` applies the
+broadcast on every process (``parallel/cluster.py``).
 """
 
 from __future__ import annotations

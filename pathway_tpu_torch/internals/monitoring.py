@@ -12,8 +12,9 @@ already count rows in/out and processing time; this module aggregates them into
 
 Carried from ``pathway_tpu/internals/monitoring.py`` with imports rewritten.
 The exactly-once delivery plane's section is on both (``delivery``, the
-``pathway_delivery_*`` series). The sections of planes the port has not
-carried yet (cluster aggregation, elastic, fabric, the embedding memo) are
+``pathway_delivery_*`` series), and so is the cluster rollup a coordinator
+serves (``cluster``, from ``observability/aggregate.py``). The sections of
+planes the port has not carried yet (elastic, fabric, the embedding memo) are
 absent from
 ``/status`` and ``/metrics``, as in a reference run with those planes off;
 ``/scale`` answers 501 with the ``later slice`` message.
@@ -186,6 +187,11 @@ def run_stats(runtime) -> dict[str, Any]:
     server = getattr(runtime, "monitoring_server", None)
     if server is not None:
         stats["monitoring"] = {"host": server.host, "port": server.port}
+    # coordinator of a cluster run: every process's summary, from the
+    # telemetry piggybacked on heartbeats (observability.aggregate)
+    cluster = _obs.aggregate.cluster_status(runtime)
+    if cluster is not None:
+        stats["cluster"] = cluster
     # pod health & SLO plane (PATHWAY_HEALTH): door state machine, canary
     # probes, burn rates and the active-alert set
     from pathway_tpu_torch.observability import health as _health
@@ -346,9 +352,8 @@ def prometheus_text(runtime) -> str:
     aud = _obs.audit.current()
     if aud is not None:
         lines.extend(aud.prometheus_lines(runtime))
-    # ---- cluster membership: the elastic plane is not carried, and the port
-    # runs one process (``make_runtime`` refuses more) — only the gauge the
-    # reference always emits
+    # ---- cluster membership: the elastic plane is not carried — only the
+    # gauge the reference always emits
     from pathway_tpu_torch.internals.config import get_pathway_config
 
     lines.append("# HELP pathway_cluster_processes Processes in the current cluster membership")
@@ -473,7 +478,8 @@ def _trace_payload(query: str) -> bytes:
 
 def _timeline_payload(query: str) -> bytes:
     """``/timeline?metric=&since=&step=&proc=`` body: the timeline plane's
-    cursor response (``proc=<pid>`` = that process's ring, default = this
+    cursor response (``proc=pod`` = merged pod rollup on the coordinator,
+    ``proc=<pid>`` = that process's heartbeat-shipped ring, default = this
     process). ``{"enabled": false}`` with the plane off."""
     from urllib.parse import parse_qs
 

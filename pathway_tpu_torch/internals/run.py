@@ -8,9 +8,10 @@ global graph, tree-shake, instantiate the engine dataflow, and drive it to compl
 Carried from ``pathway_tpu/internals/run.py`` with the monitoring server, the
 live dashboard, the run-end summary, the OTLP trace export, persistence
 (``persistence_config``, and the recording roots ``PATHWAY_REPLAY_STORAGE`` /
-``PATHWAY_PERSISTENT_STORAGE`` + ``PATHWAY_RECORD``) and interactive mode. The
-multi-worker runtimes are not ported yet: asking for one raises
-``NotImplementedError("later slice: <plane>")``.
+``PATHWAY_PERSISTENT_STORAGE`` + ``PATHWAY_RECORD``), interactive mode and the
+multi-worker runtimes: ``pw.run(n_workers=N)`` / ``PATHWAY_THREADS=N`` runs the
+thread-sharded ``ShardedRuntime``, ``PATHWAY_PROCESSES>1`` the multi-process
+``ClusterRuntime``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ from typing import Any
 
 from pathway_tpu_torch.engine.runtime import Runtime
 from pathway_tpu_torch.internals.config import get_pathway_config
-from pathway_tpu_torch.internals.later_slice import later_slice
 from pathway_tpu_torch.internals.parse_graph import G
 
 
@@ -47,13 +47,25 @@ def make_runtime(
     monitoring_level: Any = None,
     autocommit_duration_ms: int | None = 20,
 ):
-    """The single-worker ``Runtime``. The reference's multi-process
-    (``parallel.cluster``) and thread-sharded (``parallel.sharded``) runtimes
-    are not ported yet: asking for them raises."""
+    """Runtime factory honoring the worker count (single-worker ``Runtime``,
+    thread-sharded ``ShardedRuntime``, or the multi-process
+    ``ClusterRuntime``)."""
     if get_pathway_config().processes > 1:
-        raise later_slice("parallel.cluster")
-    if resolved_n_workers(n_workers) > 1:
-        raise later_slice("parallel.sharded")
+        from pathway_tpu_torch.parallel.cluster import ClusterRuntime
+
+        return ClusterRuntime(
+            monitoring_level=monitoring_level,
+            autocommit_duration_ms=autocommit_duration_ms,
+        )
+    w = resolved_n_workers(n_workers)
+    if w > 1:
+        from pathway_tpu_torch.parallel.sharded import ShardedRuntime
+
+        return ShardedRuntime(
+            n_workers=w,
+            monitoring_level=monitoring_level,
+            autocommit_duration_ms=autocommit_duration_ms,
+        )
     return Runtime(
         monitoring_level=monitoring_level,
         autocommit_duration_ms=autocommit_duration_ms,

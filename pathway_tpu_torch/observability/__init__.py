@@ -23,15 +23,16 @@ run END; this package watches the pipeline *while it runs*:
   (``PATHWAY_TRACE=on``; off by default);
 - ``metrics``  — per-input watermarks, per-sink end-to-end latency
   histograms, backlog gauges; ``engine_phases`` — per-phase tick attribution
-  (``PATHWAY_ENGINE_PHASES``).
+  (``PATHWAY_ENGINE_PHASES``);
+- ``aggregate``— peers ship summaries to the coordinator on the heartbeat
+  link; the coordinator's ``/status`` shows the whole cluster.
 
 Lifecycle: the runtime's ``run()`` calls :func:`install_from_env` and
 :func:`shutdown` in its run wrapper; ``current()`` is the hot-path accessor —
 **None when tracing is off**, so engine loops pay one ``is None`` test.
 
 Carried from ``pathway_tpu/observability/__init__.py``; the planes install
-and shut down in the reference's order. Left out: ``aggregate``, the cluster
-rollup of peers' heartbeat summaries (ROADMAP Queue 1 item 6).
+and shut down in the reference's order.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from __future__ import annotations
 import secrets
 
 from pathway_tpu_torch.observability import (
+    aggregate,
     alerts,
     audit,
     bottleneck,
@@ -158,6 +160,7 @@ def shutdown() -> None:
 
 
 __all__ = [
+    "aggregate",
     "BUCKET_BOUNDS_S",
     "Histogram",
     "RotatingTraceSink",

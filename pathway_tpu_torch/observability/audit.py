@@ -25,7 +25,7 @@ like the device plane). Four pillars:
   by insert/retract, retraction fraction, and a distinct-key estimate from a
   KMV sketch over the engine's existing uint64 key fingerprints; exported as
   ``pathway_operator_rows_total{op,dir}`` / ``pathway_operator_selectivity``
-  (merged cluster-wide over the heartbeat piggyback in the reference).
+  (merged cluster-wide over the heartbeat piggyback).
 - **sampled shadow audits** — every sink keeps (a) an order-independent
   incremental digest accumulated from its RAW per-batch deltas and (b) a
   per-(key, row-digest) multiset folded from its NET consolidated tick
@@ -52,9 +52,9 @@ Carried from ``pathway_tpu/observability/audit.py`` with imports rewritten;
 ``_mix_keys`` gives the reference's uint64 digest bit for bit (the same
 ``splitmix64`` over the same keys). An audited tick keeps a fused chain on
 the host program (``engine/fusion.py``): the device tier's single lane mask
-cannot attribute per-member edge counts. Left out with the cluster (ROADMAP Queue 1 item 6): the block a peer sends on
-its heartbeats (``heartbeat_summary``) and the coordinator's rollup of them
-(``merge_heartbeat_summaries``).
+cannot attribute per-member edge counts. A cluster peer sends
+:meth:`AuditPlane.heartbeat_summary` on its heartbeats and the coordinator
+rolls them up with :func:`merge_heartbeat_summaries`.
 """
 
 from __future__ import annotations
@@ -805,6 +805,19 @@ class AuditPlane:
             out["lineage"] = lin.status_summary()
         return out
 
+    def heartbeat_summary(self) -> dict[str, Any]:
+        """Compact block riding cluster heartbeats (peer → coordinator)."""
+        with self._lock:
+            counts = dict(self.violation_counts)
+            recent = list(self.violations)[-8:]
+        return {
+            "violations": sum(counts.values()),
+            "by_kind": counts,
+            "divergences": self.divergences,
+            "shadow_ticks": self.shadow_ticks,
+            "recent": recent,
+        }
+
     # ------------------------------------------------------------- /metrics
     def prometheus_lines(self, runtime) -> list[str]:
         from pathway_tpu_torch.internals.monitoring import escape_label_value as esc
@@ -904,6 +917,28 @@ def shutdown() -> None:
     """Run teardown. The plane (and its violation ring / lineage store) stays
     readable after the run — post-mortems and tests inspect it, exactly like
     the device plane's stats — and the next run's install replaces it."""
+
+
+def merge_heartbeat_summaries(blocks: list) -> dict[str, Any] | None:
+    """Cluster rollup of peers' heartbeat audit blocks (coordinator
+    ``/status``)."""
+    blocks = [b for b in blocks if b]
+    if not blocks:
+        return None
+    by_kind: dict[str, int] = {}
+    recent: list = []
+    for b in blocks:
+        for k, v in (b.get("by_kind") or {}).items():
+            by_kind[k] = by_kind.get(k, 0) + v
+        recent.extend(b.get("recent") or [])
+    recent.sort(key=lambda r: r.get("t_ns") or 0)
+    return {
+        "violations": sum(b.get("violations") or 0 for b in blocks),
+        "by_kind": by_kind,
+        "divergences": sum(b.get("divergences") or 0 for b in blocks),
+        "shadow_ticks": sum(b.get("shadow_ticks") or 0 for b in blocks),
+        "recent": recent[-32:],
+    }
 
 
 def note_history_truncated() -> None:

@@ -39,9 +39,9 @@ and a profiler window on demand. Four pillars, on by default
 Carried from ``pathway_tpu/observability/device.py``; its JAX seams are
 rebuilt on CUDA. The waits, the allocator reads and the profiler windows no-op
 where the plane's tensors are on the CPU, as the reference's do off the TPU;
-on the card a CUDA error in any of them propagates. The port runs one
-process, so the reference's heartbeat summaries for a cluster's coordinator
-are left out.
+on the card a CUDA error in any of them propagates. A cluster peer's
+heartbeats carry :func:`heartbeat_summary` to the coordinator, which rolls
+them up with :func:`merge_heartbeat_summaries`.
 """
 
 from __future__ import annotations
@@ -753,8 +753,8 @@ def heartbeat_summary() -> dict[str, Any] | None:
     shapes, pad rows, registered bytes and the host/device split, read from
     counters the plane already keeps — it waits on no CUDA event and calls
     nothing of CUDA, so the timeline's recorder thread may read it. The
-    timeline plane samples it; the cluster heartbeat that also carries it in
-    the reference is not ported (ROADMAP Queue 1 item 6)."""
+    timeline plane samples it, and a cluster peer's heartbeats carry it to
+    the coordinator (``observability/aggregate.py``)."""
     st = _stats
     if not st.enabled:
         return None
@@ -944,6 +944,27 @@ def status_summary(runtime: Any = None) -> dict[str, Any]:
             for label in storms
         ]
     return out
+
+
+def merge_heartbeat_summaries(blocks: list[dict]) -> dict[str, Any] | None:
+    """Cluster rollup of peers' heartbeat device blocks (coordinator
+    ``/status``)."""
+    blocks = [b for b in blocks if b]
+    if not blocks:
+        return None
+    return {
+        "compiles": sum(b.get("compiles") or 0 for b in blocks),
+        "compile_s": round(sum(b.get("compile_s") or 0.0 for b in blocks), 4),
+        "shapes_max": max(b.get("shapes_max") or 0 for b in blocks),
+        "storm": any(b.get("storm") for b in blocks),
+        "pad_rows": [
+            sum((b.get("pad_rows") or [0, 0])[0] for b in blocks),
+            sum((b.get("pad_rows") or [0, 0])[1] for b in blocks),
+        ],
+        "device_bytes": sum(b.get("device_bytes") or 0 for b in blocks),
+        "host_ms": round(sum(b.get("host_ms") or 0.0 for b in blocks), 3),
+        "device_ms": round(sum(b.get("device_ms") or 0.0 for b in blocks), 3),
+    }
 
 
 # ------------------------------------------------------------------ /metrics

@@ -33,10 +33,9 @@ are allocated. With the plane on but no request in flight, engine loops pay
 one attribute read per step. All OTLP materialization happens at keep time,
 never on the tick path.
 
-Carried from ``pathway_tpu/observability/requests.py`` with imports rewritten.
-The port runs one process, so the reference's cluster side (peers' stage
-events riding the barrier rounds to the coordinator, ``wire_*``) is left
-out.
+Carried from ``pathway_tpu/observability/requests.py`` with imports rewritten,
+the cluster side included: peers' stage events ride the barrier rounds to the
+coordinator (``wire_*``).
 """
 
 from __future__ import annotations
@@ -59,6 +58,9 @@ _TICK_RING = 256
 
 #: slowest-request exemplars surfaced on /status's serving section
 _SLOWEST_MAX = 8
+
+#: peer → coordinator stage-event outbox cap per barrier round
+_OUTBOX_MAX = 256
 
 
 def derive_request_trace_id(request_id: str) -> str:
@@ -122,6 +124,7 @@ class RequestTracePlane:
         from pathway_tpu_torch.observability.metrics import Histogram
 
         self.process_id = cfg.process_id
+        self.n_proc = cfg.processes
         self.slow_ms = cfg.request_trace_slow_ms
         self.keep_frac = cfg.request_trace_keep
         self.kept_cap = cfg.request_trace_kept
@@ -129,6 +132,17 @@ class RequestTracePlane:
         #: engine row key -> _Req (front-door side: the process whose REST
         #: route admitted the request — requests complete where they began)
         self.live: dict[int, _Req] = {}
+        #: peer side of a cluster: request ids known live pod-wide, learned
+        #: from the coordinator's barrier broadcast
+        self.remote_live: dict[int, str] = {}
+        self._peer = self.n_proc > 1 and self.process_id > 0
+        #: peers turn hot via a STICKY latch: armed at install time when the
+        #: job serves REST at all (see install_from_env — the first served
+        #: request can sweep on a peer before any broadcast names it), else
+        #: the first time the coordinator's barrier broadcast shows a live
+        #: request. A cluster job that never serves REST pays one flag read
+        #: per step, never ring appends; once hot, peers stay hot for the run
+        self._sticky_hot = False
         #: ONE attribute read per engine step when idle
         self.hot: bool = False
         #: tick -> [(stage, t0_ns, t1_ns, process_id, attrs | None)]; guarded
@@ -137,6 +151,11 @@ class RequestTracePlane:
         self._ring_lock = threading.Lock()
         self._tick_events: "OrderedDict[int, list]" = OrderedDict()
         self._cur_tick: int | None = None
+        #: peer -> coordinator barrier outbox (bounded)
+        self._outbox: list[tuple] = []
+        #: broadcast suppression: True once peers have seen an empty live
+        #: table (idle barriers then carry no request-trace payload at all)
+        self._bc_drained = True
         #: kept traces, request_id -> trace doc (bounded, oldest first)
         self.kept: "OrderedDict[str, dict]" = OrderedDict()
         self.slowest: list[dict] = []
@@ -186,7 +205,7 @@ class RequestTracePlane:
         with self._lock:
             self.live.pop(int(key), None)
             if not self.live:
-                self.hot = False
+                self.hot = self._sticky_hot
 
     # ------------------------------------------------------------ engine side
     def note_tick(self, tick: int) -> None:
@@ -224,6 +243,19 @@ class RequestTracePlane:
             attrs = dict(attrs, rows=rows)
         ev = (stage, t0_ns, t1_ns, self.process_id, attrs)
         with self._ring_lock:
+            if self._peer:
+                # peers never complete a request locally (the webserver — and
+                # so every decomposition — lives on the coordinator): the
+                # local ring would be dead weight, so peer events go straight
+                # to the barrier outbox and land in the COORDINATOR's ring.
+                # This standing per-step cost on REST-serving cluster peers is
+                # deliberate: the first sweep of a just-admitted request runs
+                # before any barrier could announce it, so recording cannot be
+                # gated on known liveness without losing exactly the events
+                # tail sampling exists to keep.
+                if len(self._outbox) < _OUTBOX_MAX:
+                    self._outbox.append((tick, ev))
+                return
             evs = self._tick_events.get(tick)
             if evs is None:
                 evs = self._tick_events.setdefault(tick, [])
@@ -231,6 +263,62 @@ class RequestTracePlane:
                     self._tick_events.popitem(last=False)
             if len(evs) < _TICK_EVENTS_MAX:
                 evs.append(ev)
+
+    # ------------------------------------------------------- cluster piggyback
+    def wire_out(self) -> list | None:
+        """Peer → coordinator: drain the stage-event outbox (rides a barrier
+        report whenever events are pending; None keeps idle barriers
+        payload-free)."""
+        if not self._outbox:
+            return None
+        with self._ring_lock:
+            out, self._outbox = self._outbox, []
+        return out
+
+    def wire_merge(self, payload: list | None) -> None:
+        """Coordinator: merge one peer's shipped stage events into the tick
+        ring (events carry their origin process id)."""
+        if not payload:
+            return
+        ring = self._tick_events
+        with self._ring_lock:
+            for tick, ev in payload:
+                evs = ring.get(tick)
+                if evs is None:
+                    evs = ring.setdefault(tick, [])
+                    while len(ring) > _TICK_RING:
+                        ring.popitem(last=False)
+                if len(evs) < _TICK_EVENTS_MAX:
+                    evs.append(ev)
+
+    def wire_broadcast(self) -> dict | None:
+        """Coordinator → peers: the live request table (rides barrier
+        decisions while requests are live, plus ONE empty broadcast after the
+        table drains so peers clear their remote view; None afterwards keeps
+        idle barriers payload-free)."""
+        with self._lock:
+            live = (
+                {k: r.request_id for k, r in self.live.items()}
+                if self.live
+                else None
+            )
+        if live is None:
+            if self._bc_drained:
+                return None
+            self._bc_drained = True
+            return {"live": {}}
+        self._bc_drained = False
+        return {"live": live}
+
+    def wire_apply(self, payload: dict | None) -> None:
+        if payload is None:
+            return
+        self.remote_live = payload.get("live") or {}
+        if self.remote_live and self._peer and not self._sticky_hot:
+            # first live request seen pod-wide: this peer records stage
+            # events from here on (sticky — see __init__)
+            self._sticky_hot = True
+            self.hot = True
 
     # -------------------------------------------------------------- completion
     def complete(
@@ -246,7 +334,7 @@ class RequestTracePlane:
         with self._lock:
             rec = self.live.pop(int(key), None)
             if not self.live:
-                self.hot = False
+                self.hot = self._sticky_hot
         if rec is None:
             return None
         now = resolve_t1_ns if resolve_t1_ns is not None else _time.time_ns()
@@ -477,7 +565,8 @@ class RequestTracePlane:
         now = _time.time_ns()
         with self._lock:
             recs = list(self.live.values())
-        return [
+            remote = dict(self.remote_live)
+        rows = [
             {
                 "request_id": r.request_id,
                 "route": r.route,
@@ -487,6 +576,11 @@ class RequestTracePlane:
             }
             for r in recs
         ]
+        for key, rid in list(remote.items())[:64]:
+            rows.append(
+                {"request_id": rid, "route": None, "stage": "remote", "key": key}
+            )
+        return rows
 
     def slowest_exemplars(self) -> list[dict]:
         with self._lock:
@@ -600,6 +694,8 @@ def last() -> RequestTracePlane | None:
 
 def install_from_env(runtime=None) -> RequestTracePlane | None:
     global _plane
+    import sys
+
     from pathway_tpu_torch.internals.config import get_pathway_config
 
     cfg = get_pathway_config()
@@ -607,6 +703,19 @@ def install_from_env(runtime=None) -> RequestTracePlane | None:
         _plane = None
         return None
     _plane = RequestTracePlane(cfg)
+    if _plane._peer:
+        # A REST-serving cluster job arms peers EAGERLY: the very first served
+        # requests can sweep on a peer in the first round of the first
+        # arrival-driven tick, BEFORE any barrier broadcast could name them —
+        # waiting for the sticky latch would lose exactly those stage events
+        # (and the first request is the one the acceptance needle tests). The
+        # route registry is populated at graph-definition time on every
+        # process, so it answers "does this job serve REST at all?" at install
+        # time; a cluster job with no routes keeps paying only the flag read.
+        srv = sys.modules.get("pathway_tpu_torch.io.http._server")
+        if srv is not None and len(srv._ROUTES):
+            _plane._sticky_hot = True
+            _plane.hot = True
     return _plane
 
 

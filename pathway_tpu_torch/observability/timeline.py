@@ -15,7 +15,11 @@ to ``.1`` at the size cap) so the history survives a crash alongside the
 flight recorder.
 
 ``/timeline?metric=&since=&step=&proc=`` serves the series (``proc=pod``:
-the rollup on step buckets).
+the rollup on step buckets). Cluster: peers piggyback their recent points on
+the existing heartbeat summary (``aggregate.local_summary`` — no new
+sockets); the coordinator folds them into per-process rings and serves a
+merged pod timeline. Retired peers drop out the moment the heartbeat monitor
+forgets them.
 
 Off (``PATHWAY_TIMELINE=off``) constructs no plane: call sites pay one
 ``is None`` test and the recorder thread never exists.
@@ -26,11 +30,7 @@ rewritten. The device split is read from the port's device plane
 recorder thread never waits on a CUDA event and never initialises CUDA.
 The flow plane's pressure is read from ``flow.heartbeat_summary`` when the
 plane is on, and the delivery ledger's depth from
-``delivery.heartbeat_summary``. Left out, with the plane it reads: the
-cluster's peer merge and heartbeat piggyback (``_merge_peers``,
-``heartbeat_summary``, ROADMAP Queue 1 item 4):
-the port runs one process, so the pod series is this process's, as in a
-single-process reference run.
+``delivery.heartbeat_summary``.
 """
 
 from __future__ import annotations
@@ -405,7 +405,7 @@ def diff_summary(
 
 
 class TimelinePlane:
-    """Recorder + rings for one process. ``sample_now()`` is the
+    """Recorder + rings + peer merge for one process. ``sample_now()`` is the
     whole step (the thread calls it; tests call it synchronously)."""
 
     def __init__(self, cfg, runtime) -> None:
@@ -417,6 +417,7 @@ class TimelinePlane:
         n = max(8, int(self.window_s / self.step_s) + 1)
         self._raws: deque = deque(maxlen=n)
         self.points: deque = deque(maxlen=n)
+        self._peer_points: dict[int, deque] = {}
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
@@ -460,7 +461,7 @@ class TimelinePlane:
 
     def sample_now(self) -> dict[str, Any] | None:
         """One recorder step: raw-sample every probe, derive a point, spill
-        it, re-attribute the bottleneck."""
+        it, re-attribute the bottleneck, fold in peer heartbeat series."""
         raw = _raw_sample(self.runtime)
         with self._lock:
             prev = self._raws[-1] if self._raws else None
@@ -480,6 +481,7 @@ class TimelinePlane:
 
         self.bottleneck = _bottleneck.attribute(self)
         self._publish_top_change()
+        self._merge_peers()
         return point
 
     def _publish_top_change(self) -> None:
@@ -506,6 +508,40 @@ class TimelinePlane:
                     "pathway.score": float(top.get("score") or 0.0),
                 },
             )
+
+    # -------------------------------------------------------------- pod merge
+    def _merge_peers(self) -> None:
+        monitor = getattr(self.runtime, "hb_monitor", None)
+        if monitor is None or not hasattr(monitor, "peer_summaries"):
+            return
+        peers = monitor.peer_summaries()
+        with self._lock:
+            for pid in list(self._peer_points):
+                if pid not in peers:  # a retired peer drops out
+                    del self._peer_points[pid]
+            for pid, summary in peers.items():
+                tl = (summary or {}).get("timeline")
+                if not tl:
+                    continue
+                ring = self._peer_points.setdefault(
+                    pid, deque(maxlen=self.points.maxlen)
+                )
+                seen = {p.get("t") for p in ring}
+                for p in tl.get("points") or ():
+                    if isinstance(p, dict) and p.get("t") not in seen:
+                        ring.append(p)
+
+    def heartbeat_summary(self) -> dict[str, Any]:
+        """Compressed series block riding every heartbeat: the last few
+        derived points (the coordinator dedupes on ``t``, so resends are
+        idempotent) + ring counters."""
+        with self._lock:
+            pts = list(self.points)[-20:]
+        return {
+            "points": pts,
+            "samples": self.samples_total,
+            "last_t": pts[-1]["t"] if pts else None,
+        }
 
     # ---------------------------------------------------------------- queries
     def window_edges(
@@ -538,15 +574,17 @@ class TimelinePlane:
         return [p for p in pts if p["t"] >= horizon]
 
     def procs(self) -> list[str]:
-        return [str(self.pid)]
+        with self._lock:
+            return [str(self.pid)] + sorted(str(p) for p in self._peer_points)
 
     def pod_points(self, since: float | None = None) -> list[dict[str, Any]]:
-        """The pod series: per-metric rollup of the points aligned on step
-        buckets — rates/backlogs sum, quantiles/lags take the worst point,
-        ``tick`` takes the slowest (the pod frontier). The reference folds
-        its peers' rings in too; a single process's series is its own."""
+        """The merged pod series: per-metric rollup of every process's points
+        aligned on step buckets — rates/backlogs sum, quantiles/lags take the
+        worst process, ``tick`` takes the slowest (the pod frontier)."""
         with self._lock:
             series: dict[int, list] = {self.pid: list(self.points)}
+            for pid, ring in self._peer_points.items():
+                series[pid] = list(ring)
         step = max(self.step_s, 1e-3)
         buckets: dict[float, dict[str, Any]] = {}
         contributors: dict[float, set] = {}
@@ -580,7 +618,15 @@ class TimelinePlane:
         self, proc: str | None = None, since: float | None = None
     ) -> list[dict[str, Any]]:
         with self._lock:
-            pts = list(self.points) if proc is None or proc == str(self.pid) else []
+            if proc is None or proc == str(self.pid):
+                pts = list(self.points)
+            else:
+                match = [
+                    list(ring)
+                    for pid, ring in self._peer_points.items()
+                    if str(pid) == proc
+                ]
+                pts = match[0] if match else []
         if since is not None:
             pts = [p for p in pts if (p.get("t") or 0) > since]
         return pts
@@ -638,13 +684,14 @@ class TimelinePlane:
     def status_summary(self) -> dict[str, Any]:
         with self._lock:
             n_local = len(self.points)
+            peers = {str(pid): len(ring) for pid, ring in self._peer_points.items()}
         return {
             "points": n_local,
             "samples": self.samples_total,
             "step_ms": int(self.step_s * 1000),
             "window_s": self.window_s,
             "dir": self.cfg.timeline_dir,
-            "peers": {},
+            "peers": peers,
         }
 
     def close(self) -> None:

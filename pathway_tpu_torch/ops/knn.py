@@ -1,6 +1,6 @@
 """Brute-force KNN index resident in device memory.
 
-Port of the single-device half of ``pathway_tpu/ops/knn.py``. The matrix is a
+Port of ``pathway_tpu/ops/knn.py``. The matrix is a
 padded ``[N, d]`` tensor whose capacity doubles from 128; add and remove work
 on a slot free-list; updates are staged and land in one scatter before the
 next search; a search is f32 products of one fixed shape (``_dots``) plus an
@@ -14,6 +14,11 @@ Differences from the JAX package, none of them visible in results:
 - scatter batches are not padded to power-of-two buckets, and wide rows are
   not top-k'ed in chunks: both only bounded XLA's compile cache or TPU cost;
 - key bits are stored as int32 bit patterns (torch has no full uint32 ops).
+
+``sharded_search`` / ``ShardedBruteForceKnnIndex`` split the matrix over the
+logical shards of a ``parallel.mesh.DeviceMesh``: each shard takes its own
+top-k through the same scoring body, and a canonical merge of the candidates
+gives the single index's answer, ties included.
 
 Every device entry point runs through the device plane's ``traced_jit`` at
 the reference's labels (``knn.search``, ``knn.rescore``, ``knn.scatter``,
@@ -550,3 +555,113 @@ class BruteForceKnnIndex:
         if self.capacity < (1 << 24):
             return _unpack_hits(_pack_hits(scores, slot_ids).cpu().numpy())
         return scores.cpu().numpy(), slot_ids.cpu().numpy()
+
+
+def _shard_views(x, n_shards: int) -> list[torch.Tensor]:
+    """Per-shard pieces of a global ``[N, ...]`` tensor (equal row slices,
+    views), or the given per-shard list as is."""
+    if isinstance(x, (list, tuple)):
+        if len(x) != n_shards:
+            raise ValueError(f"{len(x)} shard tensors for {n_shards} shards")
+        return list(x)
+    if x.shape[0] % n_shards:
+        raise ValueError(f"{x.shape[0]} rows do not split into {n_shards} equal shards")
+    return list(torch.chunk(x, n_shards, dim=0))
+
+
+@torch.inference_mode()
+def sharded_search(
+    mesh,
+    axis: str,
+    vectors,    # [N, d] global, or one [N/n, d] tensor per shard
+    norms_sq,   # [N] f32
+    valid,      # [N] bool
+    key_bits,   # [N] int32 bit patterns of the uint32 key bits
+    queries: torch.Tensor,  # [Q, d]
+    k: int,
+    metric: str = "cos",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Search a KNN matrix split over the logical shards of ``mesh`` along
+    ``axis``: each shard scores its rows and cuts its own top-k, the shards'
+    candidates are gathered, and a global top-k merges them. Returns (scores
+    [Q, k], global slot ids) on the first shard's device.
+
+    Carried from the reference's ``sharded_search`` (``shard_map`` with an
+    ``all_gather`` of the candidates). Each shard scores through
+    :func:`_search_body` at ``k_local = min(k, shard_n)``, whose products
+    have one fixed shape (:func:`_dots`), so a row scores the same bits as in
+    a single index. Global slot ids are ``ids + shard_idx * shard_n``. The
+    merge is :func:`_canonical_select` over the ``n_shards * k_local``
+    candidates with their key bits, so equal-score rows are cut by key, not
+    by shard order, and the shard count cannot change which ties survive.
+    """
+    devices = mesh.shard_devices(axis)
+    n_shards = len(devices)
+    vecs = _shard_views(vectors, n_shards)
+    nsqs = _shard_views(norms_sq, n_shards)
+    vals = _shard_views(valid, n_shards)
+    bits = _shard_views(key_bits, n_shards)
+    shard_n = vecs[0].shape[0]
+    k_local = min(k, shard_n)
+    # n_shards * k_local candidates always cover the true global top
+    # min(k, N): either k_local == k or the candidate set is the whole index
+    k_final = min(k, n_shards * k_local)
+    first = devices[0]
+    all_s, all_g, all_b = [], [], []
+    for s, dev in enumerate(devices):
+        sc, ids = _search_kernel(
+            vecs[s].to(dev), nsqs[s].to(dev), vals[s].to(dev), bits[s].to(dev),
+            queries.to(dev), k=k_local, metric=metric,
+        )
+        all_s.append(sc.to(first))
+        all_g.append((ids + s * shard_n).to(first))
+        # per-candidate key bits ride along for the merge
+        all_b.append(bits[s].to(dev)[ids].to(first))
+    cand_s = torch.cat(all_s, dim=1)
+    cand_g = torch.cat(all_g, dim=1)
+    cand_b = torch.cat(all_b, dim=1)
+    ms, mi = _canonical_select(cand_s, cand_b, k_final)
+    return ms, torch.gather(cand_g, 1, mi)
+
+
+class ShardedBruteForceKnnIndex(BruteForceKnnIndex):
+    """BruteForceKnnIndex whose slot matrix is split across the logical
+    shards of a 1-D mesh axis.
+
+    Slot ``i`` belongs to shard ``i // (N / n_shards)``; adds land in any free
+    slot; search runs :func:`sharded_search`. The index tensors live on the
+    first shard's device (every shard's, when the shards share one card);
+    a shard on another device receives its slice at search."""
+
+    def __init__(
+        self,
+        dimension: int,
+        mesh,
+        axis: str = "data",
+        metric: KnnMetric | str = KnnMetric.COS,
+        capacity: int = _MIN_CAPACITY,
+        dtype: torch.dtype = torch.float32,
+        component: str = "knn_index",
+    ):
+        self.mesh = mesh
+        self.axis = axis
+        n_dev = len(mesh.shard_devices(axis))
+        capacity = _pad_to_capacity(max(capacity, n_dev * _MIN_CAPACITY))
+        super().__init__(
+            dimension, metric=metric, capacity=capacity, dtype=dtype,
+            device=mesh.shard_devices(axis)[0], component=component,
+        )
+
+    def search_device(self, queries, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        self._flush()
+        q = self._prep_queries(queries)
+        stats = _dev_prof.stats()
+        if stats.enabled:
+            stats.note_flops(
+                "knn.search", 2.0 * int(q.shape[0]) * self.capacity * self.dimension
+            )
+            stats.note_pad_rows("knn.search", len(self), self.capacity - len(self))
+        return sharded_search(
+            self.mesh, self.axis, self._vectors, self._norms_sq, self._valid,
+            self._key_bits, q, k=min(k, self.capacity), metric=self.metric.value,
+        )

@@ -27,15 +27,17 @@ Consistency level: at-least-once on restart for plain sinks (SURVEY §5.3);
 ``delivery="exactly_once"`` sinks publish through the delivery ledger
 (``pathway_tpu_torch/delivery``), bound here at restore.
 
-Carried from ``pathway_tpu/persistence/snapshots.py`` for the single-process
-runtime. The paths that need planes not ported yet raise
-``NotImplementedError("later slice: <plane>")``: the elastic reshard and
-migrate paths (``PATHWAY_ELASTIC``, the shard map's O(moved-state)
-migration, input logs rebucketed by a rescale) and the cluster and
-thread-sharded paths (per-process shard saves over barriers, partitioned
-peer inputs, per-worker peer copies of a source). A snapshot pickles the
-port's own classes and torch tensors; an index snapshot taken on the card
-opens only where the card is.
+Carried from ``pathway_tpu/persistence/snapshots.py`` for every runtime:
+the single worker, the thread-sharded runtime (per-worker operator shards,
+per-worker peer copies of partitioned sources) and the multi-process cluster
+(per-process shard saves over barriers, partitioned peer inputs, the global
+epoch manifest committed by process 0). The elastic reshard and migrate paths
+(``PATHWAY_ELASTIC``, the shard map's O(moved-state) migration, input logs
+rebucketed by a rescale) raise ``NotImplementedError("later slice:
+<plane>")``; without them a restore at another worker count is refused, as
+in the reference with elasticity off. A snapshot pickles the port's own
+classes and torch tensors; an index snapshot taken on the card opens only
+where the card is.
 """
 
 from __future__ import annotations
@@ -541,37 +543,64 @@ class Persistence:
         self.inputs: list[_PersistedInput] = []
         self.opsnap: _OperatorSnapshots | None = None
         self.epochs: _EpochLog | None = None
-        #: exactly-once delivery plane — bound on the solo runtime when any
-        #: sink writer opted into delivery="exactly_once"
+        #: exactly-once delivery plane — bound on process 0 / the solo
+        #: runtime when any sink writer opted into delivery="exactly_once"
         self.delivery = None
         self.replayed_events = 0
         self._worker_nodes: dict[int, list] = {}
         self._node_names: list = []
+        self._is_cluster = False
         self._pid = 0
         self._total_workers = 1
 
     # called by Runtime once the engine graph is built, before drivers start
     def on_graph_built(self, ctx) -> None:
-        if getattr(self.runtime, "local_workers", None) is not None:
-            # the reference detects a cluster process here: per-process shard
-            # saves over barriers, partitioned peer inputs
-            raise later_slice("parallel.cluster (persistence)")
-        if getattr(self.runtime, "workers", None):
-            # thread-sharded runtimes: per-worker shards and peer copies of
-            # each partitioned source
-            raise later_slice("parallel.sharded (persistence)")
-        from pathway_tpu_torch.internals.config import get_pathway_config
-
-        if get_pathway_config().elastic != "off":
-            # elasticity (PATHWAY_ELASTIC != off): the reference re-buckets
-            # partitioned input logs owned by workers the new shape no longer
-            # has, before any input wrapping reads them
-            raise later_slice("elastic (input-log reshard)")
         offsets: dict[str, int] = {}
-        # single-writer plane: the solo runtime commits epoch manifests
-        self.epochs = _EpochLog(self.backend)
+        # cluster detection happens for EVERY persistence mode (not just
+        # operator persisting): peers must take the partitioned-peer path
+        # below or they would clobber process 0's input logs in the shared
+        # backend, and the per-tick epoch barrier needs symmetric membership
+        cluster_workers = getattr(self.runtime, "local_workers", None)
+        if cluster_workers is not None:
+            self._is_cluster = True
+            self._pid = self.runtime.pid
+            self._total_workers = self.runtime.n_workers
+        else:
+            # thread-sharded runtimes: the worker count must be known BEFORE
+            # the elastic input-log scan below — with the 1-worker default a
+            # same-shape restart would misread every @w partition log as
+            # orphaned and rebucket (duplicating) perfectly healthy history
+            workers = getattr(self.runtime, "workers", None)
+            if workers:
+                self._total_workers = len(workers)
+        if self._pid == 0:
+            # single-writer plane: only process 0 (or the solo runtime)
+            # commits epoch manifests; peers report durability over the barrier
+            self.epochs = _EpochLog(self.backend)
+        # elasticity (PATHWAY_ELASTIC != off): the reference re-buckets
+        # partitioned input logs owned by workers the new shape no longer
+        # has, before any input wrapping reads them
+        from pathway_tpu_torch import elastic as _elastic
+
+        if _elastic.reshard_enabled():
+            raise later_slice("elastic (input-log reshard)")
         if self.operator_mode:
-            self._worker_nodes = {0: list(ctx.graph.nodes)}
+            # worker shards keyed by GLOBAL worker index: the single runtime is
+            # {0: nodes}, the thread-sharded runtime {0..W-1}, and a cluster
+            # process contributes only the workers it hosts (every process
+            # snapshots/restores its own shards; process 0 commits)
+            local_workers = cluster_workers
+            workers = getattr(self.runtime, "workers", None)
+            if local_workers is not None:
+                self._worker_nodes = {
+                    gi: list(lw.graph.nodes) for gi, lw in local_workers.items()
+                }
+            elif workers:
+                self._worker_nodes = {w.index: list(w.graph.nodes) for w in workers}
+                self._total_workers = len(workers)
+            else:
+                self._worker_nodes = {0: list(ctx.graph.nodes)}
+                self._total_workers = 1
             # nodes with incremental (chunk-store) snapshots start recording
             # their mutation delta logs only under operator persistence WITH a
             # periodic snapshot cadence — a non-persisted run (or a
@@ -592,7 +621,7 @@ class Persistence:
                     tuple(getattr(n, "columns", None) or getattr(n, "out_columns", []) or []),
                     tuple(ctx.graph.edges.get(n.node_index, [])),
                 )
-                for n in self._worker_nodes[0]
+                for n in next(iter(self._worker_nodes.values()))
             ]
             self.opsnap = _OperatorSnapshots(
                 self.backend, self.config.snapshot_interval_ms / 1000.0
@@ -624,11 +653,20 @@ class Persistence:
                     )
                 offsets = dict(self.opsnap.manifest["input_offsets"])
                 self.opsnap.restore(self._worker_nodes)
+        if self._is_cluster and self._pid != 0:
+            # non-partitioned sources poll only on process 0; partitioned
+            # sources DO live on peer processes — persist those locally
+            # (worker-scoped pids in the shared backend; seekable subjects
+            # recover by seeking, the at-least-once OSS tier)
+            self._add_partitioned_peer_inputs(offsets)
+            self._replay_all()
+            return
         # exactly-once delivery: bind ledger writers AFTER the operator
         # restore above (restore_sink has delivered each sink's snapshot cut)
         # and BEFORE replay queues any input — binding discards orphan staged
         # epochs past the cut and resumes publication of frozen epochs the
-        # previous process died before handing to the sink
+        # previous process died before handing to the sink. Sinks are SOLO
+        # (global worker 0), so only process 0 / the solo runtime binds.
         self._bind_delivery(ctx)
         # pid stability: a source keeps its snapshots across unrelated pipeline
         # edits — use the connector's name alone when unique among sources, and
@@ -642,6 +680,7 @@ class Persistence:
         for lnode, _ in sources:
             name_counts[lnode.name] = name_counts.get(lnode.name, 0) + 1
         seen: dict[str, int] = {}
+        pid_by_index: dict[int, str] = {}  # node_index -> pid (for peer copies)
         for lnode, node in sources:
             if name_counts[lnode.name] == 1:
                 pid = lnode.name
@@ -649,6 +688,7 @@ class Persistence:
                 i = seen.get(lnode.name, 0)
                 seen[lnode.name] = i + 1
                 pid = f"{lnode.name}-{i}"
+            pid_by_index[node.node_index] = pid
             self.inputs.append(
                 _PersistedInput(
                     pid,
@@ -659,6 +699,30 @@ class Persistence:
                     replay_skip=offsets.get(pid, 0),
                 )
             )
+        # partitioned sources also poll on workers 1..W-1 of a thread-sharded
+        # runtime (worker graphs align by node_index); each peer copy gets a
+        # worker-scoped pid so its partition offsets persist independently
+        workers = getattr(self.runtime, "workers", None) or []
+        peer_graphs = [(w.index, w.graph) for w in workers[1:]]
+        # cluster process 0 may host local workers beyond global worker 0
+        local_workers = getattr(self.runtime, "local_workers", None) or {}
+        peer_graphs += [(gi, lw.graph) for gi, lw in local_workers.items() if gi != 0]
+        for w_idx, graph in peer_graphs:
+            for node in graph.nodes:
+                if getattr(node, "local_source", False) and node.node_index in pid_by_index:
+                    pid = f"{pid_by_index[node.node_index]}@w{w_idx}"
+                    self.inputs.append(
+                        _PersistedInput(
+                            pid,
+                            node,
+                            self.backend,
+                            live_after_replay=getattr(
+                                self.config, "continue_after_replay", True
+                            ),
+                            subject=self._subject_of(node),
+                            replay_skip=offsets.get(pid, 0),
+                        )
+                    )
         self._replay_all()
 
     def _replay_all(self) -> None:
@@ -689,12 +753,58 @@ class Persistence:
                 process_id=self._pid,
             )
 
+    @staticmethod
+    def _dedup_source_pids(graph) -> dict[int, str]:
+        """node_index → persistent base pid, with the SAME dedup-suffix rule
+        process 0 applies to ctx.build_order (build order == node_index
+        order, and graphs are aligned across processes) — so a peer's
+        \"name-1@w3\" matches process 0's manifest bookkeeping."""
+        sources = [
+            n for n in graph.nodes if isinstance(n, ops.StreamInputNode)
+        ]
+        name_counts: dict[str, int] = {}
+        for n in sources:
+            name_counts[n.name] = name_counts.get(n.name, 0) + 1
+        seen: dict[str, int] = {}
+        out: dict[int, str] = {}
+        for n in sources:
+            if name_counts[n.name] == 1:
+                out[n.node_index] = n.name
+            else:
+                i = seen.get(n.name, 0)
+                seen[n.name] = i + 1
+                out[n.node_index] = f"{n.name}-{i}"
+        return out
+
+    def _add_partitioned_peer_inputs(self, offsets: dict) -> None:
+        """Cluster peers: wrap this process's partitioned source nodes
+        (local_source) in per-worker persisted inputs."""
+        local_workers = getattr(self.runtime, "local_workers", None) or {}
+        for gi, lw in local_workers.items():
+            base_pids = self._dedup_source_pids(lw.graph)
+            for node in lw.graph.nodes:
+                if getattr(node, "local_source", False):
+                    pid = f"{base_pids[node.node_index]}@w{gi}"
+                    self.inputs.append(
+                        _PersistedInput(
+                            pid,
+                            node,
+                            self.backend,
+                            live_after_replay=getattr(
+                                self.config, "continue_after_replay", True
+                            ),
+                            subject=self._subject_of(node),
+                            replay_skip=offsets.get(pid, 0),
+                        )
+                    )
+
     def _bind_delivery(self, ctx) -> None:
         """Collect the sink writers that opted into ``delivery='exactly_once'``
         (their CallbackOutputNodes carry a ``delivery_writer`` attribute) and
-        bind them to the persistence backend. The restore above already
-        delivered each writer's snapshot cut through its ``restore_sink``
-        hook."""
+        bind them to the persistence backend. Runs on process 0 / the solo
+        runtime only — sinks are SOLO nodes living on global worker 0, and the
+        restore above already delivered each writer's snapshot cut through its
+        ``restore_sink`` hook."""
         writers: list = []
         seen: set[int] = set()
         for _lnode, node in ctx.build_order:
@@ -736,11 +846,7 @@ class Persistence:
         self.opsnap.save(self._worker_nodes, self._node_names, offsets, time)
         if self.epochs is not None:
             self.epochs.commit(time, offsets, opsnap_gen=gen, force=True)
-        # log compaction after a durable operator commit (the reference
-        # suspends it while the elasticity plane may reshard by replay; that
-        # plane is refused in on_graph_built)
-        for p in self.inputs:
-            p.trim(offsets[p.pid])
+        self._trim_inputs(lambda p: offsets[p.pid])
         if self.delivery is not None:
             # the snapshot that just committed carried each sink's staged cut:
             # everything at or below it is frozen — hand it to the sinks (a
@@ -748,29 +854,120 @@ class Persistence:
             # at close, where unpublished output would otherwise be silent)
             self.delivery.publish_committed(final=time < 0)
 
+    def _trim_inputs(self, offset_of) -> None:
+        """Log compaction after a durable operator commit (the reference
+        suspends it while the elasticity plane may reshard by replay; that
+        plane is refused in ``on_graph_built``)."""
+        for p in self.inputs:
+            p.trim(offset_of(p))
+
+    @staticmethod
+    def _merge_offsets(reports):
+        """Barrier decide: union the per-process {source pid → offset} maps
+        (sources are process-disjoint) and record which processes acked."""
+        merged: dict[str, int] = {}
+        acks: list[int] = []
+        for _tag, rpid, offs in reports:
+            acks.append(int(rpid))
+            merged.update(offs)
+        return {"offsets": merged, "acks": sorted(acks)}
+
+    def _save_operators_cluster(self, time: int) -> None:
+        """Cross-process snapshot (the reference's per-worker persist wrappers
+        + finalized-time consensus, ``persist.rs:843`` / ``state.rs:291``):
+        every process writes its local worker shards for the current
+        generation AND reports its own input offsets over the barrier; process
+        0 commits the manifest with the MERGED offsets (so peer partitions
+        recover O(suffix) too) plus the global epoch record, a second barrier
+        proves the commit durable, then every process compacts its own logs.
+        A crash mid-save leaves the previous generation authoritative on every
+        process; a crash between commit and trim only delays GC."""
+        assert self.opsnap is not None
+        self.opsnap.save_shards(self._worker_nodes)
+        local_offsets = {p.pid: p.consumed() for p in self.inputs}
+        decision = self.runtime._barrier(
+            ("persist_done", self._pid, local_offsets), self._merge_offsets
+        )
+        if self._pid == 0:
+            gen = self.opsnap.gen
+            sm = getattr(self.runtime, "shardmap", None)
+            self.opsnap.commit(
+                self._node_names,
+                decision["offsets"],
+                time,
+                self._total_workers,
+                shardmap_version=sm.version if sm is not None else None,
+            )
+            if self.epochs is not None:
+                self.epochs.commit(
+                    time,
+                    decision["offsets"],
+                    opsnap_gen=gen,
+                    acks=decision["acks"],
+                    force=True,
+                )
+        # trim only after the commit is proven durable everywhere — trimming
+        # against an uncommitted generation could orphan replay history
+        self.runtime._barrier(
+            ("commit_done", self._pid, {}), lambda reports: {"ok": True}
+        )
+        self._trim_inputs(lambda p: decision["offsets"].get(p.pid, 0))
+        self.opsnap.flush_aux_gc()  # each process GCs its own shards' chunks
+        self.opsnap.advance()
+        # delivery publication only after the commit_done barrier: every peer
+        # has acked the manifest durable, so the frozen cut can never roll back
+        if self._pid == 0 and self.delivery is not None:
+            self.delivery.publish_committed(final=time < 0)
+
     def _commit_epoch(self, time: int, force: bool = False) -> None:
         """Input-frontier epochs: after this tick's flushes, publish a global
-        epoch manifest of the durable per-source offsets. ``force`` commits
+        epoch manifest of the durable per-source offsets. In cluster mode a
+        barrier first collects every process's flushed offsets — the commit
+        is by construction 'all processes reported durable'. ``force`` commits
         even when the frontier did not move (the delivery plane staged output
         rows this tick, which must map onto a committed epoch number)."""
-        if self.epochs is not None:
+        if not self._is_cluster:
+            if self.epochs is not None:
+                self.epochs.commit(
+                    time, {p.pid: p.persisted for p in self.inputs}, force=force
+                )
+            return
+        local = {p.pid: p.persisted for p in self.inputs}
+        decision = self.runtime._barrier(
+            ("epoch", self._pid, local), self._merge_offsets
+        )
+        if self.epochs is not None:  # process 0 is the single epoch writer
             self.epochs.commit(
-                time, {p.pid: p.persisted for p in self.inputs}, force=force
+                time, decision["offsets"], acks=decision["acks"], force=force
             )
 
     def on_tick_done(self, time: int) -> None:
         for p in self.inputs:
             p.flush()
-        # exactly-once delivery: durably stage this tick's output rows under
-        # epoch N+1 BEFORE the epoch commit — once the manifest lands the
+        # exactly-once delivery: durably stage this tick's output rows
+        # under epoch N+1 BEFORE the epoch commit — once the manifest lands the
         # staged batch is addressable; a crash in between leaves an orphan
         # index that restore discards (see delivery/ledger.py crash windows)
         staged = self.delivery.stage_tick() if self.delivery is not None else 0
         self._commit_epoch(time, force=staged > 0)
         if not self.operator_mode or self.opsnap is None:
             return
-        if self.opsnap.due():
-            self._save_operators(time)
+        if not self._is_cluster:
+            if self.opsnap.due():
+                self._save_operators(time)
+            return
+        if self.opsnap.interval_s <= 0:
+            return  # snapshot-at-close only: skip the per-tick barrier
+            # (config is identical on every process, so the skip is symmetric)
+        # cluster: process 0 decides due-ness (monotonic clocks differ across
+        # processes) and the decision broadcasts over the barrier — every
+        # process calls the same barrier sequence every tick
+        due = self.opsnap.due() if self._pid == 0 else False
+        decision = self.runtime._barrier(
+            ("persist", due), lambda reports: {"do": reports[0][1]}
+        )
+        if decision["do"]:
+            self._save_operators_cluster(time)
 
     def on_close(self) -> None:
         for p in self.inputs:
@@ -782,14 +979,18 @@ class Persistence:
         if not self.operator_mode or self.opsnap is None:
             self._commit_epoch(-1)
             return
-        self._save_operators(-1)
+        if not self._is_cluster:
+            self._save_operators(-1)
+            return
+        # forced final snapshot: every operator-mode process reaches on_close
+        # in lockstep and _save_operators_cluster carries its own barriers
+        self._save_operators_cluster(-1)
 
 
 def attach(runtime, config) -> None:
-    """Attach persistence to the single-worker runtime (the reference's
-    thread-sharded and cluster runtimes, with per-worker shards and
-    barrier-consensus commits, are a later slice: ``on_graph_built`` refuses
-    them)."""
+    """All runtimes support operator persistence: single, thread-sharded
+    (per-worker shards), and the multi-process cluster (per-process shard
+    writes over the shared backend + barrier-consensus manifest commit)."""
     runtime.persistence = Persistence(config, runtime)
     if config.backend.kind == "filesystem" and config.backend.path:
         # colocate UDF DiskCache with the persistent storage (reference:

@@ -45,24 +45,16 @@ Semantics:
 ``resilience.fault_*`` telemetry event (except ``kill``, which can only
 print to stderr before dying).
 
-Carried from ``pathway_tpu/resilience/faults.py``: the part the audit plane
-is tested with — the plan's parser and serializer, ``install_from_env``,
-``on_tick_start`` (``drop_poll`` on this process), ``at_point`` and
-``corrupt_polled`` with ``flip_diff`` and ``drop_retract``. A step that needs
-the supervisor or the cluster raises ``later_slice("resilience")`` when the
-plan is parsed or built: ``kill`` and ``kill_point`` (a SIGKILL is only a
-test of recovery under ``resilience.Supervisor``), ``delay_barrier`` (the
-cluster barrier) and a ``drop_poll`` addressed to another process (the port
-runs one, ``internals/run.py``). ROADMAP Queue 1 item 5 carries the rest of
-``resilience/``.
+Carried from ``pathway_tpu/resilience/faults.py`` unchanged.
 """
 
 from __future__ import annotations
 
 import os
+import signal
+import sys
+import time as _time
 from dataclasses import dataclass, field
-
-from pathway_tpu_torch.internals.later_slice import later_slice
 
 
 @dataclass
@@ -93,24 +85,11 @@ _ACTIONS = (
 )
 
 
-#: steps that need the supervisor or the cluster (ROADMAP Queue 1 item 5)
-_CLUSTER_ACTIONS = ("kill", "kill_point", "delay_barrier")
-
-
-def _refuse_cluster_steps(specs: list[FaultSpec]) -> None:
-    for s in specs:
-        if s.action in _CLUSTER_ACTIONS or (
-            s.action == "drop_poll" and s.proc not in (None, 0)
-        ):
-            raise later_slice("resilience")
-
-
 class FaultPlan:
     """A parsed list of :class:`FaultSpec` steps with firing state."""
 
     def __init__(self, specs: list[FaultSpec] | None = None):
         self.specs = list(specs or [])
-        _refuse_cluster_steps(self.specs)
 
     # -- construction ---------------------------------------------------------
     @classmethod
@@ -158,13 +137,17 @@ class FaultPlan:
         return cls.parse(text)
 
     def to_env(self) -> str:
-        """Serialize back to the ``PATHWAY_FAULT_PLAN`` syntax."""
+        """Serialize back to the ``PATHWAY_FAULT_PLAN`` syntax (for Supervisor
+        child envs)."""
         steps = []
         for s in self.specs:
             kvs = []
             if s.proc is not None:
                 kvs.append(f"proc={s.proc}")
-            kvs.append(f"tick={s.tick}")
+            if s.action == "kill_point":
+                kvs.append(f"point={s.point}")
+            else:
+                kvs.append(f"tick={s.tick}")
             if s.count != 1:
                 kvs.append(f"count={s.count}")
             if s.ms:
@@ -173,6 +156,12 @@ class FaultPlan:
         return ";".join(steps)
 
     # -- firing ---------------------------------------------------------------
+    def should_kill(self, proc: int, tick: int) -> bool:
+        return any(
+            s.action == "kill" and s.matches_proc(proc) and tick == s.tick
+            for s in self.specs
+        )
+
     def should_drop_poll(self, proc: int, tick: int) -> FaultSpec | None:
         for s in self.specs:
             if (
@@ -196,6 +185,33 @@ class FaultPlan:
             ):
                 if s.action == "drop_retract" and not has_retract:
                     continue
+                s.remaining -= 1
+                return s
+        return None
+
+    def take_point_kill(self, name: str, proc: int) -> FaultSpec | None:
+        """One ``kill_point`` firing for this named code point (``count=N``
+        fires on the Nth pass), or None."""
+        for s in self.specs:
+            if (
+                s.action == "kill_point"
+                and s.point == name
+                and s.matches_proc(proc)
+                and s.remaining > 0
+            ):
+                s.remaining -= 1
+                if s.remaining == 0:
+                    return s
+        return None
+
+    def take_barrier_delay(self, proc: int, tick: int) -> FaultSpec | None:
+        for s in self.specs:
+            if (
+                s.action == "delay_barrier"
+                and s.matches_proc(proc)
+                and tick >= s.tick
+                and s.remaining > 0
+            ):
                 s.remaining -= 1
                 return s
         return None
@@ -231,12 +247,18 @@ def active() -> FaultPlan | None:
 
 
 def on_tick_start(proc: int, tick: int) -> bool:
-    """Run-loop hook: True when connector polling should be dropped for this
-    tick (the reference's hook may also SIGKILL the process; ``kill`` steps
-    are refused here, see the module docstring)."""
+    """Run-loop hook: may SIGKILL this process; returns True when connector
+    polling should be dropped for this tick."""
     plan = _active
     if plan is None:
         return False
+    if plan.should_kill(proc, tick):
+        print(
+            f"pathway_tpu_torch fault injection: SIGKILL process {proc} at tick {tick}",
+            file=sys.stderr,
+            flush=True,
+        )
+        os.kill(os.getpid(), signal.SIGKILL)
     spec = plan.should_drop_poll(proc, tick)
     if spec is not None:
         from pathway_tpu_torch.internals.telemetry import record_event
@@ -247,13 +269,25 @@ def on_tick_start(proc: int, tick: int) -> bool:
 
 
 def at_point(name: str, proc: int | None = None) -> None:
-    """Named-crash-window hook (reference: SIGKILL at a ``kill_point`` step).
-    The port's plans hold no ``kill_point`` step (it needs the supervisor),
-    so a pass through a named point fires nothing; subsystems that bracket a
-    crash window call it as they do in the reference. No plan = one
+    """Named-crash-window hook: SIGKILLs this process when the active plan has
+    a matching ``kill_point`` step. Subsystems call this to bracket windows
+    that tick-addressed kills cannot hit deterministically (e.g. between the
+    delivery plane's durable stage and the manifest commit). No plan = one
     attribute read."""
-    if _active is None:
+    plan = _active
+    if plan is None:
         return
+    if proc is None:
+        proc = int(os.environ.get("PATHWAY_PROCESS_ID", "0") or 0)
+    spec = plan.take_point_kill(name, proc)
+    if spec is not None:
+        print(
+            f"pathway_tpu_torch fault injection: SIGKILL process {proc} "
+            f"at point {name!r}",
+            file=sys.stderr,
+            flush=True,
+        )
+        os.kill(os.getpid(), signal.SIGKILL)
 
 
 def corrupt_polled(proc: int, tick: int, batches: list) -> list:
@@ -301,3 +335,18 @@ def corrupt_polled(proc: int, tick: int, batches: list) -> list:
                 pending = None
         out.append(b)
     return out
+
+
+def before_barrier(proc: int, tick: int) -> None:
+    """Barrier hook: may delay this process's barrier participation."""
+    plan = _active
+    if plan is None:
+        return
+    spec = plan.take_barrier_delay(proc, tick)
+    if spec is not None and spec.ms > 0:
+        from pathway_tpu_torch.internals.telemetry import record_event
+
+        record_event(
+            "resilience.fault_delay_barrier", proc=proc, tick=tick, ms=spec.ms
+        )
+        _time.sleep(spec.ms / 1000.0)

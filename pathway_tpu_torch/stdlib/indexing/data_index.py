@@ -210,8 +210,12 @@ class DataIndex:
                 qtable, with_q, left_to_right_universe=False, left_prefix="__q_"
             )
         # collapse: per query, score-ordered tuples of each data column
+        # equal scores ordered by the match row's key (the order a single
+        # worker's rows arrive in): the reference sorts by -score alone, so
+        # on several workers tied hits follow arrival
         grouped = matched.groupby(
-            matched["__qid"], id=matched["__qid"], sort_by=-matched["__score"]
+            matched["__qid"], id=matched["__qid"],
+            sort_by=pw.make_tuple(-matched["__score"], matched.id),
         )
         agg = {n: pw.reducers.tuple(matched[n]) for n in data_cols}
         agg[_SCORE] = pw.reducers.tuple(matched["__score"])

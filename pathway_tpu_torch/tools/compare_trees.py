@@ -26,7 +26,7 @@ import time
 
 PHASES = (
     "kernels", "main_path", "f32_path", "pipeline", "engine_kernels", "audit_fault", "temporal", "document_store",
-    "persistence", "rest_serving", "observability", "flow", "graphs", "knn_index",
+    "persistence", "rest_serving", "observability", "flow", "graphs", "knn_index", "multiworker",
 )
 
 #: phase -> the fields of its chip_smoke line kept in the summary (dotted
@@ -55,6 +55,13 @@ HEADLINES = {
     "graphs": ("pagerank.gpu_s", "pagerank.cpu_s", "pagerank.gpu_edges_per_s", "pagerank.device_idle_share",
                "bellman_ford.gpu_s", "louvain.gpu_s"),
     "knn_index": ("gpu_s", "cpu_s", "recall_at_10_vs_brute_force"),
+    "multiworker": (
+        "threads.one_worker.ingest_docs_per_s", "threads.4_workers.ingest_docs_per_s",
+        "threads.one_worker.query_rows_per_s", "threads.4_workers.query_rows_per_s", "threads.answers_equal",
+        "exchange.host_plane.seconds", "exchange.device_plane.seconds", "exchange.device_plane_fused.seconds",
+        "sharded_search.single_q16_p50_ms", "sharded_search.sharded_q16_p50_ms",
+        "cluster.equal_to_one_worker", "cluster.kill.equal_to_uninterrupted",
+    ),
     "persistence": tuple(
         f"legs.{mode}.{k}" for mode in ("operator_persisting", "operator_persisting_at_close", "persisting")
         for k in ("base_bytes", "delta_bytes", "restore_s", "run_b_to_first_answer_s")
@@ -97,6 +104,8 @@ if "temporal" in want and hasattr(cs, "phase_temporal"):
     cs.phase_temporal(info)
 if "graphs" in want and hasattr(cs, "phase_graphs"):
     cs.phase_graphs(info)
+if "multiworker" in want and hasattr(cs, "phase_multiworker"):
+    cs.phase_multiworker(info)
 if "document_store" in want or "rest_serving" in want or "flow" in want or "persistence" in want:
     store = cs.phase_document_store(info)
     try:

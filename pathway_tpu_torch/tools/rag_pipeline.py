@@ -53,10 +53,13 @@ def build(
     answers = index.query_as_of_now(queries_t.q, number_of_matches=k).select(
         qi=pw.left.qi,
         q=pw.left.q,
+        # a multi-worker run may show the join a reply row before its hits
+        # arrive from the worker that grouped them (None columns, retracted
+        # within the same tick): such a row has no hits
         hits=pw.apply(
-            lambda dkeys, dis, texts, scores: tuple(
-                zip(range(len(dkeys)), dkeys, dis, texts, scores)
-            ),
+            lambda dkeys, dis, texts, scores: ()
+            if dkeys is None
+            else tuple(zip(range(len(dkeys)), dkeys, dis, texts, scores)),
             pw.right.dkey,
             pw.right.di,
             pw.right.text,

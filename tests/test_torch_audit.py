@@ -12,11 +12,10 @@ same ticks, and an audit-sampled tick keeps a fused chain of 65,536 rows on
 the host program (``PATHWAY_ENGINE_JAX=cpu``, so the device tier runs on CPU
 tensors where it runs at all).
 
-Left out of the reference's file, with the plane each needs (ROADMAP Queue 1):
-``test_flip_diff_detected_on_sharded_thread_runtime`` (``n_workers=2``, the
-multi-worker runtime, item 6), ``test_flip_diff_detected_on_2proc_cluster``
-and ``test_heartbeat_summary_merge`` (the cluster, item 6: a peer's heartbeat
-block and the coordinator's ``merge_heartbeat_summaries``).
+The multi-worker cases run here too: ``flip_diff`` on the thread-sharded
+runtime (``n_workers=2``) and the coordinator's rollup of peers' heartbeat
+blocks (``merge_heartbeat_summaries``); the 2-process cluster case is in
+``tests/test_torch_cluster.py``.
 """
 
 from __future__ import annotations
@@ -244,6 +243,46 @@ def test_drop_retract_detected_on_upsert_session(monkeypatch):
     assert out["port"][1].startswith("python_connector") and out["port"][2] is not None
 
 
+def test_flip_diff_detected_on_sharded_thread_runtime(monkeypatch):
+    """``flip_diff`` on a 2-worker run: both packages catch the negative
+    multiplicity, with the same violations."""
+    monkeypatch.setenv("PATHWAY_FAULT_PLAN", "flip_diff:proc=0,tick=2")
+    out = {}
+    for name, (pw, audit, _mon, _B) in SIDES.items():
+        _groupby_pipeline(pw)
+        pw.run(monitoring_level="none", n_workers=2)
+        plane = audit.current()
+        assert plane.violation_counts.get("negative_multiplicity", 0) >= 1
+        out[name] = sorted(_violations(plane), key=repr)
+    assert out["port"] == out["ref"]
+
+
+def test_heartbeat_summary_merge():
+    a = {
+        "violations": 2,
+        "by_kind": {"negative_multiplicity": 2},
+        "divergences": 1,
+        "shadow_ticks": 4,
+        "recent": [{"kind": "negative_multiplicity", "t_ns": 5}],
+    }
+    b = {
+        "violations": 1,
+        "by_kind": {"upsert_duplicate": 1},
+        "divergences": 0,
+        "shadow_ticks": 4,
+        "recent": [{"kind": "upsert_duplicate", "t_ns": 3}],
+    }
+    merged = {name: audit.merge_heartbeat_summaries([a, None, b]) for name, (_pw, audit, _m, _B) in SIDES.items()}
+    assert merged["port"] == merged["ref"]
+    m = merged["port"]
+    assert m["violations"] == 3
+    assert m["by_kind"] == {"negative_multiplicity": 2, "upsert_duplicate": 1}
+    assert m["divergences"] == 1 and m["shadow_ticks"] == 8
+    assert [r["t_ns"] for r in m["recent"]] == [3, 5]
+    for _pw, audit, _m, _B in SIDES.values():
+        assert audit.merge_heartbeat_summaries([None, {}]) is None
+
+
 def test_flip_diff_on_index_input_edge_with_tiered_backend_live(monkeypatch):
     """A flip_diff fault on the index DOCS input edge is detected within one
     tick while a tiered backend serves the index (whose tolerant remove()
@@ -299,11 +338,17 @@ def test_drop_poll_skips_the_same_ticks(monkeypatch):
 @pytest.mark.parametrize("step", ["kill:proc=1,tick=3", "kill_point:point=delivery_staged",
                                   "delay_barrier:proc=0,tick=1,ms=5", "drop_poll:proc=1,tick=2"])
 def test_fault_plan_steps_of_the_cluster_are_a_later_slice(step):
-    ref_faults.FaultPlan.parse(step)  # the reference's supervisor and cluster run them
-    with pytest.raises(NotImplementedError, match="later slice: resilience"):
-        port_faults.FaultPlan.parse(step)
-    with pytest.raises(NotImplementedError, match="later slice: resilience"):
-        port_faults.FaultPlan(list(ref_faults.FaultPlan.parse(step).specs))
+    """The supervisor's and the cluster's steps (ported with the cluster
+    plane): both packages parse each step into the same specs and write the
+    same ``PATHWAY_FAULT_PLAN`` back."""
+    ref_plan = ref_faults.FaultPlan.parse(step)
+    port_plan = port_faults.FaultPlan.parse(step)
+    fields = lambda plan: [  # noqa: E731
+        (s.action, s.proc, s.tick, s.count, s.ms, s.point) for s in plan.specs
+    ]
+    assert fields(port_plan) == fields(ref_plan)
+    assert port_plan.to_env() == ref_plan.to_env()
+    assert fields(port_faults.FaultPlan(list(ref_plan.specs))) == fields(ref_plan)
 
 
 def test_fault_plan_parse_roundtrip_new_actions():

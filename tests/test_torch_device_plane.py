@@ -89,6 +89,17 @@ def _counts(dev) -> dict[str, tuple[int, int]]:
     }
 
 
+def _fresh_shape_sets(dev, monkeypatch) -> None:
+    """Give the package fresh process-lifetime seen-shape sets (the
+    dispatcher launches' and every traced callable's) for this test, so the
+    next run's cold shapes are its own; ``monkeypatch`` puts the original
+    sets back afterwards, so later tests see the process's history as if
+    this test had not run."""
+    monkeypatch.setattr(dev.stats(), "_seen_shapes", set())
+    for w in list(dev._wrappers):
+        monkeypatch.setattr(w, "_seen", set())
+
+
 def _delta(after: dict, before: dict) -> dict:
     out = {}
     for label, (calls, cold) in after.items():
@@ -150,6 +161,12 @@ def test_rag_pipeline_device_accounting_matches_reference(monkeypatch):
             emb = TEmbedder(TConfig(**TINY, dtype=torch.float32), params=to_torch(j_emb._encoder.params), device="cpu")
             rr = TReranker(TConfig(**TINY, dtype=torch.float32), params=to_torch(j_rr._model.params), device="cpu")
             factory, capture = TFactory(embedder=emb, device="cpu"), capture_port
+        # cold shapes are process-lifetime too (the dispatcher's seen-shape
+        # set and each traced callable's): an earlier file on this worker
+        # that ran an embedder UDF on a DataIndex (``udf:__item``) at this
+        # bucket would warm one package's set and not the other's, so both
+        # packages count cold shapes over a fresh set
+        _fresh_shape_sets(dev, monkeypatch)
         before = _counts(dev)
         rows = capture(
             rag_pipeline.build(

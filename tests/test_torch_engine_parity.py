@@ -335,7 +335,7 @@ def test_microbatch_auto_stream_equals_off(monkeypatch):
         assert final(auto[name]) == final(off[name])
 
 
-def test_unported_planes_raise_later_slice():
+def test_unported_planes_raise_later_slice(monkeypatch, tmp_path):
     # the flow plane is ported: a bulk-class subscriber sees what the
     # reference's sees
     seen = {}
@@ -360,8 +360,17 @@ def test_unported_planes_raise_later_slice():
                 backend=pathway_tpu_torch.persistence.Backend.s3("bucket/root")
             )
         )
-    with pytest.raises(NotImplementedError, match="later slice: parallel.sharded"):
-        pathway_tpu_torch.run(n_workers=2)
+    # the multi-worker runtimes are ported: a 2-worker run goes through; the
+    # elasticity plane is still cut
+    pathway_tpu_torch.run(n_workers=2)
+    assert type(pathway_tpu_torch.internals.run.current_runtime()).__name__ == "ShardedRuntime"
+    monkeypatch.setenv("PATHWAY_ELASTIC", "manual")
+    with pytest.raises(NotImplementedError, match="later slice: elastic"):
+        pathway_tpu_torch.run(
+            persistence_config=pathway_tpu_torch.persistence.Config(
+                backend=pathway_tpu_torch.persistence.Backend.filesystem(str(tmp_path / "p"))
+            )
+        )
 
 
 def _live_subject_run(pw) -> dict:

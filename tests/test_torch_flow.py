@@ -9,11 +9,11 @@ budgets, controller decisions, final stream states, ``/status`` ``flow``
 sections) is compared exactly; wall times are never compared. Threaded cases
 compare counts and the bound invariant, not interleavings.
 
-Left for later slices: the cluster case (``test_cluster_run_with_flow_on_
-matches_off``, the cluster plane, ROADMAP Queue 1 item 4) and the persisted
-input's gate bypass (``test_persisted_inputs_bypass_gate_and_replay_
-survives``, the persistence plane, item 3), whose entry points raise
-``later_slice`` in the port.
+The cluster case (``test_cluster_run_with_flow_on_matches_off``) runs the
+port's 2-process cluster with the plane off and on and holds both equal to
+the reference's single process. Left out: the persisted input's gate bypass
+(``test_persisted_inputs_bypass_gate_and_replay_survives``), whose source
+reaches the reference's persistence test fixtures.
 """
 
 from __future__ import annotations
@@ -459,8 +459,8 @@ def test_controller_watches_only_interactive_sinks(monkeypatch):
 
 
 def test_cluster_signal_merges_peer_occupancy_and_scales_gates(monkeypatch):
-    """The signal's arithmetic, on one process: the port has no peers to
-    send it (the cluster plane is Queue 1 item 4), but the plane carries it."""
+    """The signal's arithmetic on one process (the cluster case below sends
+    it between processes)."""
 
     def scenario(m, mp):
         plane = _install(m, mp, PATHWAY_INPUT_QUEUE_ROWS=100)
@@ -882,3 +882,21 @@ def test_plane_is_retained_closed_after_a_run_and_replaced_by_the_next(monkeypat
         return retained, after, m.flow.install_from_env(), m.flow.current()
 
     assert _both(scenario, monkeypatch) == (True, 10, None, None)
+
+
+def test_cluster_run_with_flow_on_matches_off(tmp_path, monkeypatch):
+    """A 2-process cluster with the plane on: the continuation barrier
+    broadcasts the merged flow signal, peers piggyback gate occupancy on
+    heartbeats, and the final groups equal the plane-off run's and the
+    reference's single process."""
+    import torch_cluster_helpers as tc
+
+    monkeypatch.delenv("PATHWAY_FLOW", raising=False)
+    ref = str(tmp_path / "ref")
+    tc.run_in_process(pathway_tpu, "flow_groupby", ref)
+    off, on = str(tmp_path / "off"), str(tmp_path / "on")
+    tc.run_cluster("flow_groupby", off, processes=2)
+    tc.run_cluster("flow_groupby", on, processes=2, env={"PATHWAY_FLOW": "on", "PATHWAY_INPUT_QUEUE_ROWS": "16"})
+    expect = tc.read(off + ".json")
+    assert tc.read(on + ".json") == expect == tc.read(ref + ".json")
+    assert len(json.loads(expect)) == 4

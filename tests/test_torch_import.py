@@ -128,3 +128,33 @@ def test_explicit_cpu_device_is_accepted_without_cuda(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_multiworker_planes_import_without_jax_or_reference_package():
+    """The multi-worker planes (``parallel``: the shard grid, the on-device
+    exchange and its plane, the sharded and cluster runtimes; the sharded
+    KNN search; ``resilience``: heartbeats and the supervisor; ``elastic``'s
+    membership; ``observability.aggregate``; the Kafka connector) load
+    neither JAX nor the reference package, and a 2-worker run with the
+    exchange plane forced on stays clear of both."""
+    proc = _run(
+        "import os, sys\n"
+        "os.environ['PATHWAY_DEVICE_EXCHANGE'] = 'on'\n"
+        "import pathway_tpu_torch as pw\n"
+        "import pathway_tpu_torch.parallel, pathway_tpu_torch.parallel.cluster\n"
+        "import pathway_tpu_torch.parallel.device_exchange, pathway_tpu_torch.parallel.device_plane\n"
+        "import pathway_tpu_torch.resilience.heartbeat, pathway_tpu_torch.resilience.supervisor\n"
+        "import pathway_tpu_torch.elastic.membership, pathway_tpu_torch.observability.aggregate\n"
+        "import pathway_tpu_torch.io.kafka\n"
+        "from pathway_tpu_torch.ops.knn import ShardedBruteForceKnnIndex, sharded_search\n"
+        "t = pw.debug.table_from_rows(pw.schema_from_types(k=int, v=int), [(i % 5, i) for i in range(100)])\n"
+        "g = t.groupby(t.k).reduce(t.k, s=pw.reducers.sum(t.v))\n"
+        "pw.io.subscribe(g, on_change=lambda **kw: None)\n"
+        "pw.run(n_workers=2, monitoring_level='none')\n"
+        "assert pw.internals.run.current_runtime().device_plane.rows_exchanged > 0\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'pathway_tpu' or m.startswith('pathway_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -563,8 +563,8 @@ def test_sigkill_restart_live_index_restores_base_plus_deltas(tmp_path):
     """SIGKILL mid-stream with a live index (the port's pipeline in a
     subprocess); the restart from the last committed snapshot restores base +
     deltas and its answers equal an uninterrupted run's; the per-interval
-    puts are tiny against the base. The reference restarts under its
-    Supervisor, a later slice of the port: here the script is relaunched."""
+    puts are tiny against the base. The restart runs under the port's
+    Supervisor, as the reference's does."""
     import glob as _glob
     import json
     import signal
@@ -601,10 +601,14 @@ def test_sigkill_restart_live_index_restores_base_plus_deltas(tmp_path):
     p.send_signal(signal.SIGKILL)
     p.wait()
 
+    # restart under the Supervisor: resumes from the last committed epoch
+    from pathway_tpu_torch.resilience.supervisor import Supervisor
+
     out2 = str(tmp_path / "run2.json")
-    p = subprocess.run([_sys.executable, str(script), out2], env=env,
-                       capture_output=True, text=True, timeout=120)
-    assert p.returncode == 0, p.stdout + p.stderr
+    result = Supervisor([_sys.executable, str(script), out2], processes=1, threads=1,
+                        max_restarts=1, backoff_s=0.2, env=env,
+                        log_dir=str(tmp_path / "logs")).run()
+    assert result.restarts == 0, result.attempts
     run2 = {int(k): v for k, v in json.load(open(out2)).items()}
     assert 39 in run2 and len(run2) >= 10
 

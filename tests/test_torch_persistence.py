@@ -8,8 +8,8 @@ package writing to its own storage (a ``tmp_path`` directory or a memory-
 backend root). Both must give the same restart outputs: keys, rows, times and
 diffs where the source is a timed stream, keys and final rows where it is a
 connector thread. Within the port, a restart must equal an uninterrupted run
-bit for bit. The reference's multi-worker cases wait for the port's
-multi-worker runtimes (ROADMAP Queue 1 item 4).
+bit for bit. The reference's multi-worker cases are in
+``tests/test_torch_persistence_multiworker.py``.
 """
 
 from __future__ import annotations
@@ -669,8 +669,8 @@ def _kill_restart(tmp_path, sharded: bool):
 def test_exactly_once_output_on_restart(tmp_path):
     """SIGKILL mid-stream + restart: the csv output holds each input row
     exactly once (the sink's frontier snapshot + rewind). The reference
-    reads a mock Kafka topic; the port's Kafka connector is a later slice,
-    so the source here re-reads a file."""
+    reads a mock Kafka topic; the source here re-reads a file (the Kafka
+    cases are in ``tests/test_torch_persistence_multiworker.py``)."""
     _kill_restart(tmp_path, sharded=False)
 
 

@@ -8,10 +8,9 @@ the update streams ``(time, key, diff, values)`` must be identical, keys
 included; the reference test's own assertions are then checked on the
 port's stream.
 
-Left out, and why:
-- ``test_temporal_sweep_cluster_matches_thread`` and
-  ``test_session_merge_and_prev_next_cluster_matches_thread`` run two
-  processes; the port's multi-process runtime is ROADMAP Queue 1 item 6.
+The two cluster cases (``test_temporal_sweep_cluster_matches_thread``,
+``test_session_merge_and_prev_next_cluster_matches_thread``) run two
+processes and are in ``tests/test_torch_cluster.py``.
 
 Both packages run the sweep under their audit planes (``PATHWAY_AUDIT=full``,
 as the reference's file does), and neither plane's monitors may report a

@@ -15,12 +15,11 @@ gives equal points, verdicts and payloads. Segment lines carry each
 package's own service name (``pathway_tpu`` / ``pathway_tpu_torch``), as the
 span exports do; everything else in them is equal.
 
+The pod merge of peers' heartbeat series and the coordinator's rollup
+(``test_pod_merge_rules_and_peer_retirement``,
+``test_heartbeat_piggyback_and_cluster_rollup``) run on both packages too.
 Left out of the reference's file, with the plane each needs (ROADMAP
-Queue 1): ``test_pod_merge_rules_and_peer_retirement`` and
-``test_heartbeat_piggyback_and_cluster_rollup`` (the peers' heartbeat
-series, ``aggregate.local_summary`` and ``cluster_status``, item 6; the pod
-rollup of one process's points is compared here),
-``test_fabric_link_canaries_feed_slo_and_flap_detector`` and
+Queue 1): ``test_fabric_link_canaries_feed_slo_and_flap_detector`` and
 ``test_fabric_canary_req_handler_registered`` (the fabric, item 7) and the
 three ``cli`` cases (``pathway_tpu top`` and ``timeline diff``, item 7; the
 ``diff_summary`` they print is compared here).
@@ -653,3 +652,67 @@ def test_seeded_stall_attribution_and_pod_bundle(monkeypatch, tmp_path):
     cause, knob, severity, procs, bundle_cause, window = out["port"]
     assert "PATHWAY_FUSE" in knob and severity == "page" and procs == [0]
     assert bundle_cause == "stage" and window
+
+
+def test_pod_merge_rules_and_peer_retirement(monkeypatch):
+    """A peer's heartbeat points fold into the coordinator's pod rollup
+    (rates and phase ms sum, p99 takes the worst process, the tick the
+    slowest) and drop out when the monitor forgets the peer: the same
+    rollups in both packages."""
+    monkeypatch.setenv("PATHWAY_TIMELINE", "on")
+    out = {}
+    for name, (pw, timeline, *_rest) in SIDES.items():
+        rt = _ClusterRT()
+        plane = timeline.TimelinePlane(_cfg(pw), rt)
+        plane.points.append(
+            {"t": 1000.0, "tick": 30, "serve_qps": 5.0, "route_p99_s:/q": 0.010, "phase_ms:probe": 100.0}
+        )
+        rt.hb_monitor.peers = {
+            1: {"timeline": {"points": [
+                {"t": 1000.1, "tick": 20, "serve_qps": 7.0, "route_p99_s:/q": 0.050, "phase_ms:probe": 40.0}
+            ], "samples": 3, "last_t": 1000.1}}
+        }
+        plane._merge_peers()
+        merged = (plane.procs(), plane.pod_points(), plane.payload({"proc": ["pod"]}))
+        rt.hb_monitor.peers = {}
+        plane._merge_peers()
+        out[name] = (merged, plane.procs(), plane.pod_points())
+    assert out["port"] == out["ref"]
+    (procs, pod, body), procs_after, pod_after = out["port"]
+    assert procs == ["0", "1"] and len(pod) == 1
+    b = pod[0]
+    assert b["procs"] == 2 and b["tick"] == 20
+    assert b["serve_qps"] == pytest.approx(12.0)
+    assert b["route_p99_s:/q"] == pytest.approx(0.050)
+    assert b["phase_ms:probe"] == pytest.approx(140.0)
+    assert body["proc"] == "pod" and body["points"][0]["procs"] == 2
+    assert procs_after == ["0"] and pod_after[0]["procs"] == 1
+
+
+def test_heartbeat_piggyback_and_cluster_rollup(monkeypatch):
+    """``aggregate.local_summary`` carries the compressed series block; the
+    coordinator's ``cluster_status`` rolls the reporting pids and sample
+    counts up — the same in both packages."""
+    monkeypatch.setenv("PATHWAY_TIMELINE", "on")
+    monkeypatch.setenv("PATHWAY_TIMELINE_STEP_MS", "60000")
+    from pathway_tpu.observability import aggregate as ref_agg
+    from pathway_tpu_torch.observability import aggregate as port_agg
+
+    out = {}
+    for name, agg in (("ref", ref_agg), ("port", port_agg)):
+        timeline = SIDES[name][1]
+        rt = _ClusterRT()
+        plane = timeline.install_from_env(rt)
+        try:
+            plane.points.append({"t": 1000.0, "serve_qps": 1.0})
+            local = agg.local_summary(rt)
+            rt.hb_monitor.peers = {
+                1: {"timeline": {"points": [{"t": 1000.5, "serve_qps": 2.0}], "samples": 9, "last_t": 1000.5}}
+            }
+            cluster = agg.cluster_status(rt)
+            out[name] = (local["timeline"]["points"][-1], local["timeline"]["samples"] - plane.samples_total,
+                         cluster["timeline"]["reporting"], cluster["timeline"]["samples"] - plane.samples_total,
+                         cluster["timeline"]["last_t"])
+        finally:
+            timeline.shutdown()
+    assert out["port"] == out["ref"] == ({"t": 1000.0, "serve_qps": 1.0}, 0, ["0", "1"], 9, 1000.5)
