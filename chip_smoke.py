@@ -17,7 +17,10 @@ printing one JSON line:
    both on the tensor cores) at nine shapes, the main path's among them,
    with its time at the main path's three shapes and at bert_path's
    batch (12 heads of 32), its plain version's time,
-   one PyTorch library call's time as a yardstick, and its bound;
+   one PyTorch library call's time as a yardstick, and its bound; then
+   the attention's backward kernel (``attention_short_bwd.cu``) against its
+   plain version, both dtypes at six shapes, timed at the train step's
+   shape beside its plain version, SDPA's backward and its bound;
 4. main path, at the full width of the bench's MiniLM-class encoder with
    random seeded weights: 8192 docs tokenized, embedded in batches of 1024
    and indexed; the index filled to 1,000,000 x 384 f32; 30 RAG queries
@@ -35,8 +38,8 @@ printing one JSON line:
 7. pipeline: the same loop written against ``import pathway_tpu_torch as pw``
    and run by the engine (``pw.debug`` streams → ``SentenceTransformerEmbedder``
    through the cross-tick microbatcher → ``BruteForceKnnFactory`` index →
-   ``query_as_of_now`` → flatten → ``CrossEncoderReranker``): 32,768 docs and
-   then 1,024 queries in 64-row ticks, with its checks (self-retrieval, a
+   ``query_as_of_now`` → flatten → ``CrossEncoderReranker``): 16,384 docs and
+   then 512 queries in 64-row ticks, with its checks (self-retrieval, a
    direct search over the embeddings the pipeline emitted, rerank scores
    against the cross-encoder, microbatch off == auto at 4,096 docs);
 8. tiered: the tiered index (bounded hot shard on the card, host IVF cold
@@ -49,7 +52,7 @@ printing one JSON line:
    its serving rates at 16, 256 and 1,024 queries a batch beside the
    brute-force index's, with a trained IVF cold tier, recall@10 and the
    tier counters; then the pipeline of phase 7 with ``TieredKnnFactory``
-   (hot bound 16,384) with its checks (self-retrieval, microbatch off ==
+   (hot bound 4,096) with its checks (self-retrieval, microbatch off ==
    auto at 4,096 docs with an exact cold tier);
 9. engine_kernels: the engine's filter → join → groupby/sum at 1,000,000
    rows, static and over 20 ticks, with both ``engine/torch_kernels.py``
@@ -88,13 +91,13 @@ printing one JSON line:
    attention call on the f32 route at hd 32) and indexed, with its checks
    (64 embeddings against the CPU path, 8,192/8,192 self-hits, the bert
    entry of ``tools/batch_invariance.py``);
-12. document_store: 4,096 UTF-8 files in 64 directories read by
+12. document_store: 2,048 UTF-8 files in 64 directories read by
    ``pw.io.fs`` into ``DocumentStore`` (``minilm`` embedder,
    ``TokenCountSplitter(50, 200)``, the default ``TieredKnnFactory``); 1,024
    ``retrieve_query`` rows in 64-row ticks (256 filtered to a directory),
    ``statistics_query``, ``inputs_query`` and 256 prompts through
    ``BaseRAGQuestionAnswerer``, with its checks (self-hits, filtered hits
-   inside their glob, 4,096 files counted, each prompt holding its k texts
+   inside their glob, 2,048 files counted, each prompt holding its k texts
    in order); a 1,024-file streaming read whose answers equal a static
    read's; 64 files each of PDF, DOCX, HTML and Markdown through their
    parsers, each marker phrase retrieved first;
@@ -147,8 +150,8 @@ printing one JSON line:
    ``PATHWAY_PROFILE=full`` (the encoder's device-wait split above 0 and
    below the leg's wall), requests/s and p50/p99 beside phase 13's;
 15. multiworker (after the flow, graphs and knn_index phases): the RAG path
-   on several workers, four legs. Threads: phase 7's loop at 16,384 docs and
-   1,024 queries through ``pw.run(n_workers=4)`` (the thread-sharded
+   on several workers, four legs. Threads: phase 7's loop at 8,192 docs and
+   512 queries through ``pw.run(n_workers=4)`` (the thread-sharded
    runtime) against one worker, each under ``torch.profiler``: answers
    equal in keys, order and score bits; ingest docs/s, query rows/s,
    attention launches and the device's idle share of each. Exchange:
@@ -161,15 +164,40 @@ printing one JSON line:
    the card, with a block of 1,000 identical rows, against
    ``BruteForceKnnIndex``: top-10 equal in keys and score bits at Q = 16
    and 1,024, the tied query's hits the block's first keys in the canonical
-   order; Q = 16 p50 ms of both. Cluster: ``tools/rag_cluster.py`` at 4,096
+   order; Q = 16 p50 ms of both. Cluster: ``tools/rag_cluster.py`` at 2,048
    docs and 256 queries on 2 processes x 2 threads sharing the card, with
    a filesystem persistence backend, against one worker in this process:
    the same answers; then the same cluster under ``resilience.Supervisor``
-   with ``PATHWAY_FAULT_PLAN=kill:proc=1,tick=66``: the restarted cluster's
+   with ``PATHWAY_FAULT_PLAN=kill:proc=1,tick=34``: the restarted cluster's
    answers equal the uninterrupted run's;
-16. the kernels line, with each kernel's launches during phases 4, 6, 7,
-   8's pipeline, 10, 11, 12, 12b's run B, 13, 14, the flow phase and 15
-   (the cluster processes' counts read from their output).
+16. train: contrastive training at phase 4's full width (vocab 32,768, d
+   384, 6 heads, 6 layers, d_ff 1,536, seed 0) on 256 synth_docs pairs
+   (each positive the same text) at L = 128, lr 1e-2: 10 steps in bf16
+   with f32 parameters, then 3 in f32 (TF32 off), every attention's
+   forward on ``attention_short.cu`` and backward on
+   ``attention_short_bwd.cu`` (the backward checked against its plain
+   version at six shapes in phase 3). Gates: finite losses, the last below
+   the first, 12 forward and 12 backward launches a step, one step's loss
+   and every gradient leaf equal to the same step with both plain
+   attention functions within TRAIN_GRAD_TOL. Printed: ms a step, its
+   forward and backward, tokens/s, one profiled step's attention ms and
+   device idle share, the peak allocated memory;
+17. multichip_dryrun: ``tools/multichip_dryrun.dryrun_multichip(4)`` on
+   four logical shards of the card (a 2 x 2 TP/DP step equal to the
+   unsharded one, the sharded KNN self-search, the key exchange, the
+   sharded dataflow and the device plane against one worker);
+18. fabric: ``tools/rag_cluster.py --serve`` (``DocumentStoreServer`` over
+   2,048 docs) on one worker in this process, then on 2 processes x 2
+   threads with ``PATHWAY_FABRIC=on`` and ``PATHWAY_SHARDMAP=on`` (every
+   door its requests' owner) and with the fabric alone (the peer answers
+   from its replica index); both doors answer the first 32 docs. Gates:
+   every answer byte-identical to the coordinator's and to one worker's,
+   each doc first in its own answer. Printed: replica-answered, forwarded
+   and owner-answered counts and each door's p50;
+19. the kernels line, with each kernel's launches during phases 4, 6, 7,
+   8's pipeline, 10, 11, 12, 12b's run B, 13, 14, the flow phase, 15, 16,
+   17 and 18 (the cluster processes' counts read from their output): the
+   attention kernel's two routes and its backward's two routes.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without it. TF32 is off for every matmul (``allow_tf32 = False``), so the f32
@@ -195,8 +223,8 @@ INDEX_ROWS = 1_000_000
 FILL_CHUNK = 8192
 N_QUERIES = 30
 #: the pipeline phase: docs and queries in ticks of streaming_bench's size
-PIPE_DOCS = 32_768  # cut from 65,536 to pay for phase multiworker (PERF.md section 4)
-PIPE_QUERIES = 1024
+PIPE_DOCS = 16_384  # cut from 65,536 to pay for phases multiworker, train and fabric (PERF.md section 4)
+PIPE_QUERIES = 512  # cut from 1,024 to pay for phases train and fabric
 PIPE_TICK = 64
 PIPE_K = 10
 PIPE_SAME_DOCS = 4096  # microbatch off == auto at this size
@@ -205,12 +233,12 @@ ENGINE_ROWS = 1_000_000
 ENGINE_TICKS = 20
 #: the tiered phase: knn_bench's corpus at 2x the default hot bound
 #: (``PATHWAY_INDEX_HOT_ROWS``, internals/config.py), its query batches, and
-#: the pipeline at 4x a 16,384-row hot bound
+#: the pipeline at 4x a 4,096-row hot bound
 TIER_CORPUS = 131_072  # cut from 262,144 (4x the hot bound) to pay for phase multiworker
 TIER_HOT = 65_536
 TIER_QUERIES = 64
 TIER_Q_BATCHES = (16, 256, 1024)
-TIER_PIPE_HOT = 16_384
+TIER_PIPE_HOT = 4096  # PIPE_DOCS / 4: cut from 16,384 with PIPE_DOCS
 TIER_SAME_HOT = 1024  # microbatch off == auto: PIPE_SAME_DOCS docs, 4x this bound
 INVARIANCE_CAPACITIES = (4096, 65_536, 1 << 20)
 #: the temporal phase: a Nexmark-shaped stream (``tools/nexmark.py``) in
@@ -226,7 +254,7 @@ TEMPORAL_WORKERS = 6  # processes running the phase's 18 runs, longest first
 BERT_DOCS = 8192
 BERT_BATCH = 1024
 #: the document_store phase: a file corpus read by pw.io.fs into DocumentStore
-DS_FILES = 4096  # cut from 8,192 to pay for phase multiworker (PERF.md section 4)
+DS_FILES = 2048  # cut from 8,192 to pay for phases multiworker, train and fabric (PERF.md section 4)
 DS_SUBDIRS = 64
 DS_WORDS = (600, 1000)
 DS_QUERIES = 1024
@@ -3395,7 +3423,7 @@ def phase_observability(info: dict, ds: dict, rest: dict) -> dict:
     return {"launches": route_launches, "metrics": out}
 
 
-FLOW_BACKFILL_FILES = 1024  # cut from 2,048 with DS_FILES
+FLOW_BACKFILL_FILES = 512  # cut from 2,048 with DS_FILES
 FLOW_SHED_ROWS = 4096
 FLOW_SHED_BOUND = 256
 FLOW_SAMPLE_S = 0.05  # /status sampling period during the backfill
@@ -3721,7 +3749,7 @@ def _rest_shed_and_lifecycle(port: int, emb) -> tuple[dict, dict]:
                       "restart_same_port": again[0]}
 
 
-GRAPH_SCALE = 13  # R-MAT scale, cut from 18 (PERF.md section 4); Graph500's smallest class is 26
+GRAPH_SCALE = 12  # R-MAT scale, cut from 18 (PERF.md section 4); Graph500's smallest class is 26
 GRAPH_EDGE_FACTOR = 16  # Graph500's edge factor
 GRAPH_STEPS = 5
 GRAPH_CHURN = 0.01  # the incremental tick deletes and adds this share of the edges
@@ -4068,17 +4096,17 @@ def phase_knn_index(info: dict, vecs: np.ndarray) -> dict:
     return out
 
 
-MW_DOCS = 16_384
-MW_QUERIES = 1024
+MW_DOCS = 8192  # cut from 16,384 to pay for phases train and fabric
+MW_QUERIES = 512  # cut from 1,024 with MW_DOCS
 MW_WORKERS = 4
 MW_SEARCH_ROWS = 1_000_000
 MW_SEARCH_TIED = 1000  # rows 1000..1999 are one vector: ties at the k boundary
 MW_SEARCH_SHARDS = 4
 MW_SEARCH_REPS = 20
-MW_CLUSTER_DOCS = 4096
+MW_CLUSTER_DOCS = 2048  # cut from 4,096 to pay for phases train and fabric
 MW_CLUSTER_QUERIES = 256
 MW_CLUSTER_THREADS = 2
-MW_KILL_TICK = 66  # the 3rd of the 4 query ticks (64 doc ticks come first)
+MW_KILL_TICK = 34  # the 3rd of the 4 query ticks (32 doc ticks come first)
 MW_CLUSTER_TIMEOUT_S = 300
 
 
@@ -4505,6 +4533,422 @@ def phase_multiworker(info: dict) -> dict:
     return {"launches": launches, "metrics": out}
 
 
+# --------------------------------------------------------------- training path
+
+#: the backward kernel's checked cases, (B texts, L, heads, hd): the train
+#: step's shape (256 pairs, both sides in one batch), the bert block's
+#: heads, the longest length, a length that fills no tile evenly, the widest
+#: head and a single row
+BWD_SHAPES = {
+    "train": (512, 128, 6, 64), "bert": (64, 128, 12, 32), "max_len": (4, 512, 6, 64),
+    "ragged": (3, 77, 6, 64), "hd128": (4, 256, 3, 128), "one": (1, 16, 6, 64),
+}
+#: the train phase: the main path's encoder at full width, the reference
+#: test's recipe (each positive is the same text) on synth_docs
+TRAIN_PAIRS = 256
+TRAIN_LEN = 128
+TRAIN_STEPS = 10
+TRAIN_F32_STEPS = 3
+TRAIN_LR = 1e-2
+#: a step on the kernels against the same step with both plain attention
+#: functions on the card: the loss within this share of itself and every
+#: gradient leaf within this share of the leaf's largest value. bf16: the
+#: kernels round the probabilities and the outputs where the plain version
+#: does, but sum in another order, so a bf16 ulp (2^-8) can flip through
+#: six layers of bf16 activations; f32: the forward's 3xTF32 products keep
+#: ~2^-22 of a product
+TRAIN_GRAD_TOL = {"bfloat16": 5e-2, "float32": 1e-3}
+#: the fabric phase: rag_cluster's served mode, docs and requests per door
+FABRIC_DOCS = 2048
+FABRIC_QUERIES = 32
+FABRIC_LEGS = {
+    "zero_hop": {"PATHWAY_FABRIC": "on", "PATHWAY_SHARDMAP": "on"},
+    "replica": {"PATHWAY_FABRIC": "on"},
+}
+
+
+def phase_kernels_backward() -> list[dict]:
+    """attention_short_flat_backward against its plain version on the card,
+    both routes at every shape of BWD_SHAPES (row 0 of each batch fully
+    masked); returns every case's record. dq, dk and dv each within
+    1e-5 (|ref| + max|ref|) in f32 and 2^-7 (|ref| + max|ref|) in bf16 (one
+    bf16 ulp of the output plus one of every rounded probability). At the
+    train step's shape it times the kernel, the plain version and the
+    backward of ``scaled_dot_product_attention`` (the yardstick)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.ops import attention_kernel as A
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    records = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+        for label, (B, L, H, hd) in BWD_SHAPES.items():
+            D, scale = H * hd, hd ** -0.5
+            q, k, v, mask = _attention_inputs(B, L, dtype, gen, H, hd)
+            out = A.attention_short_flat(q, k, v, mask, H, scale)
+            g = torch.randn(B, L, D, device="cuda", generator=gen).to(dtype)
+            got = A.attention_short_flat_backward(q, k, v, mask, out, g, H, scale)
+            torch.cuda.synchronize()
+            want = A.attention_short_flat_backward_plain(q, k, v, mask, out, g, H, scale)
+            errs, ok = {}, True
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                a, b = a.float(), b.float()
+                err = (a - b).abs()
+                ok = ok and bool(torch.isfinite(a).all()) and bool((err <= rel * (b.abs() + b.abs().max())).all())
+                errs[name] = err.max().item()
+            check(ok, f"attention backward {label} {dname}: kernel disagrees with plain {errs}")
+            rec = {"case": label, "dtype": dname, "B": B, "L": L, "H": H, "hd": hd,
+                   "max_abs_err": max(errs.values()), "errors": errs,
+                   "tolerance": f"{rel:g}*(|ref|+max|ref|)", "ok": ok}
+            if label == "train":
+                iters = 10
+                rec["ms"] = cuda_ms(lambda: A.attention_short_flat_backward(q, k, v, mask, out, g, H, scale), iters)
+                rec["plain_ms"] = cuda_ms(
+                    lambda: A.attention_short_flat_backward_plain(q, k, v, mask, out, g, H, scale), iters)
+                qh, kh, vh = (t.detach().view(B, L, H, hd).transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+                bias = torch.zeros(B, 1, 1, L, device="cuda", dtype=dtype).masked_fill(~mask[:, None, None, :], -1e30)
+                ref_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias, scale=scale)
+                gh = g.view(B, L, H, hd).transpose(1, 2)
+                rec["library_ms"] = cuda_ms(
+                    lambda: torch.autograd.grad(ref_out, (qh, kh, vh), gh, retain_graph=True), iters)
+                es = q.element_size()
+                nbytes = 8 * B * L * D * es + B * L  # q, k, v, out, d_out read; dq, dk, dv written; mask
+                flops = 10 * B * H * L * L * hd
+                t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+                if dtype == torch.bfloat16:
+                    t_ops = flops / H100_BF16_FLOPS * 1e3
+                else:
+                    t_ops = 3 * flops / H100_TF32_FLOPS * 1e3
+                    rec["bound_fp32_pipes_ms"] = max(t_bytes, flops / H100_F32_FLOPS * 1e3)
+                rec["bound_ms"] = max(t_bytes, t_ops)
+                rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+                del qh, kh, vh, ref_out, bias
+            records.append(rec)
+            emit("kernel_check", kernel="attention_short_flat_backward", **rec)
+            del q, k, v, mask, out, g, got, want
+    torch.cuda.empty_cache()
+    return records
+
+
+def _reset_attention_counts() -> None:
+    from pathway_tpu_torch.ops import attention_kernel as A
+
+    A.LAUNCHES = A.BACKWARD_LAUNCHES = 0
+    A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
+    A.BACKWARD_ROUTE_LAUNCHES.update(dict.fromkeys(A.BACKWARD_ROUTE_LAUNCHES, 0))
+
+
+def _attention_counts() -> tuple[dict, dict]:
+    from pathway_tpu_torch.ops import attention_kernel as A
+
+    return dict(A.ROUTE_LAUNCHES), dict(A.BACKWARD_ROUTE_LAUNCHES)
+
+
+def _train_batch(pairs: int):
+    """(tok_a, mask_a, tok_b, mask_b): synth_docs hashed to TRAIN_LEN
+    tokens, each positive the same text."""
+    import torch
+
+    from pathway_tpu_torch.ops.encoder import HashTokenizer
+
+    ids, mask = HashTokenizer(32768, TRAIN_LEN)(synth_docs(pairs))
+    ids = torch.from_numpy(ids.astype(np.int64)).to(DEVICE)
+    mask = torch.from_numpy(mask).to(DEVICE)
+    return ids, mask, ids, mask
+
+
+def _loss_and_grads(params, cfg, batch) -> tuple:
+    """One step's loss and gradient leaves, with the forward's and the
+    backward's seconds."""
+    import torch
+
+    from pathway_tpu_torch.convert import tree_leaves, tree_map
+    from pathway_tpu_torch.ops import encoder as E
+
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    leaves = tree_leaves(live)
+    sync()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        loss = E.contrastive_loss(live, cfg, *batch)
+        sync()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    sync()
+    return loss.detach(), grads, t1 - t0, time.perf_counter() - t1
+
+
+def _plain_attention():
+    """A context in which the attention's forward and backward are their
+    plain versions, on the card as on the CPU."""
+    import contextlib
+
+    from pathway_tpu_torch.ops import attention_kernel as A
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = (A._forward, A.attention_short_flat_backward)
+        A._forward = lambda q, k, v, mask, n_heads, scale: A.attention_short_flat_plain(q, k, v, mask, n_heads, scale)
+        A.attention_short_flat_backward = A.attention_short_flat_backward_plain
+        try:
+            yield
+        finally:
+            A._forward, A.attention_short_flat_backward = saved
+
+    return ctx()
+
+
+def _kernel_vs_plain_step(params, cfg, batch, tol: float) -> dict:
+    """The same step's loss and gradients on the kernels and on the plain
+    attention functions; errors per leaf over the leaf's largest value."""
+    loss_k, grads_k, _f, _b = _loss_and_grads(params, cfg, batch)
+    with _plain_attention():
+        loss_p, grads_p, _f, _b = _loss_and_grads(params, cfg, batch)
+    loss_err = abs(float(loss_k) - float(loss_p)) / max(abs(float(loss_p)), 1e-12)
+    leaf_err = max(
+        float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-12)
+        for a, b in zip(grads_k, grads_p)
+    )
+    return {"loss_kernels": float(loss_k), "loss_plain": float(loss_p), "loss_rel_err": loss_err,
+            "grad_leaf_rel_err": leaf_err, "tolerance": tol, "ok": loss_err <= tol and leaf_err <= tol}
+
+
+def _train_leg(cfg, params, batch, steps: int, tol: float) -> dict:
+    """``steps`` steps of ``contrastive_train_step`` from zero momenta with
+    the launches they made, then one step split into forward and backward,
+    one under ``torch.profiler`` and the kernels-vs-plain step."""
+    import torch
+
+    from pathway_tpu_torch.convert import tree_map
+    from pathway_tpu_torch.ops import encoder as E
+
+    dname = str(cfg.dtype).replace("torch.", "")
+    opt = tree_map(torch.zeros_like, params)
+    _reset_attention_counts()
+    losses, step_ms = [], []
+    p = params
+    for _ in range(steps):
+        sync()
+        t0 = time.perf_counter()
+        p, opt, loss = E.contrastive_train_step(p, cfg, opt, batch, lr=TRAIN_LR)
+        losses.append(float(loss))  # the float() syncs
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    fwd, bwd = _attention_counts()
+    per_step = 2 * cfg.n_layers
+    check(all(np.isfinite(losses)), f"train {dname}: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"train {dname}: the loss did not fall: {losses}")
+    check(sum(fwd.values()) == per_step * steps and sum(bwd.values()) == per_step * steps,
+          f"train {dname}: attention launches forward {fwd} backward {bwd}, expected {per_step * steps} each")
+    _l, _g, fwd_s, bwd_s = _loss_and_grads(p, cfg, batch)
+    out = {
+        "dtype": dname, "steps": steps, "losses": losses, "step_ms": step_ms,
+        "step_ms_median": statistics.median(step_ms), "forward_ms": fwd_s * 1e3, "backward_ms": bwd_s * 1e3,
+        "tokens_per_s": 2 * batch[0].shape[0] * batch[0].shape[1] / (statistics.median(step_ms) / 1e3),
+        "attention_launches": {"forward": fwd, "backward": bwd},
+    }
+    if DEVICE == "cuda":
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as _profile
+
+        with _profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sync()
+            t0 = time.perf_counter()
+            E.contrastive_train_step(p, cfg, opt, batch, lr=TRAIN_LR)
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0]
+        device_ms = sum(ev.device_time_total / 1e3 for ev in evs)
+        out["profiled_step"] = {
+            "wall_ms": wall_ms, "device_ms": device_ms, "device_idle_share": 1.0 - device_ms / wall_ms,
+            "attention_forward_ms": sum(ev.device_time_total / 1e3 for ev in evs if "attention_tc_kernel" in ev.key),
+            "attention_backward_ms": sum(ev.device_time_total / 1e3 for ev in evs
+                                         if "bwd_dq" in ev.key or "bwd_dkv" in ev.key),
+            "top_kernels_ms": {ev.key[:80]: ev.device_time_total / 1e3
+                               for ev in sorted(evs, key=lambda e: -e.device_time_total)[:8]},
+        }
+        if not evs:
+            out["profiled_step"]["device_idle_share"] = "not measured (no device events)"
+    vs = _kernel_vs_plain_step(params, cfg, batch, tol)
+    check(vs["ok"], f"train {dname}: the kernels' step differs from the plain-attention step: {vs}")
+    out["kernels_vs_plain"] = vs
+    return out
+
+
+def phase_train(info: dict) -> dict:
+    """Contrastive training at the main path's full width: TRAIN_STEPS steps
+    in bf16 (f32 parameters) and TRAIN_F32_STEPS in f32 (TF32 off), each
+    attention forward on attention_short.cu and backward on
+    attention_short_bwd.cu; see the module docstring."""
+    import torch
+
+    from pathway_tpu_torch.convert import tree_map
+    from pathway_tpu_torch.ops.encoder import EncoderConfig, init_params
+
+    cfg = EncoderConfig(vocab_size=32768, d_model=384, n_heads=6, n_layers=6, d_ff=1536, max_len=512)
+    params = tree_map(lambda t: t.to(DEVICE), init_params(cfg, torch.Generator().manual_seed(0)))
+    batch = _train_batch(TRAIN_PAIRS)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {"card": info["nvidia_smi"], "pairs": TRAIN_PAIRS, "L": int(batch[0].shape[1]), "lr": TRAIN_LR,
+           "config": cfg._replace(dtype=str(cfg.dtype))._asdict()}
+    out["bf16"] = _train_leg(cfg, params, batch, TRAIN_STEPS, TRAIN_GRAD_TOL["bfloat16"])
+    f32 = cfg._replace(dtype=torch.float32)
+    out["f32"] = _train_leg(f32, params, batch, TRAIN_F32_STEPS, TRAIN_GRAD_TOL["float32"])
+    if DEVICE == "cuda":
+        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    emit("train", **out)
+    launches = {r: out["bf16"]["attention_launches"]["forward"][r] + out["f32"]["attention_launches"]["forward"][r]
+                for r in out["bf16"]["attention_launches"]["forward"]}
+    bwd = {r: out["bf16"]["attention_launches"]["backward"][r] + out["f32"]["attention_launches"]["backward"][r]
+           for r in out["bf16"]["attention_launches"]["backward"]}
+    del params
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "backward_launches": bwd, "metrics": out}
+
+
+def phase_multichip_dryrun(info: dict) -> dict:
+    """``tools/multichip_dryrun.dryrun_multichip(4)`` on four logical shards
+    of the card: the TP/DP step (2 x 2, f32, equal to the unsharded step),
+    the sharded KNN self-search, the key exchange, the sharded dataflow and
+    the device plane against one worker."""
+    from pathway_tpu_torch.tools.multichip_dryrun import dryrun_multichip
+
+    _reset_attention_counts()
+    res = dryrun_multichip(4, device=DEVICE)
+    fwd, bwd = _attention_counts()
+    check(sum(bwd.values()) > 0, f"multichip_dryrun: the train step launched no backward kernel ({bwd})")
+    emit("multichip_dryrun", card=info["nvidia_smi"], **res, attention_launches={"forward": fwd, "backward": bwd})
+    return {"launches": fwd, "backward_launches": bwd, "metrics": res}
+
+
+def _free_door_pair() -> int:
+    """A port ``p`` with ``p`` and ``p + 1`` free (the two doors)."""
+    import socket
+
+    for _ in range(100):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        p = s.getsockname()[1]
+        s.close()
+        socks = []
+        try:
+            for q in (p, p + 1):
+                t = socket.socket()
+                t.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                t.bind(("127.0.0.1", q))
+                socks.append(t)
+            return p
+        except OSError:
+            continue
+        finally:
+            for t in socks:
+                t.close()
+    raise RuntimeError("no free pair of door ports")
+
+
+def phase_fabric(info: dict) -> dict:
+    """``tools/rag_cluster.py --serve`` at FABRIC_DOCS docs: one worker in
+    this process, then 2 processes x 2 threads on the card with the fabric
+    on, with the shard map (zero-hop) and without it (replica-served); both
+    doors answer the first FABRIC_QUERIES docs. Gates: every answer byte-
+    identical to the coordinator's and to one worker's, each doc first in
+    its own answer."""
+    import shutil
+    import tempfile
+
+    from pathway_tpu_torch.ops import attention_kernel as A
+    from pathway_tpu_torch.tools import rag_cluster
+
+    out: dict = {"card": info["nvidia_smi"], "docs": FABRIC_DOCS, "queries_per_door": FABRIC_QUERIES}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fabric_")
+    launches = dict.fromkeys(A.ROUTE_LAUNCHES, 0)
+    args = ["--docs", str(FABRIC_DOCS), "--queries", str(FABRIC_QUERIES), "--k", str(PIPE_K), "--device", DEVICE]
+    try:
+        solo_path = os.path.join(tmp, "solo.json")
+        _reset_attention_counts()
+        t0 = time.perf_counter()
+        rag_cluster.main(["--out", solo_path, "--serve", str(_free_door_pair()), *args])
+        out["solo_s"] = time.perf_counter() - t0
+        for route, n in A.ROUTE_LAUNCHES.items():
+            launches[route] += n
+        with open(solo_path) as fh:
+            (solo,) = json.load(fh).values()
+        bodies = [b for _s, b, _f, _ms in solo]
+        check(all(s == 200 for s, _b, _f, _ms in solo), "fabric: one worker answered an error")
+        self_hits = sum(json.loads(b)[0]["text"] == d for b, d in zip(bodies, synth_docs(FABRIC_QUERIES)))
+        check(self_hits == FABRIC_QUERIES, f"fabric: {self_hits}/{FABRIC_QUERIES} docs first in their own answer")
+        out["solo_p50_ms"] = statistics.median(ms for *_r, ms in solo)
+        for leg, env in FABRIC_LEGS.items():
+            path = os.path.join(tmp, f"{leg}.json")
+            cenv = _cluster_env(env)
+            cenv.pop("PATHWAY_MICROBATCH_FLUSH_MS", None)  # served queries flush at each tick
+            codes, outs, secs = _launch_cluster(
+                [sys.executable, "-m", "pathway_tpu_torch.tools.rag_cluster", "--out", path,
+                 "--serve", str(_free_door_pair()), *args], cenv)
+            check(codes == [0, 0], f"fabric {leg}: exit codes {codes}: " + " | ".join(o[-800:] for o in outs))
+            doors = {}
+            if os.path.exists(path):
+                with open(path) as fh:
+                    doors = json.load(fh)
+            rec = {"seconds": secs, "doors": {}, "attention_launches": _cluster_launches(outs)}
+            launches["tensor_core"] += rec["attention_launches"]
+            coord = None
+            for i, (door, rows) in enumerate(sorted(doors.items(), key=lambda kv: int(kv[0]))):
+                got = [b for _s, b, _f, _ms in rows]
+                coord = got if coord is None else coord
+                hdrs = [f or "" for _s, _b, f, _ms in rows]
+                rec["doors"][f"p{i}"] = {
+                    "p50_ms": statistics.median(ms for *_r, ms in rows),
+                    "replica_answered": sum(h.startswith("replica:") for h in hdrs),
+                    "forwarded": sum(h.startswith("forwarded:") for h in hdrs),
+                    "owner_answered": sum(h.startswith("owner:") for h in hdrs),
+                    "equal_to_coordinator": got == coord, "equal_to_one_worker": got == bodies,
+                }
+                check(got == coord and got == bodies,
+                      f"fabric {leg}: door p{i}'s answers differ from the coordinator's or one worker's")
+            check(len(doors) == 2, f"fabric {leg}: {len(doors)} doors answered, expected 2")
+            out[leg] = rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("fabric", **out)
+    return {"launches": launches, "metrics": out}
+
+
+def _backward_entry(records: list[dict], dtype: str, route: str, launches: dict) -> dict:
+    """One route of the attention backward kernel on the kernels line: its
+    time at the train step's shape and its largest error over every checked
+    case of its dtype."""
+    mine = [r for r in records if r["dtype"] == dtype]
+    worst = max(mine, key=lambda r: r["max_abs_err"])
+    train = next(r for r in mine if r["case"] == "train")
+    entry = {
+        "name": f"attention_short_flat_backward[{dtype}]",
+        "route": "cuda",
+        "source": "pathway_tpu_torch/csrc/attention_short_bwd.cu",
+        "replaces": "pathway_tpu/ops/encoder.py:150",
+        "launches": sum(by_route[route] for by_route in launches.values()),
+        "launches_by_path": {path: by_route[route] for path, by_route in launches.items()},
+        "max_abs_err": worst["max_abs_err"],
+        "max_abs_err_case": f"{dtype} {worst['case']} (B={worst['B']} L={worst['L']} hd={worst['hd']})",
+        "cases_checked": len(mine),
+        "ms": train["ms"],
+        "plain_ms": train["plain_ms"],
+        "bound_ms": train["bound_ms"],
+        "bound_by": train["bound_by"],
+        "library_ms": train["library_ms"],
+        "shape": f"B=512 L=128 D=384 H=6 {dtype}",
+        "kernel": "dq pass and dk/dv pass over 32-row tiles, f32 FMAs from shared memory",
+    }
+    if "bound_fp32_pipes_ms" in train:
+        entry["bound_fp32_pipes_ms"] = train["bound_fp32_pipes_ms"]
+    return entry
+
+
 def _kernel_entry(records: list[dict], dtype: str, route: str, what: str, launches: dict) -> dict:
     """One route of the attention kernel on the kernels line: its time at the
     embed shape, and its largest error over every checked case of its dtype
@@ -4565,6 +5009,7 @@ def main() -> int:
     info = timed("device", phase_device)
     timed("build", phase_build)
     kern = timed("kernels", phase_kernels)
+    bwd_kern = timed("kernels_backward", phase_kernels_backward)
     state = timed("main_path", phase_main_path, synth_docs(N_DOCS))
     timed("checks", phase_checks, state)
     bench_vecs = main_path_embeddings(state["index"], N_DOCS)
@@ -4589,6 +5034,9 @@ def main() -> int:
     timed("graphs", phase_graphs, info)
     timed("knn_index", phase_knn_index, info, bench_vecs)
     multi = timed("multiworker", phase_multiworker, info)
+    train = timed("train", phase_train, info)
+    dry = timed("multichip_dryrun", phase_multichip_dryrun, info)
+    fab = timed("fabric", phase_fabric, info)
     emit("phase_walls", seconds=walls, total=round(sum(walls.values()), 3))
 
     launches = {
@@ -4596,11 +5044,15 @@ def main() -> int:
         "tiered_pipeline": tier["launches"], "temporal": temporal["launches"], "bert_path": bert["launches"],
         "document_store": store["launches"], "rest_serving": rest["launches"], "observability": obs["launches"],
         "flow": flow["launches"], "persistence": persist["launches"], "multiworker": multi["launches"],
+        "train": train["launches"], "multichip_dryrun": dry["launches"], "fabric": fab["launches"],
     }
+    bwd_launches = {"train": train["backward_launches"], "multichip_dryrun": dry["backward_launches"]}
     line = {"kernels": [
         _kernel_entry(kern, "bfloat16", "tensor_core", "bf16, tensor cores (mma.sync, cp.async)", launches),
         _kernel_entry(kern, "float32", "tensor_core_3xtf32",
                       "f32, tensor cores in 3xTF32 (mma.sync m16n8k8 tf32 on split operands, cp.async)", launches),
+        _backward_entry(bwd_kern, "bfloat16", "tensor_core", bwd_launches),
+        _backward_entry(bwd_kern, "float32", "tensor_core_3xtf32", bwd_launches),
     ]}
     if failures:
         print("chip_smoke: FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -26,6 +26,31 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     return fn(tree)
 
 
+def tree_leaves(tree: Any) -> list:
+    """Every leaf of a tree of dicts and lists, in :func:`tree_map`'s order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(tree: Any, leaves) -> Any:
+    """``tree``'s structure with ``leaves`` (in :func:`tree_leaves`' order)
+    in place of its own."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def tree_map2(fn: Callable[[Any, Any], Any], a: Any, b: Any) -> Any:
+    """``fn`` over the leaves of two trees of one structure, matched by key
+    (``a``'s keys; ``b`` may be a dict or a :class:`ParamTree`): two trees
+    built in another key order still pair leaf with leaf."""
+    if isinstance(a, dict):
+        return {k: tree_map2(fn, v, b[k]) for k, v in a.items()}
+    if isinstance(a, (list, tuple)):
+        return [tree_map2(fn, x, y) for x, y in zip(a, b)]
+    return fn(a, b)
+
+
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
     a = np.array(a, order="C")  # a writable copy: jax hands out read-only views
     if a.dtype.name == "bfloat16":

@@ -40,6 +40,13 @@ def install_from_env(runtime: Any) -> None:
         raise later_slice("elastic")
 
 
+def current():
+    """The installed plane: always None in the port (the plane is a later
+    slice), so callers take the reference's plane-off path — the serving
+    fabric's replica casts carry no membership version."""
+    return None
+
+
 def reshard_enabled() -> bool:
     """True when restores may reshard (the reference's elastic mode)."""
     return get_pathway_config().elastic != "off"
@@ -51,6 +58,7 @@ __all__ = [
     "check_version",
     "clear_scale_request",
     "commit_membership",
+    "current",
     "install_from_env",
     "membership_history",
     "read_membership",

@@ -13,11 +13,12 @@ already count rows in/out and processing time; this module aggregates them into
 Carried from ``pathway_tpu/internals/monitoring.py`` with imports rewritten.
 The exactly-once delivery plane's section is on both (``delivery``, the
 ``pathway_delivery_*`` series), and so is the cluster rollup a coordinator
-serves (``cluster``, from ``observability/aggregate.py``). The sections of
-planes the port has not carried yet (elastic, fabric, the embedding memo) are
-absent from
-``/status`` and ``/metrics``, as in a reference run with those planes off;
-``/scale`` answers 501 with the ``later slice`` message.
+serves (``cluster``, from ``observability/aggregate.py``), the serving
+fabric's (``fabric``, ``pathway_fabric_*`` and ``pathway_replica_*``) and the
+embedding memo's (``embedder_memo``, ``pathway_embedder_memo_*``). The
+elasticity plane is not carried yet: its sections are absent from ``/status``
+and ``/metrics``, as in a reference run with it off, and ``/scale`` answers
+501 with the ``later slice`` message.
 """
 
 from __future__ import annotations
@@ -192,6 +193,14 @@ def run_stats(runtime) -> dict[str, Any]:
     cluster = _obs.aggregate.cluster_status(runtime)
     if cluster is not None:
         stats["cluster"] = cluster
+    # serving fabric (PATHWAY_FABRIC): this process's doors, forward health
+    # and per-route replica rows/lag (also present — replica-only — when
+    # serve_table runs without a cluster)
+    from pathway_tpu_torch import fabric as _fabric
+
+    fabric = _fabric.status(runtime)
+    if fabric is not None:
+        stats["fabric"] = fabric
     # pod health & SLO plane (PATHWAY_HEALTH): door state machine, canary
     # probes, burn rates and the active-alert set
     from pathway_tpu_torch.observability import health as _health
@@ -210,6 +219,16 @@ def run_stats(runtime) -> dict[str, Any]:
         verdict = _bottleneck.status(runtime)
         if verdict is not None:
             stats["bottleneck"] = verdict
+    # embedding memo counters (exact hits/misses/evictions + the pod-wide
+    # shared tier) — sys.modules gate: no xpacks import unless the pipeline
+    # already made one
+    import sys as _sys
+
+    _emb = _sys.modules.get("pathway_tpu_torch.xpacks.llm.embedders")
+    if _emb is not None:
+        memo = _emb.memo_stats()
+        if memo:
+            stats["embedder_memo"] = memo
     return stats
 
 
@@ -359,6 +378,10 @@ def prometheus_text(runtime) -> str:
     lines.append("# HELP pathway_cluster_processes Processes in the current cluster membership")
     lines.append("# TYPE pathway_cluster_processes gauge")
     lines.append(f"pathway_cluster_processes {get_pathway_config().processes}")
+    # ---- serving fabric (replica lag/rows, forward health) ------------------
+    from pathway_tpu_torch import fabric as _fabric
+
+    lines.extend(_fabric.prometheus_lines(runtime))
     # ---- pod health & SLO plane (door state, canaries, burn rates, alerts) --
     from pathway_tpu_torch.observability import health as _health
 
@@ -382,6 +405,12 @@ def prometheus_text(runtime) -> str:
     from pathway_tpu_torch import delivery as _delivery_mod
 
     lines.extend(_delivery_mod.prometheus_lines(runtime))
+    # ---- embedding memo (hit ratio + shared tier) ---------------------------
+    import sys as _sys
+
+    _emb = _sys.modules.get("pathway_tpu_torch.xpacks.llm.embedders")
+    if _emb is not None:
+        lines.extend(_emb.memo_prometheus_lines())
     # ---- per-operator row-level error counters ------------------------------
     from pathway_tpu_torch.internals import error_log as _error_log
 

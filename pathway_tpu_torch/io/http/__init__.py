@@ -6,7 +6,7 @@ streaming RAG servers possible. The port serves it on its own HTTP/1.1 layer
 over the standard library (``_wire.py``), and ``read`` / ``write`` poll and
 post with ``urllib.request`` where the reference uses ``requests``: neither
 ``aiohttp`` nor ``requests`` is needed. ``serve_table`` (replica-served table
-routes) belongs to the fabric, a later slice.
+routes) comes from the fabric (``fabric/replica.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import urllib.error
 import urllib.parse
 import urllib.request
 
-from pathway_tpu_torch.internals.later_slice import later_slice
+from pathway_tpu_torch.fabric.replica import serve_table
 from pathway_tpu_torch.io.http._server import (
     EndpointDocumentation,
     PathwayWebserver,
@@ -116,12 +116,6 @@ def write(
         [table._node],
         name=f"http_write:{url}",
     )._register_as_output()
-
-
-def serve_table(*args, **kwargs):
-    """Replica-served read-only table routes (reference
-    ``fabric/replica.py::serve_table``): the fabric is a later slice."""
-    raise later_slice("fabric.replica")
 
 
 __all__ = [

@@ -40,9 +40,10 @@ every answer), records its flight path and completes it; the health plane
 answers ``/healthz`` and ``/readyz`` from its door state machine and its
 canaries (``X-Pathway-Canary``) short-circuit before any counter or
 admission; the live tracer gets door and respond events; with the flow
-plane on, ``push_admitted`` takes the route input's ingest credit. Planes
-not ported yet take the reference's plane-off path: no fabric or shard map
-(``PATHWAY_SHARDMAP=on`` raises ``later_slice``).
+plane on, ``push_admitted`` takes the route input's ingest credit. On a
+cluster run the serving fabric (``fabric/routing.py``) mirrors every route at
+each process's door; with the shard map (``PATHWAY_SHARDMAP=on``) every door
+mints keys it owns and serves them itself (zero-hop).
 """
 
 from __future__ import annotations
@@ -62,7 +63,6 @@ import numpy as np
 from pathway_tpu_torch.engine import operators as ops
 from pathway_tpu_torch.engine.graph import Node
 from pathway_tpu_torch.internals import dtype as dt
-from pathway_tpu_torch.internals.later_slice import later_slice
 from pathway_tpu_torch.internals import schema as schema_mod
 from pathway_tpu_torch.internals.json import Json
 from pathway_tpu_torch.internals.keys import splitmix64
@@ -395,8 +395,16 @@ def mint_local_key(state: "_RouteServing") -> int:
 
 def _zerohop_owner_headers() -> dict | None:
     """``X-Pathway-Fabric: owner:p<pid>`` when the shard-map fabric is live.
-    The fabric is a no-op on a single process and the port runs no cluster
-    yet (``internals/run.py``), so no door answers as a fabric owner."""
+
+    Under zero-hop routing EVERY door — the coordinator's original webserver
+    included, which never passes through a fabric door wrapper — answers as
+    the owner of the key it minted, and the header must say so truthfully on
+    all of them."""
+    from pathway_tpu_torch import fabric as _fabric
+
+    plane = _fabric._plane
+    if plane is not None and plane.shardmap is not None:
+        return {"X-Pathway-Fabric": f"owner:p{plane.pid}"}
     return None
 
 
@@ -1054,12 +1062,12 @@ def rest_connector(
     def factory() -> Node:
         from pathway_tpu_torch.internals.config import get_pathway_config
 
-        if get_pathway_config().shardmap == "on":
-            # zero-hop serving pushes each door's requests into its own copy
-            # of this node; the shard map is not ported yet
-            raise later_slice("internals.shardmap")
         node = ops.StreamInputNode(columns, np_dtypes)
         node.input_name = f"rest:{route}"
+        if get_pathway_config().shardmap == "on":
+            # zero-hop serving: every fabric door pushes into its own copy of
+            # this node; keyed exchange keeps each request on its minting door
+            node.fabric_ingest = True
         state.node = node
         return node
 
@@ -1148,11 +1156,10 @@ def rest_connector(
         from pathway_tpu_torch.internals.config import get_pathway_config
         from pathway_tpu_torch.io._subscribe import subscribe
 
-        if get_pathway_config().shardmap == "on":
-            # zero-hop serving routes each response row to the door that
-            # minted its key; the shard map is not ported yet
-            raise later_slice("internals.shardmap")
-        subscribe(result_table, on_change, on_time_end=on_time_end)
+        # zero-hop serving: each response row goes to the door that minted its
+        # key (the shard map places the key on that door's process)
+        route_by = (lambda batch: batch.keys) if get_pathway_config().shardmap == "on" else None
+        subscribe(result_table, on_change, on_time_end=on_time_end, route_by=route_by)
 
     return queries, response_writer
 

@@ -144,9 +144,23 @@ class Response:
         return head_bytes if head else head_bytes + self.body
 
 
+#: the content type of a JSON body (``aiohttp``'s for ``text=`` with
+#: ``content_type="application/json"``)
+JSON = "application/json; charset=utf-8"
+
+
 def json_response(data: Any, *, status: int = 200, headers: dict[str, str] | None = None) -> Response:
     """``aiohttp.web.json_response``'s bytes: ``json.dumps(data)`` as UTF-8."""
-    return Response(status, json.dumps(data).encode("utf-8"), "application/json; charset=utf-8", headers)
+    return Response(status, json.dumps(data).encode("utf-8"), JSON, headers)
+
+
+def query_get(request: Request, name: str) -> str | None:
+    """The first value of query parameter ``name``, or None (``aiohttp``'s
+    ``request.rel_url.query.get``)."""
+    for k, v in request.query_items():
+        if k == name:
+            return v
+    return None
 
 
 def text_response(status: int, text: str, headers: dict[str, str] | None = None) -> Response:

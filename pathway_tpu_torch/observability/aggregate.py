@@ -9,10 +9,9 @@ histogram snapshots (merged positionally — fixed buckets), and resilience
 counters. The reference's monitoring server is per-process; aggregating at
 process 0 is what a multi-host pod actually needs (one scrape target).
 
-Carried from ``pathway_tpu/observability/aggregate.py``. The sections of
-planes the port has not carried yet report what the reference reports with
-that plane off: no ``membership_version`` (elasticity) and no
-``replica_index`` block (the fabric's replica-served retrieval).
+Carried from ``pathway_tpu/observability/aggregate.py``. The elasticity
+plane is not carried yet, so no summary has a ``membership_version``, as in
+the reference with that plane off.
 """
 
 from __future__ import annotations
@@ -84,8 +83,16 @@ def local_summary(runtime) -> dict[str, Any]:
     serving = _rest_serve.serving_heartbeat_summary(runtime)
     if serving is not None:
         summary["serving"] = serving
-    # replica-served retrieval: the reference adds each door's index-replica
-    # health here; with the fabric off (always, in the port) there is none
+    # replica-served retrieval: this door's per-route index-replica health
+    # (rows, worst-peer lag, local answers vs fallbacks, gap/resync counts)
+    from pathway_tpu_torch import fabric as _fabric
+    from pathway_tpu_torch.fabric import index_replica as _index_replica
+
+    fplane = _fabric.current()
+    n_proc = fplane.n_proc if fplane is not None and fplane.runtime is runtime else None
+    replica_index = _index_replica.heartbeat_summary(runtime, n_proc)
+    if replica_index is not None:
+        summary["replica_index"] = replica_index
     # health plane: this door's readiness state + active alerts ride the
     # heartbeat so the coordinator sees which doors are syncing/draining and
     # which alerts are firing anywhere in the pod

@@ -18,8 +18,8 @@ Carried from ``pathway_tpu/observability/alerts.py`` with imports rewritten.
 The Slack sink needs ``io.slack``, which the port has not carried: asking for
 it (``PATHWAY_ALERT_SLACK_CHANNEL`` and ``_TOKEN``) raises ``later_slice``.
 Bundles carry the timeline plane's lead-up window and the bottleneck verdict
-at capture time, and leave out the shard map, membership and replica
-sections, whose planes the port does not have yet.
+at capture time, the shard map's version and the replica section, and leave
+out the membership section, whose plane the port does not have yet.
 """
 
 from __future__ import annotations
@@ -390,8 +390,8 @@ class AlertRegistry:
 def write_incident_bundle(alert: dict, runtime: Any, out_dir: str) -> str | None:
     """One correlated post-mortem JSON: the alert, the probable-cause stage,
     the per-stage p99 decomposition, the slowest kept request traces, the
-    device flight-recorder rings and the serving counters — everything the
-    on-call needs in one file."""
+    device flight-recorder rings, the shard-map version, replica health and
+    the serving counters — everything the on-call needs in one file."""
     from pathway_tpu_torch.internals.config import get_pathway_config
     from pathway_tpu_torch.observability import device as _device
     from pathway_tpu_torch.observability import requests as _req
@@ -425,6 +425,17 @@ def write_incident_bundle(alert: dict, runtime: Any, out_dir: str) -> str | None
     doc["probable_cause_stage"] = probable
     alert["probable_stage"] = probable
     doc["flight"] = _device.flight_snapshot()
+    sm = getattr(runtime, "shardmap", None)
+    if sm is not None:
+        doc["shardmap_version"] = getattr(sm, "version", None)
+    try:
+        from pathway_tpu_torch.fabric import index_replica as _ir
+
+        ri = _ir.heartbeat_summary(runtime, None)
+        if ri is not None:
+            doc["replica_index"] = ri
+    except Exception:
+        pass
     try:
         from pathway_tpu_torch.io.http import _server as _srv
 

@@ -31,12 +31,11 @@ replicas), and nothing watches the pod's own SLOs. This plane
 to the plane never existing, and the door endpoints degrade to
 unconditional 200s.
 
-Carried from ``pathway_tpu/observability/health.py`` with imports rewritten.
-The port has no fabric or elastic plane yet (ROADMAP Queue 1), so this plane
-sees them absent, as a single-process reference run with them off does: no
-fabric link canaries, and no replica-lag or autoscaler-thrash detector (each
-reads only its plane's state). The sink-commit-stall detector reads the
-delivery plane, as in the reference.
+Carried from ``pathway_tpu/observability/health.py`` with imports rewritten,
+with the fabric's link canaries and replica-lag detector. The port has no
+elastic plane yet (ROADMAP Queue 1), so this plane sees it absent, as a
+reference run with it off does: no autoscaler-thrash detector. The
+sink-commit-stall detector reads the delivery plane, as in the reference.
 """
 
 from __future__ import annotations
@@ -265,6 +264,44 @@ class HealthPlane:
     def _probe_once(self) -> None:
         for host, port, route, method in self._probe_targets():
             self.probe_route(host, port, route, method)
+        self._probe_fabric_links()
+
+    def _probe_fabric_links(self) -> None:
+        """Synthetic self-probe per fabric peer link on the canary cadence:
+        a tiny ``canary`` request over the SAME transport real
+        forwards use, recorded under the pseudo-route ``fabric:p<peer>`` so
+        internal transport rot feeds the availability SLO and the
+        heartbeat-flap detector instead of staying invisible until a real
+        forward fails."""
+        from pathway_tpu_torch import fabric as _fabric
+
+        plane = _fabric.current()
+        if plane is None or getattr(plane, "node", None) is None:
+            return
+        if self.runtime is not None and plane.runtime is not self.runtime:
+            return
+        for peer in range(plane.n_proc):
+            if peer == plane.pid:
+                continue
+            route = f"fabric:p{peer}"
+            t0 = _time.monotonic()
+            ok = False
+            try:
+                reply = plane.node.call(
+                    peer, "canary", {"from": plane.pid},
+                    timeout=self.canary_timeout_s,
+                )
+                ok = bool(reply) and reply.get("ok") is True
+            except Exception:
+                ok = False
+            took = _time.monotonic() - t0
+            with self._lock:
+                self.canary_total[route] = self.canary_total.get(route, 0) + 1
+                if not ok:
+                    self.canary_failed[route] = (
+                        self.canary_failed.get(route, 0) + 1
+                    )
+                self.canary_last_s[route] = round(took, 6)
 
     def probe_route(self, host: str, port: int, route: str, method: str) -> bool:
         """One synthetic canary request against a local door. Canaries carry
@@ -619,6 +656,27 @@ class HealthPlane:
                                     else ""
                                 )
                                 + " in the fast window"
+                            ),
+                        }
+                    )
+        except Exception:
+            pass
+        # replica-lag breach: a door serving beyond the staleness bound
+        try:
+            from pathway_tpu_torch.fabric import index_replica as _ir
+
+            ri = _ir.heartbeat_summary(self.runtime, None) or {}
+            bound_s = cfg.replica_max_staleness_ms / 1000.0
+            for route, ent in ri.items():
+                lag = ent.get("lag_s")
+                if lag is not None and lag > bound_s:
+                    breaches.append(
+                        {
+                            "alert": "replica_lag",
+                            "fingerprint": route,
+                            "summary": (
+                                f"replica {lag:.3f}s behind on {route} "
+                                f"(bound {bound_s:.3f}s)"
                             ),
                         }
                     )

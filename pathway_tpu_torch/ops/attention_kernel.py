@@ -7,6 +7,10 @@ so a fully masked row gives the mean of v; softmax in f32; probs normalised,
 then cast to the input dtype; ``probs·v`` accumulated in f32 and stored to the
 head's output columns.
 
+Its gradient (:class:`AttentionShortFlat`, taken when q, k or v requires
+grad) recomputes the forward's softmax and runs ``csrc/attention_short_bwd.cu``
+on the card, :func:`attention_short_flat_backward_plain` on the CPU.
+
 On a CUDA tensor :func:`attention_short_flat` launches the hand-written Hopper
 kernel ``csrc/attention_short.cu`` (design and bound in its header note) or
 raises. Both routes run one kernel on the tensor cores (``mma.sync`` with
@@ -31,6 +35,10 @@ import torch
 #: adds one per launch; nothing else touches it), in all and per route
 LAUNCHES = 0
 ROUTE_LAUNCHES = {"tensor_core": 0, "tensor_core_3xtf32": 0}
+#: backward launches (one per gradient, each running the two kernels of
+#: ``attention_short_bwd.cu``), in all and per forward route
+BACKWARD_LAUNCHES = 0
+BACKWARD_ROUTE_LAUNCHES = {"tensor_core": 0, "tensor_core_3xtf32": 0}
 #: route name per input dtype
 ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "tensor_core_3xtf32"}
 
@@ -142,6 +150,36 @@ def attention_short_flat_plain(q, k, v, mask, n_heads: int, scale: float):
     return out
 
 
+def attention_short_flat_backward_plain(q, k, v, mask, out, d_out, n_heads: int, scale: float):
+    """The gradient of :func:`attention_short_flat_plain` in plain PyTorch:
+    ``(dq, dk, dv)`` in the input dtype. Per head it recomputes the forward's
+    f32 scores (−1e30 at masked keys) and f32 softmax ``P``, then
+    ``dP = dO·Vᵀ``, ``D = rowsum(dO ∘ O)``, ``dS = P ∘ (dP − D)`` (0 at masked
+    keys: the fill blocks the gradient), ``dQ = scale·dS·K``,
+    ``dK = scale·dSᵀ·Q`` and ``dV = round(P)ᵀ·dO`` with ``P`` rounded to the
+    input dtype as the forward multiplies it, all summed in f32. A fully
+    masked row has uniform ``P``: its dQ is 0 and it adds ``1/L`` to dV."""
+    B, L, D = q.shape
+    hd = D // n_heads
+    grads = [torch.empty((B, L, D), dtype=q.dtype, device=q.device) for _ in range(3)]
+    keep = mask[:, None, :]
+    for h in range(n_heads):
+        sl = slice(h * hd, (h + 1) * hd)
+        qf, kf, vf = (t[..., sl].float() for t in (q, k, v))
+        g = d_out[..., sl].float()
+        scores = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+        scores = scores.masked_fill(~keep, -1e30)
+        e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        p = e / e.sum(dim=-1, keepdim=True)
+        dp = torch.einsum("bqd,bkd->bqk", g, vf)
+        row = (g * out[..., sl].float()).sum(dim=-1, keepdim=True)
+        ds = (p * (dp - row)).masked_fill(~keep, 0.0)
+        grads[0][..., sl] = (torch.einsum("bqk,bkd->bqd", ds, kf) * scale).to(q.dtype)
+        grads[1][..., sl] = (torch.einsum("bqk,bqd->bkd", ds, qf) * scale).to(q.dtype)
+        grads[2][..., sl] = torch.einsum("bqk,bqd->bkd", p.to(q.dtype).float(), g).to(q.dtype)
+    return tuple(grads)
+
+
 def _aligned(t: torch.Tensor) -> bool:
     es = t.element_size()
     return (
@@ -206,13 +244,109 @@ def _launch(q, k, v, mask, n_heads: int, scale: float, hd: int, geo: LaunchGeome
     return out
 
 
-def attention_short_flat(q, k, v, mask, n_heads: int, scale: float):
-    """Flat-layout attention: [B, L, D] q/k/v and a [B, L] bool key mask →
-    [B, L, D] context. CUDA tensors run the Hopper kernel (or raise); CPU
-    tensors run :func:`attention_short_flat_plain`."""
+_backward_fn = None
+
+
+def _backward_kernel():
+    """The backward's C entry point, built and bound at first use."""
+    global _backward_fn
+    if _backward_fn is None:
+        from pathway_tpu_torch.ops import _build
+
+        fn = _build.load("attention_short_bwd").pw_attention_short_flat_backward
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
+            + [ctypes.c_longlong] + [ctypes.c_int] * 2
+            + [ctypes.c_longlong] * 11 + [ctypes.c_float, ctypes.c_void_p]
+        )
+        _backward_fn = fn
+    return _backward_fn
+
+
+def _launch_backward(q, k, v, mask, out, d_out, n_heads: int, scale: float, hd: int, route: str):
+    global BACKWARD_LAUNCHES
+    if d_out.stride(-1) != 1:
+        d_out = d_out.contiguous()
+    if mask.stride(-1) != 1:
+        mask = mask.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.stride(-1) != 1:
+            raise ValueError(
+                f"attention_short_flat backward: {name} must have a contiguous last "
+                f"dimension (strides {t.stride()})"
+            )
+    B, L, D = q.shape
+    fn = _backward_kernel()
+    dq, dk, dv = (torch.empty((B, L, D), dtype=q.dtype, device=q.device) for _ in range(3))
+    if B == 0:
+        return dq, dk, dv
+    stats = torch.empty((3, B, n_heads, L), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            _DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr(), B, L, n_heads,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            out.stride(0), out.stride(1), d_out.stride(0), d_out.stride(1), mask.stride(0),
+            float(scale), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"attention_short_flat backward: kernel launch failed (cudaError {err})")
+    BACKWARD_LAUNCHES += 1
+    BACKWARD_ROUTE_LAUNCHES[route] += 1
+    return dq, dk, dv
+
+
+def attention_short_flat_backward(q, k, v, mask, out, d_out, n_heads: int, scale: float):
+    """``(dq, dk, dv)`` of :func:`attention_short_flat` at ``out`` for the
+    output gradient ``d_out``. CUDA tensors run ``attention_short_bwd.cu``
+    (or raise); CPU tensors run :func:`attention_short_flat_backward_plain`."""
+    hd, geo = _check(q, k, v, mask, n_heads)
+    if q.device.type == "cpu":
+        return attention_short_flat_backward_plain(q, k, v, mask, out, d_out, n_heads, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_short_flat backward: no kernel for device {q.device}")
+    return _launch_backward(q, k, v, mask, out, d_out, n_heads, scale, hd, geo.route)
+
+
+def _forward(q, k, v, mask, n_heads: int, scale: float):
     hd, geo = _check(q, k, v, mask, n_heads)
     if q.device.type == "cpu":
         return attention_short_flat_plain(q, k, v, mask, n_heads, scale)
     if q.device.type != "cuda":
         raise ValueError(f"attention_short_flat: no kernel for device {q.device}")
     return _launch(q, k, v, mask, n_heads, scale, hd, geo)
+
+
+class AttentionShortFlat(torch.autograd.Function):
+    """Differentiable :func:`attention_short_flat`: the forward kernel (or its
+    plain version on the CPU), and :func:`attention_short_flat_backward` for
+    the gradient of q, k and v (the mask takes none)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, n_heads: int, scale: float):
+        out = _forward(q, k, v, mask, n_heads, scale)
+        ctx.save_for_backward(q, k, v, mask, out)
+        ctx.n_heads, ctx.scale = n_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, mask, out = ctx.saved_tensors
+        dq, dk, dv = attention_short_flat_backward(
+            q, k, v, mask, out, d_out, ctx.n_heads, ctx.scale
+        )
+        return dq, dk, dv, None, None, None
+
+
+def attention_short_flat(q, k, v, mask, n_heads: int, scale: float):
+    """Flat-layout attention: [B, L, D] q/k/v and a [B, L] bool key mask →
+    [B, L, D] context. CUDA tensors run the Hopper kernel (or raise); CPU
+    tensors run :func:`attention_short_flat_plain`. When grad is enabled and
+    q, k or v requires it, the call goes through :class:`AttentionShortFlat`,
+    whose backward is a kernel too."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return AttentionShortFlat.apply(q, k, v, mask, n_heads, scale)
+    return _forward(q, k, v, mask, n_heads, scale)

@@ -21,6 +21,7 @@ reference.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import os
@@ -32,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pathway_tpu_torch._device import resolve_device
-from pathway_tpu_torch.convert import ParamTree, tree_map
+from pathway_tpu_torch.convert import ParamTree, tree_leaves, tree_map, tree_map2, tree_unflatten
 from pathway_tpu_torch.native import try_load as _try_load_native
 from pathway_tpu_torch.observability import device as _dev_prof
 from pathway_tpu_torch.ops._fixed_order import fixed_order_sum
@@ -99,13 +100,91 @@ def _layer_norm(x, g, b):
     return ((x32 - mu) * torch.rsqrt(var + 1e-6) * g + b).to(x.dtype)
 
 
+class ShardedParam:
+    """One parameter laid out over a :class:`~pathway_tpu_torch.parallel.
+    mesh.DeviceMesh` by :func:`shard_params`: ``pieces`` are its slices
+    along the dimension that ``spec`` splits on the ``model`` axis (one piece
+    when it is replicated), piece ``m`` on the device of shard ``(0, m)``."""
+
+    __slots__ = ("pieces", "spec", "mesh")
+
+    def __init__(self, pieces: list, spec: tuple, mesh):
+        self.pieces, self.spec, self.mesh = list(pieces), tuple(spec), mesh
+
+    def full(self) -> torch.Tensor:
+        """The whole parameter (the pieces joined on the first device)."""
+        if len(self.pieces) == 1:
+            return self.pieces[0]
+        dim = self.spec.index("model")
+        dev = self.pieces[0].device
+        return torch.cat([p.to(dev) for p in self.pieces], dim=dim)
+
+
+def _pieces(w, device) -> list:
+    """A parameter's model-axis pieces on ``device`` (a whole tensor is one
+    piece, left where it is)."""
+    if isinstance(w, ShardedParam):
+        return [p.to(device) for p in w.pieces]
+    return [w]
+
+
+def _sum(parts: list):
+    """The partial products of a row-parallel layer added in shard order
+    (the model-axis all-reduce)."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def _col(x, w, dot, bias=None):
+    """Column-parallel ``dot(x, w) (+ bias)``: each piece of ``w`` (and of
+    ``bias``) gives its output columns, joined in order (the model-axis
+    all-gather)."""
+    ws = _pieces(w, x.device)
+    bs = _pieces(bias, x.device) if bias is not None else [None] * len(ws)
+    parts = [dot(x, wm) if bm is None else dot(x, wm) + bm for wm, bm in zip(ws, bs)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def _row(x, w, dot):
+    """Row-parallel ``dot(x, w)``: ``x``'s columns cut as ``w``'s rows are,
+    one partial product per piece, summed."""
+    ws = _pieces(w, x.device)
+    if len(ws) == 1:
+        return dot(x, ws[0])
+    xs = x.split([wm.shape[0] for wm in ws], dim=-1)
+    return _sum([dot(xm, wm) for xm, wm in zip(xs, ws)])
+
+
+def _embed(table, ids):
+    """``table[ids]``; a table split on the vocabulary gives each token's
+    row from the piece that holds it (zeros from the others, summed)."""
+    pieces = _pieces(table, ids.device)
+    if len(pieces) == 1:
+        return pieces[0][ids]
+    out, lo = None, 0
+    for e in pieces:
+        local = ids - lo
+        hit = (local >= 0) & (local < e.shape[0])
+        part = e[local.clamp(0, e.shape[0] - 1)] * hit[..., None]
+        out = part if out is None else out + part
+        lo += e.shape[0]
+    return out
+
+
+def _full(w, device):
+    return _pieces(w, device)[0]
+
+
 def _attention(x, wqkv, wo, mask, n_heads: int):
     """QKV projection, flat attention on the strided q/k/v views of the
-    projection (no copies), output projection."""
+    projection (no copies), output projection. Under a mesh the projection
+    is column-parallel and the output projection row-parallel."""
     D = x.shape[-1]
-    q, k, v = _dot(x, wqkv).split(D, dim=-1)
+    q, k, v = _col(x, wqkv, _dot).split(D, dim=-1)
     ctx = attention_short_flat(q, k, v, mask, n_heads, (D // n_heads) ** -0.5)
-    return _dot(ctx, wo)
+    return _row(ctx, wo, _dot)
 
 
 def _layer_norm_eps(x, g, b, eps: float):
@@ -137,13 +216,15 @@ def _dot_f32(x, w):
     w = w.to(x.dtype).float()
     rows = x.reshape(-1, K).float()
     M = rows.shape[0]
-    out = torch.empty(M, w.shape[1], dtype=torch.float32, device=x.device)
+    # per-tile products joined by one cat (autograd refuses ``out=``)
+    tiles = []
     for lo in range(0, M, DOT_ROWS):
         n = min(DOT_ROWS, M - lo)
         if n == DOT_ROWS:
-            torch.mm(rows[lo : lo + n], w, out=out[lo : lo + n])
+            tiles.append(rows[lo : lo + n] @ w)
         else:
-            out[lo : lo + n] = (F.pad(rows[lo : lo + n], (0, 0, 0, DOT_ROWS - n)) @ w)[:n]
+            tiles.append((F.pad(rows[lo : lo + n], (0, 0, 0, DOT_ROWS - n)) @ w)[:n])
+    out = tiles[0] if len(tiles) == 1 else torch.cat(tiles) if tiles else rows @ w
     return out.reshape(*lead, w.shape[1])
 
 
@@ -165,9 +246,9 @@ def _attention_biased(x, wqkv, bqkv, wo, bo, mask, n_heads: int):
     x's dtype, flat attention on the strided q/k/v views of it, a biased
     output projection in f32, cast to x's dtype."""
     D = x.shape[-1]
-    q, k, v = (_dot_f32(x, wqkv) + bqkv).to(x.dtype).split(D, dim=-1)
+    q, k, v = _col(x, wqkv, _dot_f32, bqkv).to(x.dtype).split(D, dim=-1)
     ctx = attention_short_flat(q, k, v, mask, n_heads, (D // n_heads) ** -0.5)
-    return (_dot_f32(ctx, wo) + bo).to(x.dtype)
+    return (_row(ctx, wo, _dot_f32) + _full(bo, x.device)).to(x.dtype)
 
 
 def _hidden_states_bert(params, cfg: EncoderConfig, token_ids: torch.Tensor, mask: torch.Tensor):
@@ -176,21 +257,29 @@ def _hidden_states_bert(params, cfg: EncoderConfig, token_ids: torch.Tensor, mas
     post-LN residuals around the biased attention and the erf-GELU FFN."""
     dt_ = cfg.dtype
     L = token_ids.shape[1]
+    dev = token_ids.device
     x = (
-        params["embed"][token_ids].float()
-        + params["pos"][:L][None, :, :].float()
-        + params["tok_type"][0][None, None, :].float()
+        _embed(params["embed"], token_ids).float()
+        + _full(params["pos"], dev)[:L][None, :, :].float()
+        + _full(params["tok_type"], dev)[0][None, None, :].float()
     )
-    x = _layer_norm_eps(x, params["emb_ln"]["g"], params["emb_ln"]["b"], cfg.ln_eps).to(dt_)
+    x = _layer_norm_eps(x, *_ln(params["emb_ln"], dev), cfg.ln_eps).to(dt_)
     for layer in params["layers"]:
         a = _attention_biased(
             x, layer["wqkv"], layer["bqkv"], layer["wo"], layer["bo"], mask, cfg.n_heads
         )
-        x = _layer_norm_eps((x + a).float(), layer["ln1"]["g"], layer["ln1"]["b"], cfg.ln_eps).to(dt_)
-        h = F.gelu(_dot_f32(x, layer["w1"]) + layer["b1"], approximate="none").to(dt_)
-        h = _dot_f32(h, layer["w2"]) + layer["b2"]
-        x = _layer_norm_eps(x.float() + h, layer["ln2"]["g"], layer["ln2"]["b"], cfg.ln_eps).to(dt_)
+        x = _layer_norm_eps((x + a).float(), *_ln(layer["ln1"], dev), cfg.ln_eps).to(dt_)
+        b1s = _pieces(layer["b1"], dev)
+        h = _sum([
+            _dot_f32(F.gelu(_dot_f32(x, w1) + b1, approximate="none").to(dt_), w2)
+            for w1, b1, w2 in zip(_pieces(layer["w1"], dev), b1s, _pieces(layer["w2"], dev))
+        ]) + _full(layer["b2"], dev)
+        x = _layer_norm_eps(x.float() + h, *_ln(layer["ln2"], dev), cfg.ln_eps).to(dt_)
     return x
+
+
+def _ln(p, device):
+    return _full(p["g"], device), _full(p["b"], device)
 
 
 def hidden_states(params, cfg: EncoderConfig, token_ids: torch.Tensor, mask: torch.Tensor):
@@ -199,16 +288,20 @@ def hidden_states(params, cfg: EncoderConfig, token_ids: torch.Tensor, mask: tor
     layer's output)."""
     if cfg.arch == "bert":
         return _hidden_states_bert(params, cfg, token_ids, mask)
-    x = params["embed"][token_ids].to(cfg.dtype)
+    dev = token_ids.device
+    x = _embed(params["embed"], token_ids).to(cfg.dtype)
     L = token_ids.shape[1]
-    x = x + params["pos"][:L][None, :, :].to(cfg.dtype)
+    x = x + _full(params["pos"], dev)[:L][None, :, :].to(cfg.dtype)
     for layer in params["layers"]:
-        h = _layer_norm(x, layer["ln1"]["g"], layer["ln1"]["b"])
+        h = _layer_norm(x, *_ln(layer["ln1"], dev))
         x = x + _attention(h, layer["wqkv"], layer["wo"], mask, cfg.n_heads)
-        h = _layer_norm(x, layer["ln2"]["g"], layer["ln2"]["b"])
-        h = F.gelu(_dot(h, layer["w1"]), approximate="tanh")
-        x = x + _dot(h, layer["w2"])
-    return _layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"])
+        h = _layer_norm(x, *_ln(layer["ln2"], dev))
+        # Megatron FFN: each w1 column piece feeds its own w2 row piece
+        x = x + _sum([
+            _dot(F.gelu(_dot(h, w1), approximate="tanh"), w2)
+            for w1, w2 in zip(_pieces(layer["w1"], dev), _pieces(layer["w2"], dev))
+        ])
+    return _layer_norm(x, *_ln(params["ln_f"], dev))
 
 
 def pool(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -226,8 +319,22 @@ def pool(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def encode(params, cfg: EncoderConfig, token_ids: torch.Tensor, mask: torch.Tensor):
     """Forward pass: [B, L] integer tokens + bool mask → [B, d_model] f32
-    unit vectors."""
-    return pool(hidden_states(params, cfg, token_ids, mask), mask)
+    unit vectors. A tree laid out by :func:`shard_params` runs data- and
+    tensor-parallel: the batch's rows split over the mesh's ``data`` shards,
+    each shard's forward on its device with the Megatron layout, the
+    embeddings joined on the first shard's device."""
+    mesh = _tree_mesh(params)
+    if mesh is None:
+        return pool(hidden_states(params, cfg, token_ids, mask), mask)
+    outs = []
+    first = _shard_device(mesh, "data", 0)
+    for d, (ids, m) in enumerate(
+        zip(token_ids.tensor_split(_axis_size(mesh, "data")), mask.tensor_split(_axis_size(mesh, "data")))
+    ):
+        dev = _shard_device(mesh, "data", d)
+        ids, m = ids.to(dev), m.to(dev)
+        outs.append(pool(hidden_states(params, cfg, ids, m), m).to(first))
+    return torch.cat(outs)
 
 
 def encode_ids(params, cfg: EncoderConfig, token_ids: torch.Tensor):
@@ -240,6 +347,154 @@ def encode_ids(params, cfg: EncoderConfig, token_ids: torch.Tensor):
 # call/shape telemetry on /status (+/metrics) — see observability/device.py
 encode_jit = _dev_prof.traced_jit("encoder.encode", encode)
 encode_ids_jit = _dev_prof.traced_jit("encoder.encode_ids", encode_ids)
+
+
+def _per_piece(fn):
+    """``fn`` on two leaves, piece by piece where they are laid out."""
+
+    def go(a, b):
+        if isinstance(a, ShardedParam):
+            return ShardedParam([fn(x, y) for x, y in zip(a.pieces, b.pieces)], a.spec, a.mesh)
+        return fn(a, b)
+
+    return go
+
+
+def _info_nce(za, zb, temperature: float):
+    logits = za @ zb.T / temperature
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    la = -torch.log_softmax(logits, dim=1)[labels, labels].mean()
+    lb = -torch.log_softmax(logits, dim=0)[labels, labels].mean()
+    return 0.5 * (la + lb)
+
+
+def contrastive_loss(params, cfg: EncoderConfig, tok_a, mask_a, tok_b, mask_b, temperature=0.05):
+    """Symmetric InfoNCE over in-batch negatives (f32 logits). Under a mesh
+    the negatives are the whole batch: each side's embeddings are joined
+    from every data shard before the logits."""
+    za = encode(params, cfg, tok_a, mask_a)
+    zb = encode(params, cfg, tok_b, mask_b)
+    return _info_nce(za, zb, temperature)
+
+
+def _param_leaves(tree) -> list:
+    """The tensors a step differentiates: every leaf, or every piece of a
+    tree laid out by :func:`shard_params`."""
+    leaves = tree_leaves(tree)
+    if leaves and isinstance(leaves[0], ShardedParam):
+        return [p for leaf in leaves for p in leaf.pieces]
+    return leaves
+
+
+def _with_param_leaves(tree, tensors):
+    leaves = tree_leaves(tree)
+    if leaves and isinstance(leaves[0], ShardedParam):
+        it = iter(tensors)
+        return tree_unflatten(tree, [
+            ShardedParam([next(it) for _ in leaf.pieces], leaf.spec, leaf.mesh) for leaf in leaves
+        ])
+    return tree_unflatten(tree, tensors)
+
+
+def contrastive_train_step(params, cfg: EncoderConfig, opt_state, batch, lr=1e-4):
+    """One SGD-with-momentum step on the InfoNCE loss: ``m = 0.9·m + g``,
+    then ``p = p − lr·m``. ``batch = (tok_a, mask_a, tok_b, mask_b)``;
+    ``params`` and ``opt_state`` are trees of the same structure (the
+    reference's, so :func:`~pathway_tpu_torch.convert.params_from_numpy`
+    carries both across), or both laid out by :func:`shard_params`: the
+    batch then splits on ``data`` and the matrices on ``model``, and each
+    piece's gradient sums over the data shards. Returns ``(params,
+    opt_state, loss)``, new tensors; the inputs are left as they are.
+    Attention differentiates through :class:`~pathway_tpu_torch.ops.
+    attention_kernel.AttentionShortFlat`: its kernels on the card."""
+    leaves = [p.detach().requires_grad_(True) for p in _param_leaves(params)]
+    live = _with_param_leaves(params, leaves)
+    with torch.enable_grad():
+        loss = contrastive_loss(live, cfg, *batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    with torch.no_grad():
+        moms = tree_map2(
+            _per_piece(lambda m, g: 0.9 * m + g), opt_state, _with_param_leaves(params, grads)
+        )
+        new = tree_map2(_per_piece(lambda p, m: p - lr * m), live, moms)
+    return new, moms, loss.detach()
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedShards:
+    """Where one parameter lives on a mesh: per dimension the axis it is
+    split on, or None (the reference's ``NamedSharding(mesh,
+    PartitionSpec(*spec))``). Not a tuple, so tree walks stop at it."""
+
+    mesh: Any
+    spec: tuple
+
+
+def param_shardings(cfg: EncoderConfig, mesh) -> dict:
+    """Placements mirroring the parameter tree of ``cfg.arch``: the
+    Megatron column split of ``wqkv``/``w1`` (and the bert block's
+    ``bqkv``/``b1``) and row split of ``wo``/``w2`` on the ``model`` axis,
+    ``embed`` split on the vocabulary, everything else replicated."""
+
+    def ns(*spec):
+        return NamedShards(mesh, tuple(spec))
+
+    layer = {
+        "ln1": {"g": ns(), "b": ns()},
+        "wqkv": ns(None, "model"),  # column-parallel
+        "wo": ns("model", None),  # row-parallel
+        "ln2": {"g": ns(), "b": ns()},
+        "w1": ns(None, "model"),
+        "w2": ns("model", None),
+    }
+    if cfg.arch == "bert":
+        layer = dict(layer, bqkv=ns("model"), bo=ns(), b1=ns("model"), b2=ns())
+    out = {
+        "embed": ns("model", None),
+        "pos": ns(),
+        "layers": [layer for _ in range(cfg.n_layers)],
+        "ln_f": {"g": ns(), "b": ns()},
+    }
+    if cfg.arch == "bert":
+        out["tok_type"] = ns()
+        out["emb_ln"] = {"g": ns(), "b": ns()}
+    return out
+
+
+def _axis_size(mesh, axis: str) -> int:
+    return mesh.shape.get(axis, 1)
+
+
+def _shard_device(mesh, axis: str, i: int) -> torch.device:
+    """The device of shard ``i`` along ``axis``, index 0 on the others."""
+    at = tuple(i if name == axis else 0 for name in mesh.axis_names)
+    return mesh.devices[at]
+
+
+def _tree_mesh(params):
+    embed = params["embed"]
+    return embed.mesh if isinstance(embed, ShardedParam) else None
+
+
+def shard_params(params, shardings):
+    """Lay a parameter tree out as ``shardings`` (:func:`param_shardings`)
+    says: a leaf split on ``model`` becomes its pieces, piece ``m`` on the
+    device of shard ``(0, m)`` (a view where that is the tree's own
+    device); a replicated leaf stays whole on shard ``(0, 0)``'s device.
+    The data shards share each piece: their gradients sum into it."""
+
+    def place(ns: NamedShards, t: torch.Tensor) -> ShardedParam:
+        n = _axis_size(ns.mesh, "model")
+        parts = t.tensor_split(n, dim=ns.spec.index("model")) if "model" in ns.spec else (t,)
+        devs = [_shard_device(ns.mesh, "model", m) for m in range(len(parts))]
+        return ShardedParam([p.to(d) for p, d in zip(parts, devs)], ns.spec, ns.mesh)
+
+    return tree_map2(place, shardings, params)
+
+
+def unshard_params(tree):
+    """The whole tensors of a tree laid out by :func:`shard_params`."""
+    return tree_map(lambda leaf: leaf.full() if isinstance(leaf, ShardedParam) else leaf, tree)
 
 
 @functools.cache
@@ -437,9 +692,12 @@ class TorchSentenceEncoder(nn.Module):
         tokenizer: Any = None,
         param_dtype: torch.dtype | None = None,
         device=None,
+        mesh=None,
     ):
         super().__init__()
         self.device = resolve_device(device)
+        if mesh is not None:
+            self.device = _shard_device(mesh, "data", 0)
         self.cfg = cfg or EncoderConfig()
         if params is None:
             params = init_params(self.cfg, torch.Generator().manual_seed(seed))
@@ -447,12 +705,23 @@ class TorchSentenceEncoder(nn.Module):
             params = tree_map(lambda p: p.to(param_dtype) if p.ndim >= 2 else p, params)
         self.param_dtype = param_dtype
         self.params = ParamTree(params).to(self.device)
+        # under ``mesh`` the forward reads the layout of :func:`param_shardings`
+        # (pieces are views of ``params`` where they share its device). The attention stays on
+        #: the hand-written kernels: the layout is explicit, so nothing
+        #: needs the reference's switch to XLA's attention under a mesh.
+        self.mesh = mesh
+        self._sharded = None if mesh is None else shard_params(self.params, param_shardings(self.cfg, mesh))
         self.tokenizer = tokenizer or HashTokenizer(self.cfg.vocab_size, self.cfg.max_len)
         self._param_count: int | None = None
         # memory attribution: encoder weights show up as
         # pathway_device_bytes{component="encoder_params"} while this
         # instance lives (weakly registered — no lifetime coupling)
         _dev_prof.register_memory(self, "encoder_params", lambda enc: enc.param_bytes())
+
+    @property
+    def forward_params(self):
+        """The tree the forward reads: ``params``, or its mesh layout."""
+        return self.params if self._sharded is None else self._sharded
 
     @property
     def dimension(self) -> int:
@@ -479,7 +748,7 @@ class TorchSentenceEncoder(nn.Module):
         stats.note_flops("encoder", 2.0 * self.param_count() * total)
 
     def forward(self, token_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return encode_jit(self.params, self.cfg, token_ids, mask)
+        return encode_jit(self.forward_params, self.cfg, token_ids, mask)
 
     def _ids(self, ids) -> torch.Tensor:
         if isinstance(ids, np.ndarray):
@@ -491,7 +760,7 @@ class TorchSentenceEncoder(nn.Module):
         """Pre-tokenized ids (pad id 0) → embeddings on the device."""
         if isinstance(ids, np.ndarray):
             self._note_launch(ids)
-        return encode_ids_jit(self.params, self.cfg, self._ids(ids))
+        return encode_ids_jit(self.forward_params, self.cfg, self._ids(ids))
 
     @torch.inference_mode()
     def encode_texts_device(self, texts: list[str]) -> torch.Tensor:
@@ -501,8 +770,8 @@ class TorchSentenceEncoder(nn.Module):
         ids, mask = self.tokenizer(texts)
         self._note_launch(ids, mask)
         if getattr(self.tokenizer, "pad_id_zero", False):
-            return encode_ids_jit(self.params, self.cfg, self._ids(ids))
-        return encode_jit(self.params, self.cfg, self._ids(ids).long(), self._ids(mask))
+            return encode_ids_jit(self.forward_params, self.cfg, self._ids(ids))
+        return encode_jit(self.forward_params, self.cfg, self._ids(ids).long(), self._ids(mask))
 
     def encode_texts(self, texts: list[str]) -> np.ndarray:
         if not texts:
@@ -512,7 +781,7 @@ class TorchSentenceEncoder(nn.Module):
     @torch.inference_mode()
     def encode_tokens(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         self._note_launch(ids, mask)
-        out = encode_jit(self.params, self.cfg, self._ids(ids).long(), self._ids(mask))
+        out = encode_jit(self.forward_params, self.cfg, self._ids(ids).long(), self._ids(mask))
         return out.cpu().numpy()
 
     @classmethod

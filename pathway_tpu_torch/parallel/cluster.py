@@ -25,10 +25,10 @@ threads out of the timely workers.
 Carried from ``pathway_tpu/parallel/cluster.py``. Port layout: the coordinator
 listens on ``PATHWAY_FIRST_PORT``, process ``p``'s block links on
 ``first_port + 1 + p``, the heartbeat monitor on ``first_port + processes +
-1``. The planes this module reaches lazily and the port has not carried yet
-raise ``later_slice`` when a run asks for them: the elasticity plane
-(``PATHWAY_ELASTIC``), the shard map (``PATHWAY_SHARDMAP=on``) and the serving
-fabric (``PATHWAY_FABRIC``); with them off, the run is the reference's.
+1``, the serving fabric's transport (``PATHWAY_FABRIC=on``) on ``first_port +
+processes + 2 + p``. ``PATHWAY_SHARDMAP=on`` places keys by the versioned
+shard map (``internals/shardmap.py``). The elasticity plane
+(``PATHWAY_ELASTIC``) is not carried yet and raises ``later_slice``.
 """
 
 from __future__ import annotations
@@ -48,7 +48,6 @@ from pathway_tpu_torch.engine import fusion as _fusion
 from pathway_tpu_torch.engine.graph import BROADCAST, END_OF_STREAM, SOLO, Node
 from pathway_tpu_torch.internals.config import get_pathway_config
 from pathway_tpu_torch.internals.errors import OtherWorkerError
-from pathway_tpu_torch.internals.later_slice import later_slice
 from pathway_tpu_torch.internals.logical import BuildContext, LogicalNode
 from pathway_tpu_torch.internals.trace import run_annotated
 from pathway_tpu_torch.observability import audit as _audit
@@ -474,7 +473,7 @@ class ClusterRuntime:
 
         self.wakeup = TickWakeup()
         # shard-map plane (PATHWAY_SHARDMAP): the versioned ownership table;
-        # None keeps the derived modulo rule (the plane is a later slice)
+        # None keeps the derived modulo rule. Set in run()
         self.shardmap = None
         # live tracing (observability): installed in run(), None when off
         self.tracer = None
@@ -1078,13 +1077,23 @@ class ClusterRuntime:
         from pathway_tpu_torch import flow as _flow
         from pathway_tpu_torch import observability as _obs
 
-        cfg = get_pathway_config()
-        if cfg.shardmap == "on":
-            raise later_slice("internals.shardmap")
-        if cfg.fabric != "off":
-            raise later_slice("fabric")
         # after persistence attach (pw.run order); refuses PATHWAY_ELASTIC
         _elastic.install_from_env(self)
+        if get_pathway_config().shardmap == "on":
+            # shard-map plane: derive (and, coordinator, commit) the versioned
+            # ownership table BEFORE build/persistence — restores and door
+            # routing both consult it. Derivation is deterministic from the
+            # stored map + pod shape, so every process agrees without a
+            # barrier; without a backend the equal initial split is used. The
+            # membership version is 0: the elasticity plane is not carried
+            from pathway_tpu_torch.internals import shardmap as _shardmap
+
+            backend = getattr(self.persistence, "backend", None)
+            self.shardmap, _prev = _shardmap.ensure_shardmap(
+                backend, self.n_workers, 0, commit=(self.pid == 0)
+            )
+            if self.device_plane is not None:
+                self.device_plane.shard_map = self.shardmap
         _faults.install_from_env()
         _obs.install_from_env(self)
         _flow.install_from_env(self)  # before build: gates attach to inputs
@@ -1105,6 +1114,9 @@ class ClusterRuntime:
             raise
         finally:
             self.tracer = None
+            from pathway_tpu_torch import fabric as _fabric
+
+            _fabric.shutdown()
             _obs.shutdown()
             _flow.shutdown()
 
@@ -1148,7 +1160,18 @@ class ClusterRuntime:
         # non-partitioned sources, peers own their workers' partition slices
         for driver in self.connectors:
             driver.start()
-        # connectors live: this door is ready (health plane: starting → ready)
+        # serving fabric (PATHWAY_FABRIC=on): AFTER connectors — the owner's
+        # webserver and route states are live — and BEFORE the first tick, so
+        # every peer's transport is accepting before the owner's first
+        # replica cast (the startup barrier orders the two)
+        from pathway_tpu_torch import fabric as _fabric
+
+        fplane = _fabric.install_from_env(self)
+        if fplane is not None:
+            self.on_tick_done.append(fplane.on_tick_done)
+        # connectors live + fabric doors accepting: this door is ready
+        # (health plane: starting → ready; a replica resync will demote it
+        # to syncing until the gap closes)
         _health.mark_ready()
 
         period = (self.autocommit_duration_ms or 20) / 1000.0

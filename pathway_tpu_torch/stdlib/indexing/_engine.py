@@ -23,8 +23,9 @@ snapshots its backend O(delta) under operator persistence (a compacted base
 plus the mutation log since, ``PATHWAY_INDEX_SNAPSHOT`` and
 ``PATHWAY_INDEX_COMPACT_FRAC``), as the reference does; restoring replays the
 deltas through ``backend.add``/``remove``, so a brute-force index on the card
-gets the live index's slot assignment back. The fabric's replica feed, a
-plane not ported yet, is cut.
+gets the live index's slot assignment back. Under an armed retrieval route
+each node feeds its backend mutations to the fabric's replica index
+(``fabric/index_replica.py``).
 """
 
 from __future__ import annotations
@@ -240,6 +241,12 @@ class ExternalIndexNode(Node):
         import os as _os
 
         self._tok = int.from_bytes(_os.urandom(8), "little")
+        # replica-served retrieval (fabric/index_replica): when a retrieval
+        # route is armed, this worker's backend mutations — extended with the
+        # raw payload text riding the docs' ``__payload`` column — feed the
+        # route's IndexRoute so every door can replay them into a local
+        # replica index; None costs nothing
+        self.replica_feed: Any = None
         # -- incremental snapshot state (persistence plane) -------------------
         # flipped on by Persistence.on_graph_built under operator persistence;
         # off by default so non-persisted runs never grow an op log
@@ -271,6 +278,11 @@ class ExternalIndexNode(Node):
             self.backend = backend
         for a, v in state.items():
             setattr(self, a, v)
+        if self.replica_feed is not None:
+            # restored backends never re-ran process(), so the replica feed's
+            # changelog slice was not re-derived — peers must not trust a
+            # snapshot RPC from this process (they forward until fresh ops)
+            self.replica_feed.note_restored()
 
     def snapshot_state_store(self, store):
         """Incremental snapshot: persist only the mutation delta log since the
@@ -381,6 +393,10 @@ class ExternalIndexNode(Node):
         self._snap_delta_bytes = chunks["delta_bytes"]
         self._snap_seq = chunks["seq"]
         self._delta_log = []
+        if self.replica_feed is not None:
+            # see restore_state: a chunk-restored slice is complete in the
+            # backend but absent from the replica feed — refuse snapshot RPCs
+            self.replica_feed.note_restored()
 
     def _filter(self, expr):
         if expr not in self._filter_cache:
@@ -426,7 +442,10 @@ class ExternalIndexNode(Node):
         # base pickle + in-order replay, so the rebuilt backend is the state
         # the live one had — including slot assignment)
         log = self._delta_log if self.snapshot_log_enabled else None
+        feed = self.replica_feed
+        fops: list | None = [] if feed is not None else None
         if docs is not None:
+            payloads = docs.data.get("__payload") if fops is not None else None
             # removals first: consolidation may reorder a same-key (-1, +1)
             # upsert pair arbitrarily, and remove() is keyed by key alone — an
             # add-then-remove ordering would silently drop the updated doc
@@ -435,6 +454,8 @@ class ExternalIndexNode(Node):
                     key = int(docs.keys[i])
                     if log is not None:
                         log.append(("r", key))
+                    if fops is not None:
+                        fops.append(("r", key))
                     self.backend.remove(key)
             for i in range(len(docs)):
                 if docs.diffs[i] > 0:
@@ -443,9 +464,13 @@ class ExternalIndexNode(Node):
                     meta = docs.data["__meta"][i]
                     if log is not None:
                         log.append(("a", key, item, meta))
+                    if fops is not None:
+                        fops.append(("a", key, item, meta, payloads[i] if payloads is not None else None))
                     self.backend.add(key, item, meta)
             docs_changed = len(docs) > 0
             self._snap_mutations += len(docs)
+        if fops:
+            feed.note_ops(fops)
 
         out_keys: list[int] = []
         out_diffs: list[int] = []

@@ -10,8 +10,8 @@ The inner index runs as an engine :class:`ExternalIndexNode`; queries through
 (the serving discipline, SURVEY §3.3), while ``query`` keeps answers consistent
 under doc updates (one batched re-search per doc tick).
 
-Carried from ``pathway_tpu/stdlib/indexing/data_index.py``; the fabric plane's
-replica capture of as-of-now indexes is cut with that plane.
+Carried from ``pathway_tpu/stdlib/indexing/data_index.py``, with the fabric
+plane's replica capture of as-of-now indexes (``fabric/index_replica.py``).
 """
 
 from __future__ import annotations
@@ -49,12 +49,17 @@ class InnerIndex:
         # (e.g. embedder application for vector indexes)
         self.item_transform = item_transform or (lambda _table, e: e)
 
-    def _docs_table(self) -> Table:
+    def _docs_table(self, with_payload: bool = False) -> Table:
         table = self.data_table
         item = self.item_transform(table, self.data_column)
         meta = self.metadata_column if self.metadata_column is not None else None
         cols = {"__item": item}
         cols["__meta"] = meta if meta is not None else 0
+        if with_payload:
+            # replica-served retrieval: the raw document text rides the doc
+            # rows so the changelog feed can cast it (the __item column is the
+            # embedded vector — not enough to rebuild the response payload)
+            cols["__payload"] = self.data_column
         return table.select(**cols)
 
     def _raw_reply(
@@ -70,10 +75,33 @@ class InnerIndex:
         cols["__k"] = number_of_matches if number_of_matches is not None else 3
         cols["__filter"] = metadata_filter if metadata_filter is not None else None
         queries = qtable.select(**cols)
-        docs = self._docs_table()
+        cap = None
+        if as_of_now:
+            from pathway_tpu_torch.fabric import index_replica as _index_replica
+
+            cap = _index_replica.current_capture()
+            if cap is not None:
+                cap.bind(self)
+                if cap.composite:
+                    # hybrid/composite retrieval: one replica can't reproduce
+                    # the composition — leave the nodes uncaptured (the route
+                    # always forwards)
+                    cap = None
+        docs = self._docs_table(with_payload=cap is not None)
         factory = self.backend_factory
+        if cap is None:
+            make = lambda: ExternalIndexNode(factory, as_of_now=as_of_now)  # noqa: E731
+        else:
+
+            def make(_cap=cap, _factory=factory, _aon=as_of_now):
+                node = ExternalIndexNode(_factory, as_of_now=_aon)
+                # every worker of every process builds its own instance;
+                # each one feeds the same route (disjoint doc shards)
+                _cap.attach_node(node)
+                return node
+
         node = LogicalNode(
-            lambda: ExternalIndexNode(factory, as_of_now=as_of_now),
+            make,
             [docs._node, queries._node],
             name="external_index",
         )

@@ -11,19 +11,116 @@ Remote-API embedders (OpenAI, LiteLLM, Gemini) keep the async-UDF path with
 capacity/retry wrappers; they gate on their client libraries at construction
 and take an injected transport (``client=`` / ``aembedding=``) in its place.
 
-Carried from ``pathway_tpu/xpacks/llm/embedders.py``. Its pod-wide shared memo
-tier (``drain_shared_out`` and its callers) belongs to the fabric plane and the
-memo's metrics exposition to the monitoring plane; both wait for those planes.
+Carried from ``pathway_tpu/xpacks/llm/embedders.py``, with the memo's pod-wide
+shared tier (``drain_shared_memo`` / ``apply_shared_memo``, cast by the fabric
+plane between doors whose embedders share a fingerprint) and its counters on
+``/status`` and ``/metrics``.
 """
 
 from __future__ import annotations
 
+import threading
+import weakref
+from collections import deque
 from typing import Any
 
 import numpy as np
 
 from pathway_tpu_torch.internals.udfs import UDF, async_executor
 from pathway_tpu_torch.xpacks.llm._utils import require
+
+#: live memoizing embedders (weak): the observability plane reads their
+#: hit/miss/evict counters and the fabric's shared-memo tier drains/feeds
+#: their memos by fingerprint
+_MEMO_REGISTRY: "weakref.WeakSet[SentenceTransformerEmbedder]" = weakref.WeakSet()
+
+#: bound on locally-encoded (text, vector) pairs queued for the pod-wide
+#: shared-memo cast; overflow drops oldest (sharing is best-effort)
+_MEMO_SHARE_BUF = 256
+
+
+def live_memo_embedders() -> list:
+    """Memoizing embedders alive in this process, fingerprint-sorted."""
+    return sorted(
+        (e for e in list(_MEMO_REGISTRY) if e._memo_cap > 0),
+        key=lambda e: e.memo_fingerprint,
+    )
+
+
+def memo_stats() -> list[dict]:
+    """Per-embedder memo counters for ``/status`` (and the heartbeat
+    piggyback): exact hits/misses/evictions plus the shared-tier traffic."""
+    out = []
+    for e in live_memo_embedders():
+        hits, misses = e.memo_hits, e.memo_misses
+        total = hits + misses
+        out.append(
+            {
+                "fingerprint": e.memo_fingerprint,
+                "capacity": e._memo_cap,
+                "entries": len(e._memo),
+                "hits": hits,
+                "misses": misses,
+                "evictions": e.memo_evictions,
+                "shared_in": e.memo_shared_in,
+                "shared_out": e.memo_shared_out,
+                "hit_ratio": round(hits / total, 4) if total else None,
+            }
+        )
+    return out
+
+
+def memo_prometheus_lines() -> list[str]:
+    """``pathway_embedder_memo_*`` exposition lines for ``/metrics``."""
+    stats = memo_stats()
+    if not stats:
+        return []
+    from pathway_tpu_torch.internals.monitoring import escape_label_value
+
+    lines: list[str] = []
+    series = (
+        ("pathway_embedder_memo_hits_total", "Embedding memo hits (no device launch)", "hits", "counter"),
+        ("pathway_embedder_memo_misses_total", "Embedding memo misses (freshly encoded)", "misses", "counter"),
+        ("pathway_embedder_memo_evictions_total", "Embedding memo LRU evictions", "evictions", "counter"),
+        ("pathway_embedder_memo_shared_in_total", "Memo entries installed from peer casts (pod-wide shared tier)", "shared_in", "counter"),
+        ("pathway_embedder_memo_shared_out_total", "Locally-encoded memo entries cast to peers", "shared_out", "counter"),
+        ("pathway_embedder_memo_entries", "Embedding memo resident entries", "entries", "gauge"),
+        ("pathway_embedder_memo_hit_ratio", "Embedding memo hit ratio since start", "hit_ratio", "gauge"),
+    )
+    for name, help_text, key, mtype in series:
+        lines.append(f"# HELP {name} {help_text}")
+        lines.append(f"# TYPE {name} {mtype}")
+        for s in stats:
+            if s[key] is None:
+                continue
+            label = f'embedder="{escape_label_value(s["fingerprint"])}"'
+            lines.append(f"{name}{{{label}}} {s[key]}")
+    return lines
+
+
+def drain_shared_memo(limit: int = 64) -> dict[str, list]:
+    """Fabric tick-end hook: pop up to ``limit`` freshly-encoded (text,
+    vector) pairs per embedder, keyed by fingerprint, for the replica cast."""
+    out: dict[str, list] = {}
+    for e in live_memo_embedders():
+        entries = e.drain_shared_out(limit)
+        if entries:
+            out.setdefault(e.memo_fingerprint, []).extend(entries)
+    return out
+
+
+def apply_shared_memo(fingerprint: str, entries: list) -> int:
+    """Fabric cast-receive hook: install a peer's memo entries into every
+    local embedder with a MATCHING fingerprint (same architecture + seed —
+    the vectors would be recomputed identically here, so installing them is
+    the pod-wide 'hot query set embeds once' win). Returns installs."""
+    n = 0
+    for e in live_memo_embedders():
+        if e.memo_fingerprint == fingerprint:
+            n += e.apply_shared(entries)
+    return n
+
+
 
 
 class BaseEmbedder(UDF):
@@ -96,6 +193,13 @@ class SentenceTransformerEmbedder(BaseEmbedder):
         self.memo_hits = 0
         self.memo_misses = 0
         self.memo_evictions = 0
+        # pod-wide shared tier: vectors THIS process encoded, queued for the
+        # fabric's replica cast; peers with the same fingerprint install them
+        # so a hot query embeds once per pod, not once per door
+        self.memo_shared_in = 0
+        self.memo_shared_out = 0
+        self._memo_share_buf: "deque[tuple[str, np.ndarray]]" = deque(maxlen=_MEMO_SHARE_BUF)
+        self._memo_lock = threading.Lock()
         # fingerprint = everything the forward pass depends on: two embedders
         # agree on it iff they produce identical vectors for identical
         # single-text launches. The reference's fields under the port's own
@@ -105,6 +209,7 @@ class SentenceTransformerEmbedder(BaseEmbedder):
             f"torchst:{cfg.d_model}x{cfg.n_layers}x{cfg.n_heads}x{cfg.d_ff}"
             f":s{seed}:{'p' if params is not None else 'd'}"
         )
+        _MEMO_REGISTRY.add(self)
 
         def embed_batch(texts: list[str]) -> list[np.ndarray]:
             texts = [str(t) for t in texts]
@@ -142,6 +247,7 @@ class SentenceTransformerEmbedder(BaseEmbedder):
                         for i in want[t]:
                             out[i] = v
                         memo[t] = v
+                        self._memo_share_buf.append((t, v))
                 while len(memo) > self._memo_cap:
                     memo.popitem(last=False)
                     self.memo_evictions += 1
@@ -155,6 +261,41 @@ class SentenceTransformerEmbedder(BaseEmbedder):
 
     def get_embedding_dimension(self, **kwargs) -> int:
         return self._encoder.dimension
+
+    # ---------------------------------------------------- pod-wide shared tier
+    def drain_shared_out(self, limit: int = 64) -> list[tuple[str, list[float]]]:
+        """Pop up to ``limit`` locally-encoded (text, vector-as-list) pairs
+        for the fabric cast (vectors jsonified — the transport is msgpack'd
+        JSON-ish; peers re-materialize float32)."""
+        out: list[tuple[str, list[float]]] = []
+        with self._memo_lock:
+            while self._memo_share_buf and len(out) < limit:
+                t, v = self._memo_share_buf.popleft()
+                out.append((t, np.asarray(v, dtype=np.float32).tolist()))
+        self.memo_shared_out += len(out)
+        return out
+
+    def apply_shared(self, entries: list) -> int:
+        """Install peer-encoded vectors. Peer entries never re-enter the
+        share buffer (no echo loops) and never displace locally-verified
+        entries (insert-if-absent), so a pod of doors converges instead of
+        thrashing. Returns how many were new."""
+        if not self._memo_cap:
+            return 0
+        memo = self._memo
+        n = 0
+        with self._memo_lock:
+            for ent in entries:
+                t, v = str(ent[0]), ent[1]
+                if t in memo:
+                    continue
+                memo[t] = np.asarray(v, dtype=np.float32)
+                n += 1
+            while len(memo) > self._memo_cap:
+                memo.popitem(last=False)
+                self.memo_evictions += 1
+        self.memo_shared_in += n
+        return n
 
 
 class OpenAIEmbedder(BaseEmbedder):

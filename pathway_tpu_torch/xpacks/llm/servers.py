@@ -6,9 +6,9 @@ register the DocumentStore / QA endpoints the reference exposes
 ``/v2/summarize``, ``/v2/list_documents``).
 
 Carried from ``pathway_tpu/xpacks/llm/servers.py``. Replica-served retrieval
-(``fabric/index_replica.py``) arms only on a fabric cluster run, which the
-port does not run yet: ``/v1/retrieve`` is answered by the one process's own
-index, as the reference answers it on a single process.
+(``fabric/index_replica.py``) arms on a fabric cluster run: every door then
+answers ``/v1/retrieve`` from its local replica index within the staleness
+bound; on one process the route is the process's own index.
 """
 
 from __future__ import annotations
@@ -17,7 +17,6 @@ import threading
 from typing import Callable
 
 import pathway_tpu_torch as pw
-from pathway_tpu_torch.internals.later_slice import later_slice
 from pathway_tpu_torch.io.http._server import (
     EndpointDocumentation,
     PathwayWebserver,
@@ -40,8 +39,8 @@ class BaseRestServer:
         replica_route=None,
         **kwargs,
     ) -> None:
-        if replica_route is not None:
-            raise later_slice("fabric.index_replica")
+        from pathway_tpu_torch.fabric import index_replica as _index_replica
+
         queries, writer = rest_connector(
             webserver=self.webserver,
             route=route,
@@ -51,7 +50,16 @@ class BaseRestServer:
             or EndpointDocumentation(summary=f"{type(self).__name__} {route}"),
             **kwargs,
         )
-        writer(handler(queries))
+        # replica-served retrieval: defining the handler's dataflow under
+        # capturing(...) lets DataIndex wire the index changelog feed; every
+        # door then answers this route from a local replica index within the
+        # staleness bound (fabric/index_replica.py)
+        with _index_replica.capturing(replica_route):
+            writer(handler(queries))
+        if replica_route is not None:
+            for r, _methods, _h, meta in self.webserver._routes:
+                if r == route and meta is not None:
+                    replica_route.state = meta.get("serving")
 
     def run(self, threaded: bool = False, with_cache: bool = False, **kwargs):
         """Build & run the dataflow (blocks; threaded=True runs in a thread)."""
@@ -68,9 +76,12 @@ class DocumentStoreServer(BaseRestServer):
     def __init__(self, host: str, port: int, document_store, **kwargs):
         super().__init__(host, port, **kwargs)
         self.document_store = document_store
-        # the reference arms a changelog-fed replica index here on fabric
-        # cluster runs (``index_replica.maybe_arm``); on one process it is None
-        self.replica_route = None
+        from pathway_tpu_torch.fabric import index_replica as _index_replica
+
+        # cluster runs with the fabric + replica plane on: every door serves
+        # /v1/retrieve from a changelog-fed local replica index (held here —
+        # the registry is weak; None on single-process / fabric-off runs)
+        self.replica_route = _index_replica.maybe_arm("/v1/retrieve", document_store)
         self.serve(
             "/v1/retrieve",
             document_store.RetrieveQuerySchema,

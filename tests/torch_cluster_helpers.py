@@ -454,12 +454,20 @@ def streaming_sum(pw, out):
 
 def monitored_feed(pw, out):
     """A live source into a groupby, served by the monitoring server
-    (``tests/test_observability.py``'s cluster pipeline)."""
+    (``tests/test_observability.py``'s cluster pipeline). The feed sends at
+    least 40 rows and then stays live until the test writes ``<out>.stop``
+    (read its ``/status``, ``/metrics`` and ``/trace``), at most 90 s: a
+    fixed 2.4 s feed could end, under load, before the coordinator's
+    ``/status`` showed both processes reporting."""
+    stop = f"{out}.stop"
 
     class Subj(pw.io.python.ConnectorSubject):
         def run(self):
-            for i in range(40):
+            deadline = time.time() + 90
+            i = 0
+            while i < 40 or not (os.path.exists(stop) or time.time() > deadline):
                 self.next(x=i)
+                i += 1
                 time.sleep(0.06)
 
     t = pw.io.python.read(Subj(), schema=pw.schema_from_types(x=int), name="feed")
