@@ -18,9 +18,13 @@ printing one JSON line:
    with its time at the main path's three shapes and at bert_path's
    batch (12 heads of 32), its plain version's time,
    one PyTorch library call's time as a yardstick, and its bound; then
-   the attention's backward kernel (``attention_short_bwd.cu``) against its
-   plain version, both dtypes at six shapes, timed at the train step's
-   shape beside its plain version, SDPA's backward and its bound;
+   the attention's backward (``attention_short_bwd.cu``: up to 128 keys one
+   fused pass per (text, head) on the tensor cores, above it two passes on
+   the FP32 pipes) against its plain version, both dtypes at six shapes,
+   with the route each took; at the train step's shape two launches give
+   the same bits and the first 8 texts alone give rows 0-7 of the 512-text
+   call's bits, and it is timed beside the two-pass route at that shape,
+   its plain version, SDPA's backward and its bound;
 4. main path, at the full width of the bench's MiniLM-class encoder with
    random seeded weights: 8192 docs tokenized, embedded in batches of 1024
    and indexed; the index filled to 1,000,000 x 384 f32; 30 RAG queries
@@ -177,11 +181,13 @@ printing one JSON line:
    forward on ``attention_short.cu`` and backward on
    ``attention_short_bwd.cu`` (the backward checked against its plain
    version at six shapes in phase 3). Gates: finite losses, the last below
-   the first, 12 forward and 12 backward launches a step, one step's loss
+   the first, 12 forward and 12 backward launches a step (every backward
+   on the fused route), one step's loss
    and every gradient leaf equal to the same step with both plain
    attention functions within TRAIN_GRAD_TOL. Printed: ms a step, its
-   forward and backward, tokens/s, one profiled step's attention ms and
-   device idle share, the peak allocated memory;
+   forward and backward, tokens/s, one profiled step's attention ms (the
+   backward's > 0, read under its kernels' names) and device idle share,
+   the peak allocated memory;
 17. multichip_dryrun: ``tools/multichip_dryrun.dryrun_multichip(4)`` on
    four logical shards of the card (a 2 x 2 TP/DP step equal to the
    unsharded one, the sharded KNN self-search, the key exchange, the
@@ -197,7 +203,8 @@ printing one JSON line:
 19. the kernels line, with each kernel's launches during phases 4, 6, 7,
    8's pipeline, 10, 11, 12, 12b's run B, 13, 14, the flow phase, 15, 16,
    17 and 18 (the cluster processes' counts read from their output): the
-   attention kernel's two routes and its backward's two routes.
+   attention kernel's two routes and its backward's two dtypes, each with
+   its launches per backward route.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without it. TF32 is off for every matmul (``allow_tf32 = False``), so the f32
@@ -411,6 +418,12 @@ def phase_build() -> None:
         mine = {f: n for f, n in tc.items() if f"attention_tc_kernel<{tname}," in f}
         check(len(mine) == 6, f"{dname} route: {len(mine)} tensor-core instantiations in the SASS, expected 6")
         check(all(n > 0 for n in mine.values()), f"{dname} route without HMMA/HGMMA in its SASS: {mine}")
+    # the fused backward: bf16 at 3 head widths and f32 at 32 and 64, each
+    # at L = 128 and at any length
+    fused = {f: n for f, n in sass.get("attention_short_bwd", {}).items()
+             if any(k in f for k in A.BACKWARD_KERNELS["fused"])}
+    check(len(fused) == 10 and all(n > 0 for n in fused.values()),
+          f"fused backward: {len(fused)} instantiations, HMMA/HGMMA per instantiation {fused}, expected 10, all > 0")
 
     # the host C tokenizer, built here so that no timed call pays its compile
     t1 = time.perf_counter()
@@ -426,9 +439,13 @@ def phase_build() -> None:
         f"{str(dt).replace('torch.', '')} {case}": A.launch_geometry(B, L, 384 // hd, hd, dt).smem_bytes
         for dt in (torch.bfloat16, torch.float32) for case, (B, L, hd) in KERNEL_SHAPES.items()
     }
+    bwd_geo = {
+        f"{str(dt).replace('torch.', '')} {case}": A.backward_launch_geometry(B, L, H, hd, dt)._asdict()
+        for dt in (torch.bfloat16, torch.float32) for case, (B, L, H, hd) in BWD_SHAPES.items()
+    }
     emit(
         "build", seconds=build_s, per_kernel_s=per_kernel, ptxas=ptxas,
-        sass_tensor_ops=sass, dynamic_smem_bytes=smem,
+        sass_tensor_ops=sass, dynamic_smem_bytes=smem, backward_geometry=bwd_geo,
         tokenizer="native" if tok is not None else "python",
         tokenizer_build_s=native.build_seconds.get("pwtok"), tokenizer_load_s=tok_s,
         tokenizer_error=native.last_error.get("pwtok"), c_compiler=cc,
@@ -4536,12 +4553,17 @@ def phase_multiworker(info: dict) -> dict:
 # --------------------------------------------------------------- training path
 
 #: the backward kernel's checked cases, (B texts, L, heads, hd): the train
-#: step's shape (256 pairs, both sides in one batch), the bert block's
-#: heads, the longest length, a length that fills no tile evenly, the widest
-#: head and a single row
+#: step's texts (256 pairs, both sides; the step encodes each side in its
+#: own call of 256), the bert block's heads, the longest length, a length
+#: that fills no tile evenly, the widest head, a single row, multichip_dryrun's
+#: step (2 heads of 32 at L 16) and the widest head on the fused route at L
+#: 128 and below (bf16; f32 at hd 128 takes the two-pass route): every fused
+#: instantiation, (dtype, hd) at L = 128 and at any length, meets the plain
+#: version
 BWD_SHAPES = {
     "train": (512, 128, 6, 64), "bert": (64, 128, 12, 32), "max_len": (4, 512, 6, 64),
     "ragged": (3, 77, 6, 64), "hd128": (4, 256, 3, 128), "one": (1, 16, 6, 64),
+    "dryrun": (8, 16, 2, 32), "hd128_l128": (4, 128, 3, 128), "hd128_l77": (3, 77, 3, 128),
 }
 #: the train phase: the main path's encoder at full width, the reference
 #: test's recipe (each positive is the same text) on synth_docs
@@ -4569,12 +4591,18 @@ FABRIC_LEGS = {
 
 def phase_kernels_backward() -> list[dict]:
     """attention_short_flat_backward against its plain version on the card,
-    both routes at every shape of BWD_SHAPES (row 0 of each batch fully
-    masked); returns every case's record. dq, dk and dv each within
-    1e-5 (|ref| + max|ref|) in f32 and 2^-7 (|ref| + max|ref|) in bf16 (one
-    bf16 ulp of the output plus one of every rounded probability). At the
-    train step's shape it times the kernel, the plain version and the
-    backward of ``scaled_dot_product_attention`` (the yardstick)."""
+    both dtypes at every shape of BWD_SHAPES (row 0 of each batch fully
+    masked), with the route each case took; returns every case's record.
+    dq, dk and dv each within 1e-5 (|ref| + max|ref|) in f32 and 2^-7
+    (|ref| + max|ref|) in bf16 (one bf16 ulp of the output plus one of
+    every rounded probability and dS operand). At the ragged shape, d_out
+    given at an offset of one element (rows not 16-byte aligned, as autograd
+    may pass it) gives the same bits. At the train step's shape:
+    a second launch gives the same bits, and the first 8 texts alone give
+    rows 0-7 of the 512-text call bit for bit (one block per (text, head),
+    no atomics); then it times the kernel, the two-pass route on the same
+    inputs, the plain version and the backward of
+    ``scaled_dot_product_attention`` (the yardstick)."""
     import torch
     import torch.nn.functional as F
 
@@ -4588,6 +4616,7 @@ def phase_kernels_backward() -> list[dict]:
         rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
         for label, (B, L, H, hd) in BWD_SHAPES.items():
             D, scale = H * hd, hd ** -0.5
+            geo = A.backward_launch_geometry(B, L, H, hd, dtype)
             q, k, v, mask = _attention_inputs(B, L, dtype, gen, H, hd)
             out = A.attention_short_flat(q, k, v, mask, H, scale)
             g = torch.randn(B, L, D, device="cuda", generator=gen).to(dtype)
@@ -4601,12 +4630,31 @@ def phase_kernels_backward() -> list[dict]:
                 ok = ok and bool(torch.isfinite(a).all()) and bool((err <= rel * (b.abs() + b.abs().max())).all())
                 errs[name] = err.max().item()
             check(ok, f"attention backward {label} {dname}: kernel disagrees with plain {errs}")
-            rec = {"case": label, "dtype": dname, "B": B, "L": L, "H": H, "hd": hd,
+            if label == "ragged":
+                wide = torch.empty(B, L, D + 1, device="cuda", dtype=dtype)
+                wide[..., 1:] = g
+                shifted = A.attention_short_flat_backward(q, k, v, mask, out, wide[..., 1:], H, scale)
+                check(all(torch.equal(a, b) for a, b in zip(got, shifted)),
+                      f"attention backward ragged {dname}: an unaligned d_out changes the result")
+                del wide, shifted
+            rec = {"case": label, "dtype": dname, "B": B, "L": L, "H": H, "hd": hd, "route": geo.route,
+                   "rows_per_block": geo.rows, "smem_bytes": geo.smem_bytes,
                    "max_abs_err": max(errs.values()), "errors": errs,
                    "tolerance": f"{rel:g}*(|ref|+max|ref|)", "ok": ok}
             if label == "train":
+                check(geo.fused, f"attention backward train {dname}: route {geo.route}, expected the fused route")
+                again = A.attention_short_flat_backward(q, k, v, mask, out, g, H, scale)
+                part = A.attention_short_flat_backward(q[:8], k[:8], v[:8], mask[:8], out[:8], g[:8], H, scale)
+                rec["deterministic"] = all(torch.equal(a, b) for a, b in zip(got, again))
+                rec["batch_invariant"] = all(torch.equal(a[:8], b) for a, b in zip(got, part))
+                check(rec["deterministic"], f"attention backward train {dname}: two launches differ")
+                check(rec["batch_invariant"], f"attention backward train {dname}: 8 texts alone differ from rows 0-7")
+                del again, part
                 iters = 10
                 rec["ms"] = cuda_ms(lambda: A.attention_short_flat_backward(q, k, v, mask, out, g, H, scale), iters)
+                two = A._two_pass_geometry(B, L, H, hd, dtype)
+                rec["two_pass_ms"] = cuda_ms(
+                    lambda: A._launch_backward(q, k, v, mask, out, g, H, scale, hd, two), iters)
                 rec["plain_ms"] = cuda_ms(
                     lambda: A.attention_short_flat_backward_plain(q, k, v, mask, out, g, H, scale), iters)
                 qh, kh, vh = (t.detach().view(B, L, H, hd).transpose(1, 2).requires_grad_(True) for t in (q, k, v))
@@ -4724,6 +4772,7 @@ def _train_leg(cfg, params, batch, steps: int, tol: float) -> dict:
     import torch
 
     from pathway_tpu_torch.convert import tree_map
+    from pathway_tpu_torch.ops import attention_kernel as A
     from pathway_tpu_torch.ops import encoder as E
 
     dname = str(cfg.dtype).replace("torch.", "")
@@ -4739,10 +4788,12 @@ def _train_leg(cfg, params, batch, steps: int, tol: float) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
     fwd, bwd = _attention_counts()
     per_step = 2 * cfg.n_layers
+    fused_route = A.BACKWARD_ROUTES[cfg.dtype][0]
     check(all(np.isfinite(losses)), f"train {dname}: non-finite loss {losses}")
     check(losses[-1] < losses[0], f"train {dname}: the loss did not fall: {losses}")
-    check(sum(fwd.values()) == per_step * steps and sum(bwd.values()) == per_step * steps,
-          f"train {dname}: attention launches forward {fwd} backward {bwd}, expected {per_step * steps} each")
+    check(sum(fwd.values()) == per_step * steps and bwd[fused_route] == sum(bwd.values()) == per_step * steps,
+          f"train {dname}: attention launches forward {fwd} backward {bwd}, expected {per_step * steps} each, "
+          f"every backward on {fused_route}")
     _l, _g, fwd_s, bwd_s = _loss_and_grads(p, cfg, batch)
     out = {
         "dtype": dname, "steps": steps, "losses": losses, "step_ms": step_ms,
@@ -4762,16 +4813,20 @@ def _train_leg(cfg, params, batch, steps: int, tol: float) -> dict:
             wall_ms = (time.perf_counter() - t0) * 1e3
         evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0]
         device_ms = sum(ev.device_time_total / 1e3 for ev in evs)
+        bwd_names = [n for names in A.BACKWARD_KERNELS.values() for n in names]
+        bwd_evs = {ev.key[:80]: ev.device_time_total / 1e3 for ev in evs if any(n in ev.key for n in bwd_names)}
         out["profiled_step"] = {
             "wall_ms": wall_ms, "device_ms": device_ms, "device_idle_share": 1.0 - device_ms / wall_ms,
             "attention_forward_ms": sum(ev.device_time_total / 1e3 for ev in evs if "attention_tc_kernel" in ev.key),
-            "attention_backward_ms": sum(ev.device_time_total / 1e3 for ev in evs
-                                         if "bwd_dq" in ev.key or "bwd_dkv" in ev.key),
+            "attention_backward_ms": sum(bwd_evs.values()),
+            "attention_backward_kernels_ms": bwd_evs,
             "top_kernels_ms": {ev.key[:80]: ev.device_time_total / 1e3
                                for ev in sorted(evs, key=lambda e: -e.device_time_total)[:8]},
         }
         if not evs:
             out["profiled_step"]["device_idle_share"] = "not measured (no device events)"
+        check(out["profiled_step"]["attention_backward_ms"] > 0,
+              f"train {dname}: the profiled step shows no backward kernel named {bwd_names}")
     vs = _kernel_vs_plain_step(params, cfg, batch, tol)
     check(vs["ok"], f"train {dname}: the kernels' step differs from the plain-attention step: {vs}")
     out["kernels_vs_plain"] = vs
@@ -4919,30 +4974,48 @@ def phase_fabric(info: dict) -> dict:
     return {"launches": launches, "metrics": out}
 
 
-def _backward_entry(records: list[dict], dtype: str, route: str, launches: dict) -> dict:
-    """One route of the attention backward kernel on the kernels line: its
-    time at the train step's shape and its largest error over every checked
-    case of its dtype."""
+def _backward_entry(records: list[dict], dtype: str, launches: dict) -> dict:
+    """The attention backward of one dtype on the kernels line: its time at
+    the train step's shape (the fused route) beside the two-pass route's,
+    its largest error over every checked case of its dtype, the route each
+    case took, and its launches per path and per backward route."""
+    import torch
+
+    from pathway_tpu_torch.ops import attention_kernel as A
+
+    routes = A.BACKWARD_ROUTES[getattr(torch, dtype)]
     mine = [r for r in records if r["dtype"] == dtype]
     worst = max(mine, key=lambda r: r["max_abs_err"])
     train = next(r for r in mine if r["case"] == "train")
+    what = {
+        "fused_tensor_core": "one fused pass per (text, head) on the tensor cores (mma.sync m16n8k16 bf16, "
+                             "ldmatrix, cp.async), dS in bf16 as the operand of dQ and dK",
+        "fused_tensor_core_3xtf32": "one fused pass per (text, head) on the tensor cores in 3xTF32 "
+                                    "(mma.sync m16n8k8 tf32 on split operands, cp.async)",
+    }[routes[0]]
     entry = {
         "name": f"attention_short_flat_backward[{dtype}]",
         "route": "cuda",
         "source": "pathway_tpu_torch/csrc/attention_short_bwd.cu",
         "replaces": "pathway_tpu/ops/encoder.py:150",
-        "launches": sum(by_route[route] for by_route in launches.values()),
-        "launches_by_path": {path: by_route[route] for path, by_route in launches.items()},
+        "launches": sum(by_route[r] for by_route in launches.values() for r in routes),
+        "launches_by_path": {path: sum(by_route[r] for r in routes) for path, by_route in launches.items()},
+        "launches_by_route": {r: sum(by_route[r] for by_route in launches.values()) for r in routes},
         "max_abs_err": worst["max_abs_err"],
         "max_abs_err_case": f"{dtype} {worst['case']} (B={worst['B']} L={worst['L']} hd={worst['hd']})",
         "cases_checked": len(mine),
+        "route_by_case": {r["case"]: r["route"] for r in mine},
         "ms": train["ms"],
         "plain_ms": train["plain_ms"],
         "bound_ms": train["bound_ms"],
         "bound_by": train["bound_by"],
         "library_ms": train["library_ms"],
+        "two_pass_ms": train["two_pass_ms"],
+        "deterministic": train["deterministic"],
+        "batch_invariant": train["batch_invariant"],
         "shape": f"B=512 L=128 D=384 H=6 {dtype}",
-        "kernel": "dq pass and dk/dv pass over 32-row tiles, f32 FMAs from shared memory",
+        "kernel": f"{what}; L > 128 (and f32 at hd 128): {routes[1]}, a dq pass and a dk/dv pass over "
+                  "32-row tiles, f32 FMAs from shared memory",
     }
     if "bound_fp32_pipes_ms" in train:
         entry["bound_fp32_pipes_ms"] = train["bound_fp32_pipes_ms"]
@@ -5051,8 +5124,8 @@ def main() -> int:
         _kernel_entry(kern, "bfloat16", "tensor_core", "bf16, tensor cores (mma.sync, cp.async)", launches),
         _kernel_entry(kern, "float32", "tensor_core_3xtf32",
                       "f32, tensor cores in 3xTF32 (mma.sync m16n8k8 tf32 on split operands, cp.async)", launches),
-        _backward_entry(bwd_kern, "bfloat16", "tensor_core", bwd_launches),
-        _backward_entry(bwd_kern, "float32", "tensor_core_3xtf32", bwd_launches),
+        _backward_entry(bwd_kern, "bfloat16", bwd_launches),
+        _backward_entry(bwd_kern, "float32", bwd_launches),
     ]}
     if failures:
         print("chip_smoke: FAILED: " + "; ".join(failures), file=sys.stderr)

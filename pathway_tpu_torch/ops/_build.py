@@ -4,7 +4,8 @@ Each kernel is one ``csrc/*.cu`` file with a plain C entry point. At first use
 it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/kernels/`` at the root of the checkout and loaded with ``ctypes``; no
 PyTorch headers are involved, so a build takes seconds. The library's name
-carries a digest of its source and flags, so an edited source builds anew.
+carries a digest of its source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header builds anew.
 Nothing here runs at import time.
 """
 
@@ -55,9 +56,14 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where the kernel's library is built: its name carries a digest of the
+    source, of every header under ``csrc/`` (a source may include any of
+    them) and of the flags."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def nvcc_command(name: str, out: Path) -> list[str]:

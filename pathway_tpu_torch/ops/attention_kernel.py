@@ -9,7 +9,10 @@ head's output columns.
 
 Its gradient (:class:`AttentionShortFlat`, taken when q, k or v requires
 grad) recomputes the forward's softmax and runs ``csrc/attention_short_bwd.cu``
-on the card, :func:`attention_short_flat_backward_plain` on the CPU.
+on the card, :func:`attention_short_flat_backward_plain` on the CPU:
+:func:`backward_launch_geometry` says which of its routes a call takes (up
+to 128 keys, one fused pass per (text, head) on the tensor cores; above, or
+f32 at head width 128, the two-pass kernels on the FP32 pipes).
 
 On a CUDA tensor :func:`attention_short_flat` launches the hand-written Hopper
 kernel ``csrc/attention_short.cu`` (design and bound in its header note) or
@@ -35,10 +38,21 @@ import torch
 #: adds one per launch; nothing else touches it), in all and per route
 LAUNCHES = 0
 ROUTE_LAUNCHES = {"tensor_core": 0, "tensor_core_3xtf32": 0}
-#: backward launches (one per gradient, each running the two kernels of
-#: ``attention_short_bwd.cu``), in all and per forward route
+#: backward launches (one per gradient: the fused kernel, or the two kernels
+#: of the two-pass route), in all and per backward route
 BACKWARD_LAUNCHES = 0
-BACKWARD_ROUTE_LAUNCHES = {"tensor_core": 0, "tensor_core_3xtf32": 0}
+BACKWARD_ROUTE_LAUNCHES = {
+    "fused_tensor_core": 0, "fused_tensor_core_3xtf32": 0,
+    "two_pass_simt_bf16": 0, "two_pass_simt_f32": 0,
+}
+#: the backward's route names per input dtype: (fused, two-pass)
+BACKWARD_ROUTES = {
+    torch.bfloat16: ("fused_tensor_core", "two_pass_simt_bf16"),
+    torch.float32: ("fused_tensor_core_3xtf32", "two_pass_simt_f32"),
+}
+#: the ``__global__`` kernels of ``attention_short_bwd.cu`` per route kind
+#: (a profiler's kernel names contain them)
+BACKWARD_KERNELS = {"fused": ("attention_bwd_fused",), "two_pass": ("bwd_dq", "bwd_dkv")}
 #: route name per input dtype
 ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "tensor_core_3xtf32"}
 
@@ -56,6 +70,12 @@ _TC_MAX_ROWS = 128
 _TC_KEY_TILE = 64
 _TC_RESIDENT_LEN = 2 * _TC_KEY_TILE
 _TC_ROW_PAD_BYTES = 16  # padding per shared row
+
+
+#: the fused backward: keys (and query rows) per block up to this
+_BWD_FUSED_MAX_LEN = 128
+#: the two-pass backward: 32-row tiles, 256 threads
+_BWD_TILE = 32
 
 
 class LaunchGeometry(NamedTuple):
@@ -97,6 +117,48 @@ def launch_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype) -
             f"of shared memory per block, above the {_SMEM_LIMIT} B a Hopper block may use"
         )
     return geo
+
+
+class BackwardGeometry(NamedTuple):
+    route: str  #: a key of BACKWARD_ROUTE_LAUNCHES
+    fused: bool  #: one fused kernel (else bwd_dq, then bwd_dkv)
+    rows: int  #: query rows (fused: and keys) per block
+    warps: int  #: warps per block
+    smem_bytes: int  #: dynamic shared memory per block (two-pass: the larger kernel's)
+    blocks: tuple[int, int, int]  #: grid (batch rows, heads, row tiles)
+
+
+def _fused_smem_bytes(rows: int, hd: int, elem: int) -> int:
+    """Shared bytes of one fused backward block; mirrors ``fused_smem_bytes``
+    in ``attention_short_bwd.cu``: the Q, K, V and dO tiles and the rows x
+    rows staging buffer, in ``elem``-byte elements, rows padded by 16 bytes."""
+    pad = _TC_ROW_PAD_BYTES // elem
+    return (4 * rows * (hd + pad) + rows * (rows + pad)) * elem
+
+
+def _two_pass_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype) -> BackwardGeometry:
+    """The two-pass route: 32-row tiles of f32 in rows padded by one word
+    (``dkv_smem_bytes``, the larger of its two kernels')."""
+    smem = (4 * _BWD_TILE * (hd + 1) + 2 * _BWD_TILE * (_BWD_TILE + 1) + 4 * _BWD_TILE) * 4
+    return BackwardGeometry(
+        BACKWARD_ROUTES[dtype][1], False, _BWD_TILE, 8, smem, (B, n_heads, -(-L // _BWD_TILE))
+    )
+
+
+@functools.lru_cache(maxsize=256)
+def backward_launch_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype) -> BackwardGeometry:
+    """How the backward is launched for one call: the fused route for
+    ``L <= 128`` where its block fits at 128 rows (every dtype and head
+    width but f32 at 128), one block per (batch row, head) of ``16 *
+    ceil(L / 16)`` rows; else the two-pass route."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    if L <= _BWD_FUSED_MAX_LEN and _fused_smem_bytes(_BWD_FUSED_MAX_LEN, hd, elem) <= _SMEM_LIMIT:
+        rows = (L + 15) // 16 * 16
+        return BackwardGeometry(
+            BACKWARD_ROUTES[dtype][0], True, rows, rows // 16,
+            _fused_smem_bytes(rows, hd, elem), (B, n_heads, 1),
+        )
+    return _two_pass_geometry(B, L, n_heads, hd, dtype)
 
 
 def _check(q, k, v, mask, n_heads: int) -> tuple[int, LaunchGeometry]:
@@ -264,30 +326,33 @@ def _backward_kernel():
     return _backward_fn
 
 
-def _launch_backward(q, k, v, mask, out, d_out, n_heads: int, scale: float, hd: int, route: str):
+def _launch_backward(q, k, v, mask, out, d_out, n_heads: int, scale: float, hd: int, geo: BackwardGeometry):
     global BACKWARD_LAUNCHES
-    if d_out.stride(-1) != 1:
-        d_out = d_out.contiguous()
+    # d_out is whatever autograd passes (it may be expanded or sliced): copied
+    # when its rows are not 16-byte aligned; the others come from the caller
+    if not _aligned(d_out):
+        d_out = d_out.clone(memory_format=torch.contiguous_format)
     if mask.stride(-1) != 1:
         mask = mask.contiguous()
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if t.stride(-1) != 1:
+        if not _aligned(t):
             raise ValueError(
                 f"attention_short_flat backward: {name} must have a contiguous last "
-                f"dimension (strides {t.stride()})"
+                f"dimension and 16-byte aligned rows (strides {t.stride()}, "
+                f"{t.element_size()}-byte elements)"
             )
     B, L, D = q.shape
     fn = _backward_kernel()
     dq, dk, dv = (torch.empty((B, L, D), dtype=q.dtype, device=q.device) for _ in range(3))
     if B == 0:
         return dq, dk, dv
-    stats = torch.empty((3, B, n_heads, L), dtype=torch.float32, device=q.device)
+    stats = None if geo.fused else torch.empty((3, B, n_heads, L), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             _DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             out.data_ptr(), d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats.data_ptr(), B, L, n_heads,
+            None if stats is None else stats.data_ptr(), B, L, n_heads,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             out.stride(0), out.stride(1), d_out.stride(0), d_out.stride(1), mask.stride(0),
             float(scale), stream,
@@ -295,20 +360,23 @@ def _launch_backward(q, k, v, mask, out, d_out, n_heads: int, scale: float, hd: 
     if err != 0:
         raise RuntimeError(f"attention_short_flat backward: kernel launch failed (cudaError {err})")
     BACKWARD_LAUNCHES += 1
-    BACKWARD_ROUTE_LAUNCHES[route] += 1
+    BACKWARD_ROUTE_LAUNCHES[geo.route] += 1
     return dq, dk, dv
 
 
 def attention_short_flat_backward(q, k, v, mask, out, d_out, n_heads: int, scale: float):
     """``(dq, dk, dv)`` of :func:`attention_short_flat` at ``out`` for the
     output gradient ``d_out``. CUDA tensors run ``attention_short_bwd.cu``
-    (or raise); CPU tensors run :func:`attention_short_flat_backward_plain`."""
-    hd, geo = _check(q, k, v, mask, n_heads)
+    on the route :func:`backward_launch_geometry` picks (or raise); CPU
+    tensors run :func:`attention_short_flat_backward_plain`."""
+    hd, _geo = _check(q, k, v, mask, n_heads)
     if q.device.type == "cpu":
         return attention_short_flat_backward_plain(q, k, v, mask, out, d_out, n_heads, scale)
     if q.device.type != "cuda":
         raise ValueError(f"attention_short_flat backward: no kernel for device {q.device}")
-    return _launch_backward(q, k, v, mask, out, d_out, n_heads, scale, hd, geo.route)
+    B, L, _D = q.shape
+    geo = backward_launch_geometry(B, L, n_heads, hd, q.dtype)
+    return _launch_backward(q, k, v, mask, out, d_out, n_heads, scale, hd, geo)
 
 
 def _forward(q, k, v, mask, n_heads: int, scale: float):

@@ -3,8 +3,9 @@
     python -m pathway_tpu_torch.tools.attention_ablation
 
 Builds variants of ``csrc/attention_short.cu`` that differ in one place of
-the kernel, each with ``nvcc`` into ``build/ablation/`` (all compiles
-started together), and times each at the embed shape (B=1024, L=128, D=384,
+the kernel or of the helpers it includes from ``csrc/attention_tc.cuh``
+(a variant carries the header inline), each with ``nvcc`` into
+``build/ablation/`` (all compiles started together), and times each at the embed shape (B=1024, L=128, D=384,
 H=6) with CUDA events, in turns, beside ``F.scaled_dot_product_attention``
 with an additive mask, in both routes: bf16 and f32 (3xTF32). Each variant
 is held against the plain version with its route's tolerance (bf16
@@ -41,8 +42,11 @@ import subprocess
 import sys
 
 #: the variants' substitutions apply below this line of the source (the
-#: header note and the includes are never touched)
+#: header note is never touched)
 ROUTES_MARKER = "// Device code (both routes)"
+#: the shared helpers' include, below the marker: a variant inlines the
+#: header there, so a substitution reaches the helpers too
+INCLUDE = '#include "attention_tc.cuh"'
 LOG2E = "1.4426950408889634f"
 EXP_TILE = (
     "    s[j][0] = expf(s[j][0] - m0);\n    s[j][1] = expf(s[j][1] - m0);\n"
@@ -84,8 +88,16 @@ VARIANTS = {
 
 
 def _variant_source(src: str, subs) -> str:
+    """The source with each substitution made below ROUTES_MARKER, the
+    shared header inlined in place of its include (the source itself when
+    there is none)."""
+    if not subs:
+        return src
+    from pathway_tpu_torch.ops import _build
+
     start = src.index(ROUTES_MARKER)
     head, kernel = src[:start], src[start:]
+    kernel = kernel.replace(INCLUDE, (_build.CSRC / "attention_tc.cuh").read_text())
     for old, new in subs:
         if old not in kernel:
             raise RuntimeError(f"attention_ablation: {old[:40]!r} is no longer in the kernel")
@@ -112,7 +124,8 @@ def main() -> int:
         cu = out_dir / f"{name}.cu"
         cu.write_text(_variant_source(src, subs))
         procs[name] = subprocess.Popen(
-            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"), str(cu)],
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(out_dir / f"{name}.so"),
+             str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
     fns = {}

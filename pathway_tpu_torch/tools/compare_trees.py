@@ -25,7 +25,7 @@ import sys
 import time
 
 PHASES = (
-    "kernels", "main_path", "f32_path", "pipeline", "engine_kernels", "audit_fault", "temporal", "document_store",
+    "kernels", "kernels_backward", "main_path", "f32_path", "pipeline", "engine_kernels", "audit_fault", "temporal", "document_store",
     "persistence", "rest_serving", "observability", "flow", "graphs", "knn_index", "multiworker",
 )
 
@@ -86,6 +86,8 @@ info = cs.phase_device()
 cs.phase_build()
 if "kernels" in want:
     cs.phase_kernels()
+if "kernels_backward" in want and hasattr(cs, "phase_kernels_backward"):
+    cs.phase_kernels_backward()
 if "main_path" in want or "f32_path" in want or "knn_index" in want:
     state = cs.phase_main_path(cs.synth_docs(cs.N_DOCS))
     if "knn_index" in want and hasattr(cs, "phase_knn_index"):
@@ -134,7 +136,7 @@ def _field(obj, path: str):
 
 def summarize(lines: list[str]) -> dict:
     """The headline fields of each phase line in one run's output, and, for
-    the kernel check, each timed case's ms by dtype."""
+    the kernel checks, each timed case's ms by kernel and dtype."""
     out: dict = {}
     for line in lines:
         if not line.startswith("{"):
@@ -145,7 +147,7 @@ def summarize(lines: list[str]) -> dict:
             continue
         phase = rec.get("phase")
         if phase == "kernel_check" and "ms" in rec:
-            out.setdefault("kernels", {})[f"{rec['dtype']} {rec['case']}"] = rec["ms"]
+            out.setdefault("kernels", {})[f"{rec.get('kernel', '')} {rec['dtype']} {rec['case']}".lstrip()] = rec["ms"]
         elif phase in HEADLINES:
             out[phase] = {f: _field(rec, f) for f in HEADLINES[phase]}
         elif phase == "device":
