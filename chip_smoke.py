@@ -174,6 +174,25 @@ printing one JSON line:
    the same answers; then the same cluster under ``resilience.Supervisor``
    with ``PATHWAY_FAULT_PLAN=kill:proc=1,tick=34``: the restarted cluster's
    answers equal the uninterrupted run's;
+15b. elastic (after multiworker): the elasticity plane. Leg A:
+   ``tools/rag_cluster.py --persist DIR --http --pace-ms 300`` at 2,048
+   docs and 256 queries (minilm, bf16, and the 4-layer reranker) on 2
+   processes x 1 thread under ``resilience.Supervisor`` with
+   ``PATHWAY_ELASTIC=manual``; once process 0's ``/status`` counts half the
+   docs, ``python -m pathway_tpu_torch scale --to 3 --storage DIR``; the
+   pod quiesces, exits 75 and is relaunched at 3, whose restore replays the
+   logs (every doc embedded again on the card). Leg B: the same from 3
+   processes with ``/scale?to=2`` on process 0's monitoring server. Gates
+   per leg: one rescale and no restart, membership versions 0 -> 1, the
+   net answers equal phase 15's one-worker run bit for bit, each (query,
+   hit) once, every doc embedded at the new shape, input-log rows
+   rebucketed against ``moved_fraction``, no plain attention call. Leg C:
+   the migrate test's groupby pipeline under ``PATHWAY_SHARDMAP=on``, 2
+   then 3 processes: migrated, not replayed; ranges moved ==
+   ``shardmap.diff``; totals equal the rows' sums. Printed: seconds from
+   the request to the pod's exit, the relaunch and the first answer at the
+   new shape, docs re-embedded, attention launches per route, bytes moved
+   beside a replay's;
 16. train: contrastive training at phase 4's full width (vocab 32,768, d
    384, 6 heads, 6 layers, d_ff 1,536, seed 0) on 256 synth_docs pairs
    (each positive the same text) at L = 128, lr 1e-2: 10 steps in bf16
@@ -201,8 +220,9 @@ printing one JSON line:
    each doc first in its own answer. Printed: replica-answered, forwarded
    and owner-answered counts and each door's p50;
 19. the kernels line, with each kernel's launches during phases 4, 6, 7,
-   8's pipeline, 10, 11, 12, 12b's run B, 13, 14, the flow phase, 15, 16,
-   17 and 18 (the cluster processes' counts read from their output): the
+   8's pipeline, 10, 11, 12, 12b's run B, 13, 14, the flow phase, 15, 15b,
+   16, 17 and 18 (the cluster processes' counts read from their output),
+   and no attention call outside the kernels' envelope on any of them: the
    attention kernel's two routes and its backward's two dtypes, each with
    its launches per backward route.
 
@@ -411,19 +431,19 @@ def phase_build() -> None:
         nice = _demangle(sorted(set(per_fn) | set(hmma)), tool_dir)
         ptxas[name] = {nice[f]: v for f, v in per_fn.items()}
         sass[name] = {nice[f]: n for f, n in hmma.items()}
-    # each route's instantiations (3 head widths x resident / streamed) must
+    # each route's instantiations (4 head widths x resident / streamed) must
     # run on the tensor cores
     tc = {f: n for f, n in sass.get("attention_short", {}).items() if "attention_tc_kernel" in f}
     for dname, tname in (("bf16", "__nv_bfloat16"), ("f32", "float")):
         mine = {f: n for f, n in tc.items() if f"attention_tc_kernel<{tname}," in f}
-        check(len(mine) == 6, f"{dname} route: {len(mine)} tensor-core instantiations in the SASS, expected 6")
+        check(len(mine) == 8, f"{dname} route: {len(mine)} tensor-core instantiations in the SASS, expected 8")
         check(all(n > 0 for n in mine.values()), f"{dname} route without HMMA/HGMMA in its SASS: {mine}")
-    # the fused backward: bf16 at 3 head widths and f32 at 32 and 64, each
-    # at L = 128 and at any length
+    # the fused backward: bf16 at 4 head widths and f32 at 16, 32 and 64,
+    # each at L = 128 and at any length
     fused = {f: n for f, n in sass.get("attention_short_bwd", {}).items()
              if any(k in f for k in A.BACKWARD_KERNELS["fused"])}
-    check(len(fused) == 10 and all(n > 0 for n in fused.values()),
-          f"fused backward: {len(fused)} instantiations, HMMA/HGMMA per instantiation {fused}, expected 10, all > 0")
+    check(len(fused) == 14 and all(n > 0 for n in fused.values()),
+          f"fused backward: {len(fused)} instantiations, HMMA/HGMMA per instantiation {fused}, expected 14, all > 0")
 
     # the host C tokenizer, built here so that no timed call pays its compile
     t1 = time.perf_counter()
@@ -436,8 +456,8 @@ def phase_build() -> None:
     # the kernels' shared memory is dynamic (ptxas cannot report it): per
     # checked case, what the launch asks for
     smem = {
-        f"{str(dt).replace('torch.', '')} {case}": A.launch_geometry(B, L, 384 // hd, hd, dt).smem_bytes
-        for dt in (torch.bfloat16, torch.float32) for case, (B, L, hd) in KERNEL_SHAPES.items()
+        f"{str(dt).replace('torch.', '')} {case}": A.launch_geometry(B, L, H, hd, dt).smem_bytes
+        for dt in (torch.bfloat16, torch.float32) for case, (B, L, H, hd) in KERNEL_SHAPES.items()
     }
     bwd_geo = {
         f"{str(dt).replace('torch.', '')} {case}": A.backward_launch_geometry(B, L, H, hd, dt)._asdict()
@@ -466,19 +486,25 @@ def _attention_inputs(B, L, dtype, gen, H=6, hd=64):
     return q, k, v, mask
 
 
-#: (B, L, hd) of each checked case: the main path's three shapes (the
-#: rerank case at the reranker's longest input), then the longest length, a
-#: length that fills no tile evenly, the other head widths the kernel is
-#: built for (hd 128 both with K and V resident and streamed), and the
-#: bert_path's ingest batch (12 heads of 32)
+#: (B, L, heads, hd) of each checked case: the main path's three shapes
+#: (the rerank case at the reranker's longest input), then the longest
+#: length, a length that fills no tile evenly, the other head widths the
+#: kernel is built for (hd 128 and hd 16 both with K and V resident and
+#: streamed), the bert_path's ingest batch (12 heads of 32) and
+#: multichip_dryrun's encoder (4 heads of 16 at d 64, L 16)
 KERNEL_SHAPES = {
-    "embed": (1024, 128, 64), "query": (1, 16, 64), "rerank": (10, 256, 64),
-    "max_len": (4, 512, 64), "ragged": (3, 77, 64), "hd32": (2, 128, 32), "hd128": (2, 256, 128),
-    "hd128_resident": (2, 128, 128), "bert_embed": (1024, 128, 32),
+    "embed": (1024, 128, 6, 64), "query": (1, 16, 6, 64), "rerank": (10, 256, 6, 64),
+    "max_len": (4, 512, 6, 64), "ragged": (3, 77, 6, 64), "hd32": (2, 128, 12, 32),
+    "hd128": (2, 256, 3, 128), "hd128_resident": (2, 128, 3, 128), "bert_embed": (1024, 128, 12, 32),
+    "hd16": (64, 128, 24, 16), "hd16_streamed": (4, 200, 24, 16), "dryrun": (8, 16, 4, 16),
 }
-#: the timed cases per dtype: both routes at the main path's shapes and at
-#: bert_path's batch
-TIMED = {"bfloat16": ("embed", "query", "rerank", "bert_embed"), "float32": ("embed", "query", "rerank", "bert_embed")}
+#: shapes outside the kernels' envelope, (B, L, heads, hd): a head width of
+#: no instantiation and more than MAX_LEN keys; each must raise on the card
+OUTSIDE_SHAPES = {"hd48": (2, 16, 2, 48), "l600": (2, 600, 6, 64)}
+#: the timed cases per dtype: both routes at the main path's shapes, at
+#: bert_path's batch and at multichip_dryrun's
+TIMED = {"bfloat16": ("embed", "query", "rerank", "bert_embed", "dryrun"),
+         "float32": ("embed", "query", "rerank", "bert_embed", "dryrun")}
 
 
 def phase_kernels() -> list[dict]:
@@ -494,12 +520,11 @@ def phase_kernels() -> list[dict]:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    D = 384
     records = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        for label, (B, L, hd) in KERNEL_SHAPES.items():
-            H, scale = D // hd, hd ** -0.5
+        for label, (B, L, H, hd) in KERNEL_SHAPES.items():
+            D, scale = H * hd, hd ** -0.5
             q, k, v, mask = _attention_inputs(B, L, dtype, gen, H, hd)
             geo = A.launch_geometry(B, L, H, hd, dtype)
             out = A.attention_short_flat(q, k, v, mask, H, scale)
@@ -551,6 +576,19 @@ def phase_kernels() -> list[dict]:
             records.append(rec)
             emit("kernel_check", kernel="attention_short_flat", **rec)
             del q, k, v, mask, out, ref, err
+    # outside the envelope the card has no plain fallback: the call raises
+    # before any launch and counts nothing
+    before, refused = dict(A.ROUTE_LAUNCHES), {}
+    for label, (B, L, H, hd) in OUTSIDE_SHAPES.items():
+        q, k, v, mask = _attention_inputs(B, L, torch.bfloat16, gen, H, hd)
+        try:
+            A.attention_short_flat(q, k, v, mask, H, hd ** -0.5)
+            refused[label] = None
+        except ValueError as e:
+            refused[label] = str(e)
+        check(refused[label] is not None, f"attention {label}: a shape outside the kernels' envelope ran on the card")
+    check(A.ROUTE_LAUNCHES == before, f"attention: a refused call counted a launch {before} -> {A.ROUTE_LAUNCHES}")
+    emit("kernel_envelope", kernel="attention_short_flat", refused=refused)
     torch.cuda.empty_cache()
     return records
 
@@ -4477,6 +4515,7 @@ def phase_multiworker(info: dict) -> dict:
         walls["sharded_search"], t_leg = time.perf_counter() - t_leg, time.perf_counter()
 
         # --- 4. cluster ------------------------------------------------------------------
+        want = None
         tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
         try:
             solo = os.path.join(tmp, "solo.csv")
@@ -4547,6 +4586,411 @@ def phase_multiworker(info: dict) -> dict:
     emit("multiworker", **out)
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
+    return {"launches": launches, "metrics": out, "solo_answers": want}
+
+
+# ------------------------------------------------------------ elasticity plane
+
+#: the elastic phase: multiworker's cluster depth (docs, then queries), one
+#: thread per process, every tick held ELASTIC_PACE_MS so a request lands
+#: while the docs still stream
+ELASTIC_DOCS = 2048
+ELASTIC_QUERIES = 256
+ELASTIC_PACE_MS = 300
+ELASTIC_MODEL = "minilm"
+#: the pod's shapes: it starts at 2 processes; leg A asks for 3 through the
+#: CLI, leg B for 2 through process 0's /scale on the relaunched pod
+ELASTIC_START = 2
+ELASTIC_RESCALES = (("cli", 3), ("http", 2))
+ELASTIC_TIMEOUT_S = 240
+#: leg C: the migrate test's groupby pipeline, session rows (2, then 3 processes)
+ELASTIC_MIGRATE_ROWS = (40_000, 6_000)
+ELASTIC_MIGRATE_WORDS = 4_000
+
+_MIGRATE_SCRIPT = """
+import json, os, sys
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.internals import telemetry
+
+with open(os.environ["SESSION_ROWS"]) as fh:
+    rows = json.load(fh)  # [[id, word, count], ...]
+expected_total = int(os.environ["EXPECTED_TOTAL"])
+
+
+class WordSchema(pw.Schema):
+    id: int = pw.column_definition(primary_key=True)
+    word: str
+    count: int
+
+
+def make_subject(w, n):
+    mine = [r for i, r in enumerate(rows) if i % n == w]
+
+    class S(pw.io.python.ConnectorSubject):
+        def offset_state(self):
+            return {"done": True}
+
+        def seek(self, state):
+            pass
+
+        def run(self):
+            for rid, word, cnt in mine:
+                self.next(id=rid, word=word, count=cnt)
+
+    return S()
+
+
+t = pw.io.python.read_partitioned(make_subject, schema=WordSchema, name="src")
+agg = t.groupby(pw.this.word).reduce(pw.this.word, total=pw.reducers.sum(pw.this.count))
+got, keys = {}, {}
+
+
+def on_agg(key, row, time, is_addition):
+    if is_addition:
+        got[row["word"]] = row["total"]
+        keys[row["word"]] = int(key)
+
+
+pw.io.subscribe(agg, on_change=on_agg)
+total = t.reduce(c=pw.reducers.count())
+
+
+def on_total(key, row, time, is_addition):
+    if is_addition and row["c"] >= expected_total:
+        rt = pw.internals.run.current_runtime()
+        if rt is not None:
+            rt.request_stop()
+
+
+pw.io.subscribe(total, on_change=on_total)
+pw.run(monitoring_level="none", persistence_config=pw.persistence.Config(
+    backend=pw.persistence.Backend.filesystem(os.environ["PATHWAY_PERSISTENT_STORAGE"]),
+    persistence_mode="operator_persisting"))
+attrs = lambda name: [e["attrs"] for e in telemetry.events(name)]
+print("RESULT:" + json.dumps({
+    "got": got, "keys": keys, "migrate": attrs("elastic.migrate_restore"), "reshard": attrs("elastic.reshard_restore"),
+    "rebucket": attrs("elastic.reshard_input_logs"), "replay": attrs("resilience.replay"),
+}), flush=True)
+"""
+
+
+def _get_json(url: str, timeout: float = 5.0):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read().decode())
+
+
+def _docs_ingested(mon: int) -> int | None:
+    """Rows process 0's inputs ingested, from its ``/status``: the docs' count
+    until the last doc (queries start after it)."""
+    try:
+        st = _get_json(f"http://127.0.0.1:{mon}/status", timeout=2.0)
+    except (OSError, ValueError):
+        return None
+    rows = [w.get("rows_ingested") or 0 for w in st.get("watermarks") or ()]
+    return max(rows) if rows else None
+
+
+def _rag_stats(texts: list[str]) -> list[dict]:
+    out = []
+    for text in texts:
+        for line in text.splitlines():
+            if line.startswith("rag_cluster_stats: "):
+                out.append(json.loads(line[len("rag_cluster_stats: "):]))
+    return out
+
+
+def _elastic_rescales(tmp: str, want: dict) -> tuple[dict, dict]:
+    """Legs A and B (see phase_elastic) on one supervised pod and one store;
+    returns (metrics, attention launches per route summed over every
+    process of every attempt)."""
+    import re
+    import threading
+
+    from pathway_tpu_torch import elastic
+    from pathway_tpu_torch.persistence.backends import FileBackend
+    from pathway_tpu_torch.resilience import Supervisor
+
+    store, out_csv = os.path.join(tmp, "store"), os.path.join(tmp, "answers.csv")
+    shapes = [ELASTIC_START] + [n for _via, n in ELASTIC_RESCALES]
+    mon = _cluster_port(max(shapes) - 1)  # process p's monitoring server at mon + p
+    argv = [sys.executable, "-m", "pathway_tpu_torch.tools.rag_cluster", "--out", out_csv, "--docs",
+            str(ELASTIC_DOCS), "--queries", str(ELASTIC_QUERIES), "--tick", str(PIPE_TICK), "--k", str(PIPE_K),
+            "--device", DEVICE, "--model", ELASTIC_MODEL, "--persist", store, "--http",
+            "--pace-ms", str(ELASTIC_PACE_MS)]
+    # the microbatch buffers flush at every tick: the docs embed as they
+    # stream, and the restore's replay tick embeds every doc in that tick (at
+    # the default age deadline the replayed answers vary from run to run, on
+    # both packages: tests/test_torch_elastic_replay.py, PERF.md section 7)
+    env = _cluster_env({"PATHWAY_ELASTIC": "manual", "PATHWAY_MONITORING_HTTP_PORT": str(mon),
+                        "PATHWAY_THREADS": "1", "PATHWAY_MICROBATCH_FLUSH_MS": "0"})
+    relaunched: list[tuple[int, int]] = []
+    sup = Supervisor(argv, processes=shapes[0], threads=1, first_port=_cluster_port(max(shapes)),
+                     max_restarts=0, backoff_s=5.0, env=env, log_dir=os.path.join(tmp, "logs"), storage=store,
+                     on_rescale=lambda frm, to: relaunched.append((frm, to)))
+    box: dict = {}
+
+    def run():
+        try:
+            box["result"] = sup.run()
+        except BaseException as e:  # noqa: BLE001 — reported by the gate below
+            box["error"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    deadline = time.monotonic() + ELASTIC_TIMEOUT_S
+    requests: list[dict] = []
+    for i, (via, target) in enumerate(ELASTIC_RESCALES):
+        # A: once process 0 counts half the docs; B: once the relaunched
+        # pod's plane answers on process 0's /status at its new shape
+        while th.is_alive() and time.monotonic() < deadline:
+            if i == 0:
+                n = _docs_ingested(mon)
+                ready = n is not None and n >= ELASTIC_DOCS // 2
+            else:
+                try:
+                    st = _get_json(f"http://127.0.0.1:{mon}/status", timeout=2.0)
+                except (OSError, ValueError):
+                    st = {}
+                n = None
+                ready = len(relaunched) == i and (st.get("elastic") or {}).get("processes") == shapes[i]
+            if ready:
+                break
+            time.sleep(0.05)
+        else:
+            break
+        t_req = time.time()
+        if via == "cli":
+            proc = subprocess.run([sys.executable, "-m", "pathway_tpu_torch", "scale", "--to", str(target),
+                                   "--storage", store], env=env, capture_output=True, text=True, timeout=120)
+            req = {"via": "python -m pathway_tpu_torch scale", "ok": proc.returncode == 0,
+                   "out": (proc.stdout + proc.stderr)[-400:]}
+        else:
+            answer = _get_json(f"http://127.0.0.1:{mon}/scale?to={target}")
+            req = {"via": "/scale", "ok": bool(answer.get("ok")), "answer": answer}
+        requests.append(dict(req, to=target, docs_ingested=n, unix=t_req))
+    th.join(timeout=max(1.0, deadline - time.monotonic()))
+    check(not th.is_alive(), f"elastic: the supervised pod did not finish in {ELASTIC_TIMEOUT_S} s")
+    check("error" not in box, f"elastic: the supervisor failed: {box.get('error')!r}")
+    check(len(requests) == len(ELASTIC_RESCALES) and all(r["ok"] for r in requests),
+          f"elastic: a scale request failed or never went out: {requests}")
+    result = box.get("result")
+    # every process's stats line, by attempt (attempt<N>-p<P>.log)
+    by_attempt: dict[int, list[dict]] = {}
+    for path in (result.log_paths if result else []):
+        with open(path) as fh:
+            stats = _rag_stats([fh.read()])
+        attempt = int(re.match(r"attempt(\d+)-", os.path.basename(path)).group(1))
+        by_attempt.setdefault(attempt, []).extend(stats)
+    history = [(m.version, m.processes) for m in elastic.membership_history(FileBackend(store))]
+    got = _net_csv(out_csv) if os.path.exists(out_csv) else {}
+    check(result is not None and result.rescales == len(ELASTIC_RESCALES) and result.restarts == 0,
+          f"elastic: rescales/restarts {getattr(result, 'rescales', None)}/{getattr(result, 'restarts', None)}")
+    check(history == list(enumerate(shapes)), f"elastic: membership history {history}, expected "
+          f"{list(enumerate(shapes))}")
+    check(got == want, f"elastic: the rescaled pod's answers differ from one worker's "
+          f"({len(set(got) ^ set(want))} rows)")
+    check(all(v == 1 for v in got.values()), "elastic: a (query, hit) appears more than once in the net state")
+    check([len(by_attempt.get(a, ())) for a in range(len(shapes))] == shapes,
+          f"elastic: stats lines per attempt {[len(by_attempt.get(a, ())) for a in range(len(shapes))]}, "
+          f"expected {shapes}")
+    launches: dict = {}
+    for stats in by_attempt.values():
+        for s in stats:
+            for route, n in s["attention_launches"].items():
+                launches[route] = launches.get(route, 0) + n
+    check(launches.get("plain_outside_envelope", 0) == 0, f"elastic: plain attention calls {launches}")
+    check(launches.get("tensor_core", 0) > 0, f"elastic: no tensor-core attention launch: {launches}")
+    attempts = result.attempts if result else []
+    rescales = []
+    for i, req in enumerate(requests):
+        new = by_attempt.get(i + 1, [])
+        # every doc and query embedded again at the new shape: the relaunched
+        # pod replays them all (the quiescing pod's close logged the rest)
+        embedded = sum((s["udf_rows"] or {}).get("__item", 0) for s in new)
+        check(embedded == ELASTIC_DOCS + ELASTIC_QUERIES,
+              f"elastic rescale {i}: the new pod embedded {embedded} rows, expected {ELASTIC_DOCS + ELASTIC_QUERIES}")
+        first = min((s["first_answer_unix"] for s in new if s["first_answer_unix"]), default=None)
+        reshard = next((s["reshard"] for s in new if s["reshard"]), None) or {}
+        frm, to = shapes[i], shapes[i + 1]
+        rescales.append({
+            "from": frm, "to": to, "request": req,
+            "request_to_exit_s": attempts[i]["end_ns"] / 1e9 - req["unix"] if len(attempts) > i else None,
+            "request_to_relaunch_s": attempts[i + 1]["start_ns"] / 1e9 - req["unix"] if len(attempts) > i + 1
+            else None,
+            "request_to_first_answer_s": first - req["unix"] if first else None,
+            "docs_reembedded": embedded - ELASTIC_QUERIES, "replayed_by_process": [s["replayed"] for s in new],
+            # the sources are process 0's unpartitioned docs, queries and
+            # ticker: no input log is partitioned, so none is rebucketed
+            "rows_rebucketed": int(reshard.get("rows_moved") or 0) if reshard.get("mode") != "migrate" else 0,
+            "moved_fraction": elastic.moved_fraction(frm, to), "reshard": reshard,
+        })
+    metrics = {
+        "shapes": shapes, "rescales": rescales, "supervisor_rescales": getattr(result, "rescales", None),
+        "restarts": getattr(result, "restarts", None), "exit_codes": [a.get("exit_codes") for a in attempts],
+        "membership_history": history, "answers": len(got), "equal_to_one_worker": got == want,
+        "attention_launches": launches,
+    }
+    return metrics, launches
+
+
+def _migrate_session(script: str, n_proc: int, store: str, rows: list, expected: int) -> list[dict]:
+    """One session of leg C's groupby pipeline on an ``n_proc``-process
+    cluster; every process's RESULT line."""
+    rows_file = f"{store}.rows{n_proc}.json"
+    with open(rows_file, "w") as fh:
+        json.dump(rows, fh)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.dirname(os.path.abspath(__file__)),
+                                                        os.environ.get("PYTHONPATH", "")]),
+               PATHWAY_PROCESSES=str(n_proc), PATHWAY_THREADS="1", PATHWAY_BARRIER_TIMEOUT="120",
+               PATHWAY_FIRST_PORT=str(_cluster_port(n_proc)), PATHWAY_ELASTIC="manual", PATHWAY_SHARDMAP="on",
+               PATHWAY_PERSISTENT_STORAGE=store, SESSION_ROWS=rows_file, EXPECTED_TOTAL=str(expected))
+    procs = [subprocess.Popen([sys.executable, script], env=dict(env, PATHWAY_PROCESS_ID=str(p)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for p in range(n_proc)]
+    outs = []
+    deadline = time.monotonic() + ELASTIC_TIMEOUT_S
+    for p in procs:
+        try:
+            o, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            o, _ = p.communicate()
+        outs.append(o or "")
+    codes = [p.returncode for p in procs]
+    check(codes == [0] * n_proc, f"elastic migrate: exit codes {codes}: " + " | ".join(o[-600:] for o in outs))
+    results = [json.loads(ln[len("RESULT:"):]) for o in outs for ln in o.splitlines() if ln.startswith("RESULT:")]
+    check(len(results) == n_proc, f"elastic migrate: {len(results)} of {n_proc} processes reported")
+    return results
+
+
+def _migrate_leg(tmp: str) -> dict:
+    """Leg C (see phase_elastic)."""
+    import pickle
+
+    import numpy as np
+
+    from pathway_tpu_torch.internals import shardmap
+    from pathway_tpu_torch.persistence.backends import FileBackend
+
+    script = os.path.join(tmp, "migrate_pipeline.py")
+    with open(script, "w") as fh:
+        fh.write(_MIGRATE_SCRIPT)
+    store = os.path.join(tmp, "migrate_store")
+    rng = np.random.default_rng(0)
+    n1, n2 = ELASTIC_MIGRATE_ROWS
+    rows1 = [[i, f"w{int(w)}", int(c)] for i, (w, c) in
+             enumerate(zip(rng.integers(0, ELASTIC_MIGRATE_WORDS, n1), rng.integers(1, 100, n1)))]
+    rows2 = [[n1 + i, f"w{int(w)}", int(c)] for i, (w, c) in
+             enumerate(zip(rng.integers(0, ELASTIC_MIGRATE_WORDS, n2), rng.integers(1, 100, n2)))]
+    want: dict = {}
+    for _i, w, c in rows1 + rows2:
+        want[w] = want.get(w, 0) + c
+    t0 = time.perf_counter()
+    r1 = _migrate_session(script, 2, store, rows1, n1)
+    s1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r2 = _migrate_session(script, 3, store, rows2, n1 + n2)
+    s2 = time.perf_counter() - t0
+    backend = FileBackend(store)
+    old_map, new_map = shardmap.read_shardmap_version(backend, 0), shardmap.read_shardmap(backend)
+    moved = shardmap.diff(old_map, new_map) if old_map is not None and new_map is not None else None
+    migs = [m for r in r2 for m in r.get("migrate") or ()]
+    # every group's key, from the sessions' outputs: those whose owner the
+    # new map changes are the state that must move
+    keys = np.array(sorted({k for r in r1 + r2 for k in (r.get("keys") or {}).values()}), dtype=np.uint64)
+    moved_groups = int((old_map.owner_of_keys(keys) != new_map.owner_of_keys(keys)).sum()) if moved is not None \
+        and len(keys) else None
+    got: dict = {}
+    for r in r1 + r2:  # session 2 emits the groups it changed; the rest stand as session 1 left them
+        got.update(r.get("got") or {})
+    # a replay would re-read the whole input history: its events pickled as
+    # the input logs hold them (key, values, diff), one list per session
+    replay_bytes = sum(len(pickle.dumps([(i, (i, w, c), 1) for i, w, c in rows])) for rows in (rows1, rows2))
+    check(len(migs) == 3 and not any(r.get("reshard") or r.get("rebucket") for r in r2),
+          f"elastic migrate: the 3-process restore did not migrate on every process: {migs}")
+    check(moved is not None and all(m.get("ranges_moved") == len(moved) for m in migs),
+          f"elastic migrate: ranges moved {[m.get('ranges_moved') for m in migs]}, shardmap.diff counts "
+          f"{None if moved is None else len(moved)}")
+    check(sum(e.get("events", 0) for r in r2 for e in r.get("replay") or ()) == 0,
+          "elastic migrate: events replayed from the logs after the migration")
+    check(got == want, f"elastic migrate: the totals differ from the rows' sums "
+          f"({sum(1 for w in want if got.get(w) != want[w])} of {len(want)} words)")
+    return {
+        "rows": [n1, n2], "words": ELASTIC_MIGRATE_WORDS, "session_s": [s1, s2],
+        "ranges_moved": len(moved) if moved is not None else None,
+        "map_moved_fraction": None if moved is None else shardmap.moved_fraction(old_map, new_map),
+        "modulo_moved_fraction": 2 / 3, "groups": int(len(keys)), "groups_moved": moved_groups,
+        "rows_moved": sum(m.get("rows_moved", 0) for m in migs),
+        "bytes_moved": sum(m.get("bytes_moved", 0) for m in migs),
+        "replay_input_bytes": replay_bytes, "pause_s": max((m.get("pause_s", 0) for m in migs), default=None),
+        "equal": got == want,
+    }
+
+
+def phase_elastic(info: dict, solo_answers: dict | None = None) -> dict:
+    """The elasticity plane on the card, legs A and B on one supervised pod
+    and one filesystem store: the rag_cluster pod (ELASTIC_DOCS docs, then
+    ELASTIC_QUERIES queries, the minilm embedder and the 4-layer reranker on
+    the card, bf16; ticks held ELASTIC_PACE_MS by its live ticker) under
+    ``resilience.Supervisor`` with ``PATHWAY_ELASTIC=manual``, 2 processes x
+    1 thread. Leg A, scale out: once process 0's ``/status`` counts half the
+    docs, ``python -m pathway_tpu_torch scale --to 3 --storage DIR``; the
+    pod quiesces, exits 75 and is relaunched at 3. Leg B, scale in over
+    HTTP: once the relaunched pod's plane answers on process 0's ``/status``,
+    ``/scale?to=2`` there; it quiesces and is relaunched at 2, over the logs
+    and the membership table that leg A rewrote. The quiescing pod's close
+    polls the timed docs and queries to their end, so each relaunched pod
+    only replays them (no live doc reaches it; the ticker alone streams on),
+    re-embedding every doc on the card: the index node cannot migrate.
+    Gates: two rescales, no restart, membership history (0, 2), (1, 3),
+    (2, 2), the final net answers equal one worker's (multiworker's
+    ``solo`` run of the same command) bit for bit, each (query, hit) once,
+    every doc and query embedded again by each relaunched pod, no plain
+    attention call. The sources are process 0's unpartitioned ones, so no
+    input log is rebucketed (printed, not gated). Leg C, O(moved state):
+    the migrate test's groupby pipeline under ``PATHWAY_SHARDMAP=on``, 2
+    then 3 processes: migrated (no replay), ranges moved ==
+    ``shardmap.diff``, totals equal the rows' sums; bytes moved beside a
+    replay's."""
+    import shutil
+    import tempfile
+
+    from pathway_tpu_torch.ops import attention_kernel as A
+    from pathway_tpu_torch.tools import rag_cluster
+
+    out: dict = {"card": info["nvidia_smi"], "docs": ELASTIC_DOCS, "queries": ELASTIC_QUERIES,
+                 "pace_ms": ELASTIC_PACE_MS, "model": ELASTIC_MODEL}
+    launches = dict.fromkeys(A.ROUTE_LAUNCHES, 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    walls: dict = {}
+    try:
+        t0 = time.perf_counter()
+        if solo_answers is None:
+            solo = os.path.join(tmp, "solo.csv")
+            rag_cluster.main(["--out", solo, "--docs", str(ELASTIC_DOCS), "--queries", str(ELASTIC_QUERIES),
+                              "--tick", str(PIPE_TICK), "--k", str(PIPE_K), "--device", DEVICE,
+                              "--model", ELASTIC_MODEL])
+            solo_answers = _net_csv(solo)
+        walls["solo"] = time.perf_counter() - t0
+        check(len(solo_answers) == ELASTIC_QUERIES * PIPE_K,
+              f"elastic: one worker wrote {len(solo_answers)} answers")
+        t0 = time.perf_counter()
+        out["rescale"], pod_launches = _elastic_rescales(tmp, solo_answers)
+        for route, n in pod_launches.items():
+            launches[route] = launches.get(route, 0) + n
+        walls["rescale"] = time.perf_counter() - t0
+        emit("elastic_leg", leg="rescale", seconds=walls["rescale"], **out["rescale"])
+        t0 = time.perf_counter()
+        out["migrate"] = _migrate_leg(tmp)
+        walls["migrate"] = time.perf_counter() - t0
+        emit("elastic_leg", leg="migrate", seconds=walls["migrate"], **out["migrate"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["leg_seconds"] = walls
+    out["attention_launches"] = launches
+    emit("elastic", **out)
     return {"launches": launches, "metrics": out}
 
 
@@ -4556,15 +5000,18 @@ def phase_multiworker(info: dict) -> dict:
 #: step's texts (256 pairs, both sides; the step encodes each side in its
 #: own call of 256), the bert block's heads, the longest length, a length
 #: that fills no tile evenly, the widest head, a single row, multichip_dryrun's
-#: step (2 heads of 32 at L 16) and the widest head on the fused route at L
-#: 128 and below (bf16; f32 at hd 128 takes the two-pass route): every fused
-#: instantiation, (dtype, hd) at L = 128 and at any length, meets the plain
-#: version
+#: step (4 heads of 16 at L 16), the widest head on the fused route at L
+#: 128 and below (bf16; f32 at hd 128 takes the two-pass route) and the
+#: narrowest at L 128 (fused) and 200 (two-pass): every fused instantiation,
+#: (dtype, hd) at L = 128 and at any length, meets the plain version
 BWD_SHAPES = {
     "train": (512, 128, 6, 64), "bert": (64, 128, 12, 32), "max_len": (4, 512, 6, 64),
     "ragged": (3, 77, 6, 64), "hd128": (4, 256, 3, 128), "one": (1, 16, 6, 64),
-    "dryrun": (8, 16, 2, 32), "hd128_l128": (4, 128, 3, 128), "hd128_l77": (3, 77, 3, 128),
+    "dryrun": (8, 16, 4, 16), "hd128_l128": (4, 128, 3, 128), "hd128_l77": (3, 77, 3, 128),
+    "hd16_l128": (16, 128, 4, 16), "hd16_l200": (4, 200, 4, 16),
 }
+#: the backward's timed cases: the train step's shape and multichip_dryrun's
+BWD_TIMED = ("train", "dryrun")
 #: the train phase: the main path's encoder at full width, the reference
 #: test's recipe (each positive is the same text) on synth_docs
 TRAIN_PAIRS = 256
@@ -4650,7 +5097,8 @@ def phase_kernels_backward() -> list[dict]:
                 check(rec["deterministic"], f"attention backward train {dname}: two launches differ")
                 check(rec["batch_invariant"], f"attention backward train {dname}: 8 texts alone differ from rows 0-7")
                 del again, part
-                iters = 10
+            if label in BWD_TIMED:
+                iters = 10 if label == "train" else 200
                 rec["ms"] = cuda_ms(lambda: A.attention_short_flat_backward(q, k, v, mask, out, g, H, scale), iters)
                 two = A._two_pass_geometry(B, L, H, hd, dtype)
                 rec["two_pass_ms"] = cuda_ms(
@@ -5011,6 +5459,8 @@ def _backward_entry(records: list[dict], dtype: str, launches: dict) -> dict:
         "bound_by": train["bound_by"],
         "library_ms": train["library_ms"],
         "two_pass_ms": train["two_pass_ms"],
+        "timed_cases": {r["case"]: {k: r[k] for k in ("ms", "two_pass_ms", "plain_ms", "library_ms", "bound_ms")}
+                        for r in mine if "ms" in r},
         "deterministic": train["deterministic"],
         "batch_invariant": train["batch_invariant"],
         "shape": f"B=512 L=128 D=384 H=6 {dtype}",
@@ -5107,6 +5557,7 @@ def main() -> int:
     timed("graphs", phase_graphs, info)
     timed("knn_index", phase_knn_index, info, bench_vecs)
     multi = timed("multiworker", phase_multiworker, info)
+    elastic = timed("elastic", phase_elastic, info, multi["solo_answers"])
     train = timed("train", phase_train, info)
     dry = timed("multichip_dryrun", phase_multichip_dryrun, info)
     fab = timed("fabric", phase_fabric, info)
@@ -5117,8 +5568,13 @@ def main() -> int:
         "tiered_pipeline": tier["launches"], "temporal": temporal["launches"], "bert_path": bert["launches"],
         "document_store": store["launches"], "rest_serving": rest["launches"], "observability": obs["launches"],
         "flow": flow["launches"], "persistence": persist["launches"], "multiworker": multi["launches"],
-        "train": train["launches"], "multichip_dryrun": dry["launches"], "fabric": fab["launches"],
+        "elastic": elastic["launches"], "train": train["launches"], "multichip_dryrun": dry["launches"],
+        "fabric": fab["launches"],
     }
+    # no path's attention took the plain route (on the card a shape outside
+    # the kernels' envelope raises, which failed its phase)
+    outside = {path: by_route.get("plain_outside_envelope", 0) for path, by_route in launches.items()}
+    check(not any(outside.values()), f"attention calls outside the kernels' envelope, per path {outside}")
     bwd_launches = {"train": train["backward_launches"], "multichip_dryrun": dry["backward_launches"]}
     line = {"kernels": [
         _kernel_entry(kern, "bfloat16", "tensor_core", "bf16, tensor cores (mma.sync, cp.async)", launches),

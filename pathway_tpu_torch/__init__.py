@@ -103,7 +103,7 @@ from pathway_tpu_torch.internals.parse_graph import G
 from pathway_tpu_torch.internals.errors import ERROR as _ERROR  # noqa: F401
 from pathway_tpu_torch.internals.errors import PENDING
 
-from pathway_tpu_torch import debug, delivery, io, observability, persistence, resilience, stdlib, universes, xpacks
+from pathway_tpu_torch import debug, delivery, demo, elastic, io, observability, persistence, resilience, stdlib, universes, xpacks
 from pathway_tpu_torch import flow
 from pathway_tpu_torch.stdlib import temporal, indexing, ml, graphs, statistical, stateful
 from pathway_tpu_torch.stdlib import utils as utils
@@ -214,6 +214,8 @@ __all__ = [
     "global_error_log",
     "flow",
     "delivery",
+    "demo",
+    "elastic",
     "persistence",
     "observability",
     "resilience",

@@ -83,8 +83,12 @@
 // subtraction per operand element, each warp splitting the K and V it
 // reads).
 //
-// Supported: bf16 or f32, HD in {32, 64, 128} (template parameter),
-// L <= 512, rows of q/k/v 16-byte aligned. The Python wrapper checks all of
+// Supported: bf16 or f32, HD in {16, 32, 64, 128} (template parameter),
+// L <= 512, rows of q/k/v 16-byte aligned. At HD = 16, Q . K^T is one
+// m16n8k16 k-step in bf16 (two m16n8k8 in f32) and P . V two n8 tiles; each
+// ldmatrix still reads two 16-byte halves of a 32-byte row, and the rows,
+// padded to 48 (bf16) or 80 (f32) bytes, put 8 rows on 32 distinct banks as
+// at the wider heads. The Python wrapper checks all of
 // it and computes the launch geometry (rows per block, shared bytes) with
 // the same formulas as the launcher below. The copies, ldmatrix, the
 // products, score_tiles, fold_tile and div_rn live in attention_tc.cuh,
@@ -200,7 +204,7 @@ attention_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     T* __restrict__ out, int L, int H, long long q_sb, long long q_sl,
                     long long k_sb, long long k_sl, long long v_sb, long long v_sl,
                     long long m_sb, float scale) {
-  static_assert(HD % 32 == 0 && HD <= 128, "HD must be 32, 64 or 128");
+  static_assert(HD % 16 == 0 && HD <= 128, "HD must be 16, 32, 64 or 128");
   constexpr int C = chunk<T>();
   constexpr int RS = HD + C;
   constexpr int NO = HD / 8;  // 8-column groups of the output
@@ -376,6 +380,9 @@ extern "C" int pw_attention_short_flat(int dtype, int hd, const void* q, const v
                                        float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 16:
+      return (int)launch<16>(dtype, q, k, v, mask, out, B, L, H, rows, q_sb, q_sl, k_sb, k_sl,
+                             v_sb, v_sl, m_sb, scale, s);
     case 32:
       return (int)launch<32>(dtype, q, k, v, mask, out, B, L, H, rows, q_sb, q_sl, k_sb, k_sl,
                              v_sb, v_sl, m_sb, scale, s);

@@ -76,7 +76,7 @@
 // shared memory as f32 in rows padded by one word; f32 FMAs from shared
 // memory, the scores computed three times (16 * B * H * L^2 * hd FLOP).
 //
-// Supported: bf16 or f32 (dtype 1 / 0), HD in {32, 64, 128}, L <= 512, last
+// Supported: bf16 or f32 (dtype 1 / 0), HD in {16, 32, 64, 128}, L <= 512, last
 // dimension contiguous, rows 16-byte aligned; strides in elements. The
 // Python wrapper checks it and picks the route
 // (ops/attention_kernel.py::backward_launch_geometry, the same formulas as
@@ -867,6 +867,8 @@ extern "C" int pw_attention_short_flat_backward(
          o_sl, g_sb, g_sl, m_sb, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 16:
+      return (int)launch<16>(dtype, a, s);
     case 32:
       return (int)launch<32>(dtype, a, s);
     case 64:

@@ -14,10 +14,9 @@ SIGKILL, Supervisor restart, and elastic rescale. Requires
 points — see ``ledger.py`` for why per-epoch publication cannot be aligned
 with replay).
 
-Carried from ``pathway_tpu/delivery/__init__.py`` with imports rewritten. The
-port's exactly-once writer is ``pw.io.fs.write`` (and ``csv``/``jsonlines``);
-the Kafka and Postgres transports raise ``later_slice`` until their
-connectors are ported.
+Carried from ``pathway_tpu/delivery/__init__.py`` with imports rewritten:
+exactly-once writers are ``pw.io.fs.write`` (and ``csv``/``jsonlines``),
+``pw.io.kafka.write`` and ``pw.io.postgres.write``/``write_snapshot``.
 """
 
 from __future__ import annotations

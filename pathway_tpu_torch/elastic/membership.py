@@ -1,7 +1,7 @@
 """Versioned cluster membership: the elasticity plane's source of truth.
 
-Carried from ``pathway_tpu/elastic/membership.py`` unchanged; the rest of
-the elasticity plane is a later slice in the port (``elastic/__init__.py``).
+Carried from ``pathway_tpu/elastic/membership.py`` unchanged; the plane
+that commits it is ``elastic/__init__.py``.
 
 Without elasticity the cluster's shape is an env contract (``PATHWAY_PROCESSES``) fixed
 for the life of a job. Elasticity makes the shape *state*: a

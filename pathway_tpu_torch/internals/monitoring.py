@@ -14,11 +14,10 @@ Carried from ``pathway_tpu/internals/monitoring.py`` with imports rewritten.
 The exactly-once delivery plane's section is on both (``delivery``, the
 ``pathway_delivery_*`` series), and so is the cluster rollup a coordinator
 serves (``cluster``, from ``observability/aggregate.py``), the serving
-fabric's (``fabric``, ``pathway_fabric_*`` and ``pathway_replica_*``) and the
-embedding memo's (``embedder_memo``, ``pathway_embedder_memo_*``). The
-elasticity plane is not carried yet: its sections are absent from ``/status``
-and ``/metrics``, as in a reference run with it off, and ``/scale`` answers
-501 with the ``later slice`` message.
+fabric's (``fabric``, ``pathway_fabric_*`` and ``pathway_replica_*``), the
+embedding memo's (``embedder_memo``, ``pathway_embedder_memo_*``) and the
+elasticity plane's (``elastic``, ``pathway_elastic_*``; ``/scale?to=N``
+hands a manual rescale request to the live plane).
 """
 
 from __future__ import annotations
@@ -193,6 +192,13 @@ def run_stats(runtime) -> dict[str, Any]:
     cluster = _obs.aggregate.cluster_status(runtime)
     if cluster is not None:
         stats["cluster"] = cluster
+    # elasticity plane (PATHWAY_ELASTIC): membership version/shape, pending
+    # scale decisions, autoscaler streaks and the last reshard's movement
+    from pathway_tpu_torch import elastic as _elastic
+
+    elastic = _elastic.status(runtime)
+    if elastic is not None:
+        stats["elastic"] = elastic
     # serving fabric (PATHWAY_FABRIC): this process's doors, forward health
     # and per-route replica rows/lag (also present — replica-only — when
     # serve_table runs without a cluster)
@@ -371,13 +377,10 @@ def prometheus_text(runtime) -> str:
     aud = _obs.audit.current()
     if aud is not None:
         lines.extend(aud.prometheus_lines(runtime))
-    # ---- cluster membership: the elastic plane is not carried — only the
-    # gauge the reference always emits
-    from pathway_tpu_torch.internals.config import get_pathway_config
+    # ---- elasticity plane (membership + reshard movement) -------------------
+    from pathway_tpu_torch import elastic as _elastic
 
-    lines.append("# HELP pathway_cluster_processes Processes in the current cluster membership")
-    lines.append("# TYPE pathway_cluster_processes gauge")
-    lines.append(f"pathway_cluster_processes {get_pathway_config().processes}")
+    lines.extend(_elastic.prometheus_lines(runtime))
     # ---- serving fabric (replica lag/rows, forward health) ------------------
     from pathway_tpu_torch import fabric as _fabric
 
@@ -520,11 +523,39 @@ def _timeline_payload(query: str) -> bytes:
     return json.dumps(plane.payload(parse_qs(query))).encode()
 
 
-#: routes of planes the port has not carried yet: 501 with the later-slice
-#: message (the reference serves it from its elastic plane)
-_LATER_SLICE_ROUTES = {
-    "/scale": "elastic",
-}
+def _scale_payload(runtime, query: str) -> bytes:
+    """``/scale?to=N``: hand a manual rescale request to the live elasticity
+    plane (the HTTP twin of ``pathway_tpu_torch scale`` writing to the
+    backend). Without ``to=``, reports the plane's current status instead."""
+    from urllib.parse import parse_qs
+
+    from pathway_tpu_torch import elastic as _elastic
+
+    plane = _elastic.current()
+    if plane is None:
+        from pathway_tpu_torch.internals.config import get_pathway_config
+
+        if get_pathway_config().elastic == "off":
+            err = "elasticity is off (PATHWAY_ELASTIC=off)"
+        else:
+            # configured on, but no plane installed: scale decisions ride the
+            # cluster continuation barrier — single/thread-sharded runtimes
+            # don't run one
+            err = (
+                "the elasticity plane is not active on this runtime "
+                "(decisions ride the cluster continuation barrier; run with "
+                "PATHWAY_PROCESSES > 1 under a Supervisor)"
+            )
+        return json.dumps({"ok": False, "error": err}).encode()
+    qs = parse_qs(query)
+    if not qs.get("to"):
+        return json.dumps({"ok": True, "elastic": plane.status()}).encode()
+    try:
+        target = int(qs["to"][0])
+        doc = plane.request_scale(target, source="http")
+    except ValueError as e:
+        return json.dumps({"ok": False, "error": str(e)}).encode()
+    return json.dumps(doc).encode()
 
 
 def _alerts_payload() -> tuple[int, dict, dict[str, str]]:
@@ -659,17 +690,9 @@ class MonitoringHttpServer:
                 elif path.rstrip("/") == "/timeline":
                     body = _timeline_payload(query)
                     ctype = "application/json"
-                elif path.rstrip("/") in _LATER_SLICE_ROUTES:
-                    from pathway_tpu_torch.internals.later_slice import later_slice
-
-                    plane = _LATER_SLICE_ROUTES[path.rstrip("/")]
-                    body = json.dumps({"ok": False, "error": str(later_slice(plane))}).encode()
-                    self.send_response(501)
-                    self.send_header("Content-Type", "application/json")
-                    self.send_header("Content-Length", str(len(body)))
-                    self.end_headers()
-                    self.wfile.write(body)
-                    return
+                elif path.rstrip("/") == "/scale":
+                    body = _scale_payload(rt, query)
+                    ctype = "application/json"
                 else:
                     self.send_response(404)
                     self.end_headers()

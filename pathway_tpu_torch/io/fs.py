@@ -6,9 +6,9 @@ new/changed files from a connector thread, emitting rows as they appear (object
 deletions are detected and retracted, mirroring the reference's metadata trackers).
 
 Carried from ``pathway_tpu/io/fs.py``. A reader's and a writer's
-``service_class`` scope the flow plane (``pathway_tpu_torch/flow``). The
-plane it reaches that is not ported, the elastic plane's removal of stale
-sink parts, raises ``later_slice``. ``delivery="exactly_once"`` writes
+``service_class`` scope the flow plane (``pathway_tpu_torch/flow``); under
+the elasticity plane a sharded sink's stale parts from another worker count
+are removed. ``delivery="exactly_once"`` writes
 through the delivery ledger (``pathway_tpu_torch/delivery``).
 """
 
@@ -29,7 +29,6 @@ from pathway_tpu_torch.engine.blocks import DeltaBatch
 from pathway_tpu_torch.engine.graph import Node
 from pathway_tpu_torch.internals import schema as schema_mod
 from pathway_tpu_torch.internals.keys import row_keys, sequential_keys
-from pathway_tpu_torch.internals.later_slice import later_slice
 from pathway_tpu_torch.internals.logical import LogicalNode
 from pathway_tpu_torch.internals.table import Table, table_from_static_data
 
@@ -448,9 +447,10 @@ def _write_sharded(
         ``part-<w>`` for w outside the current worker set would silently
         survive as stale output next to the live parts. Formatted part rows
         carry no keys, so remapping them by key range is impossible from the
-        files alone — with the elasticity plane enabled (not ported: a
-        later slice) the reference removes them; otherwise fail with a
-        clear error naming the mismatch."""
+        files alone — with the elasticity plane enabled the stale parts are
+        removed (every row regenerates from the replayed input logs,
+        re-routed by the new shard map); otherwise fail with a clear error
+        naming the mismatch."""
         import glob as _glob
 
         stale = []
@@ -462,18 +462,26 @@ def _write_sharded(
                 stale.append(p)
         if not stale:
             return
-        from pathway_tpu_torch.internals.config import get_pathway_config
+        from pathway_tpu_torch import elastic as _elastic
+        from pathway_tpu_torch.internals.telemetry import record_event
 
-        if get_pathway_config().elastic != "off":
-            raise later_slice("elastic (removing stale sink parts)")
+        if _elastic.reshard_enabled():
+            for p in stale:
+                try:
+                    os.remove(p)
+                except FileNotFoundError:
+                    pass  # another cluster process won the race
+            record_event("elastic.sink_parts_remapped", sink=filename, removed=len(stale), n_workers=n)
+            return
         old_n = max(int(p.rsplit(".part-", 1)[1]) for p in stale) + 1
         raise RuntimeError(
             f"fs.write(sharded=True) restore: found part file(s) "
             f"{sorted(os.path.basename(p) for p in stale)} from a run with "
             f"at least {old_n} workers, but this run has {n}; part rows "
             "carry no keys so they cannot be remapped by key range — "
-            "restart with the original worker count, or remove the stale "
-            "parts and the persistence storage"
+            "restart with the original worker count, remove the stale parts "
+            "and the persistence storage, or enable PATHWAY_ELASTIC to "
+            "rebuild every part from the replayed input logs"
         )
 
     def factory() -> Node:

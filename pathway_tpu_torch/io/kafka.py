@@ -16,8 +16,8 @@ multi-worker runtime can assign disjoint partitions per worker (the reference
 reads Kafka partition-per-worker, ``worker-architecture.md:36-47``).
 
 Carried from ``pathway_tpu/io/kafka.py`` unchanged. ``delivery="exactly_once"``
-reaches the delivery plane's Kafka transport, which is a later slice
-(``later_slice("io.kafka")``).
+publishes through the delivery plane's Kafka transport
+(``delivery/transports.py``).
 """
 
 from __future__ import annotations

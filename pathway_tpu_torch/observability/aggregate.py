@@ -9,9 +9,9 @@ histogram snapshots (merged positionally — fixed buckets), and resilience
 counters. The reference's monitoring server is per-process; aggregating at
 process 0 is what a multi-host pod actually needs (one scrape target).
 
-Carried from ``pathway_tpu/observability/aggregate.py``. The elasticity
-plane is not carried yet, so no summary has a ``membership_version``, as in
-the reference with that plane off.
+Carried from ``pathway_tpu/observability/aggregate.py``; with the
+elasticity plane on, each summary carries its sender's
+``membership_version``.
 """
 
 from __future__ import annotations
@@ -52,8 +52,14 @@ def local_summary(runtime) -> dict[str, Any]:
         "resilience": resilience_summary(),
         "ts_unix": round(_time.time(), 3),
     }
-    # elasticity plane: the reference stamps the sender's membership version
-    # here; with the plane off (always, in the port) it stamps nothing
+    # elasticity plane: stamp the sender's membership version so the
+    # coordinator can reject summaries from before the last reshard (a
+    # retired process's final heartbeat racing the membership commit)
+    from pathway_tpu_torch import elastic as _elastic
+
+    eplane = _elastic.current()
+    if eplane is not None and eplane.membership is not None:
+        summary["membership_version"] = eplane.membership.version
     # flow plane: gate occupancy rides the heartbeat so the coordinator can
     # merge a pod-wide pressure (credit piggyback — no new sockets)
     from pathway_tpu_torch import flow as _flow

@@ -32,10 +32,10 @@ to the plane never existing, and the door endpoints degrade to
 unconditional 200s.
 
 Carried from ``pathway_tpu/observability/health.py`` with imports rewritten,
-with the fabric's link canaries and replica-lag detector. The port has no
-elastic plane yet (ROADMAP Queue 1), so this plane sees it absent, as a
-reference run with it off does: no autoscaler-thrash detector. The
-sink-commit-stall detector reads the delivery plane, as in the reference.
+with the fabric's link canaries, the replica-lag detector and the
+autoscaler-thrash detector (membership versions churning inside the slow
+window, read from the elasticity plane). The sink-commit-stall detector
+reads the delivery plane, as in the reference.
 """
 
 from __future__ import annotations
@@ -116,6 +116,7 @@ class HealthPlane:
         self.burn: dict[str, dict[str, float]] = {}  # slo key -> window -> burn
         self.budget_remaining: dict[str, float] = {}
         self.evals_total = 0
+        self._membership_versions: deque = deque(maxlen=64)
         self.registry = None  # set by install_from_env (alerts.AlertRegistry)
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
@@ -677,6 +678,35 @@ class HealthPlane:
                             "summary": (
                                 f"replica {lag:.3f}s behind on {route} "
                                 f"(bound {bound_s:.3f}s)"
+                            ),
+                        }
+                    )
+        except Exception:
+            pass
+        # autoscaler thrash: membership version churning inside the slow window
+        try:
+            from pathway_tpu_torch import elastic as _elastic
+
+            eplane = _elastic.current()
+            if eplane is not None and eplane.membership is not None:
+                now = _time.monotonic()
+                v = eplane.membership.version
+                if (
+                    not self._membership_versions
+                    or self._membership_versions[-1][1] != v
+                ):
+                    self._membership_versions.append((now, v))
+                window = now - self.cfg.slo_slow_window_s
+                changes = sum(
+                    1 for t, _v in self._membership_versions if t >= window
+                ) - 1
+                if changes >= cfg.alert_thrash_decisions:
+                    breaches.append(
+                        {
+                            "alert": "autoscaler_thrash",
+                            "summary": (
+                                f"{changes} membership changes in "
+                                f"{self.cfg.slo_slow_window_s:.0f}s"
                             ),
                         }
                     )

@@ -25,7 +25,7 @@ the Dapper-style request plane the serving tier needs:
   under a per-request trace id (derived from the request id, so every
   process would derive the same), flushed to the span buffer/file sink
   when ``PATHWAY_TRACE`` is on, and queryable via the monitoring server's
-  ``/request?id=`` endpoint (the reference's ``trace`` CLI is not ported).
+  ``/request?id=`` endpoint (``python -m pathway_tpu_torch trace <id>``).
 
 Overhead discipline: ``PATHWAY_REQUEST_TRACE=off`` installs **no plane at
 all** — every call site guards on a single ``is None`` test and zero rings

@@ -21,8 +21,11 @@ async copies): bf16 as bf16 products, f32 as split "3xTF32" products (each
 operand split into two TF32 parts, three products per product, near f32
 accuracy); :func:`launch_geometry` says how either is launched. On a CPU
 tensor it runs :func:`attention_short_flat_plain`, the same arithmetic in
-plain PyTorch. Both devices accept the same envelope: bf16 or f32, ``hd`` in
-:data:`HEAD_DIMS`, ``1 <= L <= MAX_LEN``.
+plain PyTorch. The kernels' envelope is ``hd`` in :data:`HEAD_DIMS` and
+``1 <= L <= MAX_LEN`` (:func:`in_envelope`, from the shape alone): a CPU
+call outside it runs the plain version, as the reference falls back to XLA's
+attention outside its Pallas kernel's envelope, and counts under the route
+``plain_outside_envelope``; a CUDA call outside it raises.
 """
 
 from __future__ import annotations
@@ -35,9 +38,12 @@ from typing import NamedTuple
 import torch
 
 #: kernel launches since the count was last reset (the kernel's own wrapper
-#: adds one per launch; nothing else touches it), in all and per route
+#: adds one per launch; nothing else touches it), in all and per route; the
+#: route ``plain_outside_envelope`` counts CPU calls whose shape no kernel
+#: instantiation takes (they run the plain version and add nothing to
+#: LAUNCHES; on the card such a call raises)
 LAUNCHES = 0
-ROUTE_LAUNCHES = {"tensor_core": 0, "tensor_core_3xtf32": 0}
+ROUTE_LAUNCHES = {"tensor_core": 0, "tensor_core_3xtf32": 0, "plain_outside_envelope": 0}
 #: backward launches (one per gradient: the fused kernel, or the two kernels
 #: of the two-pass route), in all and per backward route
 BACKWARD_LAUNCHES = 0
@@ -57,7 +63,7 @@ BACKWARD_KERNELS = {"fused": ("attention_bwd_fused",), "two_pass": ("bwd_dq", "b
 ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "tensor_core_3xtf32"}
 
 #: head widths the kernel is instantiated for (template parameter HD)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 MAX_LEN = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: an H100 block may use 227 KB of dynamic shared memory
@@ -161,8 +167,14 @@ def backward_launch_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch
     return _two_pass_geometry(B, L, n_heads, hd, dtype)
 
 
-def _check(q, k, v, mask, n_heads: int) -> tuple[int, LaunchGeometry]:
-    """Validate the call; returns the head width and the launch geometry."""
+def in_envelope(L: int, hd: int) -> bool:
+    """Whether a kernel instantiation takes sequences of ``L`` keys in heads
+    of ``hd``; decided from the shape alone, before any launch."""
+    return hd in HEAD_DIMS and 1 <= L <= MAX_LEN
+
+
+def _check_common(q, k, v, mask, n_heads: int) -> int:
+    """Validate what every route needs; returns the head width."""
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             f"attention_short_flat: q/k/v must share one [B, L, D] shape, got "
@@ -181,15 +193,23 @@ def _check(q, k, v, mask, n_heads: int) -> tuple[int, LaunchGeometry]:
         )
     if D % n_heads:
         raise ValueError(f"attention_short_flat: D={D} not divisible by n_heads={n_heads}")
-    hd = D // n_heads
-    if hd not in HEAD_DIMS:
-        raise ValueError(
-            f"attention_short_flat: head width {hd} not in the supported set {HEAD_DIMS}"
-        )
-    if not 1 <= L <= MAX_LEN:
-        raise ValueError(f"attention_short_flat: L={L} outside 1..{MAX_LEN}")
+    if L < 1:
+        raise ValueError(f"attention_short_flat: L={L}, no keys")
     if len({t.device for t in (q, k, v, mask)}) != 1:
         raise ValueError("attention_short_flat: q, k, v and mask must share one device")
+    return D // n_heads
+
+
+def _check(q, k, v, mask, n_heads: int) -> tuple[int, LaunchGeometry]:
+    """Validate a call of the kernels; returns the head width and the
+    launch geometry."""
+    hd = _check_common(q, k, v, mask, n_heads)
+    B, L, _D = q.shape
+    if not in_envelope(L, hd):
+        raise ValueError(
+            f"attention_short_flat: head width {hd}, L={L} outside the kernels' envelope "
+            f"(head widths {HEAD_DIMS}, L in 1..{MAX_LEN})"
+        )
     return hd, launch_geometry(B, L, n_heads, hd, q.dtype)
 
 
@@ -414,7 +434,14 @@ def attention_short_flat(q, k, v, mask, n_heads: int, scale: float):
     [B, L, D] context. CUDA tensors run the Hopper kernel (or raise); CPU
     tensors run :func:`attention_short_flat_plain`. When grad is enabled and
     q, k or v requires it, the call goes through :class:`AttentionShortFlat`,
-    whose backward is a kernel too."""
+    whose backward is a kernel too. On the CPU a shape outside the kernels'
+    envelope (:func:`in_envelope`) runs the plain version, its gradient by
+    autograd, and counts under ``plain_outside_envelope``; on the card it
+    raises."""
+    hd = _check_common(q, k, v, mask, n_heads)
+    if q.device.type == "cpu" and not in_envelope(q.shape[1], hd):
+        ROUTE_LAUNCHES["plain_outside_envelope"] += 1
+        return attention_short_flat_plain(q, k, v, mask, n_heads, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return AttentionShortFlat.apply(q, k, v, mask, n_heads, scale)
     return _forward(q, k, v, mask, n_heads, scale)

@@ -37,7 +37,7 @@ from pathway_tpu_torch.convert import ParamTree, tree_leaves, tree_map, tree_map
 from pathway_tpu_torch.native import try_load as _try_load_native
 from pathway_tpu_torch.observability import device as _dev_prof
 from pathway_tpu_torch.ops._fixed_order import fixed_order_sum
-from pathway_tpu_torch.ops.attention_kernel import HEAD_DIMS, attention_short_flat
+from pathway_tpu_torch.ops.attention_kernel import attention_short_flat
 from pathway_tpu_torch.ops.microbatch import LENGTH_MAX_BUCKET, bucket_size
 
 
@@ -799,13 +799,12 @@ class TorchSentenceEncoder(nn.Module):
         forward, in f32 unless ``dtype`` says otherwise. Needs neither
         ``transformers`` nor ``safetensors``: the safetensors file is read by
         :func:`read_safetensors`. Every attention runs through
-        ``attention_short_flat``, so the head width must be one of its
-        ``HEAD_DIMS`` (32 for MiniLM, 64 for BERT-base)."""
+        ``attention_short_flat``: the kernel at a head width of its
+        ``HEAD_DIMS`` (32 for MiniLM, 64 for BERT-base); at any other width
+        its plain version on the CPU, while on the card the first encode
+        raises."""
         with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
             hf = json.load(f)
-        hd = hf["hidden_size"] // hf["num_attention_heads"]
-        if hd not in HEAD_DIMS:
-            raise ValueError(f"{path!r}: head width {hd} not in the attention kernel's {HEAD_DIMS}")
         cfg = EncoderConfig(
             vocab_size=hf["vocab_size"],
             d_model=hf["hidden_size"],

@@ -28,7 +28,9 @@ listens on ``PATHWAY_FIRST_PORT``, process ``p``'s block links on
 1``, the serving fabric's transport (``PATHWAY_FABRIC=on``) on ``first_port +
 processes + 2 + p``. ``PATHWAY_SHARDMAP=on`` places keys by the versioned
 shard map (``internals/shardmap.py``). The elasticity plane
-(``PATHWAY_ELASTIC``) is not carried yet and raises ``later_slice``.
+(``PATHWAY_ELASTIC``) rides the continuation barrier: a rescale decision
+quiesces the pod to one committed epoch, and every process exits with
+``elastic.RESCALE_EXIT_CODE`` for a supervisor to relaunch at the new shape.
 """
 
 from __future__ import annotations
@@ -472,8 +474,14 @@ class ClusterRuntime:
         from pathway_tpu_torch.engine.runtime import TickWakeup
 
         self.wakeup = TickWakeup()
-        # shard-map plane (PATHWAY_SHARDMAP): the versioned ownership table;
-        # None keeps the derived modulo rule. Set in run()
+        # elasticity plane (PATHWAY_ELASTIC): set when the continuation
+        # barrier broadcast carries a rescale decision — the pod quiesces to
+        # one final committed epoch and exits with the rescale status
+        self._rescale_decision: dict | None = None
+        # shard-map plane (PATHWAY_SHARDMAP): the versioned ownership table
+        # every placement decision consults; None keeps the derived modulo
+        # rule. Set in run() after the elastic plane installs (the map's
+        # version rides the membership version)
         self.shardmap = None
         # live tracing (observability): installed in run(), None when off
         self.tracer = None
@@ -1077,26 +1085,37 @@ class ClusterRuntime:
         from pathway_tpu_torch import flow as _flow
         from pathway_tpu_torch import observability as _obs
 
-        # after persistence attach (pw.run order); refuses PATHWAY_ELASTIC
+        _faults.install_from_env()
+        _obs.install_from_env(self)
+        _flow.install_from_env(self)  # before build: gates attach to inputs
+        # after persistence attach (pw.run order), so the plane finds the
+        # backend the membership table lives in
         _elastic.install_from_env(self)
+        eplane = _elastic.current()
         if get_pathway_config().shardmap == "on":
             # shard-map plane: derive (and, coordinator, commit) the versioned
             # ownership table BEFORE build/persistence — restores and door
             # routing both consult it. Derivation is deterministic from the
             # stored map + pod shape, so every process agrees without a
-            # barrier; without a backend the equal initial split is used. The
-            # membership version is 0: the elasticity plane is not carried
+            # barrier; without a backend the equal initial split is used.
             from pathway_tpu_torch.internals import shardmap as _shardmap
 
             backend = getattr(self.persistence, "backend", None)
+            version = (
+                eplane.membership.version
+                if eplane is not None and eplane.membership is not None
+                else 0
+            )
             self.shardmap, _prev = _shardmap.ensure_shardmap(
-                backend, self.n_workers, 0, commit=(self.pid == 0)
+                backend, self.n_workers, version, commit=(self.pid == 0)
             )
             if self.device_plane is not None:
                 self.device_plane.shard_map = self.shardmap
-        _faults.install_from_env()
-        _obs.install_from_env(self)
-        _flow.install_from_env(self)  # before build: gates attach to inputs
+        if eplane is not None and eplane.membership is not None and self.hb_monitor is not None:
+            # stale-membership guard: heartbeat summaries stamped with an
+            # older membership version (a retired process's last gasp) are
+            # rejected instead of polluting the coordinator's merged state
+            self.hb_monitor.set_membership_version(eplane.membership.version)
         self.tracer = _obs.current()
         if self.hb_client is not None:
             # telemetry summaries ride the existing heartbeat messages, so the
@@ -1109,8 +1128,10 @@ class ClusterRuntime:
             # flight-recorder post-mortem: on an OtherWorkerError the dump
             # names the dead peer and its last known tick (the survivors are
             # where the post-mortem evidence lives — the dead process wrote
-            # nothing)
-            _obs.device.on_run_error(e, self)
+            # nothing). A ClusterRescale is a coordinated exit, not a
+            # failure: no post-mortem
+            if not isinstance(e, _elastic.ClusterRescale):
+                _obs.device.on_run_error(e, self)
             raise
         finally:
             self.tracer = None
@@ -1119,8 +1140,10 @@ class ClusterRuntime:
             _fabric.shutdown()
             _obs.shutdown()
             _flow.shutdown()
+            _elastic.shutdown()
 
     def _run_inner(self, outputs: list[LogicalNode]):
+        from pathway_tpu_torch import elastic as _elastic
         from pathway_tpu_torch import flow as _flow
         from pathway_tpu_torch.engine.runtime import check_connector_failures, refuse_unpersisted_delivery
         from pathway_tpu_torch.observability import health as _health
@@ -1131,6 +1154,7 @@ class ClusterRuntime:
             self.persistence, [n for lw in self.local_workers.values() for n in lw.graph.nodes]
         )
         plane = _flow.current()
+        eplane = _elastic.current()
         if plane is not None:
             self.on_tick_done.append(lambda t: plane.on_tick_complete(self, t))
         if self.pid == 0:
@@ -1195,7 +1219,7 @@ class ClusterRuntime:
                         getattr(d, "virtual", False) for d in self.connectors
                     )
 
-                    def decide(reports):
+                    def decide(reports, _tick=tick):
                         d = {
                             "done": any(r[2] for r in reports)
                             or all(r[1] for r in reports)
@@ -1207,6 +1231,17 @@ class ClusterRuntime:
                             # continue decision — a slow peer throttles every
                             # producer instead of OOMing one host
                             d["flow"] = plane.cluster_signal(self._peer_flows())
+                        if eplane is not None and not d["done"]:
+                            # elasticity: manual scale requests + the
+                            # autoscaler consult here, fed the SAME merged
+                            # pod pressure the flow broadcast carries; a
+                            # decision rides the continue verdict so every
+                            # process quiesces at the same tick boundary
+                            resc = eplane.maybe_decide(
+                                self, _tick, (d.get("flow") or {}).get("pressure")
+                            )
+                            if resc is not None:
+                                d["rescale"] = resc
                         return d
 
                     decision = self.coord.barrier(report, decide)
@@ -1215,8 +1250,17 @@ class ClusterRuntime:
                     all_virtual = True
                 if plane is not None:
                     plane.apply_cluster_signal(decision.get("flow"))
-                if decision["done"]:
-                    _health.mark_draining("shutdown")
+                resc = decision.get("rescale")
+                if resc is not None:
+                    # readiness before the pause: every door flips to
+                    # draining (503 + Retry-After on /readyz) BEFORE the
+                    # quiesce drain tick, so a load balancer stops sending
+                    # traffic into the rescale window
+                    self._rescale_decision = resc
+                    _health.mark_draining("rescale")
+                if decision["done"] or resc is not None:
+                    if decision["done"]:
+                        _health.mark_draining("shutdown")
                     self.run_tick(tick)  # drain final events
                     break
                 if self.pid == 0 and self.connectors and not all_virtual:
@@ -1230,6 +1274,18 @@ class ClusterRuntime:
         # is_finished break (see engine.runtime.Runtime.run)
         check_connector_failures(self.connectors)
         self.close()
+        if self._rescale_decision is not None:
+            # the pod is quiesced and its final epoch is committed (close()
+            # ran the coordinated at-close snapshot): publish the new
+            # membership version and leave with the rescale status so a
+            # Supervisor relaunches the cluster at the new shape
+            if eplane is not None:
+                eplane.finalize_rescale(self, self._rescale_decision)
+            raise _elastic.ClusterRescale(  # peers without a plane still exit 75
+                int(self._rescale_decision["target"]),
+                int(self._rescale_decision["version"]),
+                str(self._rescale_decision["reason"]),
+            )
         return self
 
     def close(self) -> None:

@@ -2,9 +2,8 @@
 + ``src/persistence/``): ``pw.persistence.Config`` for ``pw.run``, the
 filesystem, memory and mock backends, and the committed-epoch reader.
 
-Carried from ``pathway_tpu/persistence/__init__.py`` with imports rewritten.
-``Backend.s3`` builds its config as in the reference; opening it raises
-``later_slice("io.s3")`` until the S3 connector is ported."""
+Carried from ``pathway_tpu/persistence/__init__.py`` with imports rewritten,
+the S3 backend included."""
 
 from __future__ import annotations
 
@@ -28,9 +27,8 @@ class Backend:
     @classmethod
     def s3(cls, root_path: str, bucket_settings: Any = None) -> "Backend":
         """Object-store persistence (reference ``backends/s3.rs``).
-        ``bucket_settings`` is ``pw.io.s3.AwsS3Settings`` in the reference;
-        the port's S3 connector is a later slice, so a run over this backend
-        raises ``later_slice("io.s3")``."""
+        ``bucket_settings`` is ``pw.io.s3.AwsS3Settings``; its ``client=``
+        hook injects any boto3-shaped object where boto3 itself is absent."""
         return cls("s3", root_path, bucket_settings=bucket_settings)
 
     @classmethod

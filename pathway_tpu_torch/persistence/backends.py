@@ -5,18 +5,15 @@ memory, mock — a flat key→bytes store).
 tests — a fresh Runtime in the same process — sees the previous run's state, the
 in-process analogue of the reference's kill-the-subprocess recovery tests).
 
-Carried from ``pathway_tpu/persistence/backends.py``. ``S3Backend`` is carried
-over any boto3-shaped client; building one from a ``Backend.s3`` config needs
-the S3 connector (``io.s3``), which is a later slice, so that raises
-``later_slice("io.s3")``.
+Carried from ``pathway_tpu/persistence/backends.py``. ``S3Backend`` runs over
+any boto3-shaped client; a ``Backend.s3`` config builds it with the S3
+connector's client (``io.s3``).
 """
 
 from __future__ import annotations
 
 import os
 import threading
-
-from pathway_tpu_torch.internals.later_slice import later_slice
 
 
 class KVBackend:
@@ -197,6 +194,10 @@ def backend_from_config(backend) -> KVBackend:
     if backend.kind == "mock":
         return MockBackend(backend.path or "mock")
     if backend.kind == "s3":
-        # the reference builds the client with io.s3's _make_client/_split_path
-        raise later_slice("io.s3")
+        from pathway_tpu_torch.io.s3 import _make_client, _split_path
+
+        settings = backend.extra.get("bucket_settings")
+        client = _make_client(settings)
+        bucket, prefix = _split_path(backend.path or "", settings)
+        return S3Backend(client, bucket, prefix)
     raise ValueError(f"unknown persistence backend kind {backend.kind!r}")

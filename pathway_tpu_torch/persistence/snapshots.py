@@ -23,6 +23,7 @@ Block-engine counterpart of the reference's persistence core (``src/persistence/
   manifest offset are deleted (compaction), and a snapshot generation is only
   referenced by the manifest after all its node states are durable, so a crash
   mid-save falls back to the previous generation.
+
 Consistency level: at-least-once on restart for plain sinks (SURVEY §5.3);
 ``delivery="exactly_once"`` sinks publish through the delivery ledger
 (``pathway_tpu_torch/delivery``), bound here at restore.
@@ -31,13 +32,12 @@ Carried from ``pathway_tpu/persistence/snapshots.py`` for every runtime:
 the single worker, the thread-sharded runtime (per-worker operator shards,
 per-worker peer copies of partitioned sources) and the multi-process cluster
 (per-process shard saves over barriers, partitioned peer inputs, the global
-epoch manifest committed by process 0). The elastic reshard and migrate paths
-(``PATHWAY_ELASTIC``, the shard map's O(moved-state) migration, input logs
-rebucketed by a rescale) raise ``NotImplementedError("later slice:
-<plane>")``; without them a restore at another worker count is refused, as
-in the reference with elasticity off. A snapshot pickles the port's own
-classes and torch tensors; an index snapshot taken on the card opens only
-where the card is.
+epoch manifest committed by process 0), with the elasticity plane's restores
+(``PATHWAY_ELASTIC``): input logs rebucketed by key range or extended with
+orphan workers' suffixes, operator shards dropped and recomputed by replay,
+or migrated O(moved state) under the shard map. A snapshot pickles the
+port's own classes and torch tensors; an index snapshot taken on the card
+opens only where the card is.
 """
 
 from __future__ import annotations
@@ -47,7 +47,6 @@ import time as _time
 from typing import Any
 
 from pathway_tpu_torch.engine import operators as ops
-from pathway_tpu_torch.internals.later_slice import later_slice
 from pathway_tpu_torch.persistence.backends import KVBackend, backend_from_config
 
 _CHUNK = "chunk"
@@ -101,11 +100,32 @@ class _PersistedInput:
             if self.reader_state is not None:
                 subject.seek(self.reader_state)
             self.stored_offset = 0  # seek replaces the prefix-drop entirely
-        elif self.foreign_events or self.resharded:
-            # a log an elastic rescale rebucketed by key range, or extended
-            # with orphan workers' suffixes (reference: the prefix-drop is
-            # adjusted or disabled here)
-            raise later_slice("elastic (input log of a rescale)")
+        elif self.foreign_events and self.stored_offset and not self.resharded:
+            # adopted-suffix log: the subject re-produces only its OWN rows, so
+            # the exact drop count is the persisted total minus the adopted
+            # foreign rows — the subject's slice stays exactly-once across the
+            # rescale (the foreign rows replay from the log; their reassigned
+            # live partitions are at-least-once, see adopt_orphan_suffixes)
+            self.stored_offset = max(0, self.stored_offset - self.foreign_events)
+        elif self.resharded and self.stored_offset:
+            # the rebucketed log holds a KEY-RANGE slice; the subject's live
+            # slice follows its own (changed) partition map, so the
+            # count-based prefix-drop would discard never-logged rows.
+            # Disable it — at-least-once across this one edge (replayed rows
+            # the subject re-produces may duplicate), matching the
+            # seek-state-dropped posture and WARNED, never silent
+            from pathway_tpu_torch.internals.telemetry import record_event
+
+            record_event("elastic.reshard_prefix_drop_disabled", source=self.pid)
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "elastic reshard: input log %r was re-bucketed by key range; "
+                "the live prefix-drop is disabled for this non-seekable "
+                "partitioned source (at-least-once across the rescale)",
+                self.pid,
+            )
+            self.stored_offset = 0
         self._install()
 
     # -- storage ------------------------------------------------------------
@@ -552,6 +572,20 @@ class Persistence:
         self._is_cluster = False
         self._pid = 0
         self._total_workers = 1
+        #: (stored workers, current workers) when this restore resharded by
+        #: replay instead of restoring positional shards (PATHWAY_ELASTIC)
+        self._reshard_restore: tuple[int, int] | None = None
+        #: (old map, new map) when this restore migrates O(moved state) per the
+        #: shard-map diff (PATHWAY_SHARDMAP_MIGRATION) — resolved once, used by
+        #: BOTH the input-log step and the operator-shard step so every process
+        #: takes the same path (the decision is deterministic from shared
+        #: backend state + env, so no extra barrier is needed)
+        self._migrate_plan: tuple | None = None
+        self._migrate_checked = False
+        #: every persisted node of the CURRENT graph supports keyed/solo
+        #: migration — the condition under which elastic input-log trim is
+        #: sound again (a future rescale will never need the full history)
+        self._migratable_graph = False
 
     # called by Runtime once the engine graph is built, before drivers start
     def on_graph_built(self, ctx) -> None:
@@ -577,13 +611,15 @@ class Persistence:
             # single-writer plane: only process 0 (or the solo runtime)
             # commits epoch manifests; peers report durability over the barrier
             self.epochs = _EpochLog(self.backend)
-        # elasticity (PATHWAY_ELASTIC != off): the reference re-buckets
-        # partitioned input logs owned by workers the new shape no longer
-        # has, before any input wrapping reads them
+        # elasticity (PATHWAY_ELASTIC != off): partitioned input logs owned by
+        # workers the new shape no longer has would otherwise never replay —
+        # re-bucket them across the new worker set by key range BEFORE any
+        # input wrapping reads them. Single writer (process 0 / the solo
+        # runtime); cluster peers wait on a barrier.
         from pathway_tpu_torch import elastic as _elastic
 
         if _elastic.reshard_enabled():
-            raise later_slice("elastic (input-log reshard)")
+            self._elastic_reshard_inputs()
         if self.operator_mode:
             # worker shards keyed by GLOBAL worker index: the single runtime is
             # {0: nodes}, the thread-sharded runtime {0..W-1}, and a cluster
@@ -623,6 +659,15 @@ class Persistence:
                 )
                 for n in next(iter(self._worker_nodes.values()))
             ]
+            from pathway_tpu_torch import elastic as _elastic2
+
+            self._migratable_graph = (
+                _elastic2.migration_enabled()
+                and getattr(self.runtime, "shardmap", None) is not None
+                and self._nodes_migratable(
+                    next(iter(self._worker_nodes.values()))
+                )
+            )
             self.opsnap = _OperatorSnapshots(
                 self.backend, self.config.snapshot_interval_ms / 1000.0
             )
@@ -640,19 +685,16 @@ class Persistence:
                         "storage or revert the pipeline change"
                     )
                 if self.opsnap.stored_workers() != self._total_workers:
-                    # the reference migrates or reshards the shards here when
-                    # the elasticity plane is on (a later slice) and refuses
-                    # otherwise
-                    raise RuntimeError(
-                        "operator_persisting: persisted snapshots were taken "
-                        f"with {self.opsnap.stored_workers()} worker(s) but "
-                        f"this run has {self._total_workers}; restart with "
-                        "the same worker count, clear the persistence storage, or "
-                        "enable PATHWAY_ELASTIC to reshard by key range from the "
-                        "replayed input logs"
-                    )
-                offsets = dict(self.opsnap.manifest["input_offsets"])
-                self.opsnap.restore(self._worker_nodes)
+                    plan = self._migration_mode()
+                    if plan is not None:
+                        # O(moved-state): keep the manifest offsets so replay
+                        # stays O(suffix), move only re-mapped ranges' shards
+                        offsets = self._elastic_migrate_opsnap(*plan)
+                    else:
+                        self._elastic_reshard_opsnap()
+                else:
+                    offsets = dict(self.opsnap.manifest["input_offsets"])
+                    self.opsnap.restore(self._worker_nodes)
         if self._is_cluster and self._pid != 0:
             # non-partitioned sources poll only on process 0; partitioned
             # sources DO live on peer processes — persist those locally
@@ -725,11 +767,294 @@ class Persistence:
                     )
         self._replay_all()
 
+    def _elastic_reshard_inputs(self) -> None:
+        """Re-own orphaned partitioned input logs under the new worker count
+        (elasticity plane). Runs on every restore while PATHWAY_ELASTIC is
+        enabled; a no-op scan when the layout already matches.
+
+        Under an O(moved-state) migration (``_migration_mode``) the full
+        key-range rebucket is replaced by :func:`elastic.adopt_orphan_suffixes`
+        — only the orphan workers' log SUFFIXES past the snapshot offsets move
+        (their prefixes are already reflected in the operator shards that
+        migrate), so this step is O(suffix) instead of O(history)."""
+        from pathway_tpu_torch import elastic as _elastic
+
+        if self._pid == 0:
+            if self._migration_mode() is not None:
+                manifest = pickle.loads(self.backend.get(_MANIFEST))
+                self._migrate_input_stats = _elastic.adopt_orphan_suffixes(
+                    self.backend,
+                    self._total_workers,
+                    manifest.get("input_offsets", {}),
+                )
+            else:
+                orphans = _elastic.orphan_workers(self.backend, self._total_workers)
+                if orphans:
+                    old = max(max(v) for v in orphans.values()) + 1
+                    stats = _elastic.reshard_input_logs(
+                        self.backend,
+                        self._total_workers,
+                        shard_map=getattr(self.runtime, "shardmap", None),
+                    )
+                    _elastic.note_reshard_restore(old, self._total_workers, stats)
+        if self._is_cluster:
+            # peers must not wrap inputs until the coordinator's rebucket is
+            # durable; symmetric barrier (reshard_enabled is env-driven, so
+            # every process takes this path or none does)
+            self.runtime._barrier(
+                ("elastic_reshard", self._pid, {}), lambda reports: {"ok": True}
+            )
+
+    def _template_nodes(self) -> list | None:
+        """One worker's node list (graphs align by ``node_index`` across
+        workers AND processes), available before ``_worker_nodes`` is built."""
+        local_workers = getattr(self.runtime, "local_workers", None)
+        if local_workers:
+            return list(next(iter(local_workers.values())).graph.nodes)
+        workers = getattr(self.runtime, "workers", None)
+        if workers:
+            return list(workers[0].graph.nodes)
+        return None
+
+    @staticmethod
+    def _nodes_migratable(template: list, indices: set | None = None) -> bool:
+        """Every (relevant) node supports keyed or solo migration. With
+        ``indices`` — the node positions that actually have stored shards —
+        only those can block; without it (the input-log trim gate, where the
+        future rescale's shard set is unknown) any node that would persist
+        state must support migration."""
+        for n in template:
+            if indices is not None:
+                if n.node_index not in indices:
+                    continue
+            else:
+                try:
+                    if (
+                        not getattr(n, "uses_snapshot_store", False)
+                        and n.snapshot_state() is None
+                    ):
+                        continue  # provably stateless — cannot block
+                except Exception:
+                    pass  # can't prove stateless: require migration support
+            if getattr(n, "uses_snapshot_store", False):
+                # aux chunk stores (index plane) are positional by
+                # construction — no keyed migration yet
+                return False
+            if n.migrate_mode() is None:
+                return False
+        return True
+
+    def _migration_mode(self) -> tuple | None:
+        """``(old map, new map)`` when this restore migrates O(moved state)
+        instead of resharding by replay, else None. The answer is
+        deterministic from shared backend state + env + the (aligned) graph,
+        so every process resolves the same path with no extra barrier."""
+        if self._migrate_checked:
+            return self._migrate_plan
+        self._migrate_checked = True
+        from pathway_tpu_torch import elastic as _elastic
+        from pathway_tpu_torch.internals import shardmap as _shardmap
+        from pathway_tpu_torch.internals.telemetry import record_event
+
+        if not self.operator_mode or not _elastic.migration_enabled():
+            return None
+        new_map = getattr(self.runtime, "shardmap", None)
+        if new_map is None or new_map.n_workers != self._total_workers:
+            return None
+        raw = self.backend.get(_MANIFEST)
+        if raw is None:
+            return None  # nothing persisted: nothing to migrate
+        manifest = pickle.loads(raw)
+        stored = manifest.get("n_workers", 1)
+        if stored == self._total_workers:
+            return None  # same shape: plain positional restore
+        smv = manifest.get("shardmap_version")
+        old_map = (
+            _shardmap.read_shardmap_version(self.backend, smv)
+            if smv is not None
+            else None
+        )
+        if old_map is None or old_map.n_workers != stored:
+            # the previous shape ran without the shard-map plane (or its map
+            # history is gone) — its placement cannot be reconstructed, so the
+            # general replay path must recompute
+            return None
+        template = self._template_nodes()
+        if template is None:
+            return None
+        g = manifest["gen"]
+        indices: set[int] = set()
+        for k in self.backend.list_keys(f"operators/gen_{g:08d}/"):
+            tail = k.rsplit("node_", 1)
+            if len(tail) == 2:
+                try:
+                    indices.add(int(tail[1]))
+                except ValueError:
+                    pass
+        if not self._nodes_migratable(template, indices):
+            record_event(
+                "elastic.migrate_unsupported",
+                old_workers=stored,
+                new_workers=self._total_workers,
+                process_id=self._pid,
+            )
+            return None
+        self._migrate_plan = (old_map, new_map)
+        return self._migrate_plan
+
+    def _elastic_migrate_opsnap(self, old_map, new_map) -> dict:
+        """O(moved-state) restore for a worker-count change: keep the manifest
+        offsets (replay stays O(suffix)!) and rebuild each LOCAL worker's node
+        state from the old generation's shards — positionally for solo nodes,
+        by filtered merge of the shard-map-overlapping old shards for keyed
+        nodes. The old generation is only read, never written: a crash before
+        the next commit re-runs the (idempotent) migration; the next commit's
+        generation GC reclaims it."""
+        import numpy as np
+
+        from pathway_tpu_torch import elastic as _elastic
+        from pathway_tpu_torch.internals import shardmap as _shardmap
+
+        t0 = _time.monotonic()
+        manifest = self.opsnap.manifest
+        g = manifest["gen"]
+        stored = self.opsnap.stored_workers()
+        moved = _shardmap.diff(old_map, new_map)
+        rows_moved = 0
+        bytes_moved = 0
+
+        def entry_count(st: dict) -> int:
+            n = 0
+            for v in st.values():
+                if isinstance(v, dict) and all(
+                    isinstance(x, (int, np.integer)) for x in list(v)[:3]
+                ):
+                    n += len(v)  # key-addressed entries (state/_state dicts)
+            cst = st.get("cstate")
+            if isinstance(cst, dict) and "gk" in cst:
+                n += len(cst["gk"])
+            return n
+
+        for w, nodes in self._worker_nodes.items():
+            overlap = _shardmap.overlap_sources(old_map, new_map, w)
+
+            def keep(keys, _w=w):
+                arr = np.asarray(keys, dtype=np.uint64)
+                return new_map.owner_of_keys(arr) == _w
+
+            for node in nodes:
+                mode = node.migrate_mode()
+                if mode == "solo":
+                    # serial operator: its single shard lives on global worker
+                    # 0 under EVERY shape — positional restore there
+                    if w != 0:
+                        continue
+                    raw = self.backend.get(
+                        f"operators/gen_{g:08d}/worker_{0:03d}"
+                        f"/node_{node.node_index:05d}"
+                    )
+                    if raw is not None:
+                        node.restore_state(pickle.loads(raw))
+                    continue
+                if mode != "keyed":
+                    continue  # no stored shard (guaranteed by _migration_mode)
+                srcs = (
+                    overlap
+                    if getattr(node, "migrate_aligned", True)
+                    else range(stored)
+                )
+                shards: list[dict] = []
+                for ow in srcs:
+                    raw = self.backend.get(
+                        f"operators/gen_{g:08d}/worker_{ow:03d}"
+                        f"/node_{node.node_index:05d}"
+                    )
+                    if raw is None:
+                        continue
+                    st = pickle.loads(raw)
+                    shards.append(st)
+                    if int(ow) != w:
+                        bytes_moved += len(raw)
+                        rows_moved += entry_count(st)
+                if not shards:
+                    continue
+                state = node.migrate_restore(shards, keep)
+                if state is not None:
+                    node.restore_state(state)
+
+        in_stats = getattr(self, "_migrate_input_stats", None)
+        if in_stats is not None:
+            rows_moved += in_stats.rows_moved
+            bytes_moved += in_stats.bytes_moved
+        pause_s = _time.monotonic() - t0
+        _elastic.note_migrate_restore(
+            stored,
+            self._total_workers,
+            _shardmap.moved_fraction(old_map, new_map),
+            rows_moved,
+            bytes_moved,
+            len(moved),
+            pause_s,
+        )
+        return dict(manifest["input_offsets"])
+
+    def _elastic_reshard_opsnap(self) -> None:
+        """Worker count changed under operator persistence: positional shards
+        cannot restore into a different worker set. With PATHWAY_ELASTIC
+        enabled, reshard by replay — drop the shards and let the (untrimmed;
+        elastic mode suspends log compaction) input logs recompute every
+        operator's state, each replayed row re-routed by the new shard map.
+        Without it, refuse loudly (the contract without elasticity)."""
+        from pathway_tpu_torch import elastic as _elastic
+
+        stored = self.opsnap.stored_workers()
+        if not _elastic.reshard_enabled():
+            raise RuntimeError(
+                "operator_persisting: persisted snapshots were taken "
+                f"with {stored} worker(s) but "
+                f"this run has {self._total_workers}; restart with "
+                "the same worker count, clear the persistence storage, or "
+                "enable PATHWAY_ELASTIC to reshard by key range from the "
+                "replayed input logs"
+            )
+        self._reshard_restore = (stored, self._total_workers)
+        _elastic.note_reshard_restore(stored, self._total_workers)
+        # the dropped shards (all generations, all old workers' aux chunk
+        # sets) will never be read again — reclaim them now, single writer,
+        # then every process re-inits its generation bookkeeping from the
+        # now-empty manifest so generation numbers stay aligned pod-wide
+        if self._pid == 0:
+            for k in self.backend.list_keys("operators/"):
+                self.backend.delete(k)
+        if self._is_cluster:
+            self.runtime._barrier(
+                ("elastic_opsnap_reset", self._pid, {}), lambda reports: {"ok": True}
+            )
+        self.opsnap = _OperatorSnapshots(
+            self.backend, self.config.snapshot_interval_ms / 1000.0
+        )
+
     def _replay_all(self) -> None:
         """Replay every persisted input, recording the O(suffix) cost: a run
         recovering from operator snapshots replays only the log tail past the
         committed offsets, and the telemetry gauge lets tests (and operators)
         assert recovery was NOT a full-history recompute."""
+        if self._reshard_restore is not None:
+            # reshard-by-replay needs the FULL history: a log whose prefix was
+            # compacted (pre-elastic storage) cannot recompute the dropped
+            # operator shards — fail naming the source, never silently lose
+            # its prefix
+            for p in self.inputs:
+                if p.trimmed_events > 0:
+                    raise RuntimeError(
+                        f"elastic reshard: input log {p.pid!r} had "
+                        f"{p.trimmed_events} leading event(s) compacted away "
+                        "under a previous non-elastic run, so operator state "
+                        "cannot be recomputed for the new worker count; "
+                        "restart with the original "
+                        f"{self._reshard_restore[0]} worker(s) or clear the "
+                        "persistence storage"
+                    )
         if any(getattr(p, "replay_skip", 0) > 0 for p in self.inputs):
             # suffix-only replay: the stream prefix is invisible to this run,
             # so the audit plane's history-dependent monitors (multiplicity,
@@ -827,8 +1152,10 @@ class Persistence:
         plane = DeliveryPlane(
             writers, self.backend, next_epoch=lambda: self.epochs.epoch + 1
         )
-        # rescaled=False: a restore that resharded or migrated is a later slice
-        plane.bind_all(rescaled=False)
+        plane.bind_all(
+            rescaled=self._migrate_plan is not None
+            or self._reshard_restore is not None
+        )
         self.delivery = plane
 
     def _subject_of(self, node) -> Any:
@@ -855,9 +1182,18 @@ class Persistence:
             self.delivery.publish_committed(final=time < 0)
 
     def _trim_inputs(self, offset_of) -> None:
-        """Log compaction after a durable operator commit (the reference
-        suspends it while the elasticity plane may reshard by replay; that
-        plane is refused in ``on_graph_built``)."""
+        """Log compaction after a durable operator commit — SUSPENDED while
+        the elasticity plane is enabled AND the pipeline cannot migrate:
+        reshard-by-replay needs the full history to recompute state for a new
+        worker count, so such runs trade compaction for reshardability
+        (README "Elasticity"). When every persisted node supports keyed/solo
+        migration under the shard map (``_migratable_graph``), a future
+        rescale moves state instead of replaying it, so elastic runs compact
+        again — input logs stay bounded across rescales."""
+        from pathway_tpu_torch import elastic as _elastic
+
+        if _elastic.reshard_enabled() and not self._migratable_graph:
+            return
         for p in self.inputs:
             p.trim(offset_of(p))
 

@@ -19,7 +19,7 @@ N" fault doesn't re-fire forever on every relaunch.
 
 Carried from ``pathway_tpu/resilience/supervisor.py``. A relaunch at a new
 shape after an elastic rescale reads the membership table
-(``elastic/membership.py``); the rescale itself is a later slice.
+(``elastic/membership.py``) the pod committed before it exited 75.
 """
 
 from __future__ import annotations

@@ -18,8 +18,7 @@ caller asks for it) and runs, each checked:
   (``PATHWAY_DEVICE_EXCHANGE=on``) on min(4, n) workers against one worker,
   with rows verifiably exchanged on the device.
 
-The reference uses 4 heads of 16 at d 64; the port's attention takes head
-widths of 32, 64 and 128, so the step here uses 2 heads of 32.
+The step runs the reference's encoder: 4 heads of 16 at d 64.
 
 Run: ``python -m pathway_tpu_torch.tools.multichip_dryrun [N] [--device cpu]``.
 """
@@ -80,7 +79,7 @@ def _dryrun_train_step(n_devices: int, device: torch.device) -> dict:
     n_data = n_devices // model_par
     mesh = device_mesh({"data": n_data, "model": model_par}, devices=[device] * n_devices)
     cfg = E.EncoderConfig(
-        vocab_size=512, d_model=64, n_heads=2, n_layers=2, d_ff=128, max_len=32, dtype=torch.float32
+        vocab_size=512, d_model=64, n_heads=4, n_layers=2, d_ff=128, max_len=32, dtype=torch.float32
     )
     params = tree_map(lambda t: t.to(device), E.init_params(cfg, torch.Generator().manual_seed(0)))
     opt = tree_map(torch.zeros_like, params)

@@ -17,7 +17,26 @@ tiny`` swaps both for narrow 2-layer encoders for a CPU rehearsal.
 filesystem backend at DIR, snapshotting every 500 ms (a restart resumes
 from its last committed epoch; the csv sink rewinds to it). The csv holds
 one row per (query, hit): ``qi, dkey, di, rank, knn, rerank`` with
-``time`` and ``diff``.
+``time`` and ``diff``. ``--http`` serves the monitoring server (``/status``,
+``/scale``; process ``p`` at ``PATHWAY_MONITORING_HTTP_PORT + p``) and
+``--pace-ms MS`` adds a live ticker, one row every MS ms for twice the
+stream's ticks, whose subscriber sleeps MS ms at each tick's end: every
+tick is held at least MS ms, so that an operator's scale request lands
+mid-stream.
+Under ``PATHWAY_ELASTIC=manual`` and a supervisor (``python -m
+pathway_tpu_torch supervise``, or ``resilience.Supervisor``) such a request
+quiesces the pod, which exits 75 and is relaunched at the new shape. The
+quiescing pod's close polls the timed docs and queries to their end, so
+every one of them is logged before it exits and the relaunched pod only
+replays them, re-embedding every doc (the index cannot migrate); the ticker
+resumes from its log, so the relaunched pod streams on and a second request
+can land on it. Each process prints, as it leaves
+(the rescale exit included), one line ``rag_cluster_stats: {json}``: its
+attention launches per route, the rows each batched UDF (the embedder, the
+reranker) took and the tokens its encoder embedded, the
+events it replayed, the reshard record of its restore, the rescale it
+decided (process 0), the membership
+version and the wall-clock time of its first answer.
 
 ``--serve PORT`` serves instead: the docs go into a ``DocumentStore`` over a
 brute-force index of the embedder on ``--device``, and
@@ -162,6 +181,8 @@ def main(argv=None) -> int:
     ap.add_argument("--model", default="minilm", choices=("minilm", "tiny"))
     ap.add_argument("--persist", default=None)
     ap.add_argument("--serve", type=int, default=None, metavar="PORT")
+    ap.add_argument("--http", action="store_true", help="serve the monitoring server")
+    ap.add_argument("--pace-ms", type=int, default=0, help="hold every tick at least this long")
     args = ap.parse_args(argv)
 
     import pathway_tpu_torch as pw
@@ -181,19 +202,86 @@ def main(argv=None) -> int:
         reranker=rr, docs=docs, queries=docs[: args.queries], tick_rows=args.tick, k=args.k,
     )
     pw.io.fs.write(table, args.out, format="csv")
-    kwargs = {"monitoring_level": "none"}
+    first_answer: list[float] = []
+    wall = time.time  # the callback's ``time`` is the tick
+
+    def on_change(key, row, time, is_addition):
+        if is_addition and not first_answer:
+            first_answer.append(wall())
+
+    pw.io.subscribe(table, on_change=on_change)
+    if args.pace_ms:
+        # the ticker's subscriber sleeps at each tick's end: its frontier
+        # advances every tick (the answers' waits on the microbatch
+        # buffers), so the sleep holds ingestion, not only output
+        n_ticks = -(-args.docs // args.tick) + -(-args.queries // args.tick)
+        pw.io.subscribe(_ticker(pw, 2 * n_ticks, args.pace_ms / 1000.0), on_change=lambda **kw: None,
+                        on_time_end=lambda t, s=args.pace_ms / 1000.0: time.sleep(s))
+    kwargs = {"monitoring_level": "none", "with_http_server": args.http}
     if args.persist:
         kwargs["persistence_config"] = pw.persistence.Config(
             backend=pw.persistence.Backend.filesystem(args.persist),
             persistence_mode="operator_persisting",
             snapshot_interval_ms=SNAPSHOT_MS,
         )
-    pw.run(**kwargs)
+    try:
+        pw.run(**kwargs)
+    finally:
+        _print_stats(pw, A, first_answer)
+    return 0
+
+
+def _ticker(pw, n: int, pace_s: float):
+    """A live stream of ``n`` rows, one every ``pace_s`` seconds, on
+    process 0. It is seekable: a restore replays its logged rows and it
+    resumes after them."""
+
+    class Ticker(pw.io.python.ConnectorSubject):
+        def __init__(self):
+            super().__init__()
+            self.sync_lock = threading.Lock()
+            self._next = 0
+
+        def offset_state(self):
+            return {"next": self._next}
+
+        def seek(self, state):
+            self._next = int(state["next"])
+
+        def run(self):
+            while self._next < n:
+                with self.sync_lock:
+                    self.next(t=self._next)
+                    self._next += 1
+                time.sleep(pace_s)
+
+    return pw.io.python.read(Ticker(), schema=pw.schema_from_types(t=int), name="ticker")
+
+
+def _print_stats(pw, A, first_answer: list[float]) -> None:
+    """This process's ``rag_cluster:`` and ``rag_cluster_stats:`` lines (see
+    the module docstring), printed on every exit, a rescale's included."""
+    from pathway_tpu_torch import elastic
+    from pathway_tpu_torch.internals import telemetry
+    from pathway_tpu_torch.observability import device as D
+
     rt = pw.internals.run.current_runtime()
     replayed = getattr(getattr(rt, "persistence", None), "replayed_events", None)
-    print(f"rag_cluster: process {os.environ.get('PATHWAY_PROCESS_ID', '0')} attention launches "
-          f"{A.LAUNCHES} replayed {replayed}", flush=True)
-    return 0
+    pid = os.environ.get("PATHWAY_PROCESS_ID", "0")
+    with D.stats().lock:
+        enc = list(D.stats().pad.get("encoder", [0, 0, 0, 0]))
+        udf_rows = {k[len("udf:"):]: v[0] for k, v in D.stats().pad.items() if k.startswith("udf:")}
+    backend = getattr(getattr(rt, "persistence", None), "backend", None)
+    membership = elastic.read_membership(backend) if backend is not None else None
+    print(f"rag_cluster: process {pid} attention launches {A.LAUNCHES} replayed {replayed}", flush=True)
+    print("rag_cluster_stats: " + json.dumps({
+        "process": int(pid), "processes": int(os.environ.get("PATHWAY_PROCESSES", "1")),
+        "attention_launches": dict(A.ROUTE_LAUNCHES), "udf_rows": udf_rows, "encoder_tokens": enc[2] + enc[3],
+        "replayed": replayed, "reshard": elastic.last_reshard(),
+        "rescale_decided": [e["attrs"] for e in telemetry.events("elastic.rescale_decided")],
+        "membership_version": membership.version if membership is not None else None,
+        "first_answer_unix": first_answer[0] if first_answer else None, "exit_unix": time.time(),
+    }), flush=True)
 
 
 if __name__ == "__main__":

@@ -122,8 +122,20 @@ def test_wrapper_reads_strided_qkv_split_and_counts_no_cpu_launch():
     ],
 )
 def test_wrapper_rejects_outside_the_kernel_envelope(shape, heads, dtype, mask_dtype, match):
+    """A malformed call raises; a well-formed one outside the kernels'
+    envelope (a head width of no instantiation, more than MAX_LEN keys) is
+    refused by the kernel's own check and, on a CPU tensor, runs the plain
+    version, counted under ``plain_outside_envelope``."""
     x = torch.zeros(shape, dtype=dtype)
     m = torch.ones(shape[:2], dtype=mask_dtype)
+    if match in ("head width 48", "L=600"):
+        with pytest.raises(ValueError, match=match):
+            A._check(x, x, x, m, heads)
+        before = A.ROUTE_LAUNCHES["plain_outside_envelope"]
+        out = A.attention_short_flat(x, x, x, m, heads, 0.125)
+        assert torch.equal(out, A.attention_short_flat_plain(x, x, x, m, heads, 0.125))
+        assert A.ROUTE_LAUNCHES["plain_outside_envelope"] == before + 1
+        return
     with pytest.raises(ValueError, match=match):
         A.attention_short_flat(x, x, x, m, heads, 0.125)
 
@@ -155,7 +167,7 @@ def test_every_f32_geometry_in_the_envelope_fits_shared_memory(hd):
         geo = A.launch_geometry(4, L, 384 // hd, hd, torch.float32)
         assert geo.route == "tensor_core_3xtf32" and geo.smem_bytes <= A._SMEM_LIMIT
         most = max(most, geo.smem_bytes)
-    assert most == {32: 57344, 64: 106496, 128: 204800}[hd]
+    assert most == {16: 32768, 32: 57344, 64: 106496, 128: 204800}[hd]
     assert A.launch_geometry(1024, 128, 6, 64, torch.float32).smem_bytes == 104960
 
 
@@ -456,7 +468,7 @@ def test_launches_count_per_route_only_on_the_card():
     before = (A.LAUNCHES, dict(A.ROUTE_LAUNCHES))
     A.attention_short_flat(x, x, x, m, 2, 0.125)
     assert (A.LAUNCHES, A.ROUTE_LAUNCHES) == before
-    assert set(A.ROUTE_LAUNCHES) == {"tensor_core", "tensor_core_3xtf32"}
+    assert set(A.ROUTE_LAUNCHES) == {"tensor_core", "tensor_core_3xtf32", "plain_outside_envelope"}
     x32 = torch.zeros(2, 16, 128)
     A.attention_short_flat(x32, x32, x32, m, 2, 0.125)
     assert (A.LAUNCHES, A.ROUTE_LAUNCHES) == before

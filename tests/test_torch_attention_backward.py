@@ -169,7 +169,7 @@ def test_backward_counts_no_launch_on_the_cpu_and_checks_its_inputs():
     assert (A.BACKWARD_LAUNCHES, A.BACKWARD_ROUTE_LAUNCHES) == before
     with pytest.raises(ValueError, match="head width"):
         A.attention_short_flat_backward(q[..., :48], k[..., :48], v[..., :48], m, out[..., :48],
-                                        out[..., :48], 3, 0.25)
+                                        out[..., :48], 2, 0.25)
 
 
 def test_backward_kernel_is_built_with_the_forward():

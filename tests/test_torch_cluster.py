@@ -218,18 +218,15 @@ def test_cluster_operator_persistence_restart(tmp_path):
     ids=["shardmap", "fabric", "elastic"],
 )
 def test_cluster_unported_planes_are_a_later_slice(tmp_path, env, plane):
-    """The planes a cluster run reaches lazily. The elasticity plane is not
-    carried: every process exits naming it. The shard map and the serving
-    fabric are (the name is kept from the slice that cut them): the run
-    goes through and writes what one worker writes."""
+    """The planes a cluster run reaches lazily: the shard map, the serving
+    fabric and the elasticity plane (the name is kept from the slice that
+    cut them). Each is carried: the run goes through and writes what one
+    worker writes (the elasticity plane, with no request and no persistence
+    backend, decides nothing)."""
     results = tc.launch(
         lambda pid: [sys.executable, tc.__file__, "groupby_window", str(tmp_path / "cut")],
         2, env=env, timeout=60,
     )
-    if plane == "elastic":
-        for rc, out in results:
-            assert rc != 0 and f"later slice: {plane}" in out, out
-        return
     for rc, out in results:
         assert rc == 0, out
     solo = str(tmp_path / "solo")

@@ -173,12 +173,20 @@ def test_tokenizer_fallbacks_and_lowercase(tiny_bert, tmp_path):
 
 
 def test_from_pretrained_refuses_head_widths_the_kernel_lacks(tmp_path):
+    """A checkpoint whose head width (8) no kernel instantiation takes loads,
+    as the reference's does: its attention takes the counted plain route
+    (one call per layer), and the embedding is finite and unit-norm."""
+    from pathway_tpu_torch.ops import attention_kernel as A
     from transformers import BertConfig, BertModel
 
     BertModel(BertConfig(vocab_size=30, hidden_size=32, num_hidden_layers=1, num_attention_heads=4,
                          intermediate_size=32, max_position_embeddings=16)).save_pretrained(str(tmp_path))
-    with pytest.raises(ValueError, match="head width 8"):
-        TE.TorchSentenceEncoder.from_pretrained(str(tmp_path), device="cpu")
+    enc = TE.TorchSentenceEncoder.from_pretrained(str(tmp_path), device="cpu")
+    before = A.ROUTE_LAUNCHES["plain_outside_envelope"]
+    emb = enc.encode_texts(["a b c"])
+    assert A.ROUTE_LAUNCHES["plain_outside_envelope"] == before + 1
+    assert emb.shape == (1, 32) and np.isfinite(emb).all()
+    np.testing.assert_allclose(np.linalg.norm(emb, axis=-1), 1.0, rtol=1e-5)
 
 
 # -------------------------------------------------------------- safetensors

@@ -348,29 +348,40 @@ def test_unported_planes_raise_later_slice(monkeypatch, tmp_path):
         pw.run()
         pw.G.clear()
     assert seen["pathway_tpu_torch"] == seen["pathway_tpu"] and len(seen["pathway_tpu"]) == 5
-    t = pathway_tpu_torch.debug.table_from_markdown(_MD)
-    # sql and persistence are ported; the S3 backend and the Kafka transport
-    # of the delivery plane remain cuts
-    with pytest.raises(NotImplementedError, match="later slice: io.kafka"):
-        pathway_tpu_torch.delivery.KafkaDeliveryTransport(None, "topic")
-    pathway_tpu_torch.io.subscribe(t, lambda **kw: None)
-    with pytest.raises(NotImplementedError, match="later slice: io.s3"):
-        pathway_tpu_torch.run(
-            persistence_config=pathway_tpu_torch.persistence.Config(
-                backend=pathway_tpu_torch.persistence.Backend.s3("bucket/root")
-            )
-        )
-    # the multi-worker runtimes are ported: a 2-worker run goes through; the
-    # elasticity plane is still cut
-    pathway_tpu_torch.run(n_workers=2)
-    assert type(pathway_tpu_torch.internals.run.current_runtime()).__name__ == "ShardedRuntime"
-    monkeypatch.setenv("PATHWAY_ELASTIC", "manual")
-    with pytest.raises(NotImplementedError, match="later slice: elastic"):
-        pathway_tpu_torch.run(
-            persistence_config=pathway_tpu_torch.persistence.Config(
-                backend=pathway_tpu_torch.persistence.Backend.filesystem(str(tmp_path / "p"))
-            )
-        )
+    # sql, persistence, the multi-worker runtimes, the delivery plane's
+    # Kafka transport, the S3 backend and the elasticity plane are ported:
+    # each call answers as the reference's does
+    out = {}
+    for pw in (pathway_tpu, pathway_tpu_torch):
+        got = out[pw.__name__] = {}
+        broker = pw.io.kafka.MockKafkaBroker()
+        tr = pw.delivery.KafkaDeliveryTransport(broker, "topic")
+        tr.publish("sink", 0, {0: [("k", "v")]})
+        got["kafka"] = pw.delivery.read_committed(broker, "topic")
+        pw.G.clear()
+        t = pw.debug.table_from_markdown(_MD)
+        pw.io.subscribe(t, lambda **kw: None)
+        with pytest.raises(NotImplementedError) as err:
+            pw.run(persistence_config=pw.persistence.Config(backend=pw.persistence.Backend.s3("bucket/root")))
+        got["s3"] = str(err.value)
+        pw.G.clear()
+        t = pw.debug.table_from_markdown(_MD)
+        pw.io.subscribe(t, lambda **kw: None)
+        pw.run(n_workers=2)
+        got["runtime"] = type(pw.internals.run.current_runtime()).__name__
+        pw.G.clear()
+        rows = got["elastic"] = []
+        t = pw.debug.table_from_markdown(_MD)
+        pw.io.subscribe(t, lambda key, row, time, is_addition, rows=rows: rows.append((key, row, is_addition)))
+        monkeypatch.setenv("PATHWAY_ELASTIC", "manual")
+        pw.run(persistence_config=pw.persistence.Config(
+            backend=pw.persistence.Backend.filesystem(str(tmp_path / pw.__name__))))
+        monkeypatch.delenv("PATHWAY_ELASTIC")
+        monkeypatch.delenv("PATHWAY_PERSISTENT_STORAGE", raising=False)
+        pw.G.clear()
+    assert out["pathway_tpu_torch"] == out["pathway_tpu"]
+    assert out["pathway_tpu"]["runtime"] == "ShardedRuntime" and len(out["pathway_tpu"]["elastic"]) == 5
+    assert "requires boto3" in out["pathway_tpu"]["s3"]
 
 
 def _live_subject_run(pw) -> dict:

@@ -158,3 +158,27 @@ def test_multiworker_planes_import_without_jax_or_reference_package():
         "sys.exit(1 if bad else 0)\n"
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_elastic_cli_demo_and_connectors_import_without_jax_or_reference_package():
+    """The elasticity plane (``elastic`` with its reshard and autoscaler),
+    the command line (``cli``, ``python -m pathway_tpu_torch``), ``demo``,
+    the S3 and Postgres connectors and the delivery plane load neither JAX
+    nor the reference package, and the command line answers without
+    ``click``."""
+    proc = _run(
+        "import sys\n"
+        "sys.modules['click'] = None\n"
+        "import pathway_tpu_torch as pw\n"
+        "import pathway_tpu_torch.elastic, pathway_tpu_torch.elastic.reshard, pathway_tpu_torch.elastic.autoscaler\n"
+        "import pathway_tpu_torch.cli, pathway_tpu_torch.demo, pathway_tpu_torch.delivery\n"
+        "import pathway_tpu_torch.io.s3, pathway_tpu_torch.io.s3_csv, pathway_tpu_torch.io.minio\n"
+        "import pathway_tpu_torch.io.postgres, pathway_tpu_torch.io._pg_fake\n"
+        "assert pw.demo is pathway_tpu_torch.demo and pw.elastic.RESCALE_EXIT_CODE == 75\n"
+        "assert pathway_tpu_torch.cli.build_parser().parse_args(['scale', '--to', '3']).target == 3\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'pathway_tpu' or m.startswith('pathway_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -1,10 +1,10 @@
 """The port's later-slice guard: the temporal and stateful Table methods,
 ``pw.iterate`` / ``pw.iterate_universe`` and the rest of the Table API surface
 (``pw.sql``, ``pw.load_yaml``, exported tables, the row transformer,
-universes, ``pw.live``) are ported, the planes still to port (the S3 backend,
-the Kafka and Postgres delivery transports, an elastic reshard) raise
-``NotImplementedError("later slice: ...")`` where a call reaches them, and
-importing the temporal stdlib loads no JAX."""
+universes, ``pw.live``), the S3 backend, the Kafka and Postgres delivery
+transports and an elastic reshard are ported, a plane still to port (the
+Slack alert sink) raises ``NotImplementedError("later slice: ...")`` where a
+call reaches it, and importing the temporal stdlib loads no JAX."""
 
 from __future__ import annotations
 
@@ -70,12 +70,13 @@ def test_ported_table_method_no_longer_raises_later_slice(method):
 
 
 def _elastic_persisted_run():
-    """A persisted run under ``PATHWAY_ELASTIC``: the reference re-buckets
-    the input logs by key range at restore; the port refuses."""
+    """A persisted run under ``PATHWAY_ELASTIC``: the restore scans the input
+    logs for a key-range rebucket (none is due) and the run goes through."""
     import os
 
     pw.G.clear()
-    pw.io.subscribe(_table(), lambda **kw: None)
+    rows = []
+    pw.io.subscribe(_table(), lambda key, row, time, is_addition: rows.append(row["v"]))
     prev = os.environ.get("PATHWAY_ELASTIC")
     os.environ["PATHWAY_ELASTIC"] = "manual"
     try:
@@ -85,6 +86,64 @@ def _elastic_persisted_run():
             os.environ.pop("PATHWAY_ELASTIC", None)
         else:
             os.environ["PATHWAY_ELASTIC"] = prev
+    return sorted(rows)
+
+
+class NoSuchKey(Exception):
+    """boto3's missing-object error, by name."""
+
+
+class _FakeS3:
+    """A boto3-shaped client over a dict (no object yet)."""
+
+    def __init__(self):
+        self.objects: dict = {}
+
+    def list_objects_v2(self, *, Bucket, Prefix="", ContinuationToken=None):
+        keys = sorted(k for (b, k) in self.objects if b == Bucket and k.startswith(Prefix))
+        return {"Contents": [{"Key": k, "Size": len(self.objects[(Bucket, k)])} for k in keys],
+                "IsTruncated": False}
+
+    def get_object(self, *, Bucket, Key):
+        raise NoSuchKey(Key)
+
+
+def _s3_backend():
+    backend = pw.persistence.Backend.s3(
+        "s3://bucket/root", bucket_settings=pw.io.s3.AwsS3Settings(client=_FakeS3())
+    )
+    return pw.persistence.last_committed_epoch(backend)
+
+
+def _kafka_transport():
+    broker = pw.io.kafka.MockKafkaBroker()
+    tr = pw.delivery.KafkaDeliveryTransport(broker, "t")
+    tr.publish("sink", 0, {0: [("k", "v")]})
+    tr.publish("sink", 0, {0: [("k", "v")]})  # a re-publish of one epoch lands once
+    return pw.delivery.read_committed(broker, "t")[0]
+
+
+def _postgres_transport(tmp="pg"):
+    import tempfile
+
+    from pathway_tpu_torch.io._pg_fake import FakePostgres
+
+    with tempfile.TemporaryDirectory() as d:
+        fake = FakePostgres(f"{d}/{tmp}.db")
+        con = fake.connect()
+        with con.cursor() as cur:
+            cur.execute("CREATE TABLE t (k TEXT, v BIGINT, PRIMARY KEY (k))")
+        con.commit()
+        tr = pw.delivery.PostgresDeliveryTransport(
+            {"connection_factory": fake.connect},
+            {"u": "INSERT INTO t (k, v) VALUES (%s, %s) ON CONFLICT (k) DO UPDATE SET v = EXCLUDED.v"},
+        )
+        tr.publish("sink", 0, {0: [("u", ("a", 1)), ("u", ("b", 2))]})
+        tr.publish("sink", 0, {0: [("u", ("a", 1)), ("u", ("b", 2))]})
+        con = fake.connect()
+        with con.cursor() as cur:
+            cur.execute("SELECT k, v FROM t ORDER BY k")
+            return [tuple(r) for r in cur.fetchall()]
 
 
 def _rows(table, col="v"):
@@ -157,6 +216,10 @@ PORTED_SURFACE = {
     "export_table": _export_table,
     "universes": _universes,
     "live": _live,
+    "persistence.Backend.s3": _s3_backend,
+    "delivery.KafkaDeliveryTransport": _kafka_transport,
+    "delivery.PostgresDeliveryTransport": _postgres_transport,
+    "elastic reshard": _elastic_persisted_run,
 }
 
 #: what each ported entry's call gives
@@ -171,6 +234,10 @@ PORTED_SURFACE_RESULT = {
     "export_table": (True, ["t", "v", "g"]),
     "universes": [10],
     "live": [10, 20, 30],
+    "persistence.Backend.s3": None,
+    "delivery.KafkaDeliveryTransport": [("k", "v")],
+    "delivery.PostgresDeliveryTransport": [("a", 1), ("b", 2)],
+    "elastic reshard": [10, 20, 30],
 }
 
 
@@ -187,19 +254,10 @@ def test_ported_surface_entry_runs(entry):
 
 #: still-cut entry -> a call that reaches it, and the plane it names
 CUT = {
-    "persistence.Backend.s3": (
-        lambda: pw.persistence.last_committed_epoch(pw.persistence.Backend.s3("bucket/root")),
-        "io.s3",
+    "observability.alerts.SlackSink": (
+        lambda: pw.observability.alerts.SlackSink("#alerts", "token"),
+        "io.slack",
     ),
-    "delivery.KafkaDeliveryTransport": (
-        lambda: pw.delivery.KafkaDeliveryTransport({"bootstrap.servers": "localhost:9092"}, "t"),
-        "io.kafka",
-    ),
-    "delivery.PostgresDeliveryTransport": (
-        lambda: pw.delivery.PostgresDeliveryTransport({}, {}),
-        "io.postgres",
-    ),
-    "elastic reshard": (_elastic_persisted_run, "elastic"),
 }
 
 

@@ -55,12 +55,13 @@ def _env(monkeypatch):
     for telemetry in (ref_telemetry, port_telemetry):
         monkeypatch.setattr(telemetry, "_trace_file_override", telemetry._UNSET)
         monkeypatch.setattr(telemetry, "_metrics_file_override", telemetry._UNSET)
-    # a reshard restore (tests/test_elastic.py, test_elastic_migrate.py) keeps
-    # its stats for the rest of the process, and every later exposition of
-    # the reference then carries pathway_elastic_reshard_* (a plane the port
-    # does not carry); the flow plane is retained after a run for post-run
-    # /status. Each test starts with neither.
+    # a reshard restore (tests/test_elastic.py, test_elastic_migrate.py and
+    # their port mirrors) keeps its stats for the rest of the process, and
+    # every later exposition of that package then carries
+    # pathway_elastic_reshard_*; the flow plane is retained after a run for
+    # post-run /status. Each test starts with neither.
     monkeypatch.setattr(pathway_tpu.elastic, "_LAST_RESHARD", {})
+    monkeypatch.setattr(pathway_tpu_torch.elastic, "_LAST_RESHARD", {})
     monkeypatch.delenv("PATHWAY_FLOW", raising=False)
     for pw, _mon in SIDES.values():
         monkeypatch.setattr(pw.flow, "_plane", None)
@@ -331,7 +332,8 @@ def test_http_server_status_metrics_and_later_slice_routes():
         200, json.dumps({"enabled": False, "points": [], "next": None}))
     assert other["/explain"] == out["ref"][3]["/explain"]
     assert other["/explain"][0] == 200 and json.loads(other["/explain"][1])["ok"] is False
-    assert other["/scale"] == (501, json.dumps({"ok": False, "error": "later slice: elastic"}))
+    assert other["/scale"] == out["ref"][3]["/scale"] == (
+        200, json.dumps({"ok": False, "error": "elasticity is off (PATHWAY_ELASTIC=off)"}))
     assert other["/nope"][0] == out["ref"][3]["/nope"][0] == 404
     assert other["/trace"] == out["ref"][3]["/trace"] == (200, json.dumps({"enabled": False, "spans": [], "next": 0}))
 

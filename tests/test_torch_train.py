@@ -6,9 +6,9 @@ shards against the unsharded step; and ``TorchSentenceEncoder(mesh=...)``.
 
 The reference's step differentiates its XLA attention here (its Pallas
 kernel runs only on a TPU); the port's goes through ``AttentionShortFlat``,
-the plain backward on CPU tensors. The reference test's ``SMALL`` config has
-a head width of 16, which the port's attention does not take, so these use d
-64 with 2 heads of 32, and d 128 with 2 heads of 64.
+the plain backward on CPU tensors. These use d 64 with 2 heads of 32, and
+d 128 with 2 heads of 64; the reference test's ``SMALL`` config (4 heads of
+16) is ``test_torch_head_width.py``'s.
 
 Tolerances, per leaf against the largest reference value of the leaf: f32
 at 2e-5 (the loss at rtol 1e-5); bf16 at 4e-2 (the loss at rtol 1e-2): the

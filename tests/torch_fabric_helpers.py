@@ -249,21 +249,24 @@ def run(script: str, tmp_path, processes: int, env: dict | None = None, timeout:
     """Run ``SCRIPTS[script]`` on a ``processes``-wide cluster (one process
     without a cluster); every process must exit 0. Returns process 0's
     result. The ports come from one block of this xdist worker's range:
-    the cluster's bands at ``base``, the doors at ``base + 7``, monitoring
-    at ``base + 9``. Relaunches once on ``EADDRINUSE``."""
+    the cluster's bands at ``base`` (``2 * processes + 3`` ports), the
+    doors after them (``base + 7`` for 2 processes), monitoring after the
+    doors (``base + 9``). Relaunches once on ``EADDRINUSE``."""
     import subprocess
 
     import torch_cluster_helpers as tc
 
     out = str(tmp_path / f"{script}.p{processes}.json")
     for attempt in range(2):
-        base = tc.first_port(processes, span=12)
+        doors = 2 * processes + 3
+        base = tc.first_port(processes, span=doors + 2 * processes + 1)
         full = tc._env(processes, 1, {
-            "PATHWAY_FIRST_PORT": str(base), "PATHWAY_MONITORING_HTTP_PORT": str(base + 9), **(env or {}),
+            "PATHWAY_FIRST_PORT": str(base), "PATHWAY_MONITORING_HTTP_PORT": str(base + doors + processes),
+            **(env or {}),
         })
         procs = [
             subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), script, str(base + 7), out],
+                [sys.executable, os.path.abspath(__file__), script, str(base + doors), out],
                 env=dict(full, PATHWAY_PROCESS_ID=str(pid)),
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
