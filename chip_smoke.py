@@ -238,6 +238,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -431,19 +432,23 @@ def phase_build() -> None:
         nice = _demangle(sorted(set(per_fn) | set(hmma)), tool_dir)
         ptxas[name] = {nice[f]: v for f, v in per_fn.items()}
         sass[name] = {nice[f]: n for f, n in hmma.items()}
-    # each route's instantiations (4 head widths x resident / streamed) must
-    # run on the tensor cores
+    # each route's instantiations (8 head widths x resident / streamed x
+    # exact width / narrower head) must run on the tensor cores
+    n_widths = len(A.KERNEL_WIDTHS)
     tc = {f: n for f, n in sass.get("attention_short", {}).items() if "attention_tc_kernel" in f}
     for dname, tname in (("bf16", "__nv_bfloat16"), ("f32", "float")):
         mine = {f: n for f, n in tc.items() if f"attention_tc_kernel<{tname}," in f}
-        check(len(mine) == 8, f"{dname} route: {len(mine)} tensor-core instantiations in the SASS, expected 8")
+        check(len(mine) == 4 * n_widths,
+              f"{dname} route: {len(mine)} tensor-core instantiations in the SASS, expected {4 * n_widths}")
         check(all(n > 0 for n in mine.values()), f"{dname} route without HMMA/HGMMA in its SASS: {mine}")
-    # the fused backward: bf16 at 4 head widths and f32 at 16, 32 and 64,
-    # each at L = 128 and at any length
+    # the fused backward: bf16 at every width and f32 up to 64, each at
+    # L = 128 and at any length
+    n_fused = 2 * (n_widths + sum(w <= 64 for w in A.KERNEL_WIDTHS))
     fused = {f: n for f, n in sass.get("attention_short_bwd", {}).items()
              if any(k in f for k in A.BACKWARD_KERNELS["fused"])}
-    check(len(fused) == 14 and all(n > 0 for n in fused.values()),
-          f"fused backward: {len(fused)} instantiations, HMMA/HGMMA per instantiation {fused}, expected 14, all > 0")
+    check(len(fused) == n_fused and all(n > 0 for n in fused.values()),
+          f"fused backward: {len(fused)} instantiations, HMMA/HGMMA per instantiation {fused}, "
+          f"expected {n_fused}, all > 0")
 
     # the host C tokenizer, built here so that no timed call pays its compile
     t1 = time.perf_counter()
@@ -487,24 +492,34 @@ def _attention_inputs(B, L, dtype, gen, H=6, hd=64):
 
 
 #: (B, L, heads, hd) of each checked case: the main path's three shapes
-#: (the rerank case at the reranker's longest input), then the longest
-#: length, a length that fills no tile evenly, the other head widths the
-#: kernel is built for (hd 128 and hd 16 both with K and V resident and
-#: streamed), the bert_path's ingest batch (12 heads of 32) and
-#: multichip_dryrun's encoder (4 heads of 16 at d 64, L 16)
+#: (the rerank case at the reranker's longest input), then 512 keys, a
+#: length that fills no tile evenly, the other instantiated widths (hd 128
+#: and hd 16 both with K and V resident and streamed), the bert_path's
+#: ingest batch (12 heads of 32), multichip_dryrun's encoder (4 heads of 16
+#: at d 64, L 16), the widths that run in a wider instantiation (8 in 16,
+#: 24 in 32, 80 in 80 ... each at B 64, L 128; 48 also streamed at L 200),
+#: the long lengths (1,024 and 4,096 keys at 6 x 64; 8,192 at 3 x 128, past
+#: the shared bytes the per-key fills took before they rode in the ring)
+#: and an embed-like batch at hd 96
 KERNEL_SHAPES = {
     "embed": (1024, 128, 6, 64), "query": (1, 16, 6, 64), "rerank": (10, 256, 6, 64),
     "max_len": (4, 512, 6, 64), "ragged": (3, 77, 6, 64), "hd32": (2, 128, 12, 32),
     "hd128": (2, 256, 3, 128), "hd128_resident": (2, 128, 3, 128), "bert_embed": (1024, 128, 12, 32),
     "hd16": (64, 128, 24, 16), "hd16_streamed": (4, 200, 24, 16), "dryrun": (8, 16, 4, 16),
+    "hd8": (64, 128, 48, 8), "hd24": (64, 128, 16, 24), "hd48": (64, 128, 8, 48), "hd80": (64, 128, 4, 80),
+    "hd96": (64, 128, 4, 96), "hd112": (64, 128, 3, 112), "hd48_streamed": (4, 200, 8, 48),
+    "l1024": (4, 1024, 6, 64), "l4096": (2, 4096, 6, 64), "l8192_hd128": (2, 8192, 3, 128),
+    "hd96_embed": (1024, 128, 4, 96),
 }
-#: shapes outside the kernels' envelope, (B, L, heads, hd): a head width of
-#: no instantiation and more than MAX_LEN keys; each must raise on the card
-OUTSIDE_SHAPES = {"hd48": (2, 16, 2, 48), "l600": (2, 600, 6, 64)}
+#: shapes outside the kernels' envelope, (B, L, heads, hd): a head width
+#: that is not a multiple of 8 and one above 128; each must raise on the
+#: card before any launch
+OUTSIDE_SHAPES = {"hd12": (2, 16, 2, 12), "hd136": (2, 16, 2, 136)}
 #: the timed cases per dtype: both routes at the main path's shapes, at
-#: bert_path's batch and at multichip_dryrun's
-TIMED = {"bfloat16": ("embed", "query", "rerank", "bert_embed", "dryrun"),
-         "float32": ("embed", "query", "rerank", "bert_embed", "dryrun")}
+#: bert_path's batch, at multichip_dryrun's, at an embed-like batch of hd
+#: 96 and at 1,024 keys
+TIMED = {"bfloat16": ("embed", "query", "rerank", "bert_embed", "dryrun", "hd96_embed", "l1024"),
+         "float32": ("embed", "query", "rerank", "bert_embed", "dryrun", "hd96_embed", "l1024")}
 
 
 def phase_kernels() -> list[dict]:
@@ -545,12 +560,13 @@ def phase_kernels() -> list[dict]:
             check(ok and ok_masked, f"attention {label} {dname}: kernel disagrees with plain")
             rec = {
                 "case": label, "dtype": dname, "route": geo.route, "B": B, "L": L, "hd": hd,
+                "kernel_width": A.kernel_width(hd),
                 "rows_per_block": geo.rows, "resident": geo.resident, "smem_bytes": geo.smem_bytes,
                 "max_abs_err": err.max().item(), "masked_row_vs_mean_v": err_masked,
                 "tolerance": tol, "ok": ok and ok_masked,
             }
             if label in TIMED[dname]:
-                iters = 20 if label == "embed" else 200
+                iters = 20 if label in ("embed", "hd96_embed", "l1024") else 200
                 rec["ms"] = cuda_ms(lambda: A.attention_short_flat(q, k, v, mask, H, scale), iters)
                 rec["plain_ms"] = cuda_ms(lambda: A.attention_short_flat_plain(q, k, v, mask, H, scale), iters)
                 qh, kh, vh = (t.view(B, L, H, hd).transpose(1, 2) for t in (q, k, v))
@@ -591,6 +607,84 @@ def phase_kernels() -> list[dict]:
     emit("kernel_envelope", kernel="attention_short_flat", refused=refused)
     torch.cuda.empty_cache()
     return records
+
+
+#: the encoder leg of the widened envelope: (d_model, heads, max_len, words
+#: per doc) of each config, a MiniLM-class encoder otherwise (6 layers, d_ff
+#: 1,536), and the docs each embeds on the card per dtype
+ENC_WIDTHS = {"hd48": (384, 8, 128, DOC_WORDS), "len1024": (384, 6, 1024, 1100)}
+ENC_WIDTH_DOCS = 1024
+ENC_WIDTH_BATCH = {128: INGEST_BATCH, 1024: 128}
+#: embeddings checked against the CPU path per max_len: at 1,024 keys cut
+#: from 64 to 8 (the CPU's 64 took 54 s of the script's 1,007; PERF.md
+#: section 4)
+ENC_WIDTH_CHECKED = {128: 64, 1024: 8}
+
+
+def phase_encoder_widths(info: dict) -> dict:
+    """Encoders inside the widened envelope on the card: d 384 in 8 heads of
+    48 (run in the kernels' 48-wide instantiation) and 6 heads of 64 at
+    ``max_len`` 1,024 (the streamed route), each in bf16 and in f32,
+    ENC_WIDTH_DOCS docs per run. Gates: every attention launch on the
+    dtype's tensor-core route (6 per batch, none outside the envelope), and
+    the first ENC_WIDTH_CHECKED[max_len] embeddings against the port's CPU
+    path within main_path's tolerances (bf16 1e-2, f32 1e-4)."""
+    import torch
+
+    from pathway_tpu_torch.ops import attention_kernel as A
+    from pathway_tpu_torch.ops.encoder import EncoderConfig, TorchSentenceEncoder
+
+    out, launches = {}, {}
+    for name, (d, heads, max_len, words) in ENC_WIDTHS.items():
+        docs = synth_docs(ENC_WIDTH_DOCS, words)
+        for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+            dname = str(dtype).replace("torch.", "")
+            cfg = EncoderConfig(vocab_size=32768, d_model=d, n_heads=heads, n_layers=6, d_ff=1536,
+                                max_len=max_len, dtype=dtype)
+            kw = {"param_dtype": torch.bfloat16} if dtype == torch.bfloat16 else {}
+            enc = TorchSentenceEncoder(cfg, seed=0, device=DEVICE, **kw)
+            ids, _ = enc.tokenizer(docs)
+            check(ids.shape[1] == max_len, f"encoder_widths {name}: tokenized to L={ids.shape[1]}, expected {max_len}")
+            batch = ENC_WIDTH_BATCH[max_len]
+            enc.encode_ids_device(ids[:batch])  # warm-up at the batch shape, outside the counts
+            sync()
+            # --- the leg: counts from 0 -----------------------------------------
+            A.LAUNCHES = 0
+            A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
+            t0 = time.perf_counter()
+            embs = [enc.encode_ids_device(ids[i : i + batch]) for i in range(0, len(ids), batch)]
+            sync()
+            secs = time.perf_counter() - t0
+            n_launches, by_route = A.LAUNCHES, dict(A.ROUTE_LAUNCHES)
+            # ------------------------------------------------------------------
+            expected = cfg.n_layers * len(embs)
+            route = A.ROUTES[dtype]
+            check(by_route[route] == expected and n_launches == expected,
+                  f"encoder_widths {name} {dname}: launches {by_route}, expected {expected} on {route}")
+            n_checked = ENC_WIDTH_CHECKED[max_len]
+            e_gpu = torch.cat(embs)[:n_checked].float().cpu().numpy()
+            t_cpu = time.perf_counter()
+            cpu = TorchSentenceEncoder(cfg, seed=0, device="cpu", **kw)
+            e_cpu = cpu.encode_ids_device(ids[:n_checked]).float().numpy()
+            t_cpu = time.perf_counter() - t_cpu
+            err = float(np.abs(e_cpu - e_gpu).max())
+            check(bool(np.isfinite(e_gpu).all()) and err <= tol,
+                  f"encoder_widths {name} {dname}: card vs CPU embeddings differ by {err} (tolerance {tol})")
+            key = f"{name}_{dname}"
+            launches[key] = by_route
+            out[key] = {"d_model": d, "heads": heads, "hd": d // heads, "kernel_width": A.kernel_width(d // heads),
+                        "max_len": max_len, "docs": len(ids), "batch": batch, "seconds": secs,
+                        "docs_per_s": len(ids) / secs, "launches": by_route, "launches_expected": expected,
+                        "card_vs_cpu_max_abs_err": err, "tolerance": tol, "checked": n_checked,
+                        "cpu_check_s": t_cpu}
+            del enc, cpu, embs
+            torch.cuda.empty_cache() if DEVICE == "cuda" else None
+    emit("encoder_widths", card=info["nvidia_smi"], **out)
+    total: dict = dict.fromkeys(A.ROUTE_LAUNCHES, 0)
+    for by_route in launches.values():
+        for r, n in by_route.items():
+            total[r] += n
+    return {"launches": total, "metrics": out}
 
 
 def phase_main_path(docs: list[str]) -> dict:
@@ -2278,6 +2372,597 @@ def phase_document_store(info: dict) -> dict:
     return {"launches": route_launches, "metrics": out, "root": root, "corpus": corpus, "queries": queries,
             "prompts": prompts, "answers": answers, "chunks": len(chunks), "emb": emb, "launch_log": launch_log,
             "splitter": splitter, "chunk_list": chunks}
+
+
+#: the connectors phase: CN_FILES seeded files reach one DocumentStore
+#: through five connectors (files per source), then CN_QUERIES retrieve
+#: queries arrive on a NATS topic and the answers leave through NATS,
+#: Logstash, Pub/Sub (and Delta Lake and Iceberg where pyarrow imports);
+#: CN_NOISE of the queries are words of no doc, whose low top scores feed
+#: the Slack alerts
+CN_SOURCES = {"gdrive": 512, "pyfilesystem": 512, "sqlite": 512, "nats": 256, "airbyte": 256}
+CN_SUBDIRS = 64
+CN_SQLITE_COMMIT = 64
+CN_SQLITE_UPDATES = 64
+CN_QUERIES = 1024
+CN_NOISE = 64
+CN_TICK = 64
+CN_K = 6
+CN_TIMEOUT_S = 300
+#: an answer whose best hit scores below this cosine raises an alert (a
+#: query of the corpus scores its own chunk first, at 1 to float rounding)
+CN_ALERT_SCORE = 0.99
+
+_AIRBYTE_SOURCE = '''
+import argparse, json, sys
+
+p = argparse.ArgumentParser()
+p.add_argument("command")
+p.add_argument("--config")
+p.add_argument("--catalog")
+p.add_argument("--state")
+a = p.parse_args()
+CATALOG = {"streams": [{"name": "docs", "json_schema": {}, "supported_sync_modes": ["incremental"]}]}
+if a.command == "discover":
+    print(json.dumps({"type": "CATALOG", "catalog": CATALOG}))
+    sys.exit(0)
+cfg = json.load(open(a.config))
+cursor = int((json.load(open(a.state)) if a.state else {}).get("cursor", 0))
+rows = [json.loads(line) for line in open(cfg["corpus"], encoding="utf-8")]
+for row in rows[cursor:]:
+    print(json.dumps({"type": "RECORD", "record": {"stream": "docs", "data": row, "emitted_at": 0}}))
+print(json.dumps({"type": "STATE", "state": {"cursor": len(rows)}}))
+'''
+
+
+class _Drive:
+    """A Drive transport over files in memory (``pw.io.gdrive``'s ``client=``
+    surface: ``tree`` and ``download``)."""
+
+    def __init__(self, files: list[tuple[str, str]]):
+        self.meta = {f"g{i}": {"id": f"g{i}", "name": path, "mimeType": "text/plain",
+                               "modifiedTime": "2024-01-01T00:00:00Z", "size": str(len(text.encode()))}
+                     for i, (path, text) in enumerate(files)}
+        self.data = {f"g{i}": text.encode() for i, (_p, text) in enumerate(files)}
+        self.downloads = 0
+
+    def tree(self, object_id: str) -> dict:
+        return {k: dict(m) for k, m in self.meta.items()}
+
+    def download(self, meta: dict) -> bytes:
+        self.downloads += 1
+        return self.data[meta["id"]]
+
+
+class _DirFS:
+    """An fs-shaped object (``pw.io.pyfilesystem``'s surface: ``listdir``,
+    ``isdir``, ``readbytes``, ``getinfo``) over a local directory."""
+
+    def __init__(self, root: str):
+        self.root = root
+
+    def _p(self, path: str) -> str:
+        return os.path.join(self.root, path.lstrip("/"))
+
+    def listdir(self, path):
+        return sorted(os.listdir(self._p(path)))
+
+    def isdir(self, path):
+        return os.path.isdir(self._p(path))
+
+    def readbytes(self, path):
+        with open(self._p(path), "rb") as f:
+            return f.read()
+
+    def getinfo(self, path, namespaces=()):
+        mtime = os.stat(self._p(path)).st_mtime
+
+        class Info:
+            raw = {"details": {"modified": mtime}}
+            modified = mtime
+
+        return Info()
+
+
+class _Broker:
+    """An in-process NATS broker (``pw.io.nats``'s ``client_factory``
+    surface): topics are lists of payloads; a subscriber reads from the
+    start and, once it has caught up, waits up to 0.1 s for a message
+    before it yields None, as the nats-py adapter's queue does."""
+
+    def __init__(self):
+        self.topics: dict[str, list[bytes]] = {}
+        self.times: dict[str, list[float]] = {}  # host clock of each publish
+        self.cond = threading.Condition()
+        self.closed = 0
+
+    def publish(self, topic: str, payload: bytes) -> None:
+        with self.cond:
+            self.topics.setdefault(topic, []).append(payload)
+            self.times.setdefault(topic, []).append(time.perf_counter())
+            self.cond.notify_all()
+
+    def connect(self, uri):
+        broker = self
+
+        class Conn:
+            def subscribe(self, topic):
+                pos = 0
+                while True:
+                    with broker.cond:
+                        msgs = broker.topics.get(topic, [])
+                        if pos >= len(msgs):
+                            broker.cond.wait(timeout=0.1)
+                            msgs = broker.topics.get(topic, [])
+                        msg = msgs[pos] if pos < len(msgs) else None
+                    if msg is None:
+                        yield None
+                    else:
+                        pos += 1
+                        yield msg
+
+            def publish(self, topic, payload):
+                broker.publish(topic, payload)
+
+            def close(self):
+                broker.closed += 1
+
+        return Conn()
+
+
+class _Publisher:
+    """A Pub/Sub publisher (``pw.io.pubsub``'s surface)."""
+
+    def __init__(self):
+        self.published: list[tuple[str, bytes, dict]] = []
+        self.times: list[float] = []  # host clock of each publish
+
+    def topic_path(self, project, topic):
+        return f"projects/{project}/topics/{topic}"
+
+    def publish(self, topic_path, data, **attrs):
+        self.published.append((topic_path, data, attrs))
+        self.times.append(time.perf_counter())
+
+        class Done:
+            def result(self):
+                return "id"
+
+        return Done()
+
+
+def _logstash_server() -> tuple:
+    """A local HTTP server that records each POSTed JSON body and the host
+    clock it arrived at."""
+    import http.server
+
+    posts: list = []
+    times: list = []
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_POST(self):
+            n = int(self.headers["Content-Length"])
+            posts.append(json.loads(self.rfile.read(n)))
+            times.append(time.perf_counter())
+            self.send_response(200)
+            self.end_headers()
+
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, posts, times
+
+
+def _real_rows(batch: list) -> int:
+    """The real rows of a padded launch: the microbatcher pads with repeats
+    of the last row (the corpus has no duplicate chunk)."""
+    n = len(batch)
+    while n > 1 and batch[n - 2] == batch[-1]:
+        n -= 1
+    return n
+
+
+def phase_connectors(info: dict) -> dict:
+    """The last connectors feeding a live DocumentStore on the card (the
+    document_store phase's recipe: the ``minilm`` embedder in bf16,
+    ``TokenCountSplitter(50, 200)``, the default ``TieredKnnFactory``). A
+    seeded corpus of sum(CN_SOURCES) files of DS_WORDS words reaches one
+    store through ``pw.io.gdrive`` (a fake transport, with metadata),
+    ``pw.io.pyfilesystem`` (an fs-shaped object over a directory),
+    ``pw.io.sqlite`` (streaming; rows written in CN_SQLITE_COMMIT-row
+    commits while the run polls, then CN_SQLITE_UPDATES of them updated),
+    ``pw.io.nats`` (json, an in-process broker) and ``pw.io.airbyte`` (an
+    executable source with an incremental stream). Once every file is
+    indexed, CN_QUERIES retrieve queries (k = CN_K) arrive on a NATS topic;
+    the answers leave through ``pw.io.nats.write``, ``pw.io.logstash.write``
+    (a local server) and ``pw.io.pubsub.write`` (a fake publisher), and,
+    where pyarrow imports, ``pw.io.deltalake.write`` and
+    ``pw.io.iceberg.write``; an alerts table (answers whose best hit scores
+    below CN_ALERT_SCORE) goes to ``pw.io.slack.send_alerts`` (a fake
+    transport). Gates: each file ingested once per source; the updated
+    sqlite rows retracted and re-embedded; the answers equal, text and score
+    bits, a second store's fed the final corpus through ``pw.io.fs``; every
+    answer reaches each sink once; one Slack post per positive alert diff;
+    every attention launch on the tensor cores; the lake tables read back
+    equal (or, without pyarrow, the writers raise as the reference's do)."""
+    import shutil
+    import sqlite3
+    import time as time_mod  # `time` is also the name of a subscriber's argument below
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.ops import attention_kernel as A
+    from pathway_tpu_torch.stdlib.indexing.retrievers import TieredKnnFactory
+    from pathway_tpu_torch.xpacks.llm import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+
+    t_phase = time.perf_counter()
+    root = os.path.join(SCRATCH, "connectors")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(17)
+    vocab = [f"word{i}" for i in range(5000)]
+
+    def text():
+        return " ".join(rng.choice(vocab, size=int(rng.integers(DS_WORDS[0], DS_WORDS[1] + 1))))
+
+    files: dict[str, list[tuple[str, str]]] = {}
+    i = 0
+    for source, n in CN_SOURCES.items():
+        files[source] = []
+        for _ in range(n):
+            files[source].append((f"d{i % CN_SUBDIRS:02d}/f{i:05d}.txt", text()))
+            i += 1
+    updates = {int(j): text() for j in sorted(rng.choice(CN_SOURCES["sqlite"], size=CN_SQLITE_UPDATES, replace=False))}
+    final = {src: [(p, updates.get(j, t) if src == "sqlite" else t) for j, (p, t) in enumerate(rows)]
+             for src, rows in files.items()}
+
+    def write_tree(top: str, rows) -> str:
+        for path, t in rows:
+            os.makedirs(os.path.join(top, os.path.dirname(path)), exist_ok=True)
+            with open(os.path.join(top, path), "w", encoding="utf-8") as f:
+                f.write(t)
+        return top
+
+    # the fs-fed store's corpus: every file as it ends
+    fs_root = write_tree(os.path.join(root, "fs"), [r for rows in final.values() for r in rows])
+    pyfs_root = write_tree(os.path.join(root, "pyfs"), files["pyfilesystem"])
+    corpus_jsonl = os.path.join(root, "airbyte_corpus.jsonl")
+    with open(corpus_jsonl, "w", encoding="utf-8") as f:
+        for path, t in files["airbyte"]:
+            f.write(json.dumps({"path": path, "data": t}) + "\n")
+    source_py = os.path.join(root, "airbyte_source.py")
+    with open(source_py, "w", encoding="utf-8") as f:
+        f.write(_AIRBYTE_SOURCE)
+    db = os.path.join(root, "docs.db")
+    con = sqlite3.connect(db)
+    con.execute("CREATE TABLE docs (id INTEGER PRIMARY KEY, path TEXT, data TEXT)")
+    con.commit()
+    con.close()
+
+    splitter = TokenCountSplitter(min_tokens=50, max_tokens=200)
+    chunk_source: dict[str, str] = {}
+    for src, rows in files.items():
+        for _p, t in rows:
+            for c, _m in splitter.func(t):
+                chunk_source[c] = src
+    new_chunks = {c for j in updates for c, _m in splitter.func(updates[j])}
+    old_chunks = {c for j in updates for c, _m in splitter.func(files["sqlite"][j][1])}
+    final_chunks = {c for rows in final.values() for _p, t in rows for c, _m in splitter.func(t)}
+    n_initial = len(chunk_source)
+    check(len(final_chunks) == n_initial - len(old_chunks) + len(new_chunks),
+          "connectors: the seeded corpus repeats a chunk")
+    picks = rng.choice(sorted(final_chunks), size=CN_QUERIES - CN_NOISE, replace=False)
+    noise = [" ".join(f"zq{int(x)}" for x in rng.integers(0, 10**6, size=40)) for _ in range(CN_NOISE)]
+    queries = [str(q) for q in picks] + noise
+
+    emb = SentenceTransformerEmbedder("minilm", seed=0, device=DEVICE)
+    launch_log = _LaunchLog(emb, keep_texts=True)
+
+    def make_store(docs):
+        factory = None if DEVICE == "cuda" else TieredKnnFactory(embedder=emb, device=DEVICE)
+        return DocumentStore(docs, retriever_factory=factory, embedder=emb, splitter=splitter)
+
+    emb._encoder.encode_texts(sorted(final_chunks)[:512])  # warm-up, outside the counts
+    sync()
+
+    # the expected answers: the final corpus through pw.io.fs
+    pw.G.clear()
+    want_run = _ds_run(pw, make_store(pw.io.fs.read(fs_root, format="binary", mode="static", with_metadata=True)),
+                       retrieve=[(q, CN_K, None, None) for q in queries])
+    pw.G.clear()
+
+    def bits(hits):
+        return [(h["text"], np.float64(h["dist"]).view(np.uint64).item()) for h in hits]
+
+    want = {r["query"]: bits(_hits(r["result"])) for r in want_run.get("retrieve", {}).values()}
+    check(len(want) == CN_QUERIES, f"connectors: the fs-fed store answered {len(want)}/{CN_QUERIES} queries")
+
+    broker, publisher = _Broker(), _Publisher()
+    srv, posts, post_times = _logstash_server()
+    slack_posts: list = []
+    drive = _Drive(files["gdrive"])
+    for path, t in files["nats"]:
+        broker.publish("docs", json.dumps({"path": path, "data": t}).encode())
+
+    def meta(source):
+        return lambda path: pw.Json({"path": path, "source": source})
+
+    def as_bytes(s):
+        return s.encode("utf-8")
+
+    class Rows(pw.Schema):
+        id: int = pw.column_definition(primary_key=True)
+        path: str
+        data: str
+
+    sq = pw.io.sqlite.read(db, "docs", Rows, mode="streaming", poll_interval=0.05)
+    nd = pw.io.nats.read("nats://local", "docs", format="json", schema=pw.schema_from_types(path=str, data=str),
+                         client_factory=broker)
+    ab = pw.io.airbyte.read({"source": {"executable": source_py, "config": {"corpus": corpus_jsonl}}},
+                            streams=["docs"], mode="streaming", _poll_interval=0.5)
+    tables = {
+        "gdrive": pw.io.gdrive.read("root", mode="static", client=drive, with_metadata=True),
+        "pyfilesystem": pw.io.pyfilesystem.read(_DirFS(pyfs_root), "/", mode="static", with_metadata=True),
+        "sqlite": sq.select(data=pw.apply_with_type(as_bytes, bytes, sq.data),
+                            _metadata=pw.apply_with_type(meta("sqlite"), dict, sq.path)),
+        "nats": nd.select(data=pw.apply_with_type(as_bytes, bytes, nd.data),
+                          _metadata=pw.apply_with_type(meta("nats"), dict, nd.path)),
+        "airbyte": ab.select(data=pw.apply_with_type(lambda j: j.value["data"].encode("utf-8"), bytes, ab.data),
+                             _metadata=pw.apply_with_type(lambda j: pw.Json({"path": j.value["path"],
+                                                                             "source": "airbyte"}), dict, ab.data)),
+    }
+    seen = {src: {"add": 0, "retract": 0, "keys": set(), "retracted": []} for src in tables}
+
+    def on_source(src):
+        def on_change(key, row, time, is_addition):
+            s = seen[src]
+            if is_addition:
+                s["add"] += 1
+                s["keys"].add(int(key))
+            else:
+                s["retract"] += 1
+                s["retracted"].append(row["data"])
+        return on_change
+
+    for src, t in tables.items():
+        pw.io.subscribe(t, on_source(src))
+    store = make_store(list(tables.values()))
+
+    qs = pw.io.nats.read("nats://local", "queries", format="json", schema=DocumentStore.RetrieveQuerySchema,
+                         client_factory=broker)
+    res = qs.select(qs.query, result=store.retrieve_query(qs).with_universe_of(qs).result)
+    answers = res.select(
+        query=res.query,
+        answer=pw.apply_with_type(lambda r: json.dumps([[h["text"], h["dist"]] for h in _hits(r)]), str, res.result),
+        top=pw.apply_with_type(lambda r: -float(_hits(r)[0]["dist"]) if _hits(r) else -1.0, float, res.result),
+    )
+    got: dict = {}
+    answered_at: dict = {}
+    answer_diffs = [0]
+
+    def on_answer(key, row, time, is_addition):
+        answer_diffs[0] += 1
+        if is_addition:
+            got[row["query"]] = json.loads(row["answer"])
+            answered_at.setdefault(row["query"], time_mod.perf_counter())
+
+    pw.io.subscribe(answers, on_answer)
+    pw.io.nats.write(answers, "nats://local", "answers", format="json", client_factory=broker)
+    pw.io.logstash.write(answers, f"http://127.0.0.1:{srv.server_address[1]}/")
+    pw.io.pubsub.write(
+        answers.select(payload=pw.apply_with_type(lambda q, a: json.dumps([q, a]).encode(), bytes,
+                                                  answers.query, answers.answer)),
+        publisher, "rag", "answers")
+    alerts = answers.filter(answers.top < CN_ALERT_SCORE).select(
+        msg=pw.apply_with_type(lambda q, s: f"low retrieval score {s:.3f}: {q[:60]}", str, answers.query, answers.top))
+    pw.io.slack.send_alerts(alerts, "C0RAG", "xoxb-rag",
+                            _transport=lambda url, headers, body: slack_posts.append((url, headers, body)))
+    alert_diffs = {"add": 0, "retract": 0}
+    pw.io.subscribe(alerts, lambda key, row, time, is_addition: alert_diffs.__setitem__(
+        "add" if is_addition else "retract", alert_diffs["add" if is_addition else "retract"] + 1))
+    try:
+        import pyarrow  # noqa: F401
+
+        has_pyarrow = True
+    except ImportError:
+        has_pyarrow = False
+    lake_errors = {}
+    delta_uri, warehouse = os.path.join(root, "delta"), os.path.join(root, "iceberg")
+    lake = answers.select(answers.query, answers.answer)
+    if has_pyarrow:
+        pw.io.deltalake.write(lake, delta_uri)
+        pw.io.iceberg.write(lake, warehouse, ["rag"], "answers")
+    else:
+        for name, call in (("deltalake", lambda: pw.io.deltalake.write(lake, delta_uri)),
+                           ("iceberg", lambda: pw.io.iceberg.write(lake, warehouse, ["rag"], "answers"))):
+            try:
+                call()
+                lake_errors[name] = None
+            except ImportError as e:
+                lake_errors[name] = f"{type(e).__name__}: {e}"
+        check(all(lake_errors.values()), f"connectors: without pyarrow a lake writer did not raise {lake_errors}")
+
+    marks: dict = {}
+    sent_at: dict = {}
+    failed: list = []
+
+    def embedded() -> set:
+        return {t for batch in launch_log.texts for t in batch}
+
+    def wait(cond, what):
+        t0 = time_mod.perf_counter()
+        while not cond():
+            if time_mod.perf_counter() - t0 > CN_TIMEOUT_S:
+                failed.append(what)
+                return False
+            time_mod.sleep(0.02)
+        return True
+
+    def feed():
+        try:
+            sqlite_rows = files["sqlite"]
+            for lo in range(0, len(sqlite_rows), CN_SQLITE_COMMIT):
+                c = sqlite3.connect(db)
+                c.executemany("INSERT INTO docs VALUES (?, ?, ?)",
+                              [(j, p, t) for j, (p, t) in enumerate(sqlite_rows[lo: lo + CN_SQLITE_COMMIT], lo)])
+                c.commit()
+                c.close()
+                time_mod.sleep(0.05)
+            initial = set(chunk_source)
+            if not wait(lambda: initial <= embedded(), "every initial chunk embedded"):
+                return
+            marks["ingest"] = time_mod.perf_counter()
+            marks["ingest_launches"] = len(launch_log.texts)
+            c = sqlite3.connect(db)
+            c.executemany("UPDATE docs SET data = ? WHERE id = ?", [(t, j) for j, t in updates.items()])
+            c.commit()
+            c.close()
+            if not wait(lambda: new_chunks <= embedded() and seen["sqlite"]["retract"] >= CN_SQLITE_UPDATES,
+                        "every updated chunk embedded"):
+                return
+            time_mod.sleep(1.0)  # past the microbatcher's flush deadline
+            marks["updated"] = time_mod.perf_counter()
+            marks["doc_rows"] = sum(_real_rows(b) for b in launch_log.texts)
+            marks["doc_launches"] = len(launch_log.texts)
+            for lo in range(0, len(queries), CN_TICK):
+                for q in queries[lo: lo + CN_TICK]:
+                    sent_at[q] = time_mod.perf_counter()
+                    broker.publish("queries", json.dumps(
+                        {"query": q, "k": CN_K, "metadata_filter": None, "filepath_globpattern": None}).encode())
+                time_mod.sleep(0.05)
+            wait(lambda: len(got) >= len(queries) and len(broker.topics.get("answers", [])) >= len(queries)
+                 and len(posts) >= len(queries) and len(publisher.published) >= len(queries), "every answer out")
+            time_mod.sleep(0.5)
+            marks["answered"] = time_mod.perf_counter()
+        finally:
+            rt = pw.internals.run.current_runtime()
+            if rt is not None:
+                rt.request_stop()
+
+    # --- the connectors: counts from 0 -----------------------------------------
+    A.LAUNCHES = 0
+    A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
+    launch_log.spans.clear()
+    launch_log.texts.clear()
+    th = threading.Thread(target=feed, daemon=True)
+    t_run0 = time_mod.perf_counter()
+    th.start()
+    pw.run()
+    sync()
+    t_run1 = time_mod.perf_counter()
+    launches, route_launches = A.LAUNCHES, dict(A.ROUTE_LAUNCHES)
+    # ------------------------------------------------------------------------------
+    th.join(timeout=10)
+    srv.shutdown()
+    srv.server_close()
+    pw.G.clear()
+    check(not failed, f"connectors: timed out waiting for {failed}")
+
+    # each file once per source; sqlite: each updated row retracted once
+    for src, n in CN_SOURCES.items():
+        s = seen[src]
+        want_add = n + (CN_SQLITE_UPDATES if src == "sqlite" else 0)
+        want_retract = CN_SQLITE_UPDATES if src == "sqlite" else 0
+        check(s["add"] == want_add and s["retract"] == want_retract and len(s["keys"]) == n,
+              f"connectors: {src} gave {s['add']} rows, {s['retract']} retractions, {len(s['keys'])} keys; "
+              f"expected {want_add}, {want_retract}, {n}")
+    old_texts = {files["sqlite"][j][1].encode() for j in updates}
+    check(set(seen["sqlite"]["retracted"]) == old_texts, "connectors: the retracted sqlite rows are not the updated ones")
+    n_doc_rows = marks.get("doc_rows", -1)
+    check(n_doc_rows == n_initial + len(new_chunks),
+          f"connectors: the embedder took {n_doc_rows} doc rows, expected {n_initial} chunks + "
+          f"{len(new_chunks)} updated chunks")
+
+    # the answers against the fs-fed store's, text and score bits
+    got_bits = {q: [(t, np.float64(d).view(np.uint64).item()) for t, d in hits] for q, hits in got.items()}
+    differ = [q for q in queries if got_bits.get(q) != want.get(q)]
+    check(not differ, f"connectors: {len(differ)}/{len(queries)} answers differ from the fs-fed store's")
+    self_hits = sum(1 for q in queries[: CN_QUERIES - CN_NOISE] if got.get(q) and got[q][0][0] == q)
+    check(self_hits == CN_QUERIES - CN_NOISE, f"connectors: self-hits {self_hits}/{CN_QUERIES - CN_NOISE}")
+
+    # every answer change once to each sink; one Slack post per positive alert diff
+    n_nats = len(broker.topics.get("answers", []))
+    check(n_nats == answer_diffs[0] and len(posts) == answer_diffs[0] and len(publisher.published) == answer_diffs[0],
+          f"connectors: {answer_diffs[0]} answer changes, NATS {n_nats}, Logstash {len(posts)}, "
+          f"Pub/Sub {len(publisher.published)}")
+    check(sorted(json.loads(m)["query"] for m in broker.topics.get("answers", [])) == sorted(got),
+          "connectors: the NATS answers name other queries")
+    check(len(slack_posts) == alert_diffs["add"] and alert_diffs["add"] >= 1,
+          f"connectors: {len(slack_posts)} Slack posts for {alert_diffs['add']} positive alert diffs")
+
+    # every attention launch on the bf16 tensor-core route, 6 per embedder launch
+    expected = 6 * len(launch_log.spans)
+    check(route_launches["tensor_core"] == expected == launches and route_launches["plain_outside_envelope"] == 0,
+          f"connectors: attention launches {route_launches}, expected {expected} on tensor_core")
+
+    lake_read = {}
+    if has_pyarrow:
+        want_rows = sorted((q, json.dumps(h)) for q, h in got.items())
+        pw.G.clear()
+        lake_schema = pw.schema_from_types(query=str, answer=str)
+        for name, t in (("deltalake", pw.io.deltalake.read(delta_uri, schema=lake_schema, mode="static")),
+                        ("iceberg", pw.io.iceberg.read(warehouse, ["rag"], "answers", schema=lake_schema,
+                                                       mode="static"))):
+            from pathway_tpu_torch.debug import _capture
+
+            rows = sorted(tuple(r) for r in _capture(t).rows.values())
+            pw.G.clear()
+            lake_read[name] = len(rows)
+            check(rows == want_rows, f"connectors: {name} read back {len(rows)} rows other than the answers")
+
+    # per source: the time its last chunk's launch ended, from the run's
+    # start (the ingest's launches only: a query is a chunk's text too)
+    done_at: dict = {}
+    n_ingest = marks.get("ingest_launches", len(launch_log.texts))
+    for (_a, b, _n), batch in zip(launch_log.spans[:n_ingest], launch_log.texts[:n_ingest]):
+        for t in batch:
+            src = chunk_source.get(t)
+            if src is not None:
+                done_at[src] = max(done_at.get(src, 0.0), b)
+    chunks_of = {src: sum(1 for s in chunk_source.values() if s == src) for src in CN_SOURCES}
+    lat = sorted((answered_at[q] - sent_at[q]) * 1e3 for q in queries if q in answered_at and q in sent_at)
+    # the answer's arrival on the NATS topic (the first sink), from its query's publish
+    on_nats = {json.loads(m)["query"]: t for m, t in zip(broker.topics.get("answers", []),
+                                                         broker.times.get("answers", []))}
+    lat_nats = sorted((on_nats[q] - sent_at[q]) * 1e3 for q in queries if q in on_nats and q in sent_at)
+    t_last_query = max(sent_at.values()) if sent_at else t_run1
+
+    def spread(times):
+        return [times[0] - t_last_query, times[-1] - t_last_query] if times else None
+    t_ingest = marks.get("ingest", t_run1) - t_run0
+    out = {
+        "card": info["nvidia_smi"], "files": sum(CN_SOURCES.values()), "files_per_source": CN_SOURCES,
+        "chunks": n_initial, "sqlite_updates": CN_SQLITE_UPDATES, "updated_chunks": len(new_chunks),
+        "retracted_chunks": len(old_chunks),
+        "ingest_s": t_ingest, "ingest_chunks_per_s": n_initial / t_ingest,
+        "ingest_chunks_per_s_by_source": {src: chunks_of[src] / (done_at[src] - t_run0) for src in done_at},
+        "source_done_s": {src: done_at[src] - t_run0 for src in done_at},
+        "rows_by_source": {src: {"add": s["add"], "retract": s["retract"], "keys": len(s["keys"])}
+                           for src, s in seen.items()},
+        "embedder_doc_rows": n_doc_rows, "embedder_doc_launches": marks.get("doc_launches"),
+        "embed_launches": len(launch_log.spans), "embed_buckets": _buckets(launch_log.spans),
+        "queries": len(queries), "noise_queries": CN_NOISE, "answers": len(got),
+        "answers_equal_fs_store": not differ, "self_hits": self_hits,
+        "retrieve_p50_ms": lat[len(lat) // 2] if lat else None, "retrieve_p99_ms": lat[int(len(lat) * 0.99)] if lat else None,
+        "nats_answer_p50_ms": lat_nats[len(lat_nats) // 2] if lat_nats else None,
+        "sink_first_last_s_after_last_query": {"nats": spread(broker.times.get("answers", [])),
+                                               "logstash": spread(sorted(post_times)),
+                                               "pubsub": spread(publisher.times)},
+        "answer_changes": answer_diffs[0], "nats_answers": n_nats, "logstash_posts": len(posts),
+        "pubsub_published": len(publisher.published), "alerts": alert_diffs, "slack_posts": len(slack_posts),
+        "top_score_range": {kind: [min(v), max(v)] for kind, v in (
+            ("corpus", [-got[q][0][1] for q in queries[: CN_QUERIES - CN_NOISE] if got.get(q)]),
+            ("noise", [-got[q][0][1] for q in queries[CN_QUERIES - CN_NOISE:] if got.get(q)])) if v},
+        "gdrive_downloads": drive.downloads, "pyarrow": has_pyarrow, "lake_rows_read": lake_read,
+        "lake_errors": lake_errors, "attention_launches": launches, "attention_launches_by_route": route_launches,
+        "run_s": t_run1 - t_run0, "phase_s": time_mod.perf_counter() - t_phase,
+    }
+    emit("connectors", **out)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": route_launches, "metrics": out}
 
 
 PERSIST_SNAPSHOT_MS = 5_000  # operator snapshot cadence in runs A and B (delta chunks), plus the one at close
@@ -4998,17 +5683,20 @@ def phase_elastic(info: dict, solo_answers: dict | None = None) -> dict:
 
 #: the backward kernel's checked cases, (B texts, L, heads, hd): the train
 #: step's texts (256 pairs, both sides; the step encodes each side in its
-#: own call of 256), the bert block's heads, the longest length, a length
-#: that fills no tile evenly, the widest head, a single row, multichip_dryrun's
-#: step (4 heads of 16 at L 16), the widest head on the fused route at L
-#: 128 and below (bf16; f32 at hd 128 takes the two-pass route) and the
-#: narrowest at L 128 (fused) and 200 (two-pass): every fused instantiation,
-#: (dtype, hd) at L = 128 and at any length, meets the plain version
+#: own call of 256), the bert block's heads, 512 keys, a length that fills
+#: no tile evenly, the widest head, a single row, multichip_dryrun's step (4
+#: heads of 16 at L 16), the widest head on the fused route at L 128 and
+#: below (bf16; f32 at hd 128 takes the two-pass route), the narrowest at
+#: L 128 (fused) and 200 (two-pass), the widths that run in a wider or new
+#: instantiation (48 and 96 at L 128: bf16 fused, f32 fused at 48 and
+#: two-pass at 96; 8 at L 16) and 1,024 keys (two-pass)
 BWD_SHAPES = {
     "train": (512, 128, 6, 64), "bert": (64, 128, 12, 32), "max_len": (4, 512, 6, 64),
     "ragged": (3, 77, 6, 64), "hd128": (4, 256, 3, 128), "one": (1, 16, 6, 64),
     "dryrun": (8, 16, 4, 16), "hd128_l128": (4, 128, 3, 128), "hd128_l77": (3, 77, 3, 128),
     "hd16_l128": (16, 128, 4, 16), "hd16_l200": (4, 200, 4, 16),
+    "hd48_l128": (16, 128, 8, 48), "hd96_l128": (8, 128, 4, 96), "hd8_l16": (8, 16, 48, 8),
+    "l1024": (2, 1024, 6, 64),
 }
 #: the backward's timed cases: the train step's shape and multichip_dryrun's
 BWD_TIMED = ("train", "dryrun")
@@ -5077,6 +5765,9 @@ def phase_kernels_backward() -> list[dict]:
                 ok = ok and bool(torch.isfinite(a).all()) and bool((err <= rel * (b.abs() + b.abs().max())).all())
                 errs[name] = err.max().item()
             check(ok, f"attention backward {label} {dname}: kernel disagrees with plain {errs}")
+            want_fused = L <= 128 and (dtype == torch.bfloat16 or A.kernel_width(hd) <= 64)
+            check(geo.fused == want_fused, f"attention backward {label} {dname}: route {geo.route}, "
+                  f"expected the {'fused' if want_fused else 'two-pass'} route")
             if label == "ragged":
                 wide = torch.empty(B, L, D + 1, device="cuda", dtype=dtype)
                 wide[..., 1:] = g
@@ -5085,6 +5776,7 @@ def phase_kernels_backward() -> list[dict]:
                       f"attention backward ragged {dname}: an unaligned d_out changes the result")
                 del wide, shifted
             rec = {"case": label, "dtype": dname, "B": B, "L": L, "H": H, "hd": hd, "route": geo.route,
+                   "kernel_width": A.kernel_width(hd),
                    "rows_per_block": geo.rows, "smem_bytes": geo.smem_bytes,
                    "max_abs_err": max(errs.values()), "errors": errs,
                    "tolerance": f"{rel:g}*(|ref|+max|ref|)", "ok": ok}
@@ -5533,6 +6225,7 @@ def main() -> int:
     timed("build", phase_build)
     kern = timed("kernels", phase_kernels)
     bwd_kern = timed("kernels_backward", phase_kernels_backward)
+    widths = timed("encoder_widths", phase_encoder_widths, info)
     state = timed("main_path", phase_main_path, synth_docs(N_DOCS))
     timed("checks", phase_checks, state)
     bench_vecs = main_path_embeddings(state["index"], N_DOCS)
@@ -5554,6 +6247,7 @@ def main() -> int:
         import shutil
 
         shutil.rmtree(store["root"], ignore_errors=True)
+    conn = timed("connectors", phase_connectors, info)
     timed("graphs", phase_graphs, info)
     timed("knn_index", phase_knn_index, info, bench_vecs)
     multi = timed("multiworker", phase_multiworker, info)
@@ -5564,10 +6258,12 @@ def main() -> int:
     emit("phase_walls", seconds=walls, total=round(sum(walls.values()), 3))
 
     launches = {
-        "main_path": state["launches"], "f32_path": f32["launches"], "pipeline": pipe["launches"],
+        "main_path": state["launches"], "encoder_widths": widths["launches"], "f32_path": f32["launches"],
+        "pipeline": pipe["launches"],
         "tiered_pipeline": tier["launches"], "temporal": temporal["launches"], "bert_path": bert["launches"],
         "document_store": store["launches"], "rest_serving": rest["launches"], "observability": obs["launches"],
-        "flow": flow["launches"], "persistence": persist["launches"], "multiworker": multi["launches"],
+        "flow": flow["launches"], "persistence": persist["launches"], "connectors": conn["launches"],
+        "multiworker": multi["launches"],
         "elastic": elastic["launches"], "train": train["launches"], "multichip_dryrun": dry["launches"],
         "fabric": fab["launches"],
     }

@@ -12,7 +12,7 @@
 // reference does. An online (flash) softmax that normalises at the end would
 // round at another place, so the kernel does not use one.
 //
-// One kernel (attention_tc_kernel<T, HD, RESIDENT>) on the tensor cores,
+// One kernel (attention_tc_kernel<T, HD, RESIDENT, EXACT>) on the tensor cores,
 // with two routes by input type T that share the tiling, the copies, the
 // softmax and the division, and differ only in the products:
 //
@@ -45,18 +45,20 @@
 //     its 16 x L score rows in registers (two 64-key tiles), folds them into
 //     the row max and sum as pass 1 below does, normalises, rounds, and
 //     multiplies by V.
-//   - 128 < L <= 512: an exact softmax in two passes over 64-key tiles
-//     staged through a double-buffered ring (the next tile's copy overlaps
-//     this tile's products). Pass 1 keeps a running row max and rescaled
-//     sum; pass 2 recomputes the scores, normalises with the final max and
-//     sum, rounds and accumulates probs . v.
+//   - L > 128 (any length): an exact softmax in two passes over 64-key
+//     tiles staged through a double-buffered ring (the next tile's copy,
+//     and its 64 key fills, overlap this tile's products). Pass 1 keeps a
+//     running row max and rescaled sum; pass 2 recomputes the scores,
+//     normalises with the final max and sum, rounds and accumulates
+//     probs . v. Shared memory does not grow with L: the per-key fill
+//     (0, -1e30 or -inf) rides in the ring with its K tile.
 // Both fold the row sum tile by tile in the same order (fold_tile), so a row
 // gets the same bits whatever length its launch is padded to: a text alone
 // (L = 128, resident) and in a batch (L = 256, streamed) embed alike.
 // Key columns past L (tile padding) score -inf, not -1e30, so a fully masked
 // row averages the L real keys only. Shared memory per block: (rows + 2 x 128
-// key rows) x (HD x size + 16) bytes; f32 at HD = 128 takes ~199 KB (one
-// block per SM), at HD = 64 ~103 KB (two).
+// key rows) x (HD x size + 16) bytes and 128 f32 fills; f32 at HD = 128
+// takes ~199 KB (one block per SM), at HD = 64 ~103 KB (two), at any L.
 //
 // Bound on an H100 SXM (3.35 TB/s HBM; dense 989 TFLOP/s bf16, 495 TF32).
 // One call must read q, k, v and the mask and write ctx: 4 * B * L * D
@@ -83,15 +85,24 @@
 // subtraction per operand element, each warp splitting the K and V it
 // reads).
 //
-// Supported: bf16 or f32, HD in {16, 32, 64, 128} (template parameter),
-// L <= 512, rows of q/k/v 16-byte aligned. At HD = 16, Q . K^T is one
-// m16n8k16 k-step in bf16 (two m16n8k8 in f32) and P . V two n8 tiles; each
-// ldmatrix still reads two 16-byte halves of a 32-byte row, and the rows,
-// padded to 48 (bf16) or 80 (f32) bytes, put 8 rows on 32 distinct banks as
-// at the wider heads. The Python wrapper checks all of
-// it and computes the launch geometry (rows per block, shared bytes) with
-// the same formulas as the launcher below. The copies, ldmatrix, the
-// products, score_tiles, fold_tile and div_rn live in attention_tc.cuh,
+// Supported: bf16 or f32, any head width hd that is a multiple of 8 from 8
+// to 128, any L >= 1, rows of q/k/v 16-byte aligned (h * hd elements is a
+// multiple of 16 bytes for every such hd in either type). The kernel is
+// instantiated at HD = 16, 32, ..., 128 (template parameter), each twice:
+// EXACT for hd == HD, with the column count a constant, and for hd < HD. A
+// head of hd columns runs in HD = kernel_width(hd), hd rounded up to 16:
+// columns hd .. HD - 1 of Q, K and V are zero-filled in shared memory (load_rows) and
+// never stored, so they add exactly 0 to q . k^T and leave the scores'
+// bits alone; the scale is hd^-0.5 of the real width (the caller's). At
+// HD = 16 Q . K^T is one m16n8k16 k-step in bf16 (two m16n8k8 in f32) and
+// P . V two n8 tiles; at HD = 48, 80, 96 and 112, HD / 16 k-steps and
+// ldmatrix.x4.trans reads of V, each covering 16 columns. A shared row is
+// HD / 8 + 1 (bf16) or HD / 4 + 1 (f32) 16-byte units, an odd number at
+// every HD, so the 8 rows of an ldmatrix hit 32 distinct banks. The Python
+// wrapper checks all of it and computes the launch geometry (rows per
+// block, shared bytes) with the same formulas as the launcher below. The
+// copies, ldmatrix, the products, score_tiles, fold_tile and div_rn live in
+// attention_tc.cuh,
 // which the backward (attention_short_bwd.cu) includes too.
 
 // ---------------------------------------------------------------------------
@@ -183,28 +194,43 @@ __device__ __forceinline__ void pv_tile(float (&o)[HD / 8][4], const float (&e)[
 
 // Shared bytes of one block; mirrored by ops/attention_kernel.py::launch_geometry:
 // the Q rows, K and V (resident) or their 2-tile rings (streaming), in rows
-// padded by 16 bytes, and one f32 fill per key.
+// padded by 16 bytes, and one f32 fill per key of the resident tiles or of
+// the ring's two tiles: at most 128 keys, whatever L is.
 __host__ __device__ __forceinline__ int tc_kv_rows(int L) {
   return L <= kKeyTile ? kKeyTile : 2 * kKeyTile;
 }
 template <typename T, int HD>
 __host__ __device__ __forceinline__ size_t tc_smem_bytes(int rows, int L) {
-  const int nt = (L + kKeyTile - 1) / kKeyTile;
   return (size_t)(rows + 2 * tc_kv_rows(L)) * (HD + chunk<T>()) * sizeof(T) +
-         (size_t)nt * kKeyTile * sizeof(float);
+         (size_t)tc_kv_rows(L) * sizeof(float);
+}
+
+// The fills of keys first .. first + 63 (one tile) into sf_t: 0 for a kept
+// key, -1e30 for a masked key, -inf past L.
+__device__ __forceinline__ void fill_tile(float* sf_t, const uint8_t* __restrict__ mrow, int first,
+                                          int L) {
+  for (int i = threadIdx.x; i < kKeyTile; i += blockDim.x) {
+    const int j = first + i;
+    sf_t[i] = j >= L ? -CUDART_INF_F : mrow[j] ? 0.f : -1e30f;
+  }
 }
 
 // Two blocks per SM where their shared memory allows it (every bf16 case,
-// f32 up to HD = 64), which caps a thread at 128 registers; f32 at HD = 128
-// takes ~199 KB of shared memory, so one block, and the registers it needs.
-template <typename T, int HD, bool RESIDENT>
+// f32 up to HD = 64), which caps a thread at 128 registers; f32 at HD = 80
+// and above takes 126-199 KB of shared memory, so one block, and the
+// registers it needs.
+// EXACT: hd == HD (every width of the main path), so the column count is a
+// constant and every column test compiles away; without it the block ran
+// ~4% slower at embed in bf16 (PERF.md, the widened kernels' findings).
+template <typename T, int HD, bool RESIDENT, bool EXACT>
 __global__ void __launch_bounds__(kMaxRows / 16 * 32, (sizeof(T) == 2 || HD <= 64) ? 2 : 1)
 attention_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                    T* __restrict__ out, int L, int H, long long q_sb, long long q_sl,
+                    T* __restrict__ out, int L, int H, int hd_arg, long long q_sb, long long q_sl,
                     long long k_sb, long long k_sl, long long v_sb, long long v_sl,
                     long long m_sb, float scale) {
-  static_assert(HD % 16 == 0 && HD <= 128, "HD must be 16, 32, 64 or 128");
+  static_assert(HD % 16 == 0 && HD <= 128, "HD must be a multiple of 16 up to 128");
+  const int hd = EXACT ? HD : hd_arg;
   constexpr int C = chunk<T>();
   constexpr int RS = HD + C;
   constexpr int NO = HD / 8;  // 8-column groups of the output
@@ -223,17 +249,24 @@ attention_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* sq = reinterpret_cast<T*>(smem);  // [rows][RS]; later the output rows
   T* sk = sq + rows * RS;              // [kv_rows][RS]: K, or a 2-tile ring of K
   T* sv = sk + kv_rows * RS;           // [kv_rows][RS]: V, or a 2-tile ring of V
-  float* sf = reinterpret_cast<float*>(sv + kv_rows * RS);  // [nt * 64] fill per key
+  float* sf = reinterpret_cast<float*>(sv + kv_rows * RS);  // [kv_rows]: fill per key
 
-  const T* kh = k + b * k_sb + (long long)h * HD;
-  const T* vh = v + b * v_sb + (long long)h * HD;
+  const long long col = (long long)h * hd;
+  const T* kh = k + b * k_sb + col;
+  const T* vh = v + b * v_sb + col;
+  const uint8_t* mrow = mask + b * m_sb;
   T* sq_w = sq + warp * 16 * RS;
 
-  load_rows<T, HD>(sq, q + b * q_sb + (long long)h * HD, q_sl, row0, rows, L);
-  load_rows<T, HD>(sk, kh, k_sl, 0, RESIDENT ? nt * kKeyTile : kKeyTile, L);
+  load_rows<T, HD>(sq, q + b * q_sb + col, q_sl, row0, rows, L, hd);
+  load_rows<T, HD>(sk, kh, k_sl, 0, RESIDENT ? nt * kKeyTile : kKeyTile, L, hd);
   cp_async_commit();
-  for (int j = threadIdx.x; j < nt * kKeyTile; j += blockDim.x) {
-    sf[j] = j >= L ? -CUDART_INF_F : mask[b * m_sb + j] ? 0.f : -1e30f;
+  if constexpr (RESIDENT) {
+    // every tile's fills in one pass of the block (two fill_tile passes cost
+    // 2% at embed in bf16)
+    for (int j = threadIdx.x; j < nt * kKeyTile; j += blockDim.x)
+      sf[j] = j >= L ? -CUDART_INF_F : mrow[j] ? 0.f : -1e30f;
+  } else {
+    fill_tile(sf, mrow, 0, L);  // tile 0's, in ring slot 0
   }
 
   float o[NO][4];
@@ -242,7 +275,7 @@ attention_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if constexpr (RESIDENT) {
     // V's copy runs while the scores and the softmax are computed.
-    load_rows<T, HD>(sv, vh, v_sl, 0, nt * kKeyTile, L);
+    load_rows<T, HD>(sv, vh, v_sl, 0, nt * kKeyTile, L, hd);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
@@ -277,15 +310,18 @@ attention_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   } else {
     // Two passes over nt >= 3 key tiles through a 2-slot ring: step st < nt
     // is pass 1 on tile st, step st >= nt pass 2 on tile st - nt; the copy
-    // for step st + 1 is in flight while step st computes.
+    // for step st + 1 is in flight while step st computes, and its tile's
+    // fills are written to the same slot (read after the next barrier; the
+    // slot's last reader was step st - 1, before the barrier ending it).
     float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f, r0 = 0.f, r1 = 0.f;
     for (int st = 0; st < 2 * nt; ++st) {
       if (st + 1 < 2 * nt) {
         const int tn = st + 1 < nt ? st + 1 : st + 1 - nt;
         const int slot = (st + 1) & 1;
-        load_rows<T, HD>(sk + slot * kKeyTile * RS, kh, k_sl, tn * kKeyTile, kKeyTile, L);
+        load_rows<T, HD>(sk + slot * kKeyTile * RS, kh, k_sl, tn * kKeyTile, kKeyTile, L, hd);
         if (st + 1 >= nt)
-          load_rows<T, HD>(sv + slot * kKeyTile * RS, vh, v_sl, tn * kKeyTile, kKeyTile, L);
+          load_rows<T, HD>(sv + slot * kKeyTile * RS, vh, v_sl, tn * kKeyTile, kKeyTile, L, hd);
+        fill_tile(sf + slot * kKeyTile, mrow, tn * kKeyTile, L);
       }
       cp_async_commit();
       cp_async_wait<1>();
@@ -295,7 +331,7 @@ attention_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int slot = st & 1;
       float s[1][8][4];
       score_tiles<T, HD, 1>(s, sq_w, sk + slot * kKeyTile * RS, 1, L - t * kKeyTile, lane);
-      mask_tile(s[0], sf + t * kKeyTile, scale, lane);
+      mask_tile(s[0], sf + slot * kKeyTile, scale, lane);
       if (st < nt) {
         fold_tile<false>(s[0], m0, m1, l0, l1);
         if (st == nt - 1) {
@@ -313,7 +349,7 @@ attention_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // Stage the warp's 16 output rows in its own (consumed) Q rows, then
-  // write the rows < L to device memory in 16-byte pieces.
+  // write the rows < L, columns < hd, to device memory in 16-byte pieces.
   const int g = lane >> 2, c2 = 2 * (lane & 3);
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
@@ -321,48 +357,50 @@ attention_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     store2(sq_w + (g + 8) * RS + 8 * n + c2, o[n][2], o[n][3]);
   }
   __syncwarp();
-  const long long D = (long long)H * HD;
+  const long long D = (long long)H * hd;
   for (int i = lane; i < 16 * CPR; i += 32) {
     const int r = i / CPR;
     const int c = (i % CPR) * C;
     const int row = row0 + warp * 16 + r;
-    if (row < L)
-      *reinterpret_cast<uint4*>(out + (b * L + row) * D + (long long)h * HD + c) =
+    if (row < L && c < hd)
+      *reinterpret_cast<uint4*>(out + (b * L + row) * D + col + c) =
           *reinterpret_cast<const uint4*>(sq_w + r * RS + c);
   }
 }
 
 template <typename T, int HD>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* mask, void* out,
-                      long long B, int L, int H, int rows, long long q_sb, long long q_sl,
+                      long long B, int L, int H, int hd, int rows, long long q_sb, long long q_sl,
                       long long k_sb, long long k_sl, long long v_sb, long long v_sl,
                       long long m_sb, float scale, cudaStream_t stream) {
   if (rows % 16 || rows < 16 || rows > kMaxRows) return cudaErrorInvalidValue;
   const size_t smem = tc_smem_bytes<T, HD>(rows, L);
-  auto kern =
-      L <= kResidentLen ? attention_tc_kernel<T, HD, true> : attention_tc_kernel<T, HD, false>;
+  const bool exact = hd == HD;
+  auto kern = L <= kResidentLen
+                  ? (exact ? attention_tc_kernel<T, HD, true, true> : attention_tc_kernel<T, HD, true, false>)
+                  : (exact ? attention_tc_kernel<T, HD, false, true> : attention_tc_kernel<T, HD, false, false>);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)B, (unsigned)H, (unsigned)((L + rows - 1) / rows));
   kern<<<grid, rows * 2, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(out), L, H, q_sb, q_sl, k_sb, k_sl,
+      static_cast<const uint8_t*>(mask), static_cast<T*>(out), L, H, hd, q_sb, q_sl, k_sb, k_sl,
       v_sb, v_sl, m_sb, scale);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const void* mask,
-                   void* out, long long B, int L, int H, int rows, long long q_sb,
+                   void* out, long long B, int L, int H, int hd, int rows, long long q_sb,
                    long long q_sl, long long k_sb, long long k_sl, long long v_sb,
                    long long v_sl, long long m_sb, float scale, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_tc<float, HD>(q, k, v, mask, out, B, L, H, rows, q_sb, q_sl, k_sb, k_sl,
+    return launch_tc<float, HD>(q, k, v, mask, out, B, L, H, hd, rows, q_sb, q_sl, k_sb, k_sl,
                                 v_sb, v_sl, m_sb, scale, stream);
   if (dtype == 1)
-    return launch_tc<bf16, HD>(q, k, v, mask, out, B, L, H, rows, q_sb, q_sl, k_sb, k_sl, v_sb,
-                               v_sl, m_sb, scale, stream);
+    return launch_tc<bf16, HD>(q, k, v, mask, out, B, L, H, hd, rows, q_sb, q_sl, k_sb, k_sl,
+                               v_sb, v_sl, m_sb, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -379,20 +417,22 @@ extern "C" int pw_attention_short_flat(int dtype, int hd, const void* q, const v
                                        long long v_sb, long long v_sl, long long m_sb,
                                        float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16:
-      return (int)launch<16>(dtype, q, k, v, mask, out, B, L, H, rows, q_sb, q_sl, k_sb, k_sl,
-                             v_sb, v_sl, m_sb, scale, s);
-    case 32:
-      return (int)launch<32>(dtype, q, k, v, mask, out, B, L, H, rows, q_sb, q_sl, k_sb, k_sl,
-                             v_sb, v_sl, m_sb, scale, s);
-    case 64:
-      return (int)launch<64>(dtype, q, k, v, mask, out, B, L, H, rows, q_sb, q_sl, k_sb, k_sl,
-                             v_sb, v_sl, m_sb, scale, s);
-    case 128:
-      return (int)launch<128>(dtype, q, k, v, mask, out, B, L, H, rows, q_sb, q_sl, k_sb, k_sl,
-                              v_sb, v_sl, m_sb, scale, s);
+  if (hd < 8 || hd > 128 || hd % 8 || L < 1) return (int)cudaErrorInvalidValue;
+#define PW_CASE(HD)                                                                            \
+  case HD:                                                                                     \
+    return (int)launch<HD>(dtype, q, k, v, mask, out, B, L, H, hd, rows, q_sb, q_sl, k_sb,    \
+                           k_sl, v_sb, v_sl, m_sb, scale, s);
+  switch (kernel_width(hd)) {
+    PW_CASE(16)
+    PW_CASE(32)
+    PW_CASE(48)
+    PW_CASE(64)
+    PW_CASE(80)
+    PW_CASE(96)
+    PW_CASE(112)
+    PW_CASE(128)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef PW_CASE
 }

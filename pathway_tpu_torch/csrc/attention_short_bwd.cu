@@ -54,9 +54,10 @@
 //      has the same bits in any batch.
 // The scores are computed once (10 * B * H * L^2 * hd FLOP in all). The only
 // rounding the plain version lacks is dS in bf16 as an operand of dQ and dK.
-// At L = 128 (the train step's and the bert block's length) the kernel is
-// instantiated with FULL, which resolves every test of a key, step or row
-// at compile time, so each phase's products are straight-line code the
+// At L = 128 (the train step's and the bert block's length) and a head
+// width that is its instantiation's (hd == HD) the kernel is instantiated
+// with FULL, which resolves every test of a key, step, row or column at
+// compile time, so each phase's products are straight-line code the
 // compiler schedules across steps: at the train shape on an H100 (700 W),
 // 1.20x faster in bf16 and 2.54x in f32 than without it, and 1.07x and
 // 1.04x faster than with L alone made a constant (PERF.md, the fused
@@ -76,8 +77,14 @@
 // shared memory as f32 in rows padded by one word; f32 FMAs from shared
 // memory, the scores computed three times (16 * B * H * L^2 * hd FLOP).
 //
-// Supported: bf16 or f32 (dtype 1 / 0), HD in {16, 32, 64, 128}, L <= 512, last
-// dimension contiguous, rows 16-byte aligned; strides in elements. The
+// Supported: bf16 or f32 (dtype 1 / 0), any head width hd that is a multiple
+// of 8 from 8 to 128, any L >= 1 (the two-pass route above 128 keys), last
+// dimension contiguous, rows 16-byte aligned; strides in elements. Both
+// routes are instantiated at HD = 16, 32, ..., 128 and a head of hd columns
+// runs in HD = kernel_width(hd) (hd rounded up to 16) with columns hd .. HD
+// - 1 zero in shared memory and never stored, as in the forward; the fused
+// route exists where its block fits at 128 rows: every bf16 HD and f32 up
+// to HD = 64 (f32 at HD = 80 needs 239,616 B). The
 // Python wrapper checks it and picks the route
 // (ops/attention_kernel.py::backward_launch_geometry, the same formulas as
 // fused_smem_bytes below); launch_fused refuses a shape outside the fused
@@ -101,7 +108,7 @@ struct Args {
   void* dv;
   float* stats;  // two-pass route: [3, B, H, L] row max, row sum, D; null on the fused route
   long long B;
-  int L, H;
+  int L, H, hd;  // hd: the head's real width (<= the instantiation's HD)
   long long q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl, g_sb, g_sl, m_sb;
   float scale;
 };
@@ -355,24 +362,25 @@ __device__ __forceinline__ float dot16(const bf16* x, const bf16* y, float acc) 
 }
 
 // D = rowsum(dO * O) of one query row: this lane's 16-byte chunks tq, tq + 4,
-// ... of the dO row (shared) and of the O row (device memory); the caller
-// sums the quad.
+// ... below hd of the dO row (shared) and of the O row (device memory); the
+// caller sums the quad.
 template <typename T, int HD>
-__device__ __forceinline__ float row_dot(const T* srow, const T* __restrict__ grow, int tq) {
+__device__ __forceinline__ float row_dot(const T* srow, const T* __restrict__ grow, int tq, int hd) {
   constexpr int C = chunk<T>();
   float acc = 0.f;
 #pragma unroll
-  for (int c = tq; c < HD / C; c += 4) acc = dot16(srow + c * C, grow + c * C, acc);
+  for (int c = tq; c < HD / C; c += 4)
+    if (c * C < hd) acc = dot16(srow + c * C, grow + c * C, acc);
   return acc;
 }
 
 // Stage the warp's 16 output rows (o * mul, rounded to T) in its own shared
-// rows stage_w (row stride HD + 16 / size), then copy the rows row0 + r < L
-// to dst (row stride D elements) in 16-byte pieces.
+// rows stage_w (row stride HD + 16 / size), then copy the rows row0 + r < L,
+// columns < hd, to dst (row stride D elements) in 16-byte pieces.
 template <typename T, int HD, bool FULL>
 __device__ __forceinline__ void write_rows(T* stage_w, const float (&o)[HD / 8][4], float mul,
                                            T* __restrict__ dst, long long D, int row0, int L,
-                                           int lane) {
+                                           int hd, int lane) {
   constexpr int C = chunk<T>();
   constexpr int RS = HD + C;
   constexpr int CPR = HD / C;
@@ -387,7 +395,7 @@ __device__ __forceinline__ void write_rows(T* stage_w, const float (&o)[HD / 8][
     const int r = i / CPR;
     const int c = (i % CPR) * C;
     const int row = row0 + r;
-    if (FULL || row < L)
+    if ((FULL || row < L) && c < hd)
       *reinterpret_cast<uint4*>(dst + row * D + c) =
           *reinterpret_cast<const uint4*>(stage_w + r * RS + c);
   }
@@ -412,8 +420,12 @@ attention_bwd_fused(Args a) {
   const int lane = threadIdx.x & 31;
   const int r0 = (threadIdx.x >> 5) * 16;  // the warp's first query row and first key
   const int nt = FULL ? 2 : (L + kKeyTile - 1) / kKeyTile;
-  const long long D = (long long)a.H * HD;
-  const long long col = (long long)blockIdx.y * HD;
+  // FULL is launched only at hd == HD (the train step's widths), so its
+  // column count is a constant: a runtime one cost the bf16 FULL blocks 60
+  // bytes of spill more at their 128 registers
+  const int hd = FULL ? HD : a.hd;
+  const long long D = (long long)a.H * hd;
+  const long long col = (long long)blockIdx.y * hd;
 
   // (its own name: the two-pass kernels declare `smem` as float)
   extern __shared__ __align__(16) unsigned char smem_tc[];
@@ -424,11 +436,11 @@ attention_bwd_fused(Args a) {
   T* sp = sg + rows * RS;                 // [rows][PS]: round(P), then dS
   T* sp_w = sp + r0 * PS;
 
-  load_rows<T, HD>(sq, static_cast<const T*>(a.q) + b * a.q_sb + col, a.q_sl, 0, rows, L);
-  load_rows<T, HD>(sk, static_cast<const T*>(a.k) + b * a.k_sb + col, a.k_sl, 0, rows, L);
+  load_rows<T, HD>(sq, static_cast<const T*>(a.q) + b * a.q_sb + col, a.q_sl, 0, rows, L, hd);
+  load_rows<T, HD>(sk, static_cast<const T*>(a.k) + b * a.k_sb + col, a.k_sl, 0, rows, L, hd);
   cp_async_commit();
-  load_rows<T, HD>(sv, static_cast<const T*>(a.v) + b * a.v_sb + col, a.v_sl, 0, rows, L);
-  load_rows<T, HD>(sg, static_cast<const T*>(a.dout) + b * a.g_sb + col, a.g_sl, 0, rows, L);
+  load_rows<T, HD>(sv, static_cast<const T*>(a.v) + b * a.v_sb + col, a.v_sl, 0, rows, L, hd);
+  load_rows<T, HD>(sg, static_cast<const T*>(a.dout) + b * a.g_sb + col, a.g_sl, 0, rows, L, hd);
   cp_async_commit();
   const uint32_t kept = kept_keys(a.mask + b * a.m_sb, L, lane);
   cp_async_wait<1>();
@@ -475,7 +487,8 @@ attention_bwd_fused(Args a) {
     float x = 0.f;
     if (FULL || row < L)
       x = row_dot<T, HD>(sg + row * RS,
-                         static_cast<const T*>(a.out) + b * a.o_sb + row * a.o_sl + col, lane & 3);
+                         static_cast<const T*>(a.out) + b * a.o_sb + row * a.o_sl + col, lane & 3,
+                         hd);
     dd[half] = quad_sum(x);
   }
 
@@ -507,13 +520,13 @@ attention_bwd_fused(Args a) {
       ds_times_k<HD, FULL>(dq, ds, t, sk + t * kKeyTile * RS, L - t * kKeyTile, lane);
   }
   __syncthreads();  // every warp is done with K and V: their rows stage outputs
-  write_rows<T, HD, FULL>(sk + r0 * RS, dq, a.scale, static_cast<T*>(a.dq) + b * L * D + col, D, r0, L,
+  write_rows<T, HD, FULL>(sk + r0 * RS, dq, a.scale, static_cast<T*>(a.dq) + b * L * D + col, D, r0, L, hd,
                     lane);
 
   // dV = round(P)^T . dO for the warp's 16 keys
   float dv[NO][4] = {};
   keys_product<HD, FULL>(dv, sp, PS, sg, r0, L, lane);
-  write_rows<T, HD, FULL>(sv + r0 * RS, dv, 1.f, static_cast<T*>(a.dv) + b * L * D + col, D, r0, L,
+  write_rows<T, HD, FULL>(sv + r0 * RS, dv, 1.f, static_cast<T*>(a.dv) + b * L * D + col, D, r0, L, hd,
                     lane);
   __syncthreads();  // every warp is done with round(P): the buffer takes dS
   stage_ds<FULL>(sp_w, PS, ds, nt, rows, lane);
@@ -522,7 +535,7 @@ attention_bwd_fused(Args a) {
   // dK = scale * dS^T . Q for the warp's 16 keys
   float dk[NO][4] = {};
   keys_product<HD, FULL>(dk, sp, PS, sq, r0, L, lane);
-  write_rows<T, HD, FULL>(sk + r0 * RS, dk, a.scale, static_cast<T*>(a.dk) + b * L * D + col, D, r0, L,
+  write_rows<T, HD, FULL>(sk + r0 * RS, dk, a.scale, static_cast<T*>(a.dk) + b * L * D + col, D, r0, L, hd,
                     lane);
 }
 
@@ -534,7 +547,8 @@ cudaError_t launch_fused(const Args& a, cudaStream_t stream) {
     if (a.L < 1 || a.L > kMaxRows) return cudaErrorInvalidValue;
     const int rows = (a.L + 15) / 16 * 16;
     const size_t smem = fused_smem_bytes<T, HD>(rows);
-    auto kern = a.L == kMaxRows ? attention_bwd_fused<T, HD, true> : attention_bwd_fused<T, HD, false>;
+    auto kern = a.L == kMaxRows && a.hd == HD ? attention_bwd_fused<T, HD, true>
+                                              : attention_bwd_fused<T, HD, false>;
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -565,15 +579,16 @@ template <typename T>
 __device__ __forceinline__ float rounded(float p) { return to_f32(from_f32<T>(p)); }
 
 // Shared tile [kTile][HD + 1] of f32 loaded from rows row0.. of a strided
-// [B, L, D] tensor at batch b and column offset col; rows >= L are zero.
+// [B, L, D] tensor at batch b and column offset col; rows >= L and columns
+// >= hd are zero.
 template <typename T, int HD>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, long long b, int row0,
-                                          int L, long long sb, long long sl, int col) {
+                                          int L, long long sb, long long sl, int col, int hd) {
   for (int e = threadIdx.x; e < kTile * HD; e += kThreads) {
     const int r = e / HD, d = e % HD;
     const int row = row0 + r;
     dst[r * (HD + 1) + d] =
-        row < L ? to_f32(src[b * sb + (long long)row * sl + col + d]) : 0.0f;
+        row < L && d < hd ? to_f32(src[b * sb + (long long)row * sl + col + d]) : 0.0f;
   }
 }
 
@@ -605,13 +620,14 @@ __device__ __forceinline__ void accum_rows(const float* w, const float* c, float
 
 template <typename T, int HD>
 __device__ __forceinline__ void store_rows(T* dst, const float* acc, long long b, int row0,
-                                           int L, int D, int col, float mul) {
+                                           int L, int D, int col, int hd, float mul) {
   const int r = threadIdx.x >> 3, d0 = threadIdx.x & 7;
   const int row = row0 + r;
   if (row >= L) return;
   T* p = dst + (b * L + row) * (long long)D + col;
 #pragma unroll
-  for (int u = 0; u < HD / 8; ++u) p[d0 + 8 * u] = from_f32<T>(acc[u] * mul);
+  for (int u = 0; u < HD / 8; ++u)
+    if (d0 + 8 * u < hd) p[d0 + 8 * u] = from_f32<T>(acc[u] * mul);
 }
 
 
@@ -631,7 +647,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq(Args a) {
   float* keep = d_row + kTile;      // 1 for a kept key of the tile, 0 masked, -1 past L
 
   const long long b = blockIdx.x;
-  const int h = blockIdx.y, L = a.L, H = a.H, D = H * HD, col = h * HD;
+  const int h = blockIdx.y, L = a.L, H = a.H, hd = a.hd, D = H * hd, col = h * hd;
   const int q0 = blockIdx.z * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const T* q = static_cast<const T*>(a.q);
@@ -640,15 +656,15 @@ __global__ void __launch_bounds__(kThreads) bwd_dq(Args a) {
   const T* o = static_cast<const T*>(a.out);
   const T* g = static_cast<const T*>(a.dout);
 
-  load_tile<T, HD>(Qs, q, b, q0, L, a.q_sb, a.q_sl, col);
-  load_tile<T, HD>(Gs, g, b, q0, L, a.g_sb, a.g_sl, col);
+  load_tile<T, HD>(Qs, q, b, q0, L, a.q_sb, a.q_sl, col, hd);
+  load_tile<T, HD>(Gs, g, b, q0, L, a.g_sb, a.g_sl, col, hd);
   __syncthreads();
   // D_i = rowsum(dO * O): warp w takes rows w, w + 8, ...
   for (int r = warp; r < kTile; r += kThreads / 32) {
     const int row = q0 + r;
     float s = 0.0f;
     if (row < L)
-      for (int d = lane; d < HD; d += 32)
+      for (int d = lane; d < hd; d += 32)
         s = fmaf(Gs[r * kRow + d], to_f32(o[b * a.o_sb + (long long)row * a.o_sl + col + d]), s);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -666,7 +682,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq(Args a) {
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kTile;
     __syncthreads();
-    load_tile<T, HD>(Ks, k, b, k0, L, a.k_sb, a.k_sl, col);
+    load_tile<T, HD>(Ks, k, b, k0, L, a.k_sb, a.k_sl, col, hd);
     if (threadIdx.x < kTile) {
       const int key = k0 + threadIdx.x;
       keep[threadIdx.x] = key < L ? (a.mask[b * a.m_sb + key] ? 1.0f : 0.0f) : -1.0f;
@@ -715,8 +731,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dq(Args a) {
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kTile;
     __syncthreads();
-    load_tile<T, HD>(Ks, k, b, k0, L, a.k_sb, a.k_sl, col);
-    load_tile<T, HD>(Vs, v, b, k0, L, a.v_sb, a.v_sl, col);
+    load_tile<T, HD>(Ks, k, b, k0, L, a.k_sb, a.k_sl, col, hd);
+    load_tile<T, HD>(Vs, v, b, k0, L, a.v_sb, a.v_sl, col, hd);
     if (threadIdx.x < kTile) {
       const int key = k0 + threadIdx.x;
       keep[threadIdx.x] = key < L ? (a.mask[b * a.m_sb + key] ? 1.0f : 0.0f) : -1.0f;
@@ -737,7 +753,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq(Args a) {
     __syncthreads();
     accum_rows<HD, false>(Ss, Ks, dq);
   }
-  store_rows<T, HD>(static_cast<T*>(a.dq), dq, b, q0, L, D, col, a.scale);
+  store_rows<T, HD>(static_cast<T*>(a.dq), dq, b, q0, L, D, col, hd, a.scale);
 }
 
 template <typename T, int HD>
@@ -756,7 +772,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv(Args a) {
   float* keep = d_row + kTile;
 
   const long long b = blockIdx.x;
-  const int h = blockIdx.y, L = a.L, H = a.H, D = H * HD, col = h * HD;
+  const int h = blockIdx.y, L = a.L, H = a.H, hd = a.hd, D = H * hd, col = h * hd;
   const int k0 = blockIdx.z * kTile;
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
@@ -765,8 +781,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv(Args a) {
   const long long plane = a.B * (long long)H * L;
   const long long base = (b * H + h) * (long long)L;
 
-  load_tile<T, HD>(Ks, k, b, k0, L, a.k_sb, a.k_sl, col);
-  load_tile<T, HD>(Vs, v, b, k0, L, a.v_sb, a.v_sl, col);
+  load_tile<T, HD>(Ks, k, b, k0, L, a.k_sb, a.k_sl, col, hd);
+  load_tile<T, HD>(Vs, v, b, k0, L, a.v_sb, a.v_sl, col, hd);
   if (threadIdx.x < kTile) {
     const int key = k0 + threadIdx.x;
     keep[threadIdx.x] = key < L ? (a.mask[b * a.m_sb + key] ? 1.0f : 0.0f) : -1.0f;
@@ -780,8 +796,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv(Args a) {
   for (int t = 0; t < n_tiles; ++t) {
     const int q0 = t * kTile;
     __syncthreads();
-    load_tile<T, HD>(Qs, q, b, q0, L, a.q_sb, a.q_sl, col);
-    load_tile<T, HD>(Gs, g, b, q0, L, a.g_sb, a.g_sl, col);
+    load_tile<T, HD>(Qs, q, b, q0, L, a.q_sb, a.q_sl, col, hd);
+    load_tile<T, HD>(Gs, g, b, q0, L, a.g_sb, a.g_sl, col, hd);
     if (threadIdx.x < kTile) {
       const int row = q0 + threadIdx.x;
       const bool in = row < L;
@@ -809,8 +825,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv(Args a) {
     accum_rows<HD, true>(Ps, Gs, dv);
     accum_rows<HD, true>(Ds, Qs, dk);
   }
-  store_rows<T, HD>(static_cast<T*>(a.dk), dk, b, k0, L, D, col, a.scale);
-  store_rows<T, HD>(static_cast<T*>(a.dv), dv, b, k0, L, D, col, 1.0f);
+  store_rows<T, HD>(static_cast<T*>(a.dk), dk, b, k0, L, D, col, hd, a.scale);
+  store_rows<T, HD>(static_cast<T*>(a.dv), dv, b, k0, L, D, col, hd, 1.0f);
 }
 
 template <int HD>
@@ -863,16 +879,25 @@ extern "C" int pw_attention_short_flat_backward(
     long long v_sb, long long v_sl, long long o_sb, long long o_sl, long long g_sb,
     long long g_sl, long long m_sb, float scale, void* stream) {
   Args a{q, k, v, static_cast<const uint8_t*>(mask), out, d_out, dq, dk, dv,
-         static_cast<float*>(stats), B, L, H, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb,
+         static_cast<float*>(stats), B, L, H, hd, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb,
          o_sl, g_sb, g_sl, m_sb, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
+  if (hd < 8 || hd > 128 || hd % 8 || L < 1) return (int)cudaErrorInvalidValue;
+  switch (kernel_width(hd)) {
     case 16:
       return (int)launch<16>(dtype, a, s);
     case 32:
       return (int)launch<32>(dtype, a, s);
+    case 48:
+      return (int)launch<48>(dtype, a, s);
     case 64:
       return (int)launch<64>(dtype, a, s);
+    case 80:
+      return (int)launch<80>(dtype, a, s);
+    case 96:
+      return (int)launch<96>(dtype, a, s);
+    case 112:
+      return (int)launch<112>(dtype, a, s);
     case 128:
       return (int)launch<128>(dtype, a, s);
     default:

@@ -167,12 +167,16 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Async-copy rows [first, first + count) of one head's [L, HD] slice (row
+// Async-copy rows [first, first + count) of one head's [L, hd] slice (row
 // stride `sl` elements) into shared rows of stride HD + chunk<T>() (16 bytes
-// of padding); rows >= L are zero-filled.
+// of padding), where HD is the instantiated width (hd rounded up to 16):
+// rows >= L and columns hd .. HD - 1 are zero-filled (hd is a multiple of
+// 8, so a whole 16-byte chunk is either read or zeroed). A zero column adds
+// exactly 0 to every product, so a head of hd < HD gets the bits it would
+// get in an instantiation of its own width.
 template <typename T, int HD>
 __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, long long sl,
-                                          int first, int count, int L) {
+                                          int first, int count, int L, int hd) {
   constexpr int C = chunk<T>();
   constexpr int RS = HD + C;
   constexpr int CPR = HD / C;  // 16-byte chunks per row
@@ -180,10 +184,17 @@ __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, lon
     const int r = i / CPR;
     const int c = (i % CPR) * C;
     const int j = first + r;
-    const bool ok = j < L;
-    cp_async16(dst + r * RS + c, src + (long long)(ok ? j : 0) * sl + c, ok);
+    const bool ok = j < L && c < hd;
+    // a chunk not read still gets an address inside the tensor (row 0,
+    // column 0); a caller whose hd is the constant HD compiles the column
+    // test away
+    cp_async16(dst + r * RS + c, src + (long long)(ok ? j : 0) * sl + (c < hd ? c : 0), ok);
   }
 }
+
+// The instantiated width HD of a head of hd columns: hd rounded up to 16
+// (one bf16 k-step, two f32 ones); the launchers dispatch on it.
+__host__ __device__ constexpr int kernel_width(int hd) { return (hd + 15) / 16 * 16; }
 
 // S (16 query rows x NT * 64 keys, f32) = Q_w . K^T for one warp, where Q_w
 // is the warp's 16 shared rows and K holds NT 64-key shared tiles; each

@@ -15,8 +15,6 @@ so detectors can fire into it); ``current()`` is None otherwise and every call
 site pays one ``is None`` test.
 
 Carried from ``pathway_tpu/observability/alerts.py`` with imports rewritten.
-The Slack sink needs ``io.slack``, which the port has not carried: asking for
-it (``PATHWAY_ALERT_SLACK_CHANNEL`` and ``_TOKEN``) raises ``later_slice``.
 Bundles carry the timeline plane's lead-up window and the bottleneck verdict
 at capture time, the shard map's version and the replica section, and leave
 out the membership section, whose plane the port does not have yet.
@@ -147,9 +145,19 @@ class SlackSink(NotificationSink):
     name = "slack"
 
     def __init__(self, channel: str, token: str, **kw: Any):
-        from pathway_tpu_torch.internals.later_slice import later_slice
+        super().__init__(**kw)
+        self.channel = channel
+        self.token = token
 
-        raise later_slice("io.slack")
+    def _post(self, payload: dict) -> None:
+        from pathway_tpu_torch.io.slack import post_message
+
+        text = (
+            f":rotating_light: [{payload.get('severity', 'warn')}] "
+            f"{payload.get('alert')} ({payload.get('fingerprint') or 'pod'}): "
+            f"{payload.get('summary', '')}"
+        )
+        post_message(self.channel, self.token, text)
 
 
 # ---------------------------------------------------------------- registry

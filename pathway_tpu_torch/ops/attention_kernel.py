@@ -21,11 +21,16 @@ async copies): bf16 as bf16 products, f32 as split "3xTF32" products (each
 operand split into two TF32 parts, three products per product, near f32
 accuracy); :func:`launch_geometry` says how either is launched. On a CPU
 tensor it runs :func:`attention_short_flat_plain`, the same arithmetic in
-plain PyTorch. The kernels' envelope is ``hd`` in :data:`HEAD_DIMS` and
-``1 <= L <= MAX_LEN`` (:func:`in_envelope`, from the shape alone): a CPU
-call outside it runs the plain version, as the reference falls back to XLA's
-attention outside its Pallas kernel's envelope, and counts under the route
-``plain_outside_envelope``; a CUDA call outside it raises.
+plain PyTorch. The kernels' envelope (:func:`in_envelope`, from the shape
+alone) is every head width ``hd`` that is a multiple of 8 from 8 to 128 and
+any ``L >= 1``: the kernels are instantiated at the widths
+:data:`KERNEL_WIDTHS` and a head runs in :func:`kernel_width` of its width
+(zero columns up to it, which add nothing); above 128 keys the forward
+streams K and V through a ring and the backward takes its two-pass route.
+A CPU call outside the envelope runs the plain version, as the reference
+falls back to XLA's attention outside its Pallas kernel's envelope, and
+counts under the route ``plain_outside_envelope``; a CUDA call outside it
+raises.
 """
 
 from __future__ import annotations
@@ -62,9 +67,9 @@ BACKWARD_KERNELS = {"fused": ("attention_bwd_fused",), "two_pass": ("bwd_dq", "b
 #: route name per input dtype
 ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "tensor_core_3xtf32"}
 
-#: head widths the kernel is instantiated for (template parameter HD)
-HEAD_DIMS = (16, 32, 64, 128)
-MAX_LEN = 512
+#: head widths the kernels are instantiated for (template parameter HD); a
+#: head of width hd runs in kernel_width(hd)
+KERNEL_WIDTHS = (16, 32, 48, 64, 80, 96, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: an H100 block may use 227 KB of dynamic shared memory
 _SMEM_LIMIT = 232448
@@ -94,28 +99,35 @@ class LaunchGeometry(NamedTuple):
     blocks: tuple[int, int, int]  #: grid (batch rows, heads, query-row tiles)
 
 
+def kernel_width(hd: int) -> int:
+    """The instantiation a head of ``hd`` columns runs in: ``hd`` rounded up
+    to 16 (``kernel_width`` in ``csrc/attention_tc.cuh``)."""
+    return -(-hd // 16) * 16
+
+
 def _tc_smem_bytes(L: int, hd: int, rows: int, elem: int) -> int:
-    """Dynamic shared memory of one block with ``elem``-byte elements;
-    mirrors ``tc_smem_bytes`` in the .cu file: the Q tile, K and V
-    (resident, or a 2-tile ring each) in rows padded by 16 bytes, and one
-    f32 fill per key."""
+    """Dynamic shared memory of one block with ``elem``-byte elements at the
+    instantiated width ``hd``; mirrors ``tc_smem_bytes`` in the .cu file: the
+    Q tile, K and V (resident, or a 2-tile ring each) in rows padded by 16
+    bytes, and one f32 fill per key of those K rows (at most 128, whatever
+    ``L`` is)."""
     kv_rows = _TC_KEY_TILE if L <= _TC_KEY_TILE else 2 * _TC_KEY_TILE
-    nt = -(-L // _TC_KEY_TILE)
-    return (rows + 2 * kv_rows) * (hd * elem + _TC_ROW_PAD_BYTES) + nt * _TC_KEY_TILE * 4
+    return (rows + 2 * kv_rows) * (hd * elem + _TC_ROW_PAD_BYTES) + kv_rows * 4
 
 
 @functools.lru_cache(maxsize=256)
 def launch_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype) -> LaunchGeometry:
     """How the kernel is launched for one call; both routes share the
-    geometry, f32 with twice the shared memory. Raises when a block would
-    not fit the 227 KB of shared memory a Hopper block may use. Cached: the
-    main path repeats a handful of shapes, and the wrapper's host time is
-    most of a small call's time."""
+    geometry, f32 with twice the shared memory, at the instantiated width
+    :func:`kernel_width` of ``hd``. No shape of the envelope needs more than
+    ~199 KB (f32 at width 128, any ``L``); a block above the 227 KB a Hopper
+    block may use raises. Cached: the main path repeats a handful of shapes,
+    and the wrapper's host time is most of a small call's time."""
     rows = min(_TC_MAX_ROWS, (L + 15) // 16 * 16)
     elem = 2 if dtype == torch.bfloat16 else 4
     geo = LaunchGeometry(
-        ROUTES[dtype], rows, rows // 16, _TC_KEY_TILE,
-        L <= _TC_RESIDENT_LEN, _tc_smem_bytes(L, hd, rows, elem), (B, n_heads, -(-L // rows)),
+        ROUTES[dtype], rows, rows // 16, _TC_KEY_TILE, L <= _TC_RESIDENT_LEN,
+        _tc_smem_bytes(L, kernel_width(hd), rows, elem), (B, n_heads, -(-L // rows)),
     )
     if geo.smem_bytes > _SMEM_LIMIT:
         raise ValueError(
@@ -144,8 +156,10 @@ def _fused_smem_bytes(rows: int, hd: int, elem: int) -> int:
 
 def _two_pass_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype) -> BackwardGeometry:
     """The two-pass route: 32-row tiles of f32 in rows padded by one word
-    (``dkv_smem_bytes``, the larger of its two kernels')."""
-    smem = (4 * _BWD_TILE * (hd + 1) + 2 * _BWD_TILE * (_BWD_TILE + 1) + 4 * _BWD_TILE) * 4
+    at the instantiated width (``dkv_smem_bytes``, the larger of its two
+    kernels')."""
+    width = kernel_width(hd)
+    smem = (4 * _BWD_TILE * (width + 1) + 2 * _BWD_TILE * (_BWD_TILE + 1) + 4 * _BWD_TILE) * 4
     return BackwardGeometry(
         BACKWARD_ROUTES[dtype][1], False, _BWD_TILE, 8, smem, (B, n_heads, -(-L // _BWD_TILE))
     )
@@ -154,23 +168,27 @@ def _two_pass_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype
 @functools.lru_cache(maxsize=256)
 def backward_launch_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype) -> BackwardGeometry:
     """How the backward is launched for one call: the fused route for
-    ``L <= 128`` where its block fits at 128 rows (every dtype and head
-    width but f32 at 128), one block per (batch row, head) of ``16 *
-    ceil(L / 16)`` rows; else the two-pass route."""
+    ``L <= 128`` where its block fits at 128 rows at the instantiated width
+    :func:`kernel_width` of ``hd`` (every bf16 width, f32 up to 64), one
+    block per (batch row, head) of ``16 * ceil(L / 16)`` rows; else the
+    two-pass route (any ``L``)."""
     elem = 2 if dtype == torch.bfloat16 else 4
-    if L <= _BWD_FUSED_MAX_LEN and _fused_smem_bytes(_BWD_FUSED_MAX_LEN, hd, elem) <= _SMEM_LIMIT:
+    width = kernel_width(hd)
+    if L <= _BWD_FUSED_MAX_LEN and _fused_smem_bytes(_BWD_FUSED_MAX_LEN, width, elem) <= _SMEM_LIMIT:
         rows = (L + 15) // 16 * 16
         return BackwardGeometry(
             BACKWARD_ROUTES[dtype][0], True, rows, rows // 16,
-            _fused_smem_bytes(rows, hd, elem), (B, n_heads, 1),
+            _fused_smem_bytes(rows, width, elem), (B, n_heads, 1),
         )
     return _two_pass_geometry(B, L, n_heads, hd, dtype)
 
 
 def in_envelope(L: int, hd: int) -> bool:
-    """Whether a kernel instantiation takes sequences of ``L`` keys in heads
-    of ``hd``; decided from the shape alone, before any launch."""
-    return hd in HEAD_DIMS and 1 <= L <= MAX_LEN
+    """Whether the kernels take sequences of ``L`` keys in heads of ``hd``:
+    every multiple of 8 from 8 to 128 (a 16-byte aligned head offset in
+    either dtype, run in :func:`kernel_width` of it) and any ``L >= 1``;
+    decided from the shape alone, before any launch."""
+    return hd % 8 == 0 and 8 <= hd <= 128 and L >= 1
 
 
 def _check_common(q, k, v, mask, n_heads: int) -> int:
@@ -208,7 +226,7 @@ def _check(q, k, v, mask, n_heads: int) -> tuple[int, LaunchGeometry]:
     if not in_envelope(L, hd):
         raise ValueError(
             f"attention_short_flat: head width {hd}, L={L} outside the kernels' envelope "
-            f"(head widths {HEAD_DIMS}, L in 1..{MAX_LEN})"
+            "(head widths a multiple of 8 from 8 to 128, L >= 1)"
         )
     return hd, launch_geometry(B, L, n_heads, hd, q.dtype)
 

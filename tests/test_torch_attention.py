@@ -114,8 +114,8 @@ def test_wrapper_reads_strided_qkv_split_and_counts_no_cpu_launch():
 @pytest.mark.parametrize(
     "shape,heads,dtype,mask_dtype,match",
     [
-        ((2, 16, 96), 2, torch.float32, torch.bool, "head width 48"),
-        ((2, 600, 128), 2, torch.float32, torch.bool, "L=600"),
+        ((2, 16, 24), 2, torch.float32, torch.bool, "head width 12"),
+        ((2, 600, 272), 2, torch.float32, torch.bool, "head width 136"),
         ((2, 16, 128), 2, torch.float16, torch.bool, "float32 or bfloat16"),
         ((2, 16, 128), 2, torch.float32, torch.int32, "mask must be bool"),
         ((2, 0, 128), 2, torch.float32, torch.bool, "L=0"),
@@ -123,12 +123,12 @@ def test_wrapper_reads_strided_qkv_split_and_counts_no_cpu_launch():
 )
 def test_wrapper_rejects_outside_the_kernel_envelope(shape, heads, dtype, mask_dtype, match):
     """A malformed call raises; a well-formed one outside the kernels'
-    envelope (a head width of no instantiation, more than MAX_LEN keys) is
+    envelope (a head width that is not a multiple of 8, or above 128) is
     refused by the kernel's own check and, on a CPU tensor, runs the plain
     version, counted under ``plain_outside_envelope``."""
     x = torch.zeros(shape, dtype=dtype)
     m = torch.ones(shape[:2], dtype=mask_dtype)
-    if match in ("head width 48", "L=600"):
+    if match in ("head width 12", "head width 136"):
         with pytest.raises(ValueError, match=match):
             A._check(x, x, x, m, heads)
         before = A.ROUTE_LAUNCHES["plain_outside_envelope"]
@@ -157,17 +157,20 @@ def test_row_tile_fits_shared_memory(L, hd, dtype, rows):
     assert geo.smem_bytes == A._tc_smem_bytes(L, hd, rows, torch.empty(0, dtype=dtype).element_size())
 
 
-@pytest.mark.parametrize("hd", A.HEAD_DIMS)
+@pytest.mark.parametrize("hd", A.KERNEL_WIDTHS)
 def test_every_f32_geometry_in_the_envelope_fits_shared_memory(hd):
     """f32 rows take twice the bytes of bf16; at every length the block
-    still fits the 227 KB a Hopper block may use (hd 128 resident: 203,264
-    B, one block per SM; hd 64: 104,960 B, two)."""
+    still fits the 227 KB a Hopper block may use (hd 128: 203,264 B, one
+    block per SM; hd 64: 104,960 B, two). The key fills ride in the ring
+    with their K tile, so no length adds bytes past 128 keys."""
     most = 0
-    for L in range(1, A.MAX_LEN + 1):
+    for L in [*range(1, 1025), 4096, 8192, 16_384]:
         geo = A.launch_geometry(4, L, 384 // hd, hd, torch.float32)
         assert geo.route == "tensor_core_3xtf32" and geo.smem_bytes <= A._SMEM_LIMIT
         most = max(most, geo.smem_bytes)
-    assert most == {16: 32768, 32: 57344, 64: 106496, 128: 204800}[hd]
+    assert most == 384 * (hd * 4 + 16) + 512
+    assert most == {16: 31232, 32: 55808, 48: 80384, 64: 104960, 80: 129536, 96: 154112,
+                    112: 178688, 128: 203264}[hd]
     assert A.launch_geometry(1024, 128, 6, 64, torch.float32).smem_bytes == 104960
 
 

@@ -168,8 +168,9 @@ def test_backward_counts_no_launch_on_the_cpu_and_checks_its_inputs():
     A.attention_short_flat_backward(q, k, v, m, out, torch.from_numpy(d_out), H, hd ** -0.5)
     assert (A.BACKWARD_LAUNCHES, A.BACKWARD_ROUTE_LAUNCHES) == before
     with pytest.raises(ValueError, match="head width"):
-        A.attention_short_flat_backward(q[..., :48], k[..., :48], v[..., :48], m, out[..., :48],
-                                        out[..., :48], 2, 0.25)
+        # hd 12: not a multiple of 8, outside the kernels' envelope
+        A.attention_short_flat_backward(q[..., :24], k[..., :24], v[..., :24], m, out[..., :24],
+                                        out[..., :24], 2, 0.25)
 
 
 def test_backward_kernel_is_built_with_the_forward():
@@ -180,5 +181,5 @@ def test_backward_kernel_is_built_with_the_forward():
     assert _build.SOURCES["attention_short_bwd"] == "attention_short_bwd.cu"
     src = (_build.CSRC / "attention_short_bwd.cu").read_text()
     assert 'extern "C" int pw_attention_short_flat_backward(' in src
-    for hd in A.HEAD_DIMS:
+    for hd in A.KERNEL_WIDTHS:
         assert f"case {hd}:" in src

@@ -178,19 +178,20 @@ def test_rounding_ds_to_bf16_is_what_moves_dq_and_dk():
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("hd", A.HEAD_DIMS)
+@pytest.mark.parametrize("hd", A.KERNEL_WIDTHS)
 def test_backward_launch_geometry_over_the_envelope(hd, dtype):
-    """Every length of the envelope: the fused route exactly for L <= 128
-    where its block fits at 128 rows (all but f32 at hd 128), one block per
-    (text, head) of 16·ceil(L/16) rows; the two-pass route elsewhere; every
-    block within the 227 KB a Hopper block may use."""
+    """Lengths 1..512 at each instantiated width: the fused route exactly
+    for L <= 128 where its block fits at 128 rows (every bf16 width, f32 up
+    to hd 64), one block per (text, head) of 16·ceil(L/16) rows; the
+    two-pass route elsewhere; every block within the 227 KB a Hopper block
+    may use."""
     H = 384 // hd
     elem = 2 if dtype == torch.bfloat16 else 4
     fused_name, two_pass_name = A.BACKWARD_ROUTES[dtype]
-    for L in range(1, A.MAX_LEN + 1):
+    for L in range(1, 513):
         geo = A.backward_launch_geometry(4, L, H, hd, dtype)
         assert geo.smem_bytes <= A._SMEM_LIMIT
-        fused = L <= 128 and not (dtype == torch.float32 and hd == 128)
+        fused = L <= 128 and not (dtype == torch.float32 and hd > 64)
         assert geo.fused == fused and geo.route == (fused_name if fused else two_pass_name)
         if fused:
             rows = -(-L // 16) * 16

@@ -173,9 +173,12 @@ def test_tokenizer_fallbacks_and_lowercase(tiny_bert, tmp_path):
 
 
 def test_from_pretrained_refuses_head_widths_the_kernel_lacks(tmp_path):
-    """A checkpoint whose head width (8) no kernel instantiation takes loads,
-    as the reference's does: its attention takes the counted plain route
-    (one call per layer), and the embedding is finite and unit-norm."""
+    """A checkpoint of head width 8 (4 heads at hidden 32, the reference's
+    own tiny BERT's shape) loads, as the reference's does, and now runs
+    inside the kernels' envelope (the instantiation of width 16, half its
+    columns zero): no call takes the counted plain route; the embedding is
+    finite and unit-norm. Widths no kernel takes are those that are not a
+    multiple of 8, or above 128 (``tests/test_torch_head_width.py``)."""
     from pathway_tpu_torch.ops import attention_kernel as A
     from transformers import BertConfig, BertModel
 
@@ -184,7 +187,8 @@ def test_from_pretrained_refuses_head_widths_the_kernel_lacks(tmp_path):
     enc = TE.TorchSentenceEncoder.from_pretrained(str(tmp_path), device="cpu")
     before = A.ROUTE_LAUNCHES["plain_outside_envelope"]
     emb = enc.encode_texts(["a b c"])
-    assert A.ROUTE_LAUNCHES["plain_outside_envelope"] == before + 1
+    assert A.ROUTE_LAUNCHES["plain_outside_envelope"] == before
+    assert A.in_envelope(16, 8) and A.kernel_width(8) == 16
     assert emb.shape == (1, 32) and np.isfinite(emb).all()
     np.testing.assert_allclose(np.linalg.norm(emb, axis=-1), 1.0, rtol=1e-5)
 

@@ -2,18 +2,22 @@
 
 The reference runs its Pallas kernel only inside its envelope and XLA's
 ``_sdpa`` everywhere else, so its encoder takes any head width and length.
-The port's kernels are instantiated for head widths 16, 32, 64 and 128 up to
-512 keys; outside that envelope ``attention_short_flat`` runs its plain
-version on a CPU tensor and counts the call under the route
-``plain_outside_envelope``, and raises on any other device (the card has no
-plain fallback).
+The port's kernels take every head width that is a multiple of 8 from 8 to
+128 (instantiated at 16, 32, ..., 128, a head run in its width rounded up to
+16) and any length; outside that envelope (a width such as 12 or 136)
+``attention_short_flat`` runs its plain version on a CPU tensor and counts
+the call under the route ``plain_outside_envelope``, and raises on any other
+device (the card has no plain fallback).
 
 Cases: the reference's ``SMALL`` encoder (4 heads of 16 at d 64, the
 multichip dry run's) encoded on both packages within 1e-5 (f32), one
 contrastive train step within the chip check's f32 gradient tolerance
-(1e-3 of each leaf's largest value), and a 48-wide head at 600 keys on the
-plain route, equal to the reference's ``_sdpa`` within 1e-5, and the same
-call on a non-CPU tensor refused.
+(1e-3 of each leaf's largest value), encoders at head widths 8, 48 and 96
+and at ``max_len`` 1,024 against the reference (which runs ``_sdpa`` there)
+within 1e-5 with no call outside the envelope, the launch geometry of both
+kernels over every width and lengths up to 16,384, and 12- and 136-wide
+heads on the plain route, equal to the reference's ``_sdpa`` within 1e-5,
+and the same calls on a non-CPU tensor refused.
 """
 
 from __future__ import annotations
@@ -52,8 +56,12 @@ def _reset_routes():
 
 
 def test_head_width_16_is_in_the_kernel_envelope():
-    assert 16 in A.HEAD_DIMS and A.in_envelope(16, 16) and A.in_envelope(A.MAX_LEN, 16)
-    assert not A.in_envelope(16, 48) and not A.in_envelope(A.MAX_LEN + 1, 64)
+    assert 16 in A.KERNEL_WIDTHS and A.in_envelope(16, 16) and A.in_envelope(16_384, 16)
+    assert A.in_envelope(16, 48) and A.in_envelope(600, 64) and A.in_envelope(1, 8)
+    assert not A.in_envelope(16, 12) and not A.in_envelope(16, 136) and not A.in_envelope(0, 64)
+    assert [hd for hd in range(1, 200) if A.in_envelope(128, hd)] == list(range(8, 129, 8))
+    assert [A.kernel_width(hd) for hd in range(8, 129, 8)] == [
+        w for w in A.KERNEL_WIDTHS for _ in (0, 1)]
     for L in (16, 128):
         geo = A.launch_geometry(8, L, 4, 16, torch.float32)
         assert geo.smem_bytes <= A._SMEM_LIMIT
@@ -100,16 +108,17 @@ def test_train_step_at_head_width_16_matches_the_reference():
 
 
 @pytest.mark.parametrize("requires_grad", [False, True])
-def test_outside_the_envelope_takes_the_counted_plain_route(requires_grad):
-    """hd 48 at 600 keys: neither in HEAD_DIMS nor within MAX_LEN. The call
-    runs the plain version (its gradient by autograd), counts one
-    ``plain_outside_envelope`` call and no kernel launch, and equals the
-    reference's ``_sdpa`` within 1e-5."""
-    B, L, H, hd = 2, 600, 2, 48
+@pytest.mark.parametrize("L,hd", [(600, 12), (40, 136)])
+def test_outside_the_envelope_takes_the_counted_plain_route(L, hd, requires_grad):
+    """hd 12 at 600 keys and hd 136 at 40: widths no kernel takes (not a
+    multiple of 8; above 128). The call runs the plain version (its
+    gradient by autograd), counts one ``plain_outside_envelope`` call and
+    no kernel launch, and equals the reference's ``_sdpa`` within 1e-5."""
+    B, H = 2, 2
     rng = np.random.default_rng(7)
     q, k, v = (rng.standard_normal((B, L, H * hd)).astype(np.float32) for _ in range(3))
     mask = np.ones((B, L), dtype=bool)
-    mask[1, 450:] = False
+    mask[1, L * 3 // 4:] = False
     want = np.asarray(J._sdpa(*(jnp.asarray(x.reshape(B, L, H, hd)) for x in (q, k, v)),
                               jnp.asarray(mask), hd ** -0.5)).reshape(B, L, H * hd)
     tq, tk, tv = (torch.from_numpy(x).requires_grad_(requires_grad) for x in (q, k, v))
@@ -125,7 +134,7 @@ def test_outside_the_envelope_takes_the_counted_plain_route(requires_grad):
 
 
 @pytest.mark.parametrize("requires_grad", [False, True])
-@pytest.mark.parametrize("L,hd", [(16, 48), (600, 64)])
+@pytest.mark.parametrize("L,hd", [(16, 12), (600, 136)])
 def test_outside_the_envelope_raises_off_the_cpu(L, hd, requires_grad):
     """The plain route is the CPU's alone: off the CPU (a ``meta`` tensor
     here, a CUDA tensor on the card) a shape outside the envelope raises
@@ -136,3 +145,71 @@ def test_outside_the_envelope_raises_off_the_cpu(L, hd, requires_grad):
     with pytest.raises(ValueError, match="outside the kernels' envelope"):
         A.attention_short_flat(x, x, x, m, 2, hd ** -0.5)
     assert A.ROUTE_LAUNCHES == dict.fromkeys(A.ROUTE_LAUNCHES, 0)
+
+
+@pytest.mark.parametrize(
+    "hd,heads,max_len,L",
+    [(8, 4, 32, 16), (48, 2, 32, 24), (96, 2, 32, 24), (64, 2, 1024, 1024)],
+    ids=["hd8", "hd48", "hd96", "len1024"],
+)
+def test_encode_inside_the_widened_envelope_matches_the_reference(hd, heads, max_len, L):
+    """Head widths 8, 48 and 96 (run in the instantiations 16, 48 and 96)
+    and 1,024 keys: the reference runs ``_sdpa`` for all of them (outside
+    its Pallas kernel's envelope); the port's encoder stays inside its
+    kernels' envelope, so no call takes the counted plain route, and the
+    embeddings agree within 1e-5 (f32)."""
+    shape = dict(vocab_size=512, d_model=heads * hd, n_heads=heads, n_layers=2,
+                 d_ff=2 * heads * hd, max_len=max_len)
+    cj, ct = J.EncoderConfig(dtype=jnp.float32, **shape), T.EncoderConfig(dtype=torch.float32, **shape)
+    pj = J.init_params(cj, jax.random.PRNGKey(1))
+    ids, mask = _ids(B=2, L=L, seed=3)
+    want = np.asarray(J.encode(pj, cj, jnp.asarray(ids), jnp.asarray(mask)))
+    _reset_routes()
+    got = T.encode(params_from_numpy(jax.tree.map(np.asarray, pj), device="cpu"), ct,
+                   torch.from_numpy(ids).long(), torch.from_numpy(mask))
+    assert got.shape == want.shape == (2, heads * hd)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert A.ROUTE_LAUNCHES["plain_outside_envelope"] == 0
+
+
+def _tc_smem_cu(L: int, width: int, rows: int, elem: int) -> int:
+    """``tc_smem_bytes`` of ``csrc/attention_short.cu``, written out: the Q
+    rows and two K/V tiles (one above 64 keys: two) in rows padded by 16
+    bytes, and one f32 fill per key of the K rows."""
+    kv_rows = 64 if L <= 64 else 128
+    return (rows + 2 * kv_rows) * (width + 16 // elem) * elem + kv_rows * 4
+
+
+def _bwd_smem_cu(L: int, width: int, elem: int) -> tuple[bool, int]:
+    """The backward's route and bytes as ``attention_short_bwd.cu`` states
+    them: ``fused_smem_bytes`` where the block fits at 128 rows and L <= 128,
+    else ``dkv_smem_bytes`` of the two-pass route."""
+    pad = 16 // elem
+    if L <= 128 and (4 * 128 * (width + pad) + 128 * (128 + pad)) * elem <= 232_448:
+        rows = -(-L // 16) * 16
+        return True, (4 * rows * (width + pad) + rows * (rows + pad)) * elem
+    return False, (4 * 32 * (width + 1) + 2 * 32 * 33 + 4 * 32) * 4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_launch_geometry_fits_shared_memory_at_every_width_and_length(dtype):
+    """Every head width of the envelope (multiples of 8 up to 128) and
+    lengths up to 16,384: both kernels' blocks stay within the 232,448 B a
+    Hopper block may use, with the bytes the .cu formulas give at the
+    instantiated width; the fused backward takes every bf16 width and f32
+    up to 64 (f32 at 80 would need 239,616 B)."""
+    elem = torch.empty(0, dtype=dtype).element_size()
+    lengths = [*range(1, 257), 300, 511, 512, 513, 600, 1000, 1024, 2048, 4096, 8191, 8192, 16_384]
+    for hd in range(8, 129, 8):
+        width = A.kernel_width(hd)
+        assert width in A.KERNEL_WIDTHS and hd <= width < hd + 16
+        for L in lengths:
+            geo = A.launch_geometry(3, L, 2, hd, dtype)
+            assert geo.smem_bytes == _tc_smem_cu(L, width, geo.rows, elem) <= A._SMEM_LIMIT
+            assert geo.resident == (L <= 128) and geo.blocks == (3, 2, -(-L // geo.rows))
+            bwd = A.backward_launch_geometry(3, L, 2, hd, dtype)
+            assert (bwd.fused, bwd.smem_bytes) == _bwd_smem_cu(L, width, elem)
+            assert bwd.smem_bytes <= A._SMEM_LIMIT
+        fused_at_128 = A.backward_launch_geometry(3, 128, 2, hd, dtype).fused
+        assert fused_at_128 == (dtype == torch.bfloat16 or width <= 64)
+    assert A._fused_smem_bytes(128, 80, 4) == 239_616 > A._SMEM_LIMIT

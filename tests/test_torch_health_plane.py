@@ -320,6 +320,9 @@ def test_alert_registry_and_sinks_match(monkeypatch):
 
 
 def test_storm_alert_reaches_the_registry_and_slack_is_a_later_slice(monkeypatch):
+    """The storm alert fires into both registries alike; with the Slack
+    sink configured, the port's registry delivers it through
+    ``io.slack.post_message`` (a fake), with the reference's text."""
     monkeypatch.setenv("PATHWAY_HEALTH", "on")
     from pathway_tpu.observability import device as ref_dev
     from pathway_tpu_torch.observability import device as port_dev
@@ -337,9 +340,24 @@ def test_storm_alert_reaches_the_registry_and_slack_is_a_later_slice(monkeypatch
     assert [(a["alert"], a["fingerprint"], a["auto"]) for a in active["port"]] == [("recompile_storm", "embed", False)]
     monkeypatch.setenv("PATHWAY_ALERT_SLACK_CHANNEL", "#ops")
     monkeypatch.setenv("PATHWAY_ALERT_SLACK_TOKEN", "t")
-    with pytest.raises(NotImplementedError, match="later slice: io.slack"):
-        port_alerts.install_from_env(None)
-    port_alerts.shutdown()
+    import pathway_tpu.io.slack as ref_slack
+    import pathway_tpu_torch.io.slack as port_slack
+
+    posted = {}
+    for name, (_health, alerts, _cfg), dev, slack in (
+        ("ref", SIDES["ref"], ref_dev, ref_slack), ("port", SIDES["port"], port_dev, port_slack),
+    ):
+        got = posted[name] = []
+        monkeypatch.setattr(slack, "post_message",
+                            lambda channel, token, text, transport=None, got=got: got.append((channel, token, text)))
+        try:
+            reg = alerts.install_from_env(None)
+            assert [s.name for s in reg.sinks] == ["slack"]
+            dev._storm_alert("embed", 12)
+        finally:
+            alerts.shutdown()
+    assert posted["port"] == posted["ref"]
+    assert [(c, t) for c, t, _text in posted["port"]] == [("#ops", "t")]
 
 
 # ------------------------------------------------------------ a served run

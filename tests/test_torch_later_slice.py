@@ -2,11 +2,14 @@
 ``pw.iterate`` / ``pw.iterate_universe`` and the rest of the Table API surface
 (``pw.sql``, ``pw.load_yaml``, exported tables, the row transformer,
 universes, ``pw.live``), the S3 backend, the Kafka and Postgres delivery
-transports and an elastic reshard are ported, a plane still to port (the
-Slack alert sink) raises ``NotImplementedError("later slice: ...")`` where a
-call reaches it, and importing the temporal stdlib loads no JAX."""
+transports, an elastic reshard and the Slack alert sink are ported; no
+``later_slice(`` call site is left in the package (the helper stays for a
+plane a later change may cut), and importing the temporal stdlib loads no
+JAX."""
 
 from __future__ import annotations
+
+import pathlib
 
 import pytest
 
@@ -202,6 +205,22 @@ def _live():
     return sorted(live.to_pandas()["v"].tolist())
 
 
+def _slack_sink():
+    """The health plane's Slack sink delivers through ``io.slack.post_message``
+    (a fake here: the real one posts with ``requests``)."""
+    import pathway_tpu_torch.io.slack as slack_io
+
+    posted = []
+    real = slack_io.post_message
+    slack_io.post_message = lambda channel, token, text, transport=None: posted.append((channel, token, text))
+    try:
+        sink = pw.observability.alerts.SlackSink("#alerts", "token")
+        sent = sink.notify({"alert": "a", "fingerprint": "f", "severity": "warn", "summary": "s"})
+    finally:
+        slack_io.post_message = real
+    return sent, posted
+
+
 #: a package-level entry a later slice ported -> a call of it that runs
 PORTED_SURFACE = {
     "iterate": lambda: _rows(pw.iterate(lambda t: t.with_columns(v=t.v // 2), iteration_limit=2, t=_table())),
@@ -220,6 +239,7 @@ PORTED_SURFACE = {
     "delivery.KafkaDeliveryTransport": _kafka_transport,
     "delivery.PostgresDeliveryTransport": _postgres_transport,
     "elastic reshard": _elastic_persisted_run,
+    "observability.alerts.SlackSink": _slack_sink,
 }
 
 #: what each ported entry's call gives
@@ -238,6 +258,7 @@ PORTED_SURFACE_RESULT = {
     "delivery.KafkaDeliveryTransport": [("k", "v")],
     "delivery.PostgresDeliveryTransport": [("a", 1), ("b", 2)],
     "elastic reshard": [10, 20, 30],
+    "observability.alerts.SlackSink": (True, [("#alerts", "token", ":rotating_light: [warn] a (f): s")]),
 }
 
 
@@ -252,21 +273,20 @@ def test_ported_surface_entry_runs(entry):
     pw.G.clear()
 
 
-#: still-cut entry -> a call that reaches it, and the plane it names
-CUT = {
-    "observability.alerts.SlackSink": (
-        lambda: pw.observability.alerts.SlackSink("#alerts", "token"),
-        "io.slack",
-    ),
-}
+def test_no_later_slice_call_site_remains():
+    """Every plane of the reference is ported: ``later_slice(`` is called
+    nowhere in the package but in its own module."""
+    root = pathlib.Path(pw.__file__).parent
+    sites = sorted(
+        f"{p.relative_to(root)}:{i}"
+        for p in root.rglob("*.py") if p.name != "later_slice.py" or p.parent.name != "internals"
+        for i, line in enumerate(p.read_text(encoding="utf-8").splitlines(), 1) if "later_slice(" in line
+    )
+    assert sites == []
+    from pathway_tpu_torch.internals.later_slice import later_slice
 
-
-@pytest.mark.parametrize("entry", sorted(CUT))
-def test_still_cut_entry_raises_later_slice(entry):
-    call, plane = CUT[entry]
-    with pytest.raises(NotImplementedError, match=f"later slice: {plane}"):
-        call()
-    pw.G.clear()
+    with pytest.raises(NotImplementedError, match="later slice: x"):
+        raise later_slice("x")
 
 
 def test_temporal_stdlib_imports_without_jax():
