@@ -24,7 +24,19 @@ printing one JSON line:
    with the route each took; at the train step's shape two launches give
    the same bits and the first 8 texts alone give rows 0-7 of the 512-text
    call's bits, and it is timed beside the two-pass route at that shape,
-   its plain version, SDPA's backward and its bound;
+   its plain version, SDPA's backward and its bound; then every head the
+   aligned kernels do not take, on ``attention_any.cu``: the forward at hd
+   1, 4, 6, 12, 20, 36, 100, 136, 192 and 256 in 3 heads (the [B, L, 3D]
+   projection's rows at copies of 2, 4, 8 and 16 bytes) at 16, 128 and
+   600 keys and at encoder_widths' shapes (32 heads of 12, 3 of 256), each
+   on the route its copy width and width pick, timed beside SDPA and its
+   bound; the backward at hd 1, 12, 136 and 256 on its fused route at any
+   copy width or its two-pass route in column blocks of 128;
+3b. encoder_widths: encoders at 8 heads of 48, 6 of 64 at 1,024 keys, 32
+   heads of 12 at d 384 and 3 heads of 256 at d 768 (6 layers, 1,024 docs,
+   bf16 and f32): every launch on the route the head picks, the card
+   against the CPU path, and one train step of the last two on the
+   kernels against the plain attention (bf16; f32 at 3 x 256);
 4. main path, at the full width of the bench's MiniLM-class encoder with
    random seeded weights: 8192 docs tokenized, embedded in batches of 1024
    and indexed; the index filled to 1,000,000 x 384 f32; 30 RAG queries
@@ -70,6 +82,14 @@ printing one JSON line:
    card) and at the default ``on`` (the audit-sampled ticks' blocks stay on
    the host, the others take the card), each stream identical to the
    audit-off one and no violation;
+   engine_semantics: every case of the reference's ten Table API test
+   files (table ops, joins, reducers, expressions, edge cases, errors,
+   core types, the differential fuzz, the first-load paths, column dtypes;
+   their sources read as the port's) with the groupby segment-sum and the
+   join probe on the card (``PATHWAY_ENGINE_JAX=gpu``, size thresholds at
+   1) and the fused device tier forced on, each update stream equal to the
+   same case on CPU tensors bit for bit; the differential fuzz at 65,536
+   events streamed against static on the card and against CPU tensors;
    audit_fault: ``PATHWAY_FAULT_PLAN=flip_diff:proc=0,tick=2`` on the docs
    edge of a small tiered index whose hot shard is on the card: the audit
    plane catches it at that edge and tick, one flight dump names the
@@ -127,8 +147,8 @@ printing one JSON line:
    defaults (the device, audit, request-trace, health and timeline planes
    on) with the monitoring server on a port of its own: ingest until ``/v1/statistics``
    counts every file and both index nodes hold every chunk; phase 12's
-   1,024 retrieve payloads as JSON POSTs from 1 and from 32 concurrent
-   keep-alive clients, each answer equal to phase 12's in-process answer
+   retrieve payloads as JSON POSTs from 1 client (the first 256) and all
+   1,024 from 32 concurrent keep-alive clients, each answer equal to phase 12's in-process answer
    (texts, metadata, score bits); 256 ``/v2/answer`` prompts holding their
    texts in order; ``/v1/inputs``, ``/v2/list_documents``, ``/_schema``,
    ``/healthz``, ``/readyz``; the planes' gates (a unique
@@ -154,8 +174,8 @@ printing one JSON line:
    ``PATHWAY_PROFILE=full`` (the encoder's device-wait split above 0 and
    below the leg's wall), requests/s and p50/p99 beside phase 13's;
 15. multiworker (after the flow, graphs and knn_index phases): the RAG path
-   on several workers, four legs. Threads: phase 7's loop at 8,192 docs and
-   512 queries through ``pw.run(n_workers=4)`` (the thread-sharded
+   on several workers, four legs. Threads: phase 7's loop at 4,096 docs and
+   256 queries through ``pw.run(n_workers=4)`` (the thread-sharded
    runtime) against one worker, each under ``torch.profiler``: answers
    equal in keys, order and score bits; ingest docs/s, query rows/s,
    attention launches and the device's idle share of each. Exchange:
@@ -212,7 +232,7 @@ printing one JSON line:
    unsharded one, the sharded KNN self-search, the key exchange, the
    sharded dataflow and the device plane against one worker);
 18. fabric: ``tools/rag_cluster.py --serve`` (``DocumentStoreServer`` over
-   2,048 docs) on one worker in this process, then on 2 processes x 2
+   1,024 docs) on one worker in this process, then on 2 processes x 2
    threads with ``PATHWAY_FABRIC=on`` and ``PATHWAY_SHARDMAP=on`` (every
    door its requests' owner) and with the fabric alone (the peer answers
    from its replica index); both doors answer the first 32 docs. Gates:
@@ -221,10 +241,11 @@ printing one JSON line:
    and owner-answered counts and each door's p50;
 19. the kernels line, with each kernel's launches during phases 4, 6, 7,
    8's pipeline, 10, 11, 12, 12b's run B, 13, 14, the flow phase, 15, 15b,
-   16, 17 and 18 (the cluster processes' counts read from their output),
-   and no attention call outside the kernels' envelope on any of them: the
-   attention kernel's two routes and its backward's two dtypes, each with
-   its launches per backward route.
+   16, 17 and 18 (the cluster processes' counts read from their output):
+   the attention kernel's two routes and its backward's two dtypes, each
+   with its launches per backward route, and ``attention_any.cu``'s
+   forward and backward per dtype (launched by 3b), with their launches
+   per copy width and route; a kernel no path launched fails the run.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without it. TF32 is off for every matmul (``allow_tf32 = False``), so the f32
@@ -295,6 +316,10 @@ DS_STREAM_QUERIES = 128
 DS_FORMAT_FILES = 64  # of each of PDF, DOCX, HTML and Markdown
 #: the rest_serving phase: document_store's corpus and queries over HTTP
 RS_CLIENTS = 32
+#: the 1-client retrieve leg sends the first this many of the payloads (cut
+#: from all 1,024 to keep the whole script in its time; PERF.md section 4):
+#: one client is a latency leg, 256 sequential requests give its p50/p99
+RS_ONE_CLIENT_REQUESTS = 256
 RS_SHED_INFLIGHT = 8
 RS_SHED_REQUESTS = 64
 RS_SHED_SLEEP_S = 0.05  # host seconds per answered row of the shed route
@@ -449,6 +474,23 @@ def phase_build() -> None:
     check(len(fused) == n_fused and all(n > 0 for n in fused.values()),
           f"fused backward: {len(fused)} instantiations, HMMA/HGMMA per instantiation {fused}, "
           f"expected {n_fused}, all > 0")
+    # attention_any.cu: the forward at each block width of ANY_WIDTHS per
+    # dtype, the fused backward at any copy width (bf16 at every block
+    # width, f32 up to 64), both on the tensor cores; the two-pass kernels
+    # in column blocks of 128 (FP32 pipes)
+    anyk = sass.get("attention_any", {})
+    n_any = len(A.ANY_WIDTHS)
+    for dname, tname in (("bf16", "__nv_bfloat16"), ("f32", "float")):
+        mine = {f: n for f, n in anyk.items() if f"attention_any_kernel<{tname}," in f}
+        check(len(mine) == n_any and all(n > 0 for n in mine.values()),
+              f"{dname} any-width forward: {len(mine)} instantiations, HMMA/HGMMA {mine}, expected {n_any}, all > 0")
+    fused_any = {f: n for f, n in anyk.items() if "attention_bwd_fused" in f}
+    n_fused_any = n_any + sum(w <= 64 for w in A.ANY_WIDTHS)
+    check(len(fused_any) == n_fused_any and all(n > 0 for n in fused_any.values()),
+          f"fused backward at any copy width: {len(fused_any)} instantiations, HMMA/HGMMA {fused_any}, "
+          f"expected {n_fused_any}, all > 0")
+    cols = [f for f in anyk if "bwd_dq_cols" in f or "bwd_dkv_cols" in f]
+    check(len(cols) == 4, f"two-pass backward in column blocks: {len(cols)} kernels, expected 4 ({cols})")
 
     # the host C tokenizer, built here so that no timed call pays its compile
     t1 = time.perf_counter()
@@ -461,11 +503,12 @@ def phase_build() -> None:
     # the kernels' shared memory is dynamic (ptxas cannot report it): per
     # checked case, what the launch asks for
     smem = {
-        f"{str(dt).replace('torch.', '')} {case}": A.launch_geometry(B, L, H, hd, dt).smem_bytes
-        for dt in (torch.bfloat16, torch.float32) for case, (B, L, H, hd) in KERNEL_SHAPES.items()
+        f"{str(dt).replace('torch.', '')} {case}": A.launch_geometry(B, L, H, hd, dt, _projection_copy(H, hd, dt)).smem_bytes
+        for dt in (torch.bfloat16, torch.float32) for case, (B, L, H, hd) in {**KERNEL_SHAPES, **ANY_SHAPES}.items()
     }
     bwd_geo = {
-        f"{str(dt).replace('torch.', '')} {case}": A.backward_launch_geometry(B, L, H, hd, dt)._asdict()
+        f"{str(dt).replace('torch.', '')} {case}":
+            A.backward_launch_geometry(B, L, H, hd, dt, _projection_copy(H, hd, dt))._asdict()
         for dt in (torch.bfloat16, torch.float32) for case, (B, L, H, hd) in BWD_SHAPES.items()
     }
     emit(
@@ -475,6 +518,18 @@ def phase_build() -> None:
         tokenizer_build_s=native.build_seconds.get("pwtok"), tokenizer_load_s=tok_s,
         tokenizer_error=native.last_error.get("pwtok"), c_compiler=cc,
     )
+
+
+def _projection_copy(H: int, hd: int, dtype) -> int:
+    """The copy width (bytes) of q/k/v as the column views of one
+    contiguous [B, L, 3D] projection, D = H * hd (``_attention_inputs``'s
+    and the encoder's layout): the lowest set bit of hd, D and 3D in bytes,
+    at most 16."""
+    import torch
+
+    es = torch.empty(0, dtype=dtype).element_size()
+    x = hd * es | H * hd * es | 3 * H * hd * es | 16
+    return x & -x
 
 
 def _attention_inputs(B, L, dtype, gen, H=6, hd=64):
@@ -511,10 +566,18 @@ KERNEL_SHAPES = {
     "l1024": (4, 1024, 6, 64), "l4096": (2, 4096, 6, 64), "l8192_hd128": (2, 8192, 3, 128),
     "hd96_embed": (1024, 128, 4, 96),
 }
-#: shapes outside the kernels' envelope, (B, L, heads, hd): a head width
-#: that is not a multiple of 8 and one above 128; each must raise on the
-#: card before any launch
-OUTSIDE_SHAPES = {"hd12": (2, 16, 2, 12), "hd136": (2, 16, 2, 136)}
+#: attention_any.cu's cases, (B, L, heads, hd): every head width the
+#: aligned kernels do not take and some they do, each in 3 heads (D = 3 hd,
+#: so the [B, L, 3D] projection's rows are unaligned wherever 3 hd
+#: elements are not a multiple of 16 bytes: copies of 2, 4, 8 and 16
+#: bytes in bf16, 4, 8 and 16 in f32, hd 6 the f32 case of 8), at 16, 128
+#: and 600 keys; then the two encoders of phase
+#: encoder_widths at their attention's shape (32 heads of 12, 3 of 256).
+#: Every case is timed.
+ANY_HEAD_WIDTHS = (1, 4, 6, 12, 20, 36, 100, 136, 192, 256)
+ANY_LENGTHS = {16: 64, 128: 32, 600: 4}  # L -> B
+ANY_SHAPES = {f"any_hd{hd}_l{L}": (B, L, 3, hd) for hd in ANY_HEAD_WIDTHS for L, B in ANY_LENGTHS.items()}
+ANY_SHAPES.update({"enc_hd12": (1024, 128, 32, 12), "enc_hd256": (1024, 128, 3, 256)})
 #: the timed cases per dtype: both routes at the main path's shapes, at
 #: bert_path's batch, at multichip_dryrun's, at an embed-like batch of hd
 #: 96 and at 1,024 keys
@@ -538,12 +601,23 @@ def phase_kernels() -> list[dict]:
     records = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        for label, (B, L, H, hd) in KERNEL_SHAPES.items():
+        es = torch.empty(0, dtype=dtype).element_size()
+        for label, (B, L, H, hd) in {**KERNEL_SHAPES, **ANY_SHAPES}.items():
             D, scale = H * hd, hd ** -0.5
             q, k, v, mask = _attention_inputs(B, L, dtype, gen, H, hd)
-            geo = A.launch_geometry(B, L, H, hd, dtype)
+            vb = A.copy_width(hd, es, q, k, v)
+            geo = A.launch_geometry(B, L, H, hd, dtype, vb)
+            # the route by the rule the kernels state: 16-byte copies of a
+            # head of at most 128 columns on attention_short.cu, every other
+            # head on attention_any.cu
+            want_route = A.ROUTES[dtype] if vb == 16 and hd <= 128 else A.ANY_ROUTES[dtype][0]
+            check(vb == _projection_copy(H, hd, dtype) and geo.route == want_route,
+                  f"attention {label} {dname}: copy width {vb}, route {geo.route}, expected {want_route}")
+            before = dict(A.ROUTE_LAUNCHES)
             out = A.attention_short_flat(q, k, v, mask, H, scale)
             torch.cuda.synchronize()
+            check(A.ROUTE_LAUNCHES[geo.route] == before[geo.route] + 1,
+                  f"attention {label} {dname}: the call did not launch on route {geo.route}")
             ref = A.attention_short_flat_plain(q, k, v, mask, H, scale)
             err = (out.float() - ref.float()).abs()
             mean_v = v[0].float().mean(dim=0, keepdim=True)
@@ -559,14 +633,14 @@ def phase_kernels() -> list[dict]:
                 tol = "2^-7*(|ref|+max|v|)"
             check(ok and ok_masked, f"attention {label} {dname}: kernel disagrees with plain")
             rec = {
-                "case": label, "dtype": dname, "route": geo.route, "B": B, "L": L, "hd": hd,
-                "kernel_width": A.kernel_width(hd),
+                "case": label, "dtype": dname, "route": geo.route, "B": B, "L": L, "H": H, "hd": hd,
+                "kernel_width": geo.width, "col_blocks": geo.col_blocks, "copy_bytes": geo.copy_bytes,
                 "rows_per_block": geo.rows, "resident": geo.resident, "smem_bytes": geo.smem_bytes,
                 "max_abs_err": err.max().item(), "masked_row_vs_mean_v": err_masked,
                 "tolerance": tol, "ok": ok and ok_masked,
             }
-            if label in TIMED[dname]:
-                iters = 20 if label in ("embed", "hd96_embed", "l1024") else 200
+            if label in TIMED[dname] or label in ANY_SHAPES:
+                iters = 20 if label in ("embed", "hd96_embed", "l1024") or label in ANY_SHAPES else 200
                 rec["ms"] = cuda_ms(lambda: A.attention_short_flat(q, k, v, mask, H, scale), iters)
                 rec["plain_ms"] = cuda_ms(lambda: A.attention_short_flat_plain(q, k, v, mask, H, scale), iters)
                 qh, kh, vh = (t.view(B, L, H, hd).transpose(1, 2) for t in (q, k, v))
@@ -592,73 +666,72 @@ def phase_kernels() -> list[dict]:
             records.append(rec)
             emit("kernel_check", kernel="attention_short_flat", **rec)
             del q, k, v, mask, out, ref, err
-    # outside the envelope the card has no plain fallback: the call raises
-    # before any launch and counts nothing
-    before, refused = dict(A.ROUTE_LAUNCHES), {}
-    for label, (B, L, H, hd) in OUTSIDE_SHAPES.items():
-        q, k, v, mask = _attention_inputs(B, L, torch.bfloat16, gen, H, hd)
-        try:
-            A.attention_short_flat(q, k, v, mask, H, hd ** -0.5)
-            refused[label] = None
-        except ValueError as e:
-            refused[label] = str(e)
-        check(refused[label] is not None, f"attention {label}: a shape outside the kernels' envelope ran on the card")
-    check(A.ROUTE_LAUNCHES == before, f"attention: a refused call counted a launch {before} -> {A.ROUTE_LAUNCHES}")
-    emit("kernel_envelope", kernel="attention_short_flat", refused=refused)
     torch.cuda.empty_cache()
     return records
 
 
-#: the encoder leg of the widened envelope: (d_model, heads, max_len, words
-#: per doc) of each config, a MiniLM-class encoder otherwise (6 layers, d_ff
-#: 1,536), and the docs each embeds on the card per dtype
-ENC_WIDTHS = {"hd48": (384, 8, 128, DOC_WORDS), "len1024": (384, 6, 1024, 1100)}
+#: the encoder leg of every head width: (d_model, heads, d_ff, max_len,
+#: words per doc) of each config, 6 layers otherwise, and the docs each
+#: embeds on the card per dtype: 8 heads of 48 (the 48-wide instantiation),
+#: 6 of 64 at 1,024 keys (the streamed route), 32 heads of 12 at d 384
+#: (bf16 rows of 24 bytes: attention_any.cu at 8-byte copies; f32 the
+#: aligned kernel) and 3 heads of 256 at d 768 (two column blocks of 128)
+ENC_WIDTHS = {"hd48": (384, 8, 1536, 128, DOC_WORDS), "len1024": (384, 6, 1536, 1024, 1100),
+              "hd12": (384, 32, 1536, 128, DOC_WORDS), "hd256": (768, 3, 3072, 128, DOC_WORDS)}
 ENC_WIDTH_DOCS = 1024
 ENC_WIDTH_BATCH = {128: INGEST_BATCH, 1024: 128}
 #: embeddings checked against the CPU path per max_len: at 1,024 keys cut
 #: from 64 to 8 (the CPU's 64 took 54 s of the script's 1,007; PERF.md
 #: section 4)
 ENC_WIDTH_CHECKED = {128: 64, 1024: 8}
+#: one contrastive train step on the kernels against the same step on the
+#: plain attention, per config and dtype (TRAIN_GRAD_TOL), on
+#: ENC_WIDTH_TRAIN_PAIRS pairs of TRAIN_LEN tokens
+ENC_WIDTH_TRAIN = {"hd12": ("bfloat16",), "hd256": ("bfloat16", "float32")}
+ENC_WIDTH_TRAIN_PAIRS = 64
 
 
 def phase_encoder_widths(info: dict) -> dict:
-    """Encoders inside the widened envelope on the card: d 384 in 8 heads of
-    48 (run in the kernels' 48-wide instantiation) and 6 heads of 64 at
-    ``max_len`` 1,024 (the streamed route), each in bf16 and in f32,
-    ENC_WIDTH_DOCS docs per run. Gates: every attention launch on the
-    dtype's tensor-core route (6 per batch, none outside the envelope), and
-    the first ENC_WIDTH_CHECKED[max_len] embeddings against the port's CPU
-    path within main_path's tolerances (bf16 1e-2, f32 1e-4)."""
+    """Encoders at head widths and lengths beyond the main path's on the
+    card (ENC_WIDTHS), each in bf16 and in f32, ENC_WIDTH_DOCS docs per
+    run. Gates: every attention launch on the kernel route the head's copy
+    width and width pick (6 per batch), and the first
+    ENC_WIDTH_CHECKED[max_len] embeddings against the port's CPU path within
+    main_path's tolerances (bf16 1e-2, f32 1e-4); for the configs of
+    ENC_WIDTH_TRAIN one train step whose loss and gradients are within
+    TRAIN_GRAD_TOL of the same step on the plain attention, every forward
+    and backward launch on its kernel route."""
     import torch
 
+    from pathway_tpu_torch.convert import tree_map
     from pathway_tpu_torch.ops import attention_kernel as A
-    from pathway_tpu_torch.ops.encoder import EncoderConfig, TorchSentenceEncoder
+    from pathway_tpu_torch.ops.encoder import EncoderConfig, TorchSentenceEncoder, init_params
 
-    out, launches = {}, {}
-    for name, (d, heads, max_len, words) in ENC_WIDTHS.items():
+    out, launches, bwd_launches = {}, {}, {}
+    for name, (d, heads, d_ff, max_len, words) in ENC_WIDTHS.items():
         docs = synth_docs(ENC_WIDTH_DOCS, words)
+        hd = d // heads
         for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
             dname = str(dtype).replace("torch.", "")
-            cfg = EncoderConfig(vocab_size=32768, d_model=d, n_heads=heads, n_layers=6, d_ff=1536,
+            cfg = EncoderConfig(vocab_size=32768, d_model=d, n_heads=heads, n_layers=6, d_ff=d_ff,
                                 max_len=max_len, dtype=dtype)
             kw = {"param_dtype": torch.bfloat16} if dtype == torch.bfloat16 else {}
             enc = TorchSentenceEncoder(cfg, seed=0, device=DEVICE, **kw)
             ids, _ = enc.tokenizer(docs)
             check(ids.shape[1] == max_len, f"encoder_widths {name}: tokenized to L={ids.shape[1]}, expected {max_len}")
             batch = ENC_WIDTH_BATCH[max_len]
+            route = A.launch_geometry(batch, max_len, heads, hd, dtype, _projection_copy(heads, hd, dtype)).route
             enc.encode_ids_device(ids[:batch])  # warm-up at the batch shape, outside the counts
             sync()
             # --- the leg: counts from 0 -----------------------------------------
-            A.LAUNCHES = 0
-            A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
+            _reset_attention_counts()
             t0 = time.perf_counter()
             embs = [enc.encode_ids_device(ids[i : i + batch]) for i in range(0, len(ids), batch)]
             sync()
             secs = time.perf_counter() - t0
-            n_launches, by_route = A.LAUNCHES, dict(A.ROUTE_LAUNCHES)
+            n_launches, by_route, by_copy = A.LAUNCHES, dict(A.ROUTE_LAUNCHES), dict(A.COPY_LAUNCHES)
             # ------------------------------------------------------------------
             expected = cfg.n_layers * len(embs)
-            route = A.ROUTES[dtype]
             check(by_route[route] == expected and n_launches == expected,
                   f"encoder_widths {name} {dname}: launches {by_route}, expected {expected} on {route}")
             n_checked = ENC_WIDTH_CHECKED[max_len]
@@ -672,19 +745,49 @@ def phase_encoder_widths(info: dict) -> dict:
                   f"encoder_widths {name} {dname}: card vs CPU embeddings differ by {err} (tolerance {tol})")
             key = f"{name}_{dname}"
             launches[key] = by_route
-            out[key] = {"d_model": d, "heads": heads, "hd": d // heads, "kernel_width": A.kernel_width(d // heads),
+            out[key] = {"d_model": d, "heads": heads, "hd": hd, "route": route,
+                        "kernel_width": A.launch_geometry(batch, max_len, heads, hd, dtype,
+                                                          _projection_copy(heads, hd, dtype)).width,
                         "max_len": max_len, "docs": len(ids), "batch": batch, "seconds": secs,
-                        "docs_per_s": len(ids) / secs, "launches": by_route, "launches_expected": expected,
-                        "card_vs_cpu_max_abs_err": err, "tolerance": tol, "checked": n_checked,
-                        "cpu_check_s": t_cpu}
+                        "docs_per_s": len(ids) / secs, "launches": by_route, "copy_launches": by_copy,
+                        "launches_expected": expected, "card_vs_cpu_max_abs_err": err, "tolerance": tol,
+                        "checked": n_checked, "cpu_check_s": t_cpu}
             del enc, cpu, embs
+            if dname in ENC_WIDTH_TRAIN.get(name, ()):
+                params = tree_map(lambda t: t.to(DEVICE), init_params(cfg, torch.Generator().manual_seed(0)))
+                tbatch = _train_batch(ENC_WIDTH_TRAIN_PAIRS)
+                vb = _projection_copy(heads, hd, dtype)
+                bwd_route = A.backward_launch_geometry(ENC_WIDTH_TRAIN_PAIRS, TRAIN_LEN, heads, hd, dtype, vb).route
+                _reset_attention_counts()  # the kernels' step: counts from 0
+                t0 = time.perf_counter()
+                vs = _kernel_vs_plain_step(params, cfg, tbatch, TRAIN_GRAD_TOL[dname])
+                vs["seconds"] = time.perf_counter() - t0
+                fwd, bwd = _attention_counts()
+                per_step = 2 * cfg.n_layers
+                fwd_route = A.launch_geometry(ENC_WIDTH_TRAIN_PAIRS, TRAIN_LEN, heads, hd, dtype, vb).route
+                check(vs["ok"], f"encoder_widths {name} {dname}: the kernels' train step differs from the "
+                      f"plain-attention step: {vs}")
+                check(fwd[fwd_route] == sum(fwd.values()) == per_step and bwd[bwd_route] == sum(bwd.values()) == per_step,
+                      f"encoder_widths {name} {dname} train step: launches forward {fwd} backward {bwd}, "
+                      f"expected {per_step} each on {fwd_route} / {bwd_route}")
+                vs.update(pairs=ENC_WIDTH_TRAIN_PAIRS, forward_route=fwd_route, backward_route=bwd_route,
+                          backward_copy_launches=dict(A.BACKWARD_COPY_LAUNCHES))
+                out[key]["train_step"] = vs
+                for r, n in fwd.items():
+                    launches[key][r] += n
+                bwd_launches[key] = bwd
+                del params
             torch.cuda.empty_cache() if DEVICE == "cuda" else None
     emit("encoder_widths", card=info["nvidia_smi"], **out)
     total: dict = dict.fromkeys(A.ROUTE_LAUNCHES, 0)
     for by_route in launches.values():
         for r, n in by_route.items():
             total[r] += n
-    return {"launches": total, "metrics": out}
+    bwd_total: dict = dict.fromkeys(A.BACKWARD_ROUTE_LAUNCHES, 0)
+    for by_route in bwd_launches.values():
+        for r, n in by_route.items():
+            bwd_total[r] += n
+    return {"launches": total, "backward_launches": bwd_total, "metrics": out}
 
 
 def phase_main_path(docs: list[str]) -> dict:
@@ -1543,6 +1646,230 @@ def phase_engine_kernels(info: dict) -> dict:
 
     pw.G.clear()
     return runs
+
+
+#: the reference's tests of the engine's core Table API, run as the port's
+#: pipelines (their sources read with ``pathway_tpu`` as
+#: ``pathway_tpu_torch``; tests/test_torch_<name>.py holds each to the
+#: reference on the CPU)
+ENGINE_SEM_FILES = ("table_ops", "joins", "reducers", "expressions", "edge_cases", "errors", "core_types",
+                    "differential_fuzz", "engine_perf_paths", "blocks_dtypes")
+#: cases whose rows land in wall-clock ticks (a live subject, a REST round
+#: trip, an async UDF): compared by their final rows
+ENGINE_SEM_FINAL = {"test_rest_server_round_trip", "test_udf_async", "test_join_groupby_first_load_then_deltas",
+                    "test_outer_join_first_load_then_retraction",
+                    "test_outer_join_float_pad_retraction_consistency"}
+#: the differential fuzz at this many events (the reference test's
+#: generator, pipelines and streamed-against-static comparison)
+ENGINE_SEM_FUZZ_ROWS = 65_536
+#: shape 0: filter -> join -> groupby sum; 3: outer join -> groupby count
+#: (the other two cut to keep the phase within 30 s; PERF.md section 4)
+ENGINE_SEM_FUZZ_SHAPES = (0, 3)
+
+
+def _port_module(name: str, path: str, cache: dict):
+    """A reference test file (or ``tests/utils.py``) read as the port's:
+    ``pathway_tpu`` as ``pathway_tpu_torch``, its helpers from the port's
+    copy of ``tests/utils.py``. Nothing of the JAX package is imported."""
+    import re
+    import types
+
+    if name in cache:
+        return cache[name]
+    if "_engine_sem_utils" not in sys.modules and name != "_engine_sem_utils":
+        _port_module("_engine_sem_utils", os.path.join(os.path.dirname(path), "utils.py"), cache)
+    with open(path) as f:
+        src = re.sub(r"\bpathway_tpu\b", "pathway_tpu_torch", f.read())
+    src = re.sub(r"""(["'])tests\.utils\1""", '"_engine_sem_utils"', src)
+    src = re.sub(r"^(\s*)from (tests\.)?utils import", r"\1from _engine_sem_utils import", src, flags=re.M)
+    mod = types.ModuleType(name)
+    mod.__file__ = path
+    exec(compile(src, path, "exec"), mod.__dict__)
+    if name == "_engine_sem_utils":
+        sys.modules[name] = mod
+    cache[name] = mod
+    return mod
+
+
+def _param_cases(fn) -> list[tuple[str, dict]]:
+    """(id, kwargs) of each case pytest's ``parametrize`` marks give ``fn``."""
+    import itertools
+
+    marks = [m for m in getattr(fn, "pytestmark", []) if m.name == "parametrize"]
+    if not marks:
+        return [(fn.__name__, {})]
+    axes = [[(m.args[0], v) for v in m.args[1]] for m in marks]
+    return [(f"{fn.__name__}[{'-'.join(str(v) for _n, v in combo)}]", {n: v for n, v in combo})
+            for combo in itertools.product(*axes)]
+
+
+def _bits(v):
+    """A value with every float as its IEEE bits, so equality is equality
+    of bits."""
+    if isinstance(v, (float, np.floating)):
+        return ("f64", np.float64(v).view(np.uint64).item())
+    if isinstance(v, np.generic):
+        return v.item()
+    if isinstance(v, (tuple, list)):
+        return tuple(_bits(x) for x in v)
+    if isinstance(v, np.ndarray):
+        return ("nd", v.dtype.str, _bits(v.ravel().tolist()))
+    if type(v).__name__ in ("_Error", "Json", "Pointer"):
+        return (type(v).__name__, str(v))
+    return v
+
+
+def _recorded_run(fn, kwargs: dict, final: bool) -> list:
+    """Run one test body; every table it captured as its update stream
+    (consolidated per tick: the net diff of each (time, key, values)), or
+    as its final rows by key."""
+    import pytest
+
+    from collections import Counter
+
+    from pathway_tpu_torch.engine import operators as ops
+
+    nodes, init = [], ops.CaptureNode.__init__
+
+    def capture_init(node, *a, **kw):
+        init(node, *a, **kw)
+        nodes.append(node)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(ops.CaptureNode, "__init__", capture_init)
+    import pathway_tpu_torch as pw
+
+    pw.G.clear()
+    try:
+        params = fn.__code__.co_varnames[: fn.__code__.co_argcount]
+        fn(**kwargs, **({"monkeypatch": mp} if "monkeypatch" in params else {}))
+    finally:
+        mp.undo()
+        pw.G.clear()
+    out = []
+    for node in nodes:
+        net: Counter = Counter()
+        for t, k, d, row in node.deltas:
+            net[((None if final else t), int(k), _bits(tuple(row)))] += d
+        out.append(sorted((e, n) for e, n in net.items() if n))
+    return out
+
+
+def _engine_registry(tests_dir: str) -> list[tuple[str, object, dict]]:
+    """(case, function, kwargs) of every test of ENGINE_SEM_FILES."""
+    cache: dict = {}
+    cases = []
+    for name in ENGINE_SEM_FILES:
+        mod = _port_module(f"_engine_sem_{name}", os.path.join(tests_dir, f"test_{name}.py"), cache)
+        for attr, fn in vars(mod).items():
+            if attr.startswith("test_") and callable(fn):
+                for cid, kw in _param_cases(fn):
+                    cases.append((f"{name}::{cid}", fn, kw))
+    return cases
+
+
+def phase_engine_semantics(info: dict) -> dict:
+    """The engine's core Table API on the card: every case of the
+    reference's ten Table API test files (ENGINE_SEM_FILES; the mirrors in
+    tests/test_torch_<name>.py hold the port to the reference on the CPU),
+    run as the port's pipelines with ``PATHWAY_ENGINE_JAX=gpu`` and the
+    fused device tier forced on (``PATHWAY_FUSE_JAX=on``) against the same
+    cases with both on CPU tensors (``cpu``); the device functions' size
+    thresholds are set to 1 for the phase, so every groupby segment-sum and
+    join probe of engine/torch_kernels.py runs on the card (the thresholds
+    are a speed choice: the values do not depend on them). Each case's
+    update streams (consolidated per tick; final rows by key for the
+    wall-clock cases of ENGINE_SEM_FINAL) must equal the CPU run's bit for
+    bit, and each body's own assertions pass. Then the differential fuzz
+    (the reference test's generator and pipelines) at ENGINE_SEM_FUZZ_ROWS
+    events with ``PATHWAY_AUDIT=off``: on the card streamed (5 ticks)
+    equal to one static load, and the card's static rows equal to the CPU
+    tensors', bit for bit.
+    Routes taken: ``torch_kernels.ROUTES`` (``grouped/``, ``probe/``,
+    ``fused/<device>``)."""
+    from pathway_tpu_torch.engine import torch_kernels as K
+
+    tests_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    card = "gpu" if DEVICE == "cuda" else "cpu"
+    keys = ("PATHWAY_ENGINE_JAX", "PATHWAY_FUSE_JAX", "PATHWAY_FUSE_JAX_MIN_ROWS", "PATHWAY_AUDIT")
+    saved_env = {k: os.environ.get(k) for k in keys}
+    saved_k = (K._MIN_ROWS, K.probe_eligible)
+    cases = _engine_registry(tests_dir)
+    out = {"card": info["nvidia_smi"], "cases": len(cases), "files": len(ENGINE_SEM_FILES)}
+    try:
+        os.environ["PATHWAY_AUDIT"] = "off"
+        os.environ["PATHWAY_FUSE_JAX"] = "on"
+        os.environ["PATHWAY_FUSE_JAX_MIN_ROWS"] = "1"
+        K._MIN_ROWS = 1
+        K.probe_eligible = lambda n_state, n_query: K.flag() not in ("0", "false", "auto")
+        runs, routes, secs = {}, {}, {}
+        for flag in ("cpu", card):
+            os.environ["PATHWAY_ENGINE_JAX"] = flag
+            K.ROUTES.clear()
+            t0 = time.perf_counter()
+            runs[flag] = {}
+            for cid, fn, kw in cases:
+                try:
+                    runs[flag][cid] = _recorded_run(fn, kw, cid.split("::")[1].split("[")[0] in ENGINE_SEM_FINAL)
+                except Exception as e:  # the body's own assertion, or a raise the body did not expect
+                    runs[flag][cid] = f"FAILED: {type(e).__name__}: {str(e)[:300]}"
+            sync()
+            secs[flag] = time.perf_counter() - t0
+            routes[flag] = dict(K.ROUTES)
+        failed = {c: r for c, r in runs[card].items() if isinstance(r, str)}
+        differ = [c for c in runs["cpu"] if runs["cpu"][c] != runs[card][c]]
+        check(not failed, f"engine_semantics: cases failed on {card}: {failed}")
+        check(not differ, f"engine_semantics: {len(differ)} cases differ from the CPU run: {differ[:10]}")
+        on_card = {r: n for r, n in routes[card].items() if not r.endswith("/cpu")}
+        if DEVICE == "cuda":
+            for kind in ("grouped", "probe", "fused"):
+                check(any(r.startswith(kind + "/cuda") for r in on_card),
+                      f"engine_semantics: no {kind} call on the card, routes {routes[card]}")
+        out.update(registry_s=secs, routes=routes, cases_failed=len(failed), cases_differing=len(differ),
+                   captures=sum(len(r) for r in runs[card].values() if not isinstance(r, str)),
+                   updates=sum(len(s) for r in runs[card].values() if not isinstance(r, str) for s in r))
+
+        # the differential fuzz at ENGINE_SEM_FUZZ_ROWS events: on the card
+        # streamed and static, on CPU tensors static
+        fuzz = _port_module("_engine_sem_differential_fuzz", os.path.join(tests_dir, "test_differential_fuzz.py"), {})
+        fuzz_out: dict = {"cpu": {"seconds": 0.0, "routes": {}}, card: {"seconds": 0.0, "routes": {}}}
+        final_rows = {}
+        for shape in ENGINE_SEM_FUZZ_SHAPES:
+            rng = np.random.default_rng(1000 + shape)
+            events = fuzz._make_rows(rng, ENGINE_SEM_FUZZ_ROWS)
+            right = [(int(k), int(w)) for k, w in zip(rng.integers(0, ENGINE_SEM_FUZZ_ROWS // 4, 4096),
+                                                      rng.integers(1, 9, 4096))]
+            got = {}
+            for flag, streamed in ((card, True), (card, False), ("cpu", False)):
+                os.environ["PATHWAY_ENGINE_JAX"] = flag
+                K.ROUTES.clear()
+                t0 = time.perf_counter()
+                left_t, right_t = fuzz._tables(events, right, streamed=streamed, n_times=5 if streamed else 1)
+                got[(flag, streamed)] = _recorded_run(
+                    lambda: fuzz.rows_of(fuzz._pipeline(left_t, right_t, shape)), {}, True)
+                sync()
+                fuzz_out[flag]["seconds"] += time.perf_counter() - t0
+                for r, n in K.ROUTES.items():
+                    fuzz_out[flag]["routes"][r] = fuzz_out[flag]["routes"].get(r, 0) + n
+            check(got[(card, True)] == got[(card, False)],
+                  f"engine_semantics fuzz shape {shape} on {card}: streamed differs from the static load")
+            check(got[(card, False)] == got[("cpu", False)],
+                  f"engine_semantics fuzz shape {shape}: the card's rows differ from the CPU's")
+            final_rows[str(shape)] = sum(len(x) for x in got[(card, False)])
+        if DEVICE == "cuda":
+            check(any(r.startswith("fused/cuda") for r in fuzz_out[card]["routes"]),
+                  f"engine_semantics fuzz: no fused chain on the card, routes {fuzz_out[card]['routes']}")
+        out["fuzz"] = {"events": ENGINE_SEM_FUZZ_ROWS, "shapes": list(ENGINE_SEM_FUZZ_SHAPES),
+                       "final_rows": final_rows, **fuzz_out}
+    finally:
+        K._MIN_ROWS, K.probe_eligible = saved_k
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    emit("engine_semantics", **out)
+    return out
 
 
 def phase_audit_fault(info: dict) -> dict:
@@ -2895,7 +3222,7 @@ def phase_connectors(info: dict) -> dict:
 
     # every attention launch on the bf16 tensor-core route, 6 per embedder launch
     expected = 6 * len(launch_log.spans)
-    check(route_launches["tensor_core"] == expected == launches and route_launches["plain_outside_envelope"] == 0,
+    check(route_launches["tensor_core"] == expected == launches == sum(route_launches.values()),
           f"connectors: attention launches {route_launches}, expected {expected} on tensor_core")
 
     lake_read = {}
@@ -3621,12 +3948,13 @@ def _serve_store(ds: dict, port: int, mode: str = "static", rows_probe: list | N
     return run, routes, ingest, stats_calls
 
 
-def _retrieve_leg(port: int, ds: dict, clients: int, retrieve, diagnose: dict, leg: str) -> tuple[dict, list]:
-    """The document_store phase's retrieve payloads from ``clients`` clients,
-    each answer held against the in-process one; (the leg's numbers, the
-    answers)."""
+def _retrieve_leg(port: int, ds: dict, clients: int, retrieve, diagnose: dict, leg: str,
+                  limit: int | None = None) -> tuple[dict, list]:
+    """The document_store phase's retrieve payloads (the first ``limit``)
+    from ``clients`` clients, each answer held against the in-process one;
+    (the leg's numbers, the answers)."""
     jobs = [("POST", "/v1/retrieve", {"query": q, "k": k, "metadata_filter": m, "filepath_globpattern": g})
-            for q, k, m, g in ds["queries"]]
+            for q, k, m, g in ds["queries"][:limit]]
     want = {key: _comparable(hits) for key, hits in ds["answers"].items()}
     before = _route_counts(retrieve)
     t1 = time.perf_counter()
@@ -3874,8 +4202,9 @@ def phase_rest_serving(info: dict, ds: dict) -> dict:
     (the ``minilm`` embedder, the default ``TieredKnnFactory``) and
     ``BaseRAGQuestionAnswerer(FakeChatModel())`` on 127.0.0.1. Waits for
     ingest (``/v1/statistics`` reports every file, and both index nodes hold
-    every chunk); sends phase document_store's DS_QUERIES retrieve payloads
-    as JSON POSTs from 1 client and from RS_CLIENTS concurrent clients over
+    every chunk); sends phase document_store's retrieve payloads as JSON
+    POSTs from 1 client (the first RS_ONE_CLIENT_REQUESTS) and all
+    DS_QUERIES from RS_CLIENTS concurrent clients over
     keep-alive connections, each answer held against that phase's in-process
     answer (texts, metadata, score bits); DS_QA ``/v2/answer`` requests, each
     prompt holding its DS_K texts in order; ``/v1/inputs``,
@@ -3927,7 +4256,8 @@ def phase_rest_serving(info: dict, ds: dict) -> dict:
         for clients in (1, RS_CLIENTS):
             c0 = _leg_counts(launch_log)
             leg_t0 = time.time()
-            leg, got = _retrieve_leg(port, ds, clients, retrieve, diagnose, "rest_serving")
+            leg, got = _retrieve_leg(port, ds, clients, retrieve, diagnose, "rest_serving",
+                                     RS_ONE_CLIENT_REQUESTS if clients == 1 else None)
             leg_t1 = time.time()
             leg["calls"] = _check_leg_calls(f"rest_serving retrieve {clients}", c0, _leg_counts(launch_log),
                                             launch_log, emb, layers)
@@ -4009,7 +4339,8 @@ def phase_rest_serving(info: dict, ds: dict) -> dict:
 
         # health: canaries counted, never in the routes' counters
         canary = H.current().canary_snapshot()
-        sent = {"/v1/retrieve": 2 * len(ds["queries"]), "/v2/answer": len(ds["prompts"]),
+        sent = {"/v1/retrieve": len(ds["queries"][:RS_ONE_CLIENT_REQUESTS]) + len(ds["queries"]),
+                "/v2/answer": len(ds["prompts"]),
                 "/v1/statistics": stats_calls, "/v1/inputs": 1, "/v2/list_documents": 1}
         totals = {r: routes[r].requests_total for r in sent}
         check(totals == sent, f"rest_serving: route request counters {totals} != the requests sent {sent}")
@@ -4767,7 +5098,7 @@ def phase_graphs(info: dict) -> dict:
     return out
 
 
-KNN_INDEX_QUERIES = 256
+KNN_INDEX_QUERIES = 128  # cut from 256 to keep the whole script in its time (PERF.md section 4)
 KNN_INDEX_K = 10
 # LSH of the legacy KNNIndex on the main path's unit-norm embeddings: 16 ORed
 # bands of 8 ANDed projections, bucket length 1 (a unit vector's projection
@@ -4836,8 +5167,8 @@ def phase_knn_index(info: dict, vecs: np.ndarray) -> dict:
     return out
 
 
-MW_DOCS = 8192  # cut from 16,384 to pay for phases train and fabric
-MW_QUERIES = 512  # cut from 1,024 with MW_DOCS
+MW_DOCS = 4096  # cut from 16,384 to pay for phases train and fabric, then from 8,192 (PERF.md section 4)
+MW_QUERIES = 256  # cut from 1,024 with MW_DOCS
 MW_WORKERS = 4
 MW_SEARCH_ROWS = 1_000_000
 MW_SEARCH_TIED = 1000  # rows 1000..1999 are one vector: ties at the k boundary
@@ -5485,8 +5816,8 @@ def _elastic_rescales(tmp: str, want: dict) -> tuple[dict, dict]:
         for s in stats:
             for route, n in s["attention_launches"].items():
                 launches[route] = launches.get(route, 0) + n
-    check(launches.get("plain_outside_envelope", 0) == 0, f"elastic: plain attention calls {launches}")
-    check(launches.get("tensor_core", 0) > 0, f"elastic: no tensor-core attention launch: {launches}")
+    check(0 < launches.get("tensor_core", 0) == sum(launches.values()),
+          f"elastic: attention launches {launches}, expected every one on tensor_core")
     attempts = result.attempts if result else []
     rescales = []
     for i, req in enumerate(requests):
@@ -5697,9 +6028,20 @@ BWD_SHAPES = {
     "hd16_l128": (16, 128, 4, 16), "hd16_l200": (4, 200, 4, 16),
     "hd48_l128": (16, 128, 8, 48), "hd96_l128": (8, 128, 4, 96), "hd8_l16": (8, 16, 48, 8),
     "l1024": (2, 1024, 6, 64),
+    # heads the aligned kernels do not take, in 3 heads (D = 3 hd): hd 12
+    # (bf16 rows of 72 bytes: the fused route at 8-byte copies; f32 rows of
+    # 144 bytes: the aligned fused route) at 128 and 77 keys and on the
+    # two-pass route at 200; hd 1 (2- and 4-byte copies); hd 136 and 256 on
+    # the two-pass route in column blocks of 128, at 128 and 600 keys; and
+    # phase encoder_widths' train shapes (32 heads of 12, 3 of 256)
+    "any_hd12_l128": (16, 128, 3, 12), "any_hd12_l77": (8, 77, 3, 12), "any_hd12_l200": (4, 200, 3, 12),
+    "any_hd1_l16": (8, 16, 3, 1), "any_hd136_l128": (8, 128, 3, 136), "any_hd136_l600": (2, 600, 3, 136),
+    "any_hd256_l128": (8, 128, 3, 256), "any_hd256_l600": (2, 600, 3, 256),
+    "train_hd12": (256, 128, 32, 12), "train_hd256": (256, 128, 3, 256),
 }
-#: the backward's timed cases: the train step's shape and multichip_dryrun's
-BWD_TIMED = ("train", "dryrun")
+#: the backward's timed cases: the train step's shape and multichip_dryrun's,
+#: and encoder_widths' train shapes
+BWD_TIMED = ("train", "dryrun", "train_hd12", "train_hd256")
 #: the train phase: the main path's encoder at full width, the reference
 #: test's recipe (each positive is the same text) on synth_docs
 TRAIN_PAIRS = 256
@@ -5716,7 +6058,7 @@ TRAIN_LR = 1e-2
 #: ~2^-22 of a product
 TRAIN_GRAD_TOL = {"bfloat16": 5e-2, "float32": 1e-3}
 #: the fabric phase: rag_cluster's served mode, docs and requests per door
-FABRIC_DOCS = 2048
+FABRIC_DOCS = 1024  # cut from 2,048 to keep the whole script in its time (PERF.md section 4)
 FABRIC_QUERIES = 32
 FABRIC_LEGS = {
     "zero_hop": {"PATHWAY_FABRIC": "on", "PATHWAY_SHARDMAP": "on"},
@@ -5751,12 +6093,16 @@ def phase_kernels_backward() -> list[dict]:
         rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
         for label, (B, L, H, hd) in BWD_SHAPES.items():
             D, scale = H * hd, hd ** -0.5
-            geo = A.backward_launch_geometry(B, L, H, hd, dtype)
+            vb = _projection_copy(H, hd, dtype)
+            geo = A.backward_launch_geometry(B, L, H, hd, dtype, vb)
             q, k, v, mask = _attention_inputs(B, L, dtype, gen, H, hd)
             out = A.attention_short_flat(q, k, v, mask, H, scale)
             g = torch.randn(B, L, D, device="cuda", generator=gen).to(dtype)
+            before = dict(A.BACKWARD_ROUTE_LAUNCHES)
             got = A.attention_short_flat_backward(q, k, v, mask, out, g, H, scale)
             torch.cuda.synchronize()
+            check(A.BACKWARD_ROUTE_LAUNCHES[geo.route] == before[geo.route] + 1,
+                  f"attention backward {label} {dname}: the call did not launch on route {geo.route}")
             want = A.attention_short_flat_backward_plain(q, k, v, mask, out, g, H, scale)
             errs, ok = {}, True
             for name, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -5765,9 +6111,18 @@ def phase_kernels_backward() -> list[dict]:
                 ok = ok and bool(torch.isfinite(a).all()) and bool((err <= rel * (b.abs() + b.abs().max())).all())
                 errs[name] = err.max().item()
             check(ok, f"attention backward {label} {dname}: kernel disagrees with plain {errs}")
-            want_fused = L <= 128 and (dtype == torch.bfloat16 or A.kernel_width(hd) <= 64)
-            check(geo.fused == want_fused, f"attention backward {label} {dname}: route {geo.route}, "
-                  f"expected the {'fused' if want_fused else 'two-pass'} route")
+            # the route by the rule the kernels state: fused up to 128 keys
+            # and 128 columns where its block fits (bf16 at any width, f32
+            # up to 64), on attention_any.cu below 16-byte copies; else two
+            # passes, in column blocks above 128 columns
+            width = A.kernel_width(hd) if vb == 16 else A.any_width(hd)
+            want_fused = L <= 128 and hd <= 128 and (dtype == torch.bfloat16 or width <= 64)
+            if want_fused:
+                want_route = A.BACKWARD_ROUTES[dtype][0] if vb == 16 else A.ANY_ROUTES[dtype][1]
+            else:
+                want_route = A.BACKWARD_ROUTES[dtype][1] if hd <= 128 else A.ANY_ROUTES[dtype][2]
+            check(geo.route == want_route, f"attention backward {label} {dname}: route {geo.route}, "
+                  f"expected {want_route}")
             if label == "ragged":
                 wide = torch.empty(B, L, D + 1, device="cuda", dtype=dtype)
                 wide[..., 1:] = g
@@ -5776,7 +6131,7 @@ def phase_kernels_backward() -> list[dict]:
                       f"attention backward ragged {dname}: an unaligned d_out changes the result")
                 del wide, shifted
             rec = {"case": label, "dtype": dname, "B": B, "L": L, "H": H, "hd": hd, "route": geo.route,
-                   "kernel_width": A.kernel_width(hd),
+                   "kernel_width": geo.width, "col_blocks": geo.col_blocks, "copy_bytes": geo.copy_bytes,
                    "rows_per_block": geo.rows, "smem_bytes": geo.smem_bytes,
                    "max_abs_err": max(errs.values()), "errors": errs,
                    "tolerance": f"{rel:g}*(|ref|+max|ref|)", "ok": ok}
@@ -5790,7 +6145,7 @@ def phase_kernels_backward() -> list[dict]:
                 check(rec["batch_invariant"], f"attention backward train {dname}: 8 texts alone differ from rows 0-7")
                 del again, part
             if label in BWD_TIMED:
-                iters = 10 if label == "train" else 200
+                iters = 10 if label.startswith("train") else 200
                 rec["ms"] = cuda_ms(lambda: A.attention_short_flat_backward(q, k, v, mask, out, g, H, scale), iters)
                 two = A._two_pass_geometry(B, L, H, hd, dtype)
                 rec["two_pass_ms"] = cuda_ms(
@@ -5826,8 +6181,8 @@ def _reset_attention_counts() -> None:
     from pathway_tpu_torch.ops import attention_kernel as A
 
     A.LAUNCHES = A.BACKWARD_LAUNCHES = 0
-    A.ROUTE_LAUNCHES.update(dict.fromkeys(A.ROUTE_LAUNCHES, 0))
-    A.BACKWARD_ROUTE_LAUNCHES.update(dict.fromkeys(A.BACKWARD_ROUTE_LAUNCHES, 0))
+    for counts in (A.ROUTE_LAUNCHES, A.BACKWARD_ROUTE_LAUNCHES, A.COPY_LAUNCHES, A.BACKWARD_COPY_LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
 
 
 def _attention_counts() -> tuple[dict, dict]:
@@ -6124,7 +6479,7 @@ def _backward_entry(records: list[dict], dtype: str, launches: dict) -> dict:
     from pathway_tpu_torch.ops import attention_kernel as A
 
     routes = A.BACKWARD_ROUTES[getattr(torch, dtype)]
-    mine = [r for r in records if r["dtype"] == dtype]
+    mine = [r for r in records if r["dtype"] == dtype and r["route"] in routes]
     worst = max(mine, key=lambda r: r["max_abs_err"])
     train = next(r for r in mine if r["case"] == "train")
     what = {
@@ -6138,9 +6493,9 @@ def _backward_entry(records: list[dict], dtype: str, launches: dict) -> dict:
         "route": "cuda",
         "source": "pathway_tpu_torch/csrc/attention_short_bwd.cu",
         "replaces": "pathway_tpu/ops/encoder.py:150",
-        "launches": sum(by_route[r] for by_route in launches.values() for r in routes),
-        "launches_by_path": {path: sum(by_route[r] for r in routes) for path, by_route in launches.items()},
-        "launches_by_route": {r: sum(by_route[r] for by_route in launches.values()) for r in routes},
+        "launches": sum(by_route.get(r, 0) for by_route in launches.values() for r in routes),
+        "launches_by_path": {path: sum(by_route.get(r, 0) for r in routes) for path, by_route in launches.items()},
+        "launches_by_route": {r: sum(by_route.get(r, 0) for by_route in launches.values()) for r in routes},
         "max_abs_err": worst["max_abs_err"],
         "max_abs_err_case": f"{dtype} {worst['case']} (B={worst['B']} L={worst['L']} hd={worst['hd']})",
         "cases_checked": len(mine),
@@ -6169,7 +6524,7 @@ def _kernel_entry(records: list[dict], dtype: str, route: str, what: str, launch
     embed shape, and its largest error over every checked case of its dtype
     (with the case it came from). ``launches``: path name -> route counts,
     each read right after that path ran; the line's count is their sum."""
-    mine = [r for r in records if r["dtype"] == dtype]
+    mine = [r for r in records if r["dtype"] == dtype and r["route"] == route]
     worst = max(mine, key=lambda r: r["max_abs_err"])
     embed = next(r for r in mine if r["case"] == "embed")
     entry = {
@@ -6177,8 +6532,8 @@ def _kernel_entry(records: list[dict], dtype: str, route: str, what: str, launch
         "route": "cuda",
         "source": "pathway_tpu_torch/csrc/attention_short.cu",
         "replaces": "pathway_tpu/ops/attention_kernel.py:33",
-        "launches": sum(by_route[route] for by_route in launches.values()),
-        "launches_by_path": {path: by_route[route] for path, by_route in launches.items()},
+        "launches": sum(by_route.get(route, 0) for by_route in launches.values()),
+        "launches_by_path": {path: by_route.get(route, 0) for path, by_route in launches.items()},
         "max_abs_err": worst["max_abs_err"],
         "max_abs_err_case": f"{dtype} {worst['case']} (B={worst['B']} L={worst['L']} hd={worst['hd']})",
         "cases_checked": len(mine),
@@ -6195,6 +6550,88 @@ def _kernel_entry(records: list[dict], dtype: str, route: str, what: str, launch
     if "bound_fp32_pipes_ms" in embed:
         entry["bound_fp32_pipes_ms"] = embed["bound_fp32_pipes_ms"]
     return entry
+
+
+def _any_kernel_entry(records: list[dict], dtype: str, launches: dict, widths: dict) -> dict:
+    """attention_any.cu's forward of one dtype on the kernels line: its time
+    at encoder_widths' 3 heads of 256 (two column blocks), its largest error
+    over every case it ran, and its launches per path and per copy width
+    (the copy widths counted in encoder_widths' legs)."""
+    import torch
+
+    from pathway_tpu_torch.ops import attention_kernel as A
+
+    route = A.ANY_ROUTES[getattr(torch, dtype)][0]
+    mine = [r for r in records if r["dtype"] == dtype and r["route"] == route]
+    worst = max(mine, key=lambda r: r["max_abs_err"])
+    head = next(r for r in mine if r["case"] == "enc_hd256")
+    copies: dict = {}
+    for key, m in widths["metrics"].items():
+        if key.endswith(dtype) and m["route"] == route:
+            for vb, n in m["copy_launches"].items():
+                copies[vb] = copies.get(vb, 0) + n
+    return {
+        "name": f"attention_short_flat_any[{dtype}]",
+        "route": "cuda",
+        "source": "pathway_tpu_torch/csrc/attention_any.cu",
+        "replaces": "pathway_tpu/ops/attention_kernel.py:33",
+        "launches": sum(by_route.get(route, 0) for by_route in launches.values()),
+        "launches_by_path": {path: by_route.get(route, 0) for path, by_route in launches.items()},
+        "launches_by_copy_bytes": copies,
+        "max_abs_err": worst["max_abs_err"],
+        "max_abs_err_case": f"{dtype} {worst['case']} (B={worst['B']} L={worst['L']} hd={worst['hd']})",
+        "cases_checked": len(mine),
+        "copy_bytes_checked": sorted({r["copy_bytes"] for r in mine}),
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "shape": f"B=1024 L=128 D=768 H=3 {dtype}",
+        "kernel": "any head width and copy width (16/8/4/2 bytes), column blocks of <= 128, "
+                  "K/V streamed in 64-key tiles, scores recomputed per output block, tensor cores "
+                  + ("(mma.sync bf16)" if dtype == "bfloat16" else "in 3xTF32"),
+        "timed_cases": {r["case"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "copy_bytes")}
+                        for r in mine if "ms" in r},
+    }
+
+
+def _any_backward_entry(records: list[dict], dtype: str, launches: dict) -> dict:
+    """attention_any.cu's backward of one dtype on the kernels line: the
+    fused route at any copy width and the two-pass route in column blocks;
+    its time at encoder_widths' train shape of 3 heads of 256 (two-pass in
+    column blocks), its largest error, launches per path and route."""
+    import torch
+
+    from pathway_tpu_torch.ops import attention_kernel as A
+
+    routes = A.ANY_ROUTES[getattr(torch, dtype)][1:]
+    mine = [r for r in records if r["dtype"] == dtype and r["route"] in routes]
+    worst = max(mine, key=lambda r: r["max_abs_err"])
+    head = next(r for r in mine if r["case"] == "train_hd256")
+    return {
+        "name": f"attention_short_flat_backward_any[{dtype}]",
+        "route": "cuda",
+        "source": "pathway_tpu_torch/csrc/attention_any.cu",
+        "replaces": "pathway_tpu/ops/encoder.py:150",
+        "launches": sum(by_route.get(r, 0) for by_route in launches.values() for r in routes),
+        "launches_by_path": {path: sum(by_route.get(r, 0) for r in routes) for path, by_route in launches.items()},
+        "launches_by_route": {r: sum(by_route.get(r, 0) for by_route in launches.values()) for r in routes},
+        "max_abs_err": worst["max_abs_err"],
+        "max_abs_err_case": f"{dtype} {worst['case']} (B={worst['B']} L={worst['L']} hd={worst['hd']})",
+        "cases_checked": len(mine),
+        "route_by_case": {r["case"]: r["route"] for r in mine},
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "shape": f"B=256 L=128 D=768 H=3 {dtype}",
+        "kernel": f"{routes[0]}: the fused backward's kernel at any copy width (L <= 128, hd <= 128); "
+                  f"{routes[1]}: the two-pass route's 32-row tiles in column blocks of 128 (hd > 128)",
+        "timed_cases": {r["case"]: {k: r[k] for k in ("ms", "two_pass_ms", "plain_ms", "library_ms", "bound_ms")}
+                        for r in mine if "ms" in r},
+    }
 
 
 def main() -> int:
@@ -6234,6 +6671,7 @@ def main() -> int:
     pipe = timed("pipeline", phase_pipeline, info)
     tier = timed("tiered", phase_tiered, info)
     timed("engine_kernels", phase_engine_kernels, info)
+    timed("engine_semantics", phase_engine_semantics, info)
     timed("audit_fault", phase_audit_fault, info)
     temporal = timed("temporal", phase_temporal, info)
     bert = timed("bert_path", phase_bert_path, info)
@@ -6267,18 +6705,22 @@ def main() -> int:
         "elastic": elastic["launches"], "train": train["launches"], "multichip_dryrun": dry["launches"],
         "fabric": fab["launches"],
     }
-    # no path's attention took the plain route (on the card a shape outside
-    # the kernels' envelope raises, which failed its phase)
-    outside = {path: by_route.get("plain_outside_envelope", 0) for path, by_route in launches.items()}
-    check(not any(outside.values()), f"attention calls outside the kernels' envelope, per path {outside}")
-    bwd_launches = {"train": train["backward_launches"], "multichip_dryrun": dry["backward_launches"]}
+    bwd_launches = {"encoder_widths": widths["backward_launches"], "train": train["backward_launches"],
+                    "multichip_dryrun": dry["backward_launches"]}
     line = {"kernels": [
         _kernel_entry(kern, "bfloat16", "tensor_core", "bf16, tensor cores (mma.sync, cp.async)", launches),
         _kernel_entry(kern, "float32", "tensor_core_3xtf32",
                       "f32, tensor cores in 3xTF32 (mma.sync m16n8k8 tf32 on split operands, cp.async)", launches),
         _backward_entry(bwd_kern, "bfloat16", bwd_launches),
         _backward_entry(bwd_kern, "float32", bwd_launches),
+        _any_kernel_entry(kern, "bfloat16", launches, widths),
+        _any_kernel_entry(kern, "float32", launches, widths),
+        _any_backward_entry(bwd_kern, "bfloat16", bwd_launches),
+        _any_backward_entry(bwd_kern, "float32", bwd_launches),
     ]}
+    # every kernel of the line was launched on a path of the run
+    idle = [e["name"] for e in line["kernels"] if not e["launches"]]
+    check(not idle, f"kernels no path launched: {idle}")
     if failures:
         print("chip_smoke: FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1

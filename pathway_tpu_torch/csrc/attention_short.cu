@@ -85,14 +85,18 @@
 // subtraction per operand element, each warp splitting the K and V it
 // reads).
 //
-// Supported: bf16 or f32, any head width hd that is a multiple of 8 from 8
-// to 128, any L >= 1, rows of q/k/v 16-byte aligned (h * hd elements is a
-// multiple of 16 bytes for every such hd in either type). The kernel is
-// instantiated at HD = 16, 32, ..., 128 (template parameter), each twice:
-// EXACT for hd == HD, with the column count a constant, and for hd < HD. A
-// head of hd columns runs in HD = kernel_width(hd), hd rounded up to 16:
-// columns hd .. HD - 1 of Q, K and V are zero-filled in shared memory (load_rows) and
-// never stored, so they add exactly 0 to q . k^T and leave the scores'
+// Supported here: bf16 or f32, any head width hd up to 128 whose q/k/v
+// rows, head offsets (h * hd elements) and pointers are 16-byte aligned (hd
+// a multiple of 8 in bf16, of 4 in f32, on the encoder's [B, L, 3D]
+// projection), any L >= 1. Every other head (a width whose rows are not
+// 16-byte aligned, or wider than 128) runs in attention_any.cu, which the
+// Python wrapper picks from the pointers, the strides and hd
+// (ops/attention_kernel.py::launch_geometry). The kernel is instantiated at
+// HD = 16, 32, ..., 128 (template parameter), each twice: EXACT for
+// hd == HD, with the column count a constant, and for hd < HD. A head of hd
+// columns runs in HD = kernel_width(hd), hd rounded up to 16: columns
+// hd .. HD - 1 of Q, K and V are zero-filled in shared memory (load_rows)
+// and never stored, so they add exactly 0 to q . k^T and leave the scores'
 // bits alone; the scale is hd^-0.5 of the real width (the caller's). At
 // HD = 16 Q . K^T is one m16n8k16 k-step in bf16 (two m16n8k8 in f32) and
 // P . V two n8 tiles; at HD = 48, 80, 96 and 112, HD / 16 k-steps and
@@ -101,9 +105,10 @@
 // every HD, so the 8 rows of an ldmatrix hit 32 distinct banks. The Python
 // wrapper checks all of it and computes the launch geometry (rows per
 // block, shared bytes) with the same formulas as the launcher below. The
-// copies, ldmatrix, the products, score_tiles, fold_tile and div_rn live in
-// attention_tc.cuh,
-// which the backward (attention_short_bwd.cu) includes too.
+// copies, ldmatrix, the products, score_tiles, fold_tile, the tile steps
+// (mask_tile, pv_tile, fill_tile) and div_rn live in attention_tc.cuh,
+// which the backward (attention_short_bwd.cu) and attention_any.cu include
+// too.
 
 // ---------------------------------------------------------------------------
 // Device code (both routes)
@@ -114,83 +119,6 @@
 namespace {
 
 constexpr int kResidentLen = 2 * kKeyTile;  // L up to which K and V stay resident
-
-// Scale and mask a score tile: s = s * scale + f per key column, where the
-// fill f is 0 for a kept key, -1e30 for a masked key and -inf for a padding
-// column past L. Exact: s * scale + 0 is the reference's product, and a
-// score's |s * scale| is far below half an ulp of 1e30 (2^75), so a masked
-// key scores exactly -1e30.
-__device__ __forceinline__ void mask_tile(float (&s)[8][4], const float* sf_t, float scale,
-                                          int lane) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float2 f = *reinterpret_cast<const float2*>(sf_t + 8 * j + 2 * (lane & 3));
-    s[j][0] = fmaf(s[j][0], scale, f.x);
-    s[j][1] = fmaf(s[j][1], scale, f.y);
-    s[j][2] = fmaf(s[j][2], scale, f.x);
-    s[j][3] = fmaf(s[j][3], scale, f.y);
-  }
-}
-
-// o (16 rows x HD, f32) += P . V_t for one 64-key shared V tile, with
-// P = e / l (rows lane/4 and lane/4 + 8: l0, l1 and their reciprocals r0,
-// r1), normalised, then rounded to T. 16-key (bf16) or 8-key (f32) steps
-// past `valid` are skipped (their probs are 0 and their V rows zero).
-template <typename T, int HD>
-__device__ __forceinline__ void pv_tile(float (&o)[HD / 8][4], const float (&e)[8][4], float l0,
-                                        float l1, float r0, float r1, const T* sv_t, int valid,
-                                        int lane) {
-  constexpr int RS = HD + chunk<T>();
-  if constexpr (std::is_same_v<T, bf16>) {
-    // pa[kk] covers keys 16kk .. 16kk + 15: the C layout of the two 8-key
-    // groups 2kk, 2kk + 1 is exactly the m16n8k16 A layout.
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const float* c = e[2 * kk + half];
-        pa[kk][2 * half] = pack_bf16(div_rn(c[0], l0, r0), div_rn(c[1], l0, r0));
-        pa[kk][2 * half + 1] = pack_bf16(div_rn(c[2], l1, r1), div_rn(c[3], l1, r1));
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if (kk * 16 < valid) {
-#pragma unroll
-        for (int dp = 0; dp < HD / 16; ++dp) {
-          uint32_t b[4];
-          // B = V (keys x dims), transposed: keys (0-7 | 8-15) x dims 16dp + (0-7 | 8-15)
-          ldsm_x4_trans(b, sv_t + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
-                               dp * 16 + (lane >> 4) * 8);
-          mma_bf16(o[2 * dp], pa[kk], b[0], b[1]);
-          mma_bf16(o[2 * dp + 1], pa[kk], b[2], b[3]);
-        }
-      }
-    }
-  } else {
-    // Per 8-key group kk, the C fragment (keys 2t, 2t + 1) is the m16n8k8 A
-    // fragment with the k index permuted (k = t: key 2t; k = t + 4: key
-    // 2t + 1): A = (c0, c2, c1, c3), and B reads V rows 2t and 2t + 1 at
-    // column g. With rows padded to HD + 4 floats, lane (g, t) reads bank
-    // 8t + g (+4): the 32 lanes hit 32 banks.
-    const int g = lane >> 2, tq = lane & 3;
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      if (kk * 8 < valid) {
-        const float* c = e[kk];
-        const uint32_t p[4] = {
-            __float_as_uint(div_rn(c[0], l0, r0)), __float_as_uint(div_rn(c[2], l1, r1)),
-            __float_as_uint(div_rn(c[1], l0, r0)), __float_as_uint(div_rn(c[3], l1, r1))};
-        const Mma<float>::A a = Mma<float>::operand(p);
-        const float* v0 = sv_t + (kk * 8 + 2 * tq) * RS + g;
-#pragma unroll
-        for (int n = 0; n < HD / 8; ++n)
-          Mma<float>::run(o[n], a, __float_as_uint(v0[8 * n]), __float_as_uint(v0[RS + 8 * n]));
-      }
-    }
-  }
-}
 
 // Shared bytes of one block; mirrored by ops/attention_kernel.py::launch_geometry:
 // the Q rows, K and V (resident) or their 2-tile rings (streaming), in rows
@@ -203,16 +131,6 @@ template <typename T, int HD>
 __host__ __device__ __forceinline__ size_t tc_smem_bytes(int rows, int L) {
   return (size_t)(rows + 2 * tc_kv_rows(L)) * (HD + chunk<T>()) * sizeof(T) +
          (size_t)tc_kv_rows(L) * sizeof(float);
-}
-
-// The fills of keys first .. first + 63 (one tile) into sf_t: 0 for a kept
-// key, -1e30 for a masked key, -inf past L.
-__device__ __forceinline__ void fill_tile(float* sf_t, const uint8_t* __restrict__ mrow, int first,
-                                          int L) {
-  for (int i = threadIdx.x; i < kKeyTile; i += blockDim.x) {
-    const int j = first + i;
-    sf_t[i] = j >= L ? -CUDART_INF_F : mrow[j] ? 0.f : -1e30f;
-  }
 }
 
 // Two blocks per SM where their shared memory allows it (every bf16 case,
@@ -408,8 +326,8 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
 
 // Plain C entry point (loaded with ctypes). dtype: 0 = float32 (3xTF32
 // route), 1 = bfloat16. `rows` is the query rows per block from
-// launch_geometry. Strides are in elements; `out` is a contiguous
-// [B, L, H * hd] tensor. Returns the launch's cudaError_t (0 = success).
+// launch_geometry. Strides are in elements and every row, head offset and
+// pointer 16-byte aligned; `out` is a contiguous [B, L, H * hd] tensor. Returns the launch's cudaError_t (0 = success).
 extern "C" int pw_attention_short_flat(int dtype, int hd, const void* q, const void* k,
                                        const void* v, const void* mask, void* out,
                                        long long B, int L, int H, int rows, long long q_sb,
@@ -417,7 +335,7 @@ extern "C" int pw_attention_short_flat(int dtype, int hd, const void* q, const v
                                        long long v_sb, long long v_sl, long long m_sb,
                                        float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd < 8 || hd > 128 || hd % 8 || L < 1) return (int)cudaErrorInvalidValue;
+  if (hd < 1 || hd > 128 || L < 1) return (int)cudaErrorInvalidValue;
 #define PW_CASE(HD)                                                                            \
   case HD:                                                                                     \
     return (int)launch<HD>(dtype, q, k, v, mask, out, B, L, H, hd, rows, q_sb, q_sl, k_sb,    \

@@ -24,7 +24,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 #: kernel name -> its source under csrc/
-SOURCES = {"attention_short": "attention_short.cu", "attention_short_bwd": "attention_short_bwd.cu"}
+SOURCES = {
+    "attention_short": "attention_short.cu", "attention_short_bwd": "attention_short_bwd.cu",
+    "attention_any": "attention_any.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -14,23 +14,24 @@ on the card, :func:`attention_short_flat_backward_plain` on the CPU:
 to 128 keys, one fused pass per (text, head) on the tensor cores; above, or
 f32 at head width 128, the two-pass kernels on the FP32 pipes).
 
-On a CUDA tensor :func:`attention_short_flat` launches the hand-written Hopper
-kernel ``csrc/attention_short.cu`` (design and bound in its header note) or
-raises. Both routes run one kernel on the tensor cores (``mma.sync`` with
+On a CUDA tensor :func:`attention_short_flat` launches a hand-written Hopper
+kernel or raises. Both routes run on the tensor cores (``mma.sync`` with
 async copies): bf16 as bf16 products, f32 as split "3xTF32" products (each
 operand split into two TF32 parts, three products per product, near f32
 accuracy); :func:`launch_geometry` says how either is launched. On a CPU
 tensor it runs :func:`attention_short_flat_plain`, the same arithmetic in
-plain PyTorch. The kernels' envelope (:func:`in_envelope`, from the shape
-alone) is every head width ``hd`` that is a multiple of 8 from 8 to 128 and
-any ``L >= 1``: the kernels are instantiated at the widths
-:data:`KERNEL_WIDTHS` and a head runs in :func:`kernel_width` of its width
-(zero columns up to it, which add nothing); above 128 keys the forward
-streams K and V through a ring and the backward takes its two-pass route.
-A CPU call outside the envelope runs the plain version, as the reference
-falls back to XLA's attention outside its Pallas kernel's envelope, and
-counts under the route ``plain_outside_envelope``; a CUDA call outside it
-raises.
+plain PyTorch. The kernels take every head width ``hd >= 1`` and every
+``L >= 1`` (:func:`in_envelope` refuses no width), for any q/k/v whose last
+dimension is contiguous: a head whose rows, head offsets and pointers are
+16-byte aligned and at most 128 wide runs in ``csrc/attention_short.cu``
+(instantiated at the widths :data:`KERNEL_WIDTHS`, a head in
+:func:`kernel_width` of its width, zero columns up to it, which add
+nothing; above 128 keys K and V stream through a ring); any other head (a
+bf16 head of 12 columns, the column views of a ``[B, L, 3D]`` projection
+at any ``D``, a head wider than 128) runs in ``csrc/attention_any.cu`` at
+the widest copy :func:`copy_width` allows (16, 8, 4 or 2 bytes) in column
+blocks of :func:`any_width` (at most 128, :data:`ANY_WIDTHS`). The
+backward's routes (:func:`backward_launch_geometry`) follow the same split.
 """
 
 from __future__ import annotations
@@ -43,33 +44,48 @@ from typing import NamedTuple
 import torch
 
 #: kernel launches since the count was last reset (the kernel's own wrapper
-#: adds one per launch; nothing else touches it), in all and per route; the
-#: route ``plain_outside_envelope`` counts CPU calls whose shape no kernel
-#: instantiation takes (they run the plain version and add nothing to
-#: LAUNCHES; on the card such a call raises)
+#: adds one per launch; nothing else touches it), in all, per route and per
+#: copy width in bytes (the ``*_any`` routes are ``attention_any.cu``'s)
 LAUNCHES = 0
-ROUTE_LAUNCHES = {"tensor_core": 0, "tensor_core_3xtf32": 0, "plain_outside_envelope": 0}
+ROUTE_LAUNCHES = {"tensor_core": 0, "tensor_core_3xtf32": 0, "tensor_core_any": 0, "tensor_core_3xtf32_any": 0}
+COPY_LAUNCHES = {16: 0, 8: 0, 4: 0, 2: 0}
 #: backward launches (one per gradient: the fused kernel, or the two kernels
-#: of the two-pass route), in all and per backward route
+#: of the two-pass route), in all, per backward route and per copy width
+#: (the two-pass routes read single elements: the element's size)
 BACKWARD_LAUNCHES = 0
 BACKWARD_ROUTE_LAUNCHES = {
     "fused_tensor_core": 0, "fused_tensor_core_3xtf32": 0,
     "two_pass_simt_bf16": 0, "two_pass_simt_f32": 0,
+    "fused_tensor_core_any": 0, "fused_tensor_core_3xtf32_any": 0,
+    "two_pass_simt_bf16_cols": 0, "two_pass_simt_f32_cols": 0,
 }
+BACKWARD_COPY_LAUNCHES = {16: 0, 8: 0, 4: 0, 2: 0}
 #: the backward's route names per input dtype: (fused, two-pass)
 BACKWARD_ROUTES = {
     torch.bfloat16: ("fused_tensor_core", "two_pass_simt_bf16"),
     torch.float32: ("fused_tensor_core_3xtf32", "two_pass_simt_f32"),
 }
-#: the ``__global__`` kernels of ``attention_short_bwd.cu`` per route kind
-#: (a profiler's kernel names contain them)
+#: the ``__global__`` kernels of the backward per route kind (a profiler's
+#: kernel names contain them; ``bwd_dq`` also names ``bwd_dq_cols``)
 BACKWARD_KERNELS = {"fused": ("attention_bwd_fused",), "two_pass": ("bwd_dq", "bwd_dkv")}
 #: route name per input dtype
 ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "tensor_core_3xtf32"}
+#: ``attention_any.cu``'s routes per input dtype: (forward, fused backward,
+#: two-pass backward in column blocks)
+ANY_ROUTES = {
+    torch.bfloat16: ("tensor_core_any", "fused_tensor_core_any", "two_pass_simt_bf16_cols"),
+    torch.float32: ("tensor_core_3xtf32_any", "fused_tensor_core_3xtf32_any", "two_pass_simt_f32_cols"),
+}
+_ANY_FORWARD_ROUTES = frozenset(routes[0] for routes in ANY_ROUTES.values())
+_ANY_BACKWARD_ROUTES = frozenset(r for routes in ANY_ROUTES.values() for r in routes[1:])
 
 #: head widths the kernels are instantiated for (template parameter HD); a
 #: head of width hd runs in kernel_width(hd)
 KERNEL_WIDTHS = (16, 32, 48, 64, 80, 96, 112, 128)
+#: block widths of ``attention_any.cu``'s kernels; a head of hd columns runs
+#: in col_blocks(hd) blocks of any_width(hd)
+ANY_WIDTHS = (16, 32, 64, 128)
+_MAX_COL_BLOCK = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: an H100 block may use 227 KB of dynamic shared memory
 _SMEM_LIMIT = 232448
@@ -90,19 +106,52 @@ _BWD_TILE = 32
 
 
 class LaunchGeometry(NamedTuple):
-    route: str  #: "tensor_core" (bf16) or "tensor_core_3xtf32" (f32)
+    route: str  #: a key of ROUTE_LAUNCHES
     rows: int  #: query rows per block
     warps: int  #: warps per block
     key_tile: int  #: keys per shared-memory tile
     resident: bool  #: K and V of a (batch row, head) held in shared memory at once
     smem_bytes: int  #: dynamic shared memory per block
     blocks: tuple[int, int, int]  #: grid (batch rows, heads, query-row tiles)
+    copy_bytes: int = 16  #: bytes per copy of q, k, v and the output
+    width: int = 0  #: the instantiated width (of one column block)
+    col_blocks: int = 1  #: column blocks a head runs in
 
 
 def kernel_width(hd: int) -> int:
     """The instantiation a head of ``hd`` columns runs in: ``hd`` rounded up
     to 16 (``kernel_width`` in ``csrc/attention_tc.cuh``)."""
     return -(-hd // 16) * 16
+
+
+def col_blocks(hd: int) -> int:
+    """Column blocks of at most 128 a head of ``hd`` columns runs in on
+    ``attention_any.cu``'s kernels (``col_blocks`` in ``attention_tc.cuh``)."""
+    return -(-hd // _MAX_COL_BLOCK)
+
+
+def any_width(hd: int) -> int:
+    """The block width of ``attention_any.cu`` for a head of ``hd`` columns:
+    ``ceil(hd / col_blocks(hd))`` rounded up to one of :data:`ANY_WIDTHS`
+    (``any_width`` in ``attention_tc.cuh``)."""
+    per = -(-hd // col_blocks(hd))
+    return next(w for w in ANY_WIDTHS if w >= per)
+
+
+def copy_width(hd: int, elem: int, *tensors: torch.Tensor) -> int:
+    """The widest copy, 16, 8, 4 or 2 bytes, that divides ``hd * elem`` and
+    every pointer and row stride of ``tensors`` (``elem``-byte elements):
+    the lowest set bit of their OR."""
+    x = hd * elem | 16
+    for t in tensors:
+        x |= t.data_ptr() | t.stride(0) * elem | t.stride(1) * elem
+    return x & -x
+
+
+def _copy_bytes(hd: int, elem: int, copy_bytes: int) -> int:
+    """``copy_bytes`` lowered until it divides ``hd * elem``."""
+    x = hd * elem | copy_bytes
+    return x & -x
 
 
 def _tc_smem_bytes(L: int, hd: int, rows: int, elem: int) -> int:
@@ -115,20 +164,44 @@ def _tc_smem_bytes(L: int, hd: int, rows: int, elem: int) -> int:
     return (rows + 2 * kv_rows) * (hd * elem + _TC_ROW_PAD_BYTES) + kv_rows * 4
 
 
+def _any_smem_bytes(width: int, rows: int, elem: int) -> int:
+    """Dynamic shared memory of one block of ``attention_any.cu``'s forward;
+    mirrors ``any_smem_bytes``: the rows of one column block of Q, one K and
+    one V tile of 64 keys, rows padded by 16 bytes, and the tile's 64 f32
+    fills (at most 135,424 B: f32 at width 128)."""
+    return (rows + 2 * _TC_KEY_TILE) * (width * elem + _TC_ROW_PAD_BYTES) + _TC_KEY_TILE * 4
+
+
 @functools.lru_cache(maxsize=256)
-def launch_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype) -> LaunchGeometry:
-    """How the kernel is launched for one call; both routes share the
-    geometry, f32 with twice the shared memory, at the instantiated width
-    :func:`kernel_width` of ``hd``. No shape of the envelope needs more than
-    ~199 KB (f32 at width 128, any ``L``); a block above the 227 KB a Hopper
-    block may use raises. Cached: the main path repeats a handful of shapes,
-    and the wrapper's host time is most of a small call's time."""
+def launch_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype,
+                    copy_bytes: int = 16) -> LaunchGeometry:
+    """How the kernel is launched for one call, given the widest copy the
+    pointers and row strides allow (``copy_bytes``, lowered here until it
+    divides ``hd * elem``; :func:`copy_width`). A head of at most 128
+    columns with 16-byte copies runs in ``attention_short.cu`` at the
+    instantiated width :func:`kernel_width` of ``hd`` (~199 KB of shared
+    memory at most: f32 at width 128, any ``L``); every other head in
+    ``attention_any.cu`` (route ``*_any``) at its copy width, in
+    :func:`col_blocks` blocks of :func:`any_width`. Both dtypes share the
+    geometry, f32 with twice the shared memory. A block above the 227 KB a
+    Hopper block may use raises. Cached: the main path repeats a handful of
+    shapes, and the wrapper's host time is most of a small call's time."""
     rows = min(_TC_MAX_ROWS, (L + 15) // 16 * 16)
     elem = 2 if dtype == torch.bfloat16 else 4
-    geo = LaunchGeometry(
-        ROUTES[dtype], rows, rows // 16, _TC_KEY_TILE, L <= _TC_RESIDENT_LEN,
-        _tc_smem_bytes(L, kernel_width(hd), rows, elem), (B, n_heads, -(-L // rows)),
-    )
+    vb = _copy_bytes(hd, elem, copy_bytes)
+    blocks = (B, n_heads, -(-L // rows))
+    if hd <= _MAX_COL_BLOCK and vb == 16:
+        width = kernel_width(hd)
+        geo = LaunchGeometry(
+            ROUTES[dtype], rows, rows // 16, _TC_KEY_TILE, L <= _TC_RESIDENT_LEN,
+            _tc_smem_bytes(L, width, rows, elem), blocks, vb, width, 1,
+        )
+    else:
+        width = any_width(hd)
+        geo = LaunchGeometry(
+            ANY_ROUTES[dtype][0], rows, rows // 16, _TC_KEY_TILE, False,
+            _any_smem_bytes(width, rows, elem), blocks, vb, width, col_blocks(hd),
+        )
     if geo.smem_bytes > _SMEM_LIMIT:
         raise ValueError(
             f"attention_short_flat: L={L}, hd={hd} in {dtype} needs {geo.smem_bytes} B "
@@ -143,13 +216,16 @@ class BackwardGeometry(NamedTuple):
     rows: int  #: query rows (fused: and keys) per block
     warps: int  #: warps per block
     smem_bytes: int  #: dynamic shared memory per block (two-pass: the larger kernel's)
-    blocks: tuple[int, int, int]  #: grid (batch rows, heads, row tiles)
+    blocks: tuple[int, int, int]  #: grid (batch rows, heads, row tiles [x column blocks])
+    copy_bytes: int = 16  #: bytes per copy in and out (two-pass: one element)
+    width: int = 0  #: the instantiated width (of one column block)
+    col_blocks: int = 1  #: column blocks a head runs in
 
 
 def _fused_smem_bytes(rows: int, hd: int, elem: int) -> int:
     """Shared bytes of one fused backward block; mirrors ``fused_smem_bytes``
-    in ``attention_short_bwd.cu``: the Q, K, V and dO tiles and the rows x
-    rows staging buffer, in ``elem``-byte elements, rows padded by 16 bytes."""
+    in ``attention_bwd.cuh``: the Q, K, V and dO tiles and the rows x rows
+    staging buffer, in ``elem``-byte elements, rows padded by 16 bytes."""
     pad = _TC_ROW_PAD_BYTES // elem
     return (4 * rows * (hd + pad) + rows * (rows + pad)) * elem
 
@@ -157,41 +233,55 @@ def _fused_smem_bytes(rows: int, hd: int, elem: int) -> int:
 def _two_pass_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype) -> BackwardGeometry:
     """The two-pass route: 32-row tiles of f32 in rows padded by one word
     at the instantiated width (``dkv_smem_bytes``, the larger of its two
-    kernels')."""
-    width = kernel_width(hd)
+    kernels'), single elements read and written; a head wider than 128 in
+    column blocks of 128 (``attention_any.cu``, one grid block per row tile
+    and output column block)."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    if hd <= _MAX_COL_BLOCK:
+        width, route, ncb = kernel_width(hd), BACKWARD_ROUTES[dtype][1], 1
+    else:
+        width, route, ncb = _MAX_COL_BLOCK, ANY_ROUTES[dtype][2], col_blocks(hd)
     smem = (4 * _BWD_TILE * (width + 1) + 2 * _BWD_TILE * (_BWD_TILE + 1) + 4 * _BWD_TILE) * 4
     return BackwardGeometry(
-        BACKWARD_ROUTES[dtype][1], False, _BWD_TILE, 8, smem, (B, n_heads, -(-L // _BWD_TILE))
+        route, False, _BWD_TILE, 8, smem, (B, n_heads, -(-L // _BWD_TILE) * ncb), elem, width, ncb,
     )
 
 
 @functools.lru_cache(maxsize=256)
-def backward_launch_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype) -> BackwardGeometry:
-    """How the backward is launched for one call: the fused route for
-    ``L <= 128`` where its block fits at 128 rows at the instantiated width
-    :func:`kernel_width` of ``hd`` (every bf16 width, f32 up to 64), one
-    block per (batch row, head) of ``16 * ceil(L / 16)`` rows; else the
-    two-pass route (any ``L``)."""
+def backward_launch_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype,
+                             copy_bytes: int = 16) -> BackwardGeometry:
+    """How the backward is launched for one call, given the widest copy the
+    pointers and row strides allow (as :func:`launch_geometry`): the fused
+    route for ``L <= 128`` and ``hd <= 128`` where its block fits at 128
+    rows, one block per (batch row, head) of ``16 * ceil(L / 16)`` rows,
+    with 16-byte copies at :func:`kernel_width` of ``hd``
+    (``attention_short_bwd.cu``: every bf16 width, f32 up to 64) or at a
+    narrower copy at :func:`any_width` (``attention_any.cu``, route
+    ``fused_*_any``); else the two-pass route (any ``L``, any alignment;
+    above 128 columns in column blocks, route ``two_pass_*_cols``)."""
     elem = 2 if dtype == torch.bfloat16 else 4
-    width = kernel_width(hd)
-    if L <= _BWD_FUSED_MAX_LEN and _fused_smem_bytes(_BWD_FUSED_MAX_LEN, width, elem) <= _SMEM_LIMIT:
-        rows = (L + 15) // 16 * 16
-        return BackwardGeometry(
-            BACKWARD_ROUTES[dtype][0], True, rows, rows // 16,
-            _fused_smem_bytes(rows, width, elem), (B, n_heads, 1),
-        )
+    vb = _copy_bytes(hd, elem, copy_bytes)
+    if L <= _BWD_FUSED_MAX_LEN and hd <= _MAX_COL_BLOCK:
+        width = kernel_width(hd) if vb == 16 else any_width(hd)
+        if _fused_smem_bytes(_BWD_FUSED_MAX_LEN, width, elem) <= _SMEM_LIMIT:
+            rows = (L + 15) // 16 * 16
+            route = BACKWARD_ROUTES[dtype][0] if vb == 16 else ANY_ROUTES[dtype][1]
+            return BackwardGeometry(
+                route, True, rows, rows // 16, _fused_smem_bytes(rows, width, elem),
+                (B, n_heads, 1), vb, width, 1,
+            )
     return _two_pass_geometry(B, L, n_heads, hd, dtype)
 
 
 def in_envelope(L: int, hd: int) -> bool:
     """Whether the kernels take sequences of ``L`` keys in heads of ``hd``:
-    every multiple of 8 from 8 to 128 (a 16-byte aligned head offset in
-    either dtype, run in :func:`kernel_width` of it) and any ``L >= 1``;
-    decided from the shape alone, before any launch."""
-    return hd % 8 == 0 and 8 <= hd <= 128 and L >= 1
+    every ``hd >= 1`` and ``L >= 1`` (since the copies take any alignment
+    and heads wider than 128 run in column blocks); decided from the shape
+    alone, before any launch."""
+    return hd >= 1 and L >= 1
 
 
-def _check_common(q, k, v, mask, n_heads: int) -> int:
+def _check(q, k, v, mask, n_heads: int) -> int:
     """Validate what every route needs; returns the head width."""
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
@@ -216,19 +306,6 @@ def _check_common(q, k, v, mask, n_heads: int) -> int:
     if len({t.device for t in (q, k, v, mask)}) != 1:
         raise ValueError("attention_short_flat: q, k, v and mask must share one device")
     return D // n_heads
-
-
-def _check(q, k, v, mask, n_heads: int) -> tuple[int, LaunchGeometry]:
-    """Validate a call of the kernels; returns the head width and the
-    launch geometry."""
-    hd = _check_common(q, k, v, mask, n_heads)
-    B, L, _D = q.shape
-    if not in_envelope(L, hd):
-        raise ValueError(
-            f"attention_short_flat: head width {hd}, L={L} outside the kernels' envelope "
-            "(head widths a multiple of 8 from 8 to 128, L >= 1)"
-        )
-    return hd, launch_geometry(B, L, n_heads, hd, q.dtype)
 
 
 def attention_short_flat_plain(q, k, v, mask, n_heads: int, scale: float):
@@ -280,150 +357,169 @@ def attention_short_flat_backward_plain(q, k, v, mask, out, d_out, n_heads: int,
     return tuple(grads)
 
 
-def _aligned(t: torch.Tensor) -> bool:
-    es = t.element_size()
-    return (
-        t.stride(-1) == 1
-        and t.data_ptr() % 16 == 0
-        and (t.stride(0) * es) % 16 == 0
-        and (t.stride(1) * es) % 16 == 0
-    )
+def _contiguous_rows(name: str, *tensors) -> None:
+    for label, t in zip(name.split(), tensors):
+        if t.stride(-1) != 1:
+            raise ValueError(
+                f"attention_short_flat: {label} must have a contiguous last dimension "
+                f"(strides {t.stride()})"
+            )
 
 
-_kernel_fn = None
+def _bind(lib: str, symbol: str, argtypes: list):
+    """A C entry point of a kernel library, built and bound at first use."""
+    from pathway_tpu_torch.ops import _build
+
+    fn = getattr(_build.load(lib), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn
+
+
+#: the forward's arguments after (dtype, hd[, copy width]): q, k, v, mask,
+#: out, B, L, H, rows, six q/k/v strides, the mask's stride, scale, stream
+_FWD_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+             + [ctypes.c_longlong] * 7 + [ctypes.c_float, ctypes.c_void_p])
+#: the backward's: q, k, v, mask, out, d_out, dq, dk, dv, stats, B, L, H,
+#: ten strides, the mask's stride, scale, stream
+_BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+             + [ctypes.c_longlong] * 11 + [ctypes.c_float, ctypes.c_void_p])
+
+
+_kernel_fn = _any_fn = _backward_fn = _backward_any_fn = None
 
 
 def _kernel():
-    """The C entry point, built and bound at first use."""
+    """The forward's C entry point of ``attention_short.cu``, bound at first use."""
     global _kernel_fn
     if _kernel_fn is None:
-        from pathway_tpu_torch.ops import _build
-
-        fn = _build.load("attention_short").pw_attention_short_flat
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
-            + [ctypes.c_longlong] + [ctypes.c_int] * 3
-            + [ctypes.c_longlong] * 7 + [ctypes.c_float, ctypes.c_void_p]
-        )
-        _kernel_fn = fn
+        _kernel_fn = _bind("attention_short", "pw_attention_short_flat", [ctypes.c_int] * 2 + _FWD_ARGS)
     return _kernel_fn
 
 
-def _launch(q, k, v, mask, n_heads: int, scale: float, hd: int, geo: LaunchGeometry):
+def _any_kernel():
+    """The forward's C entry point of ``attention_any.cu``, bound at first use."""
+    global _any_fn
+    if _any_fn is None:
+        _any_fn = _bind("attention_any", "pw_attention_any_flat", [ctypes.c_int] * 3 + _FWD_ARGS)
+    return _any_fn
+
+
+def _backward_kernel():
+    """The backward's C entry point of ``attention_short_bwd.cu``, bound at first use."""
+    global _backward_fn
+    if _backward_fn is None:
+        _backward_fn = _bind(
+            "attention_short_bwd", "pw_attention_short_flat_backward", [ctypes.c_int] * 2 + _BWD_ARGS
+        )
+    return _backward_fn
+
+
+def _backward_any_kernel():
+    """The backward's C entry point of ``attention_any.cu``, bound at first use."""
+    global _backward_any_fn
+    if _backward_any_fn is None:
+        _backward_any_fn = _bind(
+            "attention_any", "pw_attention_any_flat_backward", [ctypes.c_int] * 3 + _BWD_ARGS
+        )
+    return _backward_any_fn
+
+
+def _launch(q, k, v, mask, n_heads: int, scale: float, hd: int):
     global LAUNCHES
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not _aligned(t):
-            raise ValueError(
-                f"attention_short_flat: {name} must have a contiguous last dimension "
-                f"and 16-byte aligned rows (strides {t.stride()}, "
-                f"{t.element_size()}-byte elements)"
-            )
+    _contiguous_rows("q k v", q, k, v)
     B, L, D = q.shape
+    geo = launch_geometry(B, L, n_heads, hd, q.dtype, copy_width(hd, q.element_size(), q, k, v))
     if mask.stride(-1) != 1:
         mask = mask.contiguous()
-    fn = _kernel()
     out = torch.empty((B, L, D), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
+    args = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), B, L, n_heads,
+        geo.rows, q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        mask.stride(0), float(scale),
+    )
     # switching the current device costs more host time than a small launch
     # takes on the card, so only do it when q lives on another card
     on_current = q.device.index == torch.cuda.current_device()
     with contextlib.nullcontext() if on_current else torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            _DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), B, L, n_heads, geo.rows,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            mask.stride(0), float(scale), stream,
-        )
+        if geo.route in _ANY_FORWARD_ROUTES:
+            err = _any_kernel()(_DTYPES[q.dtype], hd, geo.copy_bytes, *args, stream)
+        else:
+            err = _kernel()(_DTYPES[q.dtype], hd, *args, stream)
     if err != 0:
         raise RuntimeError(f"attention_short_flat: kernel launch failed (cudaError {err})")
     LAUNCHES += 1
     ROUTE_LAUNCHES[geo.route] += 1
+    COPY_LAUNCHES[geo.copy_bytes] += 1
     return out
-
-
-_backward_fn = None
-
-
-def _backward_kernel():
-    """The backward's C entry point, built and bound at first use."""
-    global _backward_fn
-    if _backward_fn is None:
-        from pathway_tpu_torch.ops import _build
-
-        fn = _build.load("attention_short_bwd").pw_attention_short_flat_backward
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
-            + [ctypes.c_longlong] + [ctypes.c_int] * 2
-            + [ctypes.c_longlong] * 11 + [ctypes.c_float, ctypes.c_void_p]
-        )
-        _backward_fn = fn
-    return _backward_fn
 
 
 def _launch_backward(q, k, v, mask, out, d_out, n_heads: int, scale: float, hd: int, geo: BackwardGeometry):
     global BACKWARD_LAUNCHES
+    _contiguous_rows("q k v out", q, k, v, out)
+    es = q.element_size()
     # d_out is whatever autograd passes (it may be expanded or sliced): copied
-    # when its rows are not 16-byte aligned; the others come from the caller
-    if not _aligned(d_out):
+    # when it would lower the route's copy width; the others come from the
+    # caller, who picked the route from their copy width
+    if d_out.stride(-1) != 1 or copy_width(hd, es, d_out) < geo.copy_bytes:
         d_out = d_out.clone(memory_format=torch.contiguous_format)
+    if geo.fused and copy_width(hd, es, q, k, v, out) < geo.copy_bytes:
+        raise ValueError(
+            f"attention_short_flat backward: route {geo.route} copies {geo.copy_bytes} bytes, "
+            f"above what the rows of q, k, v and out allow"
+        )
     if mask.stride(-1) != 1:
         mask = mask.contiguous()
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if not _aligned(t):
-            raise ValueError(
-                f"attention_short_flat backward: {name} must have a contiguous last "
-                f"dimension and 16-byte aligned rows (strides {t.stride()}, "
-                f"{t.element_size()}-byte elements)"
-            )
     B, L, D = q.shape
-    fn = _backward_kernel()
     dq, dk, dv = (torch.empty((B, L, D), dtype=q.dtype, device=q.device) for _ in range(3))
     if B == 0:
         return dq, dk, dv
     stats = None if geo.fused else torch.empty((3, B, n_heads, L), dtype=torch.float32, device=q.device)
+    args = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), d_out.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if stats is None else stats.data_ptr(),
+        B, L, n_heads, q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        out.stride(0), out.stride(1), d_out.stride(0), d_out.stride(1), mask.stride(0), float(scale),
+    )
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            _DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            None if stats is None else stats.data_ptr(), B, L, n_heads,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            out.stride(0), out.stride(1), d_out.stride(0), d_out.stride(1), mask.stride(0),
-            float(scale), stream,
-        )
+        if geo.route in _ANY_BACKWARD_ROUTES:
+            err = _backward_any_kernel()(_DTYPES[q.dtype], hd, geo.copy_bytes, *args, stream)
+        else:
+            err = _backward_kernel()(_DTYPES[q.dtype], hd, *args, stream)
     if err != 0:
         raise RuntimeError(f"attention_short_flat backward: kernel launch failed (cudaError {err})")
     BACKWARD_LAUNCHES += 1
     BACKWARD_ROUTE_LAUNCHES[geo.route] += 1
+    BACKWARD_COPY_LAUNCHES[geo.copy_bytes] += 1
     return dq, dk, dv
 
 
 def attention_short_flat_backward(q, k, v, mask, out, d_out, n_heads: int, scale: float):
     """``(dq, dk, dv)`` of :func:`attention_short_flat` at ``out`` for the
     output gradient ``d_out``. CUDA tensors run ``attention_short_bwd.cu``
-    on the route :func:`backward_launch_geometry` picks (or raise); CPU
-    tensors run :func:`attention_short_flat_backward_plain`."""
-    hd, _geo = _check(q, k, v, mask, n_heads)
+    or ``attention_any.cu`` on the route :func:`backward_launch_geometry`
+    picks (or raise); CPU tensors run :func:`attention_short_flat_backward_plain`."""
+    hd = _check(q, k, v, mask, n_heads)
     if q.device.type == "cpu":
         return attention_short_flat_backward_plain(q, k, v, mask, out, d_out, n_heads, scale)
     if q.device.type != "cuda":
         raise ValueError(f"attention_short_flat backward: no kernel for device {q.device}")
     B, L, _D = q.shape
-    geo = backward_launch_geometry(B, L, n_heads, hd, q.dtype)
+    geo = backward_launch_geometry(B, L, n_heads, hd, q.dtype, copy_width(hd, q.element_size(), q, k, v, out))
     return _launch_backward(q, k, v, mask, out, d_out, n_heads, scale, hd, geo)
 
 
 def _forward(q, k, v, mask, n_heads: int, scale: float):
-    hd, geo = _check(q, k, v, mask, n_heads)
+    hd = _check(q, k, v, mask, n_heads)
     if q.device.type == "cpu":
         return attention_short_flat_plain(q, k, v, mask, n_heads, scale)
     if q.device.type != "cuda":
         raise ValueError(f"attention_short_flat: no kernel for device {q.device}")
-    return _launch(q, k, v, mask, n_heads, scale, hd, geo)
+    return _launch(q, k, v, mask, n_heads, scale, hd)
 
 
 class AttentionShortFlat(torch.autograd.Function):
@@ -449,17 +545,11 @@ class AttentionShortFlat(torch.autograd.Function):
 
 def attention_short_flat(q, k, v, mask, n_heads: int, scale: float):
     """Flat-layout attention: [B, L, D] q/k/v and a [B, L] bool key mask →
-    [B, L, D] context. CUDA tensors run the Hopper kernel (or raise); CPU
-    tensors run :func:`attention_short_flat_plain`. When grad is enabled and
-    q, k or v requires it, the call goes through :class:`AttentionShortFlat`,
-    whose backward is a kernel too. On the CPU a shape outside the kernels'
-    envelope (:func:`in_envelope`) runs the plain version, its gradient by
-    autograd, and counts under ``plain_outside_envelope``; on the card it
-    raises."""
-    hd = _check_common(q, k, v, mask, n_heads)
-    if q.device.type == "cpu" and not in_envelope(q.shape[1], hd):
-        ROUTE_LAUNCHES["plain_outside_envelope"] += 1
-        return attention_short_flat_plain(q, k, v, mask, n_heads, scale)
+    [B, L, D] context, at any head width and length. CUDA tensors run a
+    Hopper kernel (or raise); CPU tensors run
+    :func:`attention_short_flat_plain`. When grad is enabled and q, k or v
+    requires it, the call goes through :class:`AttentionShortFlat`, whose
+    backward is a kernel too."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return AttentionShortFlat.apply(q, k, v, mask, n_heads, scale)
     return _forward(q, k, v, mask, n_heads, scale)

@@ -799,10 +799,10 @@ class TorchSentenceEncoder(nn.Module):
         forward, in f32 unless ``dtype`` says otherwise. Needs neither
         ``transformers`` nor ``safetensors``: the safetensors file is read by
         :func:`read_safetensors`. Every attention runs through
-        ``attention_short_flat``: the kernel at every head width that is a
-        multiple of 8 up to 128 (32 for MiniLM, 64 for BERT-base, 8 for a
-        tiny test BERT) and any length; at any other width its plain
-        version on the CPU, while on the card the first encode raises."""
+        ``attention_short_flat``: a kernel at every head width and length
+        on the card (32 for MiniLM, 64 for BERT-base, 8 for a tiny test
+        BERT; a width whose rows are not 16-byte aligned, or above 128, on
+        ``attention_any.cu``), its plain version on the CPU."""
         with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
             hf = json.load(f)
         cfg = EncoderConfig(

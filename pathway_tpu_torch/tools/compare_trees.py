@@ -5,6 +5,10 @@ one process each, in one call, and print their headline numbers side by side.
         --phases kernels,main_path,f32_path,pipeline,document_store,rest_serving \\
         parent=ab/parent change=. change=. parent=ab/parent
 
+Phase ``attention_main`` times the attention kernels at the main path's
+shapes alone (the embed forward and the train step's backward, both
+dtypes), with no other case run before them in the process.
+
 Each ``NAME=DIR`` runs in its own process, in the order given, with DIR's
 ``chip_smoke.py`` and DIR's package (the kernels built from DIR's sources),
 so that a parent and a change are timed on the same card in the same call;
@@ -25,13 +29,15 @@ import sys
 import time
 
 PHASES = (
-    "kernels", "kernels_backward", "main_path", "f32_path", "pipeline", "engine_kernels", "audit_fault", "temporal", "document_store",
+    "attention_main", "kernels", "kernels_backward", "main_path", "f32_path", "pipeline", "engine_kernels", "audit_fault", "temporal", "document_store",
     "persistence", "rest_serving", "observability", "flow", "graphs", "knn_index", "multiworker",
 )
 
 #: phase -> the fields of its chip_smoke line kept in the summary (dotted
 #: paths into nested objects)
 HEADLINES = {
+    "attention_main": tuple(f"{fn}_{d}_{case}_ms" for fn, case in (("forward", "embed"), ("backward", "train"))
+                            for d in ("bfloat16", "float32")),
     "main_path": ("embed_index_docs_per_s", "rag_query_p50_ms", "rag_query_rerank_p50_ms", "knn1m_query16_p50_ms"),
     "f32_path": ("f32_embed_index_docs_per_s",),
     "pipeline": ("ingest_docs_per_s", "query_rows_per_s"),
@@ -84,6 +90,30 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 info = cs.phase_device()
 cs.phase_build()
+if "attention_main" in want:
+    # the attention kernels at the main path's shapes alone, in one fixed
+    # order, so every tree's timings follow the same work: the embed
+    # forward (1,024 texts, L 128, 6 heads of 64) in bf16 and f32, then the
+    # train step's backward (512 texts), each the median of ATTN_REPEATS
+    # event-timed runs of ATTN_ITERS launches
+    import json, statistics
+    from pathway_tpu_torch.ops import attention_kernel as A
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rec = {"phase": "attention_main"}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for case, B, fn in (("embed", 1024, "forward"), ("train", 512, "backward")):
+            q, k, v, mask = cs._attention_inputs(B, 128, dtype, gen, 6, 64)
+            scale = 64 ** -0.5
+            if fn == "forward":
+                run = lambda: A.attention_short_flat(q, k, v, mask, 6, scale)
+            else:
+                out = A.attention_short_flat(q, k, v, mask, 6, scale)
+                g = torch.randn(B, 128, 384, device="cuda", generator=gen).to(dtype)
+                run = lambda: A.attention_short_flat_backward(q, k, v, mask, out, g, 6, scale)
+            rec[f"{fn}_{dname}_{case}_ms"] = statistics.median(cs.cuda_ms(run, 50, warmup=5) for _ in range(7))
+    print(json.dumps(rec), flush=True)
 if "kernels" in want:
     cs.phase_kernels()
 if "kernels_backward" in want and hasattr(cs, "phase_kernels_backward"):

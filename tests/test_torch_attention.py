@@ -122,19 +122,20 @@ def test_wrapper_reads_strided_qkv_split_and_counts_no_cpu_launch():
     ],
 )
 def test_wrapper_rejects_outside_the_kernel_envelope(shape, heads, dtype, mask_dtype, match):
-    """A malformed call raises; a well-formed one outside the kernels'
-    envelope (a head width that is not a multiple of 8, or above 128) is
-    refused by the kernel's own check and, on a CPU tensor, runs the plain
-    version, counted under ``plain_outside_envelope``."""
+    """A malformed call raises; a well-formed one at a head width that is
+    not a multiple of 8, or above 128, is inside the kernels' envelope now
+    (every width runs on the card, unaligned or wide heads in
+    ``attention_any.cu``): the check passes it, and on a CPU tensor the call
+    runs the plain version and counts no launch."""
     x = torch.zeros(shape, dtype=dtype)
     m = torch.ones(shape[:2], dtype=mask_dtype)
     if match in ("head width 12", "head width 136"):
-        with pytest.raises(ValueError, match=match):
-            A._check(x, x, x, m, heads)
-        before = A.ROUTE_LAUNCHES["plain_outside_envelope"]
+        assert A._check(x, x, x, m, heads) == int(match.rsplit(" ", 1)[1])
+        assert A.in_envelope(shape[1], shape[2] // heads)
+        before = (A.LAUNCHES, dict(A.ROUTE_LAUNCHES))
         out = A.attention_short_flat(x, x, x, m, heads, 0.125)
         assert torch.equal(out, A.attention_short_flat_plain(x, x, x, m, heads, 0.125))
-        assert A.ROUTE_LAUNCHES["plain_outside_envelope"] == before + 1
+        assert (A.LAUNCHES, A.ROUTE_LAUNCHES) == before
         return
     with pytest.raises(ValueError, match=match):
         A.attention_short_flat(x, x, x, m, heads, 0.125)
@@ -174,9 +175,20 @@ def test_every_f32_geometry_in_the_envelope_fits_shared_memory(hd):
     assert A.launch_geometry(1024, 128, 6, 64, torch.float32).smem_bytes == 104960
 
 
-def test_launch_geometry_rejects_a_block_above_shared_memory():
-    with pytest.raises(ValueError, match="shared memory"):
-        A.launch_geometry(1, 512, 1, 256, torch.float32)
+def test_launch_geometry_rejects_a_block_above_shared_memory(monkeypatch):
+    """hd 256 in f32 at 512 keys ran out of shared memory in one block of
+    the aligned kernel; it now runs in two column blocks of 128
+    (``attention_any.cu``, 135,424 B). A block above the limit still
+    raises: with the limit set below that block, the same call is refused."""
+    geo = A.launch_geometry(1, 512, 1, 256, torch.float32)
+    assert (geo.route, geo.width, geo.col_blocks, geo.smem_bytes) == ("tensor_core_3xtf32_any", 128, 2, 135_424)
+    A.launch_geometry.cache_clear()
+    monkeypatch.setattr(A, "_SMEM_LIMIT", 135_423)
+    try:
+        with pytest.raises(ValueError, match="shared memory"):
+            A.launch_geometry(1, 512, 1, 256, torch.float32)
+    finally:
+        A.launch_geometry.cache_clear()
 
 
 # --- the bf16 route's algorithm, emulated on the CPU ------------------------
@@ -471,7 +483,7 @@ def test_launches_count_per_route_only_on_the_card():
     before = (A.LAUNCHES, dict(A.ROUTE_LAUNCHES))
     A.attention_short_flat(x, x, x, m, 2, 0.125)
     assert (A.LAUNCHES, A.ROUTE_LAUNCHES) == before
-    assert set(A.ROUTE_LAUNCHES) == {"tensor_core", "tensor_core_3xtf32", "plain_outside_envelope"}
+    assert set(A.ROUTE_LAUNCHES) == {"tensor_core", "tensor_core_3xtf32", "tensor_core_any", "tensor_core_3xtf32_any"}
     x32 = torch.zeros(2, 16, 128)
     A.attention_short_flat(x32, x32, x32, m, 2, 0.125)
     assert (A.LAUNCHES, A.ROUTE_LAUNCHES) == before

@@ -167,10 +167,16 @@ def test_backward_counts_no_launch_on_the_cpu_and_checks_its_inputs():
     out = A.attention_short_flat_plain(q, k, v, m, H, hd ** -0.5)
     A.attention_short_flat_backward(q, k, v, m, out, torch.from_numpy(d_out), H, hd ** -0.5)
     assert (A.BACKWARD_LAUNCHES, A.BACKWARD_ROUTE_LAUNCHES) == before
-    with pytest.raises(ValueError, match="head width"):
-        # hd 12: not a multiple of 8, outside the kernels' envelope
-        A.attention_short_flat_backward(q[..., :24], k[..., :24], v[..., :24], m, out[..., :24],
-                                        out[..., :24], 2, 0.25)
+    # hd 12 (not a multiple of 8) is a width the kernels take now: on the
+    # CPU the plain backward, no launch
+    got = A.attention_short_flat_backward(q[..., :24], k[..., :24], v[..., :24], m, out[..., :24],
+                                          out[..., :24], 2, 0.25)
+    want = A.attention_short_flat_backward_plain(q[..., :24], k[..., :24], v[..., :24], m,
+                                                 out[..., :24], out[..., :24], 2, 0.25)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (A.BACKWARD_LAUNCHES, A.BACKWARD_ROUTE_LAUNCHES) == before
+    with pytest.raises(ValueError, match="mask must be bool"):
+        A.attention_short_flat_backward(q, k, v, m.int(), out, torch.from_numpy(d_out), H, hd ** -0.5)
 
 
 def test_backward_kernel_is_built_with_the_forward():

@@ -216,7 +216,8 @@ def test_fused_block_bytes_at_the_train_shape():
     assert A._fused_smem_bytes(128, 128, 4) == 270336 + 128 * (128 + 4) * 4
     assert A.backward_launch_geometry(4, 128, 3, 128, torch.float32).route == "two_pass_simt_f32"
     assert A.backward_launch_geometry(4, 128, 3, 128, torch.bfloat16).smem_bytes == 174080
-    assert set(A.BACKWARD_ROUTE_LAUNCHES) == {r for pair in A.BACKWARD_ROUTES.values() for r in pair}
+    assert set(A.BACKWARD_ROUTE_LAUNCHES) == {r for pair in A.BACKWARD_ROUTES.values() for r in pair} | {
+        r for routes in A.ANY_ROUTES.values() for r in routes[1:]}
 
 
 # --- the source the card builds ------------------------------------------------
@@ -240,13 +241,22 @@ def _kernel_names(src: str) -> set[str]:
     return names
 
 
+def _with_headers(name: str) -> str:
+    """A kernel source and the headers of ``csrc/`` it includes, but the
+    shared ``attention_tc.cuh`` (no ``__global__`` there)."""
+    src = (_build.CSRC / _build.SOURCES[name]).read_text()
+    heads = re.findall(r'#include "(\w+\.cuh)"', src)
+    return src + "".join((_build.CSRC / h).read_text() for h in heads if h != "attention_tc.cuh")
+
+
 def test_profiler_kernel_names_are_kernels_of_the_backward_source():
     """``chip_smoke.py``'s profiled step reads the backward's time under the
     names of ``BACKWARD_KERNELS``: each is a ``__global__`` function of the
-    backward's source (else the step's backward time would read 0)."""
-    names = _kernel_names((_build.CSRC / _build.SOURCES["attention_short_bwd"]).read_text())
+    backward's source (with the header its device code lives in), else the
+    step's backward time would read 0."""
+    names = _kernel_names(_with_headers("attention_short_bwd"))
     assert names == {n for group in A.BACKWARD_KERNELS.values() for n in group}
-    assert "attention_tc_kernel" in _kernel_names((_build.CSRC / _build.SOURCES["attention_short"]).read_text())
+    assert "attention_tc_kernel" in _kernel_names(_with_headers("attention_short"))
     smoke = (_build.CSRC.parents[1] / "chip_smoke.py").read_text()
     assert "A.BACKWARD_KERNELS.values()" in smoke
 

@@ -176,18 +176,18 @@ def test_from_pretrained_refuses_head_widths_the_kernel_lacks(tmp_path):
     """A checkpoint of head width 8 (4 heads at hidden 32, the reference's
     own tiny BERT's shape) loads, as the reference's does, and now runs
     inside the kernels' envelope (the instantiation of width 16, half its
-    columns zero): no call takes the counted plain route; the embedding is
-    finite and unit-norm. Widths no kernel takes are those that are not a
-    multiple of 8, or above 128 (``tests/test_torch_head_width.py``)."""
+    columns zero), as every width does (``tests/test_torch_head_width.py``,
+    ``tests/test_torch_head_width_any.py``); the embedding is finite and
+    unit-norm, and the CPU counts no launch."""
     from pathway_tpu_torch.ops import attention_kernel as A
     from transformers import BertConfig, BertModel
 
     BertModel(BertConfig(vocab_size=30, hidden_size=32, num_hidden_layers=1, num_attention_heads=4,
                          intermediate_size=32, max_position_embeddings=16)).save_pretrained(str(tmp_path))
     enc = TE.TorchSentenceEncoder.from_pretrained(str(tmp_path), device="cpu")
-    before = A.ROUTE_LAUNCHES["plain_outside_envelope"]
+    before = (A.LAUNCHES, dict(A.ROUTE_LAUNCHES))
     emb = enc.encode_texts(["a b c"])
-    assert A.ROUTE_LAUNCHES["plain_outside_envelope"] == before
+    assert (A.LAUNCHES, A.ROUTE_LAUNCHES) == before  # the CPU launches nothing
     assert A.in_envelope(16, 8) and A.kernel_width(8) == 16
     assert emb.shape == (1, 32) and np.isfinite(emb).all()
     np.testing.assert_allclose(np.linalg.norm(emb, axis=-1), 1.0, rtol=1e-5)

@@ -2,22 +2,22 @@
 
 The reference runs its Pallas kernel only inside its envelope and XLA's
 ``_sdpa`` everywhere else, so its encoder takes any head width and length.
-The port's kernels take every head width that is a multiple of 8 from 8 to
-128 (instantiated at 16, 32, ..., 128, a head run in its width rounded up to
-16) and any length; outside that envelope (a width such as 12 or 136)
-``attention_short_flat`` runs its plain version on a CPU tensor and counts
-the call under the route ``plain_outside_envelope``, and raises on any other
-device (the card has no plain fallback).
+So do the port's kernels: a 16-byte aligned head of at most 128 columns in
+``attention_short.cu`` (instantiated at 16, 32, ..., 128, a head run in
+its width rounded up to 16), every other head (a width such as 12 or 136)
+in ``attention_any.cu``; on a CPU tensor ``attention_short_flat`` runs its
+plain version at every width and counts no launch.
 
 Cases: the reference's ``SMALL`` encoder (4 heads of 16 at d 64, the
 multichip dry run's) encoded on both packages within 1e-5 (f32), one
 contrastive train step within the chip check's f32 gradient tolerance
 (1e-3 of each leaf's largest value), encoders at head widths 8, 48 and 96
 and at ``max_len`` 1,024 against the reference (which runs ``_sdpa`` there)
-within 1e-5 with no call outside the envelope, the launch geometry of both
-kernels over every width and lengths up to 16,384, and 12- and 136-wide
-heads on the plain route, equal to the reference's ``_sdpa`` within 1e-5,
-and the same calls on a non-CPU tensor refused.
+within 1e-5, the launch geometry of both kernels over every width and
+lengths up to 16,384, and 12- and 136-wide heads on the CPU's plain
+version, equal to the reference's ``_sdpa`` within 1e-5, and the same calls
+off the CPU routed to a kernel. ``tests/test_torch_head_width_any.py``
+holds the encoders, reranker and train step at those widths.
 """
 
 from __future__ import annotations
@@ -58,8 +58,9 @@ def _reset_routes():
 def test_head_width_16_is_in_the_kernel_envelope():
     assert 16 in A.KERNEL_WIDTHS and A.in_envelope(16, 16) and A.in_envelope(16_384, 16)
     assert A.in_envelope(16, 48) and A.in_envelope(600, 64) and A.in_envelope(1, 8)
-    assert not A.in_envelope(16, 12) and not A.in_envelope(16, 136) and not A.in_envelope(0, 64)
-    assert [hd for hd in range(1, 200) if A.in_envelope(128, hd)] == list(range(8, 129, 8))
+    # every width is in the envelope now (12 and 136 too); no length below 1
+    assert A.in_envelope(16, 12) and A.in_envelope(16, 136) and not A.in_envelope(0, 64)
+    assert [hd for hd in range(1, 200) if A.in_envelope(128, hd)] == list(range(1, 200))
     assert [A.kernel_width(hd) for hd in range(8, 129, 8)] == [
         w for w in A.KERNEL_WIDTHS for _ in (0, 1)]
     for L in (16, 128):
@@ -76,12 +77,13 @@ def test_encode_at_head_width_16_matches_the_reference():
     ids, mask = _ids()
     want = np.asarray(J.encode(pj, cj, jnp.asarray(ids), jnp.asarray(mask)))
     _reset_routes()
+    before = A.LAUNCHES
     got = T.encode(params_from_numpy(jax.tree.map(np.asarray, pj), device="cpu"), ct,
                    torch.from_numpy(ids).long(), torch.from_numpy(mask))
     assert got.shape == (2, 64) and want.shape == (2, 64)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
-    # hd 16 is in the kernels' envelope: no call took the plain route
-    assert A.ROUTE_LAUNCHES["plain_outside_envelope"] == 0
+    # the CPU runs the plain version: no launch on any route
+    assert A.LAUNCHES == before and not any(A.ROUTE_LAUNCHES.values())
 
 
 def test_train_step_at_head_width_16_matches_the_reference():
@@ -110,10 +112,12 @@ def test_train_step_at_head_width_16_matches_the_reference():
 @pytest.mark.parametrize("requires_grad", [False, True])
 @pytest.mark.parametrize("L,hd", [(600, 12), (40, 136)])
 def test_outside_the_envelope_takes_the_counted_plain_route(L, hd, requires_grad):
-    """hd 12 at 600 keys and hd 136 at 40: widths no kernel takes (not a
-    multiple of 8; above 128). The call runs the plain version (its
-    gradient by autograd), counts one ``plain_outside_envelope`` call and
-    no kernel launch, and equals the reference's ``_sdpa`` within 1e-5."""
+    """hd 12 at 600 keys and hd 136 at 40: widths the aligned kernels do not
+    take (rows of 24 bytes in bf16; above 128), now inside the envelope. On
+    the CPU the call runs the plain version (its gradient the plain
+    backward, through ``AttentionShortFlat``), counts no launch on any
+    route, and equals the reference's ``_sdpa`` within 1e-5; the gradient
+    equals autograd's through the plain version within 1e-5."""
     B, H = 2, 2
     rng = np.random.default_rng(7)
     q, k, v = (rng.standard_normal((B, L, H * hd)).astype(np.float32) for _ in range(3))
@@ -125,24 +129,36 @@ def test_outside_the_envelope_takes_the_counted_plain_route(L, hd, requires_grad
     _reset_routes()
     before = A.LAUNCHES
     out = A.attention_short_flat(tq, tk, tv, torch.from_numpy(mask), H, hd ** -0.5)
-    assert A.ROUTE_LAUNCHES == {"tensor_core": 0, "tensor_core_3xtf32": 0, "plain_outside_envelope": 1}
+    assert A.ROUTE_LAUNCHES == dict.fromkeys(A.ROUTE_LAUNCHES, 0)
     assert A.LAUNCHES == before
     np.testing.assert_allclose(out.detach().numpy(), want, rtol=1e-5, atol=1e-5)
     if requires_grad:
         out.sum().backward()
         assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (tq, tk, tv))
+        rq, rk, rv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+        A.attention_short_flat_plain(rq, rk, rv, torch.from_numpy(mask), H, hd ** -0.5).sum().backward()
+        for got, ref in ((tq, rq), (tk, rk), (tv, rv)):
+            np.testing.assert_allclose(got.grad.numpy(), ref.grad.numpy(), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("requires_grad", [False, True])
 @pytest.mark.parametrize("L,hd", [(16, 12), (600, 136)])
 def test_outside_the_envelope_raises_off_the_cpu(L, hd, requires_grad):
-    """The plain route is the CPU's alone: off the CPU (a ``meta`` tensor
-    here, a CUDA tensor on the card) a shape outside the envelope raises
-    before any launch and counts nothing."""
+    """The plain version is the CPU's alone: off the CPU the call goes to a
+    kernel (hd 136, and hd 12 in bf16, whose rows of 24 bytes are not
+    16-byte aligned, to ``attention_any.cu``'s route; hd 12 in f32, rows of
+    48 bytes, to the aligned kernel), so on a device without kernels (``meta`` here)
+    it raises before any launch and counts nothing; it never falls back to
+    the plain version."""
     x = torch.zeros((2, L, 2 * hd), device="meta", requires_grad=requires_grad)
     m = torch.ones((2, L), dtype=torch.bool, device="meta")
+    for dtype in (torch.bfloat16, torch.float32):
+        geo = A.launch_geometry(2, L, 2, hd, dtype, 16)
+        aligned = hd <= 128 and hd * torch.empty(0, dtype=dtype).element_size() % 16 == 0
+        assert geo.route == (A.ROUTES[dtype] if aligned else A.ANY_ROUTES[dtype][0])
+        assert geo.smem_bytes <= A._SMEM_LIMIT
     _reset_routes()
-    with pytest.raises(ValueError, match="outside the kernels' envelope"):
+    with pytest.raises(ValueError, match="no kernel for device meta"):
         A.attention_short_flat(x, x, x, m, 2, hd ** -0.5)
     assert A.ROUTE_LAUNCHES == dict.fromkeys(A.ROUTE_LAUNCHES, 0)
 
@@ -156,8 +172,8 @@ def test_encode_inside_the_widened_envelope_matches_the_reference(hd, heads, max
     """Head widths 8, 48 and 96 (run in the instantiations 16, 48 and 96)
     and 1,024 keys: the reference runs ``_sdpa`` for all of them (outside
     its Pallas kernel's envelope); the port's encoder stays inside its
-    kernels' envelope, so no call takes the counted plain route, and the
-    embeddings agree within 1e-5 (f32)."""
+    kernels' envelope (as every width is), the CPU launches nothing, and
+    the embeddings agree within 1e-5 (f32)."""
     shape = dict(vocab_size=512, d_model=heads * hd, n_heads=heads, n_layers=2,
                  d_ff=2 * heads * hd, max_len=max_len)
     cj, ct = J.EncoderConfig(dtype=jnp.float32, **shape), T.EncoderConfig(dtype=torch.float32, **shape)
@@ -169,7 +185,7 @@ def test_encode_inside_the_widened_envelope_matches_the_reference(hd, heads, max
                    torch.from_numpy(ids).long(), torch.from_numpy(mask))
     assert got.shape == want.shape == (2, heads * hd)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
-    assert A.ROUTE_LAUNCHES["plain_outside_envelope"] == 0
+    assert A.ROUTE_LAUNCHES == dict.fromkeys(A.ROUTE_LAUNCHES, 0)
 
 
 def _tc_smem_cu(L: int, width: int, rows: int, elem: int) -> int:
