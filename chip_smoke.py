@@ -19,19 +19,21 @@ printing one JSON line:
    batch (12 heads of 32), its plain version's time,
    one PyTorch library call's time as a yardstick, and its bound; then
    the attention's backward (``attention_short_bwd.cu``: up to 128 keys one
-   fused pass per (text, head) on the tensor cores, above it two passes on
-   the FP32 pipes) against its plain version, both dtypes at six shapes,
-   with the route each took; at the train step's shape two launches give
-   the same bits and the first 8 texts alone give rows 0-7 of the 512-text
-   call's bits, and it is timed beside the two-pass route at that shape,
-   its plain version, SDPA's backward and its bound; then every head the
+   fused pass per (text, head) on the tensor cores, above it a dQ pass and
+   a dK/dV pass on the tensor cores) against its plain version, both dtypes
+   at every shape of ``BWD_SHAPES``, with the route each took; at each
+   timed shape (the train step's, 512 and 1,024 keys, 3 heads of 256 at
+   128 and 600 keys, ...), on its route and on the two-pass route forced,
+   two launches give the same bits and the first texts alone give those
+   rows of the whole call's bits, and it is timed beside the two-pass route
+   at that shape, its plain version, SDPA's backward and its bound; then every head the
    aligned kernels do not take, on ``attention_any.cu``: the forward at hd
    1, 4, 6, 12, 20, 36, 100, 136, 192 and 256 in 3 heads (the [B, L, 3D]
    projection's rows at copies of 2, 4, 8 and 16 bytes) at 16, 128 and
    600 keys and at encoder_widths' shapes (32 heads of 12, 3 of 256), each
    on the route its copy width and width pick, timed beside SDPA and its
    bound; the backward at hd 1, 12, 136 and 256 on its fused route at any
-   copy width or its two-pass route in column blocks of 128;
+   copy width or its two-pass route (any copy width, column blocks of 128);
 3b. encoder_widths: encoders at 8 heads of 48, 6 of 64 at 1,024 keys, 32
    heads of 12 at d 384 and 3 heads of 256 at d 768 (6 layers, 1,024 docs,
    bf16 and f32): every launch on the route the head picks, the card
@@ -219,9 +221,12 @@ printing one JSON line:
    with f32 parameters, then 3 in f32 (TF32 off), every attention's
    forward on ``attention_short.cu`` and backward on
    ``attention_short_bwd.cu`` (the backward checked against its plain
-   version at six shapes in phase 3). Gates: finite losses, the last below
-   the first, 12 forward and 12 backward launches a step (every backward
-   on the fused route), one step's loss
+   version in phase 3); then the long leg, 64 pairs of 600-word docs at
+   the encoder's max_len of 512 keys, 3 bf16 steps and 1 f32 step, every
+   backward on the two-pass route. Gates: finite losses, the last below
+   the first (legs of two steps or more), 12 forward and 12 backward
+   launches a step (every backward on the fused route, on the two-pass
+   route in the long leg), one step's loss
    and every gradient leaf equal to the same step with both plain
    attention functions within TRAIN_GRAD_TOL. Printed: ms a step, its
    forward and backward, tokens/s, one profiled step's attention ms (the
@@ -243,9 +248,11 @@ printing one JSON line:
    8's pipeline, 10, 11, 12, 12b's run B, 13, 14, the flow phase, 15, 15b,
    16, 17 and 18 (the cluster processes' counts read from their output):
    the attention kernel's two routes and its backward's two dtypes, each
-   with its launches per backward route, and ``attention_any.cu``'s
-   forward and backward per dtype (launched by 3b), with their launches
-   per copy width and route; a kernel no path launched fails the run.
+   with its launches per backward route, ``attention_any.cu``'s forward
+   and backward per dtype (launched by 3b), with their launches per copy
+   width and route, and the two-pass backward's kernels per dtype (both
+   libraries, launched by 3b and 16); a kernel no path launched fails the
+   run.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without it. TF32 is off for every matmul (``allow_tf32 = False``), so the f32
@@ -449,11 +456,17 @@ def phase_build() -> None:
     build_s = time.perf_counter() - t0
     tool_dir = os.path.dirname(_build.find_nvcc())
     ptxas, sass = {}, {}
+    # each library's SASS read by its own cuobjdump, all three at once
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        hmmas = dict(zip(_build.SOURCES, pool.map(
+            lambda name: _sass_tensor_ops(str(_build.library_path(name)), tool_dir), _build.SOURCES)))
     for name in _build.SOURCES:
         # ptxas speaks only when this run compiled the kernel; the SASS is read
         # from the library either way
         per_fn = _ptxas_per_function(_build.build_logs.get(name, ""))
-        hmma = _sass_tensor_ops(str(_build.library_path(name)), tool_dir)
+        hmma = hmmas[name]
         nice = _demangle(sorted(set(per_fn) | set(hmma)), tool_dir)
         ptxas[name] = {nice[f]: v for f, v in per_fn.items()}
         sass[name] = {nice[f]: n for f, n in hmma.items()}
@@ -474,10 +487,18 @@ def phase_build() -> None:
     check(len(fused) == n_fused and all(n > 0 for n in fused.values()),
           f"fused backward: {len(fused)} instantiations, HMMA/HGMMA per instantiation {fused}, "
           f"expected {n_fused}, all > 0")
+    # the two-pass backward: both kernels at every width, both dtypes, on
+    # the tensor cores, in the aligned library and in attention_any.cu
+    def two_pass(lib):
+        return {f: n for f, n in sass.get(lib, {}).items() if any(k in f for k in A.BACKWARD_KERNELS["two_pass"])}
+
+    for lib, n_tp in (("attention_short_bwd", 4 * n_widths), ("attention_any", 4 * len(A.ANY_WIDTHS))):
+        tp = two_pass(lib)
+        check(len(tp) == n_tp and all(n > 0 for n in tp.values()),
+              f"two-pass backward in {lib}: {len(tp)} instantiations, HMMA/HGMMA {tp}, expected {n_tp}, all > 0")
     # attention_any.cu: the forward at each block width of ANY_WIDTHS per
     # dtype, the fused backward at any copy width (bf16 at every block
-    # width, f32 up to 64), both on the tensor cores; the two-pass kernels
-    # in column blocks of 128 (FP32 pipes)
+    # width, f32 up to 64), both on the tensor cores
     anyk = sass.get("attention_any", {})
     n_any = len(A.ANY_WIDTHS)
     for dname, tname in (("bf16", "__nv_bfloat16"), ("f32", "float")):
@@ -489,8 +510,6 @@ def phase_build() -> None:
     check(len(fused_any) == n_fused_any and all(n > 0 for n in fused_any.values()),
           f"fused backward at any copy width: {len(fused_any)} instantiations, HMMA/HGMMA {fused_any}, "
           f"expected {n_fused_any}, all > 0")
-    cols = [f for f in anyk if "bwd_dq_cols" in f or "bwd_dkv_cols" in f]
-    check(len(cols) == 4, f"two-pass backward in column blocks: {len(cols)} kernels, expected 4 ({cols})")
 
     # the host C tokenizer, built here so that no timed call pays its compile
     t1 = time.perf_counter()
@@ -6040,8 +6059,9 @@ BWD_SHAPES = {
     "train_hd12": (256, 128, 32, 12), "train_hd256": (256, 128, 3, 256),
 }
 #: the backward's timed cases: the train step's shape and multichip_dryrun's,
-#: and encoder_widths' train shapes
-BWD_TIMED = ("train", "dryrun", "train_hd12", "train_hd256")
+#: encoder_widths' train shapes, and the two-pass route at 512 keys (the
+#: train phase's long leg), 1,024 keys and 3 heads of 256 at 600 keys
+BWD_TIMED = ("train", "dryrun", "train_hd12", "train_hd256", "max_len", "l1024", "any_hd256_l600")
 #: the train phase: the main path's encoder at full width, the reference
 #: test's recipe (each positive is the same text) on synth_docs
 TRAIN_PAIRS = 256
@@ -6049,6 +6069,14 @@ TRAIN_LEN = 128
 TRAIN_STEPS = 10
 TRAIN_F32_STEPS = 3
 TRAIN_LR = 1e-2
+#: the train phase's long leg: the encoder's max_len (the reference's
+#: position table, pathway_tpu/ops/encoder.py), every backward on the
+#: two-pass route; docs long enough to fill it
+TRAIN_LONG_PAIRS = 64
+TRAIN_LONG_LEN = 512
+TRAIN_LONG_WORDS = 600
+TRAIN_LONG_STEPS = 3
+TRAIN_LONG_F32_STEPS = 1
 #: a step on the kernels against the same step with both plain attention
 #: functions on the card: the loss within this share of itself and every
 #: gradient leaf within this share of the leaf's largest value. bf16: the
@@ -6074,12 +6102,13 @@ def phase_kernels_backward() -> list[dict]:
     (|ref| + max|ref|) in bf16 (one bf16 ulp of the output plus one of
     every rounded probability and dS operand). At the ragged shape, d_out
     given at an offset of one element (rows not 16-byte aligned, as autograd
-    may pass it) gives the same bits. At the train step's shape:
-    a second launch gives the same bits, and the first 8 texts alone give
-    rows 0-7 of the 512-text call bit for bit (one block per (text, head),
-    no atomics); then it times the kernel, the two-pass route on the same
-    inputs, the plain version and the backward of
-    ``scaled_dot_product_attention`` (the yardstick)."""
+    may pass it) gives the same bits. At each timed shape, on the route it
+    takes and on the two-pass route forced: a second launch gives the same
+    bits, and the first texts alone (8, or half the batch) give those rows
+    of the whole call bit for bit (no atomics, no sums across blocks); then
+    it times the kernel, the two-pass route on the same inputs, the plain
+    version and the backward of ``scaled_dot_product_attention`` (the
+    yardstick)."""
     import torch
     import torch.nn.functional as F
 
@@ -6113,14 +6142,14 @@ def phase_kernels_backward() -> list[dict]:
             check(ok, f"attention backward {label} {dname}: kernel disagrees with plain {errs}")
             # the route by the rule the kernels state: fused up to 128 keys
             # and 128 columns where its block fits (bf16 at any width, f32
-            # up to 64), on attention_any.cu below 16-byte copies; else two
-            # passes, in column blocks above 128 columns
+            # up to 64), else two passes; on attention_any.cu below 16-byte
+            # copies and above 128 columns
             width = A.kernel_width(hd) if vb == 16 else A.any_width(hd)
             want_fused = L <= 128 and hd <= 128 and (dtype == torch.bfloat16 or width <= 64)
             if want_fused:
                 want_route = A.BACKWARD_ROUTES[dtype][0] if vb == 16 else A.ANY_ROUTES[dtype][1]
             else:
-                want_route = A.BACKWARD_ROUTES[dtype][1] if hd <= 128 else A.ANY_ROUTES[dtype][2]
+                want_route = A.BACKWARD_ROUTES[dtype][1] if hd <= 128 and vb == 16 else A.ANY_ROUTES[dtype][2]
             check(geo.route == want_route, f"attention backward {label} {dname}: route {geo.route}, "
                   f"expected {want_route}")
             if label == "ragged":
@@ -6137,17 +6166,26 @@ def phase_kernels_backward() -> list[dict]:
                    "tolerance": f"{rel:g}*(|ref|+max|ref|)", "ok": ok}
             if label == "train":
                 check(geo.fused, f"attention backward train {dname}: route {geo.route}, expected the fused route")
-                again = A.attention_short_flat_backward(q, k, v, mask, out, g, H, scale)
-                part = A.attention_short_flat_backward(q[:8], k[:8], v[:8], mask[:8], out[:8], g[:8], H, scale)
-                rec["deterministic"] = all(torch.equal(a, b) for a, b in zip(got, again))
-                rec["batch_invariant"] = all(torch.equal(a[:8], b) for a, b in zip(got, part))
-                check(rec["deterministic"], f"attention backward train {dname}: two launches differ")
-                check(rec["batch_invariant"], f"attention backward train {dname}: 8 texts alone differ from rows 0-7")
-                del again, part
             if label in BWD_TIMED:
-                iters = 10 if label.startswith("train") else 200
+                two = A._two_pass_geometry(B, L, H, hd, dtype, vb)
+                n = max(1, min(8, B // 2))
+                # the route the call takes, then the two-pass route forced
+                # (at a two-pass shape the same route twice)
+                for tag, run in (("", lambda *t: A.attention_short_flat_backward(*t, H, scale)),
+                                 ("two_pass_", lambda *t: A._launch_backward(*t, H, scale, hd, two))):
+                    first = run(q, k, v, mask, out, g)
+                    again = run(q, k, v, mask, out, g)
+                    part = run(q[:n], k[:n], v[:n], mask[:n], out[:n], g[:n])
+                    rec[tag + "deterministic"] = all(torch.equal(a, b) for a, b in zip(first, again))
+                    rec[tag + "batch_invariant"] = all(torch.equal(a[:n], b) for a, b in zip(first, part))
+                    check(rec[tag + "deterministic"], f"attention backward {label} {dname} {tag}: two launches differ")
+                    check(rec[tag + "batch_invariant"],
+                          f"attention backward {label} {dname} {tag}: {n} texts alone differ from rows 0-{n - 1}")
+                    del first, again, part
+                # 10 launches at the train shapes and 50 above 128 keys (each
+                # 0.1-7 ms), 200 below
+                iters = 10 if label.startswith("train") else 50 if L > 128 else 200
                 rec["ms"] = cuda_ms(lambda: A.attention_short_flat_backward(q, k, v, mask, out, g, H, scale), iters)
-                two = A._two_pass_geometry(B, L, H, hd, dtype)
                 rec["two_pass_ms"] = cuda_ms(
                     lambda: A._launch_backward(q, k, v, mask, out, g, H, scale, hd, two), iters)
                 rec["plain_ms"] = cuda_ms(
@@ -6191,14 +6229,14 @@ def _attention_counts() -> tuple[dict, dict]:
     return dict(A.ROUTE_LAUNCHES), dict(A.BACKWARD_ROUTE_LAUNCHES)
 
 
-def _train_batch(pairs: int):
-    """(tok_a, mask_a, tok_b, mask_b): synth_docs hashed to TRAIN_LEN
-    tokens, each positive the same text."""
+def _train_batch(pairs: int, length: int = TRAIN_LEN, words: int = DOC_WORDS):
+    """(tok_a, mask_a, tok_b, mask_b): synth_docs of ``words`` words hashed
+    to ``length`` tokens, each positive the same text."""
     import torch
 
     from pathway_tpu_torch.ops.encoder import HashTokenizer
 
-    ids, mask = HashTokenizer(32768, TRAIN_LEN)(synth_docs(pairs))
+    ids, mask = HashTokenizer(32768, length)(synth_docs(pairs, words))
     ids = torch.from_numpy(ids.astype(np.int64)).to(DEVICE)
     mask = torch.from_numpy(mask).to(DEVICE)
     return ids, mask, ids, mask
@@ -6260,10 +6298,11 @@ def _kernel_vs_plain_step(params, cfg, batch, tol: float) -> dict:
             "grad_leaf_rel_err": leaf_err, "tolerance": tol, "ok": loss_err <= tol and leaf_err <= tol}
 
 
-def _train_leg(cfg, params, batch, steps: int, tol: float) -> dict:
+def _train_leg(cfg, params, batch, steps: int, tol: float, route: int = 0) -> dict:
     """``steps`` steps of ``contrastive_train_step`` from zero momenta with
-    the launches they made, then one step split into forward and backward,
-    one under ``torch.profiler`` and the kernels-vs-plain step."""
+    the launches they made (every backward on ``BACKWARD_ROUTES[dtype]
+    [route]``: 0 fused, 1 two-pass), then one step split into forward and
+    backward, one under ``torch.profiler`` and the kernels-vs-plain step."""
     import torch
 
     from pathway_tpu_torch.convert import tree_map
@@ -6283,15 +6322,15 @@ def _train_leg(cfg, params, batch, steps: int, tol: float) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
     fwd, bwd = _attention_counts()
     per_step = 2 * cfg.n_layers
-    fused_route = A.BACKWARD_ROUTES[cfg.dtype][0]
+    want_route = A.BACKWARD_ROUTES[cfg.dtype][route]
     check(all(np.isfinite(losses)), f"train {dname}: non-finite loss {losses}")
-    check(losses[-1] < losses[0], f"train {dname}: the loss did not fall: {losses}")
-    check(sum(fwd.values()) == per_step * steps and bwd[fused_route] == sum(bwd.values()) == per_step * steps,
+    check(steps < 2 or losses[-1] < losses[0], f"train {dname}: the loss did not fall: {losses}")
+    check(sum(fwd.values()) == per_step * steps and bwd[want_route] == sum(bwd.values()) == per_step * steps,
           f"train {dname}: attention launches forward {fwd} backward {bwd}, expected {per_step * steps} each, "
-          f"every backward on {fused_route}")
+          f"every backward on {want_route}")
     _l, _g, fwd_s, bwd_s = _loss_and_grads(p, cfg, batch)
     out = {
-        "dtype": dname, "steps": steps, "losses": losses, "step_ms": step_ms,
+        "dtype": dname, "L": int(batch[0].shape[1]), "steps": steps, "losses": losses, "step_ms": step_ms,
         "step_ms_median": statistics.median(step_ms), "forward_ms": fwd_s * 1e3, "backward_ms": bwd_s * 1e3,
         "tokens_per_s": 2 * batch[0].shape[0] * batch[0].shape[1] / (statistics.median(step_ms) / 1e3),
         "attention_launches": {"forward": fwd, "backward": bwd},
@@ -6348,12 +6387,18 @@ def phase_train(info: dict) -> dict:
     out["bf16"] = _train_leg(cfg, params, batch, TRAIN_STEPS, TRAIN_GRAD_TOL["bfloat16"])
     f32 = cfg._replace(dtype=torch.float32)
     out["f32"] = _train_leg(f32, params, batch, TRAIN_F32_STEPS, TRAIN_GRAD_TOL["float32"])
+    # the long leg: L = max_len, every backward on the two-pass route
+    long_batch = _train_batch(TRAIN_LONG_PAIRS, TRAIN_LONG_LEN, TRAIN_LONG_WORDS)
+    out["long_pairs"] = TRAIN_LONG_PAIRS
+    out["bf16_long"] = _train_leg(cfg, params, long_batch, TRAIN_LONG_STEPS, TRAIN_GRAD_TOL["bfloat16"], route=1)
+    out["f32_long"] = _train_leg(f32, params, long_batch, TRAIN_LONG_F32_STEPS, TRAIN_GRAD_TOL["float32"], route=1)
     if DEVICE == "cuda":
         out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
     emit("train", **out)
-    launches = {r: out["bf16"]["attention_launches"]["forward"][r] + out["f32"]["attention_launches"]["forward"][r]
+    legs = ("bf16", "f32", "bf16_long", "f32_long")
+    launches = {r: sum(out[leg]["attention_launches"]["forward"][r] for leg in legs)
                 for r in out["bf16"]["attention_launches"]["forward"]}
-    bwd = {r: out["bf16"]["attention_launches"]["backward"][r] + out["f32"]["attention_launches"]["backward"][r]
+    bwd = {r: sum(out[leg]["attention_launches"]["backward"][r] for leg in legs)
            for r in out["bf16"]["attention_launches"]["backward"]}
     del params
     if DEVICE == "cuda":
@@ -6511,8 +6556,8 @@ def _backward_entry(records: list[dict], dtype: str, launches: dict) -> dict:
         "deterministic": train["deterministic"],
         "batch_invariant": train["batch_invariant"],
         "shape": f"B=512 L=128 D=384 H=6 {dtype}",
-        "kernel": f"{what}; L > 128 (and f32 at hd 128): {routes[1]}, a dq pass and a dk/dv pass over "
-                  "32-row tiles, f32 FMAs from shared memory",
+        "kernel": f"{what}; L > 128 (and f32 at hd 80-128): {routes[1]}, a dQ pass and a dK/dV pass over "
+                  "64-row tiles on the tensor cores",
     }
     if "bound_fp32_pipes_ms" in train:
         entry["bound_fp32_pipes_ms"] = train["bound_fp32_pipes_ms"]
@@ -6628,9 +6673,55 @@ def _any_backward_entry(records: list[dict], dtype: str, launches: dict) -> dict
         "library_ms": head["library_ms"],
         "shape": f"B=256 L=128 D=768 H=3 {dtype}",
         "kernel": f"{routes[0]}: the fused backward's kernel at any copy width (L <= 128, hd <= 128); "
-                  f"{routes[1]}: the two-pass route's 32-row tiles in column blocks of 128 (hd > 128)",
+                  f"{routes[1]}: the two-pass route's kernels at any copy width, in column blocks of 128 "
+                  "above 128 columns",
         "timed_cases": {r["case"]: {k: r[k] for k in ("ms", "two_pass_ms", "plain_ms", "library_ms", "bound_ms")}
                         for r in mine if "ms" in r},
+    }
+
+
+def _two_pass_entry(records: list[dict], dtype: str, launches: dict) -> dict:
+    """The two-pass backward's kernels (``attention_two_pass_dq`` and
+    ``attention_two_pass_dkv``, built in both libraries) of one dtype on the
+    kernels line: its time at encoder_widths' train shape of 3 heads of 256
+    (column blocks), every timed case beside its two-pass time forced, its
+    largest error over the cases on its routes, its launches per path and
+    route (the library entries above count them too)."""
+    import torch
+
+    from pathway_tpu_torch.ops import attention_kernel as A
+
+    t = getattr(torch, dtype)
+    routes = (A.BACKWARD_ROUTES[t][1], A.ANY_ROUTES[t][2])
+    mine = [r for r in records if r["dtype"] == dtype and r["route"] in routes]
+    worst = max(mine, key=lambda r: r["max_abs_err"])
+    head = next(r for r in mine if r["case"] == "train_hd256")
+    timed = [r for r in records if r["dtype"] == dtype and "ms" in r]
+    return {
+        "name": f"attention_two_pass_backward[{dtype}]",
+        "route": "cuda",
+        "source": "pathway_tpu_torch/csrc/attention_bwd.cuh",
+        "replaces": "pathway_tpu/ops/encoder.py:150",
+        "launches": sum(by_route.get(r, 0) for by_route in launches.values() for r in routes),
+        "launches_by_path": {path: sum(by_route.get(r, 0) for r in routes) for path, by_route in launches.items()},
+        "launches_by_route": {r: sum(by_route.get(r, 0) for by_route in launches.values()) for r in routes},
+        "max_abs_err": worst["max_abs_err"],
+        "max_abs_err_case": f"{dtype} {worst['case']} (B={worst['B']} L={worst['L']} hd={worst['hd']})",
+        "cases_checked": len(mine),
+        "route_by_case": {r["case"]: r["route"] for r in mine},
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "shape": f"B=256 L=128 D=768 H=3 {dtype}",
+        "kernel": "a dQ pass and a dK/dV pass over 64-row tiles on the tensor cores "
+                  + ("(mma.sync m16n8k16 bf16, ldmatrix, cp.async rings)" if dtype == "bfloat16"
+                     else "in 3xTF32 (mma.sync m16n8k8 tf32 on split operands, cp.async rings)"),
+        "timed_cases": {r["case"]: {k: r.get(k) for k in ("route", "ms", "two_pass_ms", "plain_ms", "library_ms",
+                                                          "bound_ms", "two_pass_deterministic",
+                                                          "two_pass_batch_invariant")}
+                        for r in timed},
     }
 
 
@@ -6717,6 +6808,8 @@ def main() -> int:
         _any_kernel_entry(kern, "float32", launches, widths),
         _any_backward_entry(bwd_kern, "bfloat16", bwd_launches),
         _any_backward_entry(bwd_kern, "float32", bwd_launches),
+        _two_pass_entry(bwd_kern, "bfloat16", bwd_launches),
+        _two_pass_entry(bwd_kern, "float32", bwd_launches),
     ]}
     # every kernel of the line was launched on a path of the run
     idle = [e["name"] for e in line["kernels"] if not e["launches"]]

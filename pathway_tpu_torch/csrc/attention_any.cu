@@ -50,19 +50,19 @@
 //   - Fused backward (attention_bwd_fused<T, W, false, true>, L <= 128,
 //     hd <= 128): attention_short_bwd.cu's kernel with its copies at the
 //     copy width (ANY).
-//   - Two-pass backward in column blocks (bwd_dq_cols, bwd_dkv_cols; any L,
-//     hd > 128): the two-pass route's 32-row tiles with the Q, K, V and dO
-//     tiles staged one column block at a time; the scores and dP sum every
-//     block in column order, and each block of the grid produces one output
-//     column block (the grid's third dimension is row tiles x ncb), the
-//     scores recomputed per output block for the same reason.
+//   - Two-pass backward (attention_two_pass_dq, attention_two_pass_dkv of
+//     attention_bwd.cuh at block width W: any L, any copy width; hd > 128 in
+//     column blocks): the scores and dP sum every column block's k-steps in
+//     column order, and the grid covers the output column blocks (the grid's
+//     third dimension is 64-row tiles x ncb), each block recomputing the
+//     scores for its output block, for the same reason as the forward.
 //
 // Entry points (plain C, loaded with ctypes): pw_attention_any_flat and
 // pw_attention_any_flat_backward. The Python wrapper picks this file's
 // kernels from the shape, the pointers and the strides
 // (ops/attention_kernel.py::launch_geometry, backward_launch_geometry) and
 // computes the launch geometry with the same formulas (any_smem_bytes,
-// fused_smem_bytes, dq_smem_bytes, dkv_smem_bytes).
+// fused_smem_bytes, dq_pass_bytes, dkv_pass_bytes).
 
 #include "attention_bwd.cuh"
 #include "attention_tc.cuh"
@@ -214,262 +214,6 @@ cudaError_t launch_fused_any(const Args& a, cudaStream_t stream) {
   }
 }
 
-// dQ of one 32-row query tile and one output column block (blockIdx.z =
-// tile * ncb + block): bwd_dq with Q, dO, K and V staged a column block at
-// a time.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) bwd_dq_cols(Args a) {
-  extern __shared__ float smem[];
-  constexpr int kRow = HD + 1;
-  float* Qs = smem;                 // [32][HD + 1]: a column block of Q
-  float* Gs = Qs + kTile * kRow;    // dO
-  float* Ks = Gs + kTile * kRow;
-  float* Vs = Ks + kTile * kRow;
-  float* Ss = Vs + kTile * kRow;    // [32][33]: scores, then dS
-  float* m_row = Ss + kTile * (kTile + 1);
-  float* l_row = m_row + kTile;
-  float* d_row = l_row + kTile;
-  float* keep = d_row + kTile;      // 1 for a kept key of the tile, 0 masked, -1 past L
-
-  const long long b = blockIdx.x;
-  const int h = blockIdx.y, L = a.L, H = a.H, hd = a.hd, D = H * hd, col = h * hd;
-  const int ncb = (hd + HD - 1) / HD;
-  const int q0 = (blockIdx.z / ncb) * kTile, ob = blockIdx.z % ncb;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* o = static_cast<const T*>(a.out);
-  const T* g = static_cast<const T*>(a.dout);
-
-  // D_i = rowsum(dO * O) over the whole row, from device memory: warp w
-  // takes rows w, w + 8, ...
-  for (int r = warp; r < kTile; r += kThreads / 32) {
-    const int row = q0 + r;
-    float s = 0.0f;
-    if (row < L)
-      for (int d = lane; d < hd; d += 32)
-        s = fmaf(to_f32(g[b * a.g_sb + (long long)row * a.g_sl + col + d]),
-                 to_f32(o[b * a.o_sb + (long long)row * a.o_sl + col + d]), s);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) {
-      d_row[r] = s;
-      m_row[r] = -CUDART_INF_F;
-      l_row[r] = 0.0f;
-    }
-  }
-  const int n_tiles = (L + kTile - 1) / kTile;
-  const int ti = threadIdx.x >> 3, tj = threadIdx.x & 7;
-  float acc[4];
-
-  // pass 1: row max and rescaled row sum over the key tiles
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc[u] = 0.0f;
-    for (int cb = 0; cb < ncb; ++cb) {
-      const int c0 = cb * HD;
-      __syncthreads();
-      load_tile<T, HD>(Qs, q, b, q0, L, a.q_sb, a.q_sl, col + c0, min(HD, hd - c0));
-      load_tile<T, HD>(Ks, k, b, k0, L, a.k_sb, a.k_sl, col + c0, min(HD, hd - c0));
-      if (cb == 0 && threadIdx.x < kTile) {
-        const int key = k0 + threadIdx.x;
-        keep[threadIdx.x] = key < L ? (a.mask[b * a.m_sb + key] ? 1.0f : 0.0f) : -1.0f;
-      }
-      __syncthreads();
-      dot_rows_acc<HD>(Qs, Ks, acc);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int j = tj + 8 * u;
-      const float kp = keep[j];
-      Ss[ti * (kTile + 1) + j] =
-          kp > 0.5f ? acc[u] * a.scale : (kp == 0.0f ? kMaskFill : -CUDART_INF_F);
-    }
-    __syncthreads();
-    for (int r = warp; r < kTile; r += kThreads / 32) {
-      const float s = Ss[r * (kTile + 1) + lane];
-      float mx = s;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_row[r], mx);
-      float e = s == -CUDART_INF_F ? 0.0f : expf(s - m_new);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) e += __shfl_xor_sync(0xffffffffu, e, off);
-      __syncwarp();
-      if (lane == 0) {
-        const float m_old = m_row[r];
-        l_row[r] = (m_old == -CUDART_INF_F ? 0.0f : l_row[r] * expf(m_old - m_new)) + e;
-        m_row[r] = m_new;
-      }
-    }
-  }
-  __syncthreads();
-  // the statistics the dK/dV kernel reads (every output block computes the
-  // same; the first writes them)
-  if (ob == 0 && threadIdx.x < kTile && q0 + threadIdx.x < L) {
-    const long long at = ((b * H + h) * (long long)L) + q0 + threadIdx.x;
-    const long long plane = a.B * (long long)H * L;
-    a.stats[at] = m_row[threadIdx.x];
-    a.stats[plane + at] = l_row[threadIdx.x];
-    a.stats[2 * plane + at] = d_row[threadIdx.x];
-  }
-
-  // pass 2: dS and this block's columns of dQ
-  const int c_ob = ob * HD;
-  float dq[HD / 8];
-#pragma unroll
-  for (int u = 0; u < HD / 8; ++u) dq[u] = 0.0f;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-    float dp[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc[u] = dp[u] = 0.0f;
-    for (int cb = 0; cb < ncb; ++cb) {
-      const int c0 = cb * HD, w = min(HD, hd - c0);
-      __syncthreads();
-      load_tile<T, HD>(Qs, q, b, q0, L, a.q_sb, a.q_sl, col + c0, w);
-      load_tile<T, HD>(Gs, g, b, q0, L, a.g_sb, a.g_sl, col + c0, w);
-      load_tile<T, HD>(Ks, k, b, k0, L, a.k_sb, a.k_sl, col + c0, w);
-      load_tile<T, HD>(Vs, v, b, k0, L, a.v_sb, a.v_sl, col + c0, w);
-      if (cb == 0 && threadIdx.x < kTile) {
-        const int key = k0 + threadIdx.x;
-        keep[threadIdx.x] = key < L ? (a.mask[b * a.m_sb + key] ? 1.0f : 0.0f) : -1.0f;
-      }
-      __syncthreads();
-      dot_rows_acc<HD>(Qs, Ks, acc);
-      dot_rows_acc<HD>(Gs, Vs, dp);
-    }
-    const float m = m_row[ti], l = l_row[ti], dd = d_row[ti];
-    float ds[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float kp = keep[tj + 8 * u];
-      const float s = kp > 0.5f ? acc[u] * a.scale : kMaskFill;
-      const float p = kp < 0.0f ? 0.0f : expf(s - m) / l;
-      ds[u] = kp > 0.5f ? p * (dp[u] - dd) : 0.0f;
-    }
-    __syncthreads();  // every thread is done with Ks: it takes the output block's K
-    if (ob != ncb - 1) load_tile<T, HD>(Ks, k, b, k0, L, a.k_sb, a.k_sl, col + c_ob, min(HD, hd - c_ob));
-#pragma unroll
-    for (int u = 0; u < 4; ++u) Ss[ti * (kTile + 1) + tj + 8 * u] = ds[u];
-    __syncthreads();
-    accum_rows<HD, false>(Ss, Ks, dq);
-  }
-  store_rows<T, HD>(static_cast<T*>(a.dq), dq, b, q0, L, D, col + c_ob, min(HD, hd - c_ob), a.scale);
-}
-
-// dK and dV of one 32-row key tile and one output column block: bwd_dkv
-// with K, V, Q and dO staged a column block at a time.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) bwd_dkv_cols(Args a) {
-  extern __shared__ float smem[];
-  constexpr int kRow = HD + 1;
-  float* Ks = smem;
-  float* Vs = Ks + kTile * kRow;
-  float* Qs = Vs + kTile * kRow;
-  float* Gs = Qs + kTile * kRow;
-  float* Ps = Gs + kTile * kRow;        // [32 queries][33]: round(P)
-  float* Ds = Ps + kTile * (kTile + 1); // [32 queries][33]: dS
-  float* m_row = Ds + kTile * (kTile + 1);
-  float* l_row = m_row + kTile;
-  float* d_row = l_row + kTile;
-  float* keep = d_row + kTile;
-
-  const long long b = blockIdx.x;
-  const int h = blockIdx.y, L = a.L, H = a.H, hd = a.hd, D = H * hd, col = h * hd;
-  const int ncb = (hd + HD - 1) / HD;
-  const int k0 = (blockIdx.z / ncb) * kTile, ob = blockIdx.z % ncb;
-  const int c_ob = ob * HD;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* g = static_cast<const T*>(a.dout);
-  const long long plane = a.B * (long long)H * L;
-  const long long base = (b * H + h) * (long long)L;
-
-  if (threadIdx.x < kTile) {
-    const int key = k0 + threadIdx.x;
-    keep[threadIdx.x] = key < L ? (a.mask[b * a.m_sb + key] ? 1.0f : 0.0f) : -1.0f;
-  }
-  // the score tile here is [query i][key j] with i = tid / 8, j = tid % 8 + 8u
-  const int ti = threadIdx.x >> 3, tj = threadIdx.x & 7;
-  float dk[HD / 8], dv[HD / 8];
-#pragma unroll
-  for (int u = 0; u < HD / 8; ++u) dk[u] = dv[u] = 0.0f;
-  const int n_tiles = (L + kTile - 1) / kTile;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int q0 = t * kTile;
-    float s[4], dp[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) s[u] = dp[u] = 0.0f;
-    for (int cb = 0; cb < ncb; ++cb) {
-      const int c0 = cb * HD, w = min(HD, hd - c0);
-      __syncthreads();
-      load_tile<T, HD>(Ks, k, b, k0, L, a.k_sb, a.k_sl, col + c0, w);
-      load_tile<T, HD>(Vs, v, b, k0, L, a.v_sb, a.v_sl, col + c0, w);
-      load_tile<T, HD>(Qs, q, b, q0, L, a.q_sb, a.q_sl, col + c0, w);
-      load_tile<T, HD>(Gs, g, b, q0, L, a.g_sb, a.g_sl, col + c0, w);
-      if (cb == 0 && threadIdx.x < kTile) {
-        const int row = q0 + threadIdx.x;
-        const bool in = row < L;
-        m_row[threadIdx.x] = in ? a.stats[base + row] : 0.0f;
-        l_row[threadIdx.x] = in ? a.stats[plane + base + row] : 1.0f;
-        d_row[threadIdx.x] = in ? a.stats[2 * plane + base + row] : 0.0f;
-      }
-      __syncthreads();
-      dot_rows_acc<HD>(Qs, Ks, s);
-      dot_rows_acc<HD>(Gs, Vs, dp);
-    }
-    const bool row_in = q0 + ti < L;
-    const float m = m_row[ti], l = l_row[ti], dd = d_row[ti];
-    float pr[4], ds[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float kp = keep[tj + 8 * u];
-      const float sc = kp > 0.5f ? s[u] * a.scale : kMaskFill;
-      const float p = (kp < 0.0f || !row_in) ? 0.0f : expf(sc - m) / l;
-      pr[u] = rounded<T>(p);
-      ds[u] = kp > 0.5f ? p * (dp[u] - dd) : 0.0f;
-    }
-    __syncthreads();  // every thread is done with Qs and Gs: they take the output block's
-    if (ob != ncb - 1) {
-      load_tile<T, HD>(Qs, q, b, q0, L, a.q_sb, a.q_sl, col + c_ob, min(HD, hd - c_ob));
-      load_tile<T, HD>(Gs, g, b, q0, L, a.g_sb, a.g_sl, col + c_ob, min(HD, hd - c_ob));
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      Ps[ti * (kTile + 1) + tj + 8 * u] = pr[u];
-      Ds[ti * (kTile + 1) + tj + 8 * u] = ds[u];
-    }
-    __syncthreads();
-    // dV[j] += sum_i round(P)[i][j] dO[i]; dK[j] += sum_i dS[i][j] Q[i]
-    accum_rows<HD, true>(Ps, Gs, dv);
-    accum_rows<HD, true>(Ds, Qs, dk);
-  }
-  store_rows<T, HD>(static_cast<T*>(a.dk), dk, b, k0, L, D, col + c_ob, min(HD, hd - c_ob), a.scale);
-  store_rows<T, HD>(static_cast<T*>(a.dv), dv, b, k0, L, D, col + c_ob, min(HD, hd - c_ob), 1.0f);
-}
-
-template <typename T, int HD>
-cudaError_t launch_cols(const Args& a, cudaStream_t stream) {
-  const int dq_bytes = dq_smem_bytes<HD>(), dkv_bytes = dkv_smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(bwd_dq_cols<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dkv_cols<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dkv_bytes);
-  if (err != cudaSuccess) return err;
-  const int ncb = (a.hd + HD - 1) / HD;
-  const dim3 grid((unsigned)a.B, (unsigned)a.H, (unsigned)((a.L + kTile - 1) / kTile * ncb));
-  bwd_dq_cols<T, HD><<<grid, kThreads, dq_bytes, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bwd_dkv_cols<T, HD><<<grid, kThreads, dkv_bytes, stream>>>(a);
-  return cudaGetLastError();
-}
-
 // A copy width the kernels take for dtype (0 = f32, 1 = bf16) and hd.
 bool copy_width_ok(int dtype, int hd, int vb) {
   const int es = dtype == 0 ? 4 : 2;
@@ -515,8 +259,8 @@ extern "C" int pw_attention_any_flat(int dtype, int hd, int vb, const void* q, c
 // (attention_short_bwd.cu), with the copy width vb: stats = null launches
 // the fused route at any copy width (L <= 128, hd <= 128, where the block
 // fits: every bf16 width, f32 up to a block width of 64); else the
-// two-pass route in column blocks of 128 (any hd and L), stats an f32
-// scratch of 3 * B * H * L.
+// two-pass route at block width any_width(hd) (any hd and L; above 128
+// columns in column blocks), stats an f32 scratch of 3 * B * H * L.
 extern "C" int pw_attention_any_flat_backward(
     int dtype, int hd, int vb, const void* q, const void* k, const void* v, const void* mask,
     const void* out, const void* d_out, void* dq, void* dk, void* dv, void* stats, long long B,
@@ -527,12 +271,23 @@ extern "C" int pw_attention_any_flat_backward(
          static_cast<float*>(stats), B, L, H, hd, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb,
          o_sl, g_sb, g_sl, m_sb, scale, vb};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd < 1 || L < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (hd < 1 || L < 1 || (dtype != 0 && dtype != 1) || !copy_width_ok(dtype, hd, vb))
+    return (int)cudaErrorInvalidValue;
   if (stats) {
-    return (int)(dtype == 0 ? launch_cols<float, kMaxColBlock>(a, s)
-                            : launch_cols<bf16, kMaxColBlock>(a, s));
+#define PW_CASE(W)                                                                              \
+  case W:                                                                                       \
+    return (int)(dtype == 0 ? launch_two_pass<float, W, true>(a, s) : launch_two_pass<bf16, W, true>(a, s));
+    switch (any_width(hd)) {
+      PW_CASE(16)
+      PW_CASE(32)
+      PW_CASE(64)
+      PW_CASE(128)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+#undef PW_CASE
   }
-  if (hd > kMaxColBlock || !copy_width_ok(dtype, hd, vb)) return (int)cudaErrorInvalidValue;
+  if (hd > kMaxColBlock) return (int)cudaErrorInvalidValue;
   switch (any_width(hd)) {
     case 16:
       return (int)(dtype == 0 ? launch_fused_any<float, 16>(a, s) : launch_fused_any<bf16, 16>(a, s));

@@ -1,9 +1,9 @@
 // Device code of the attention backward (attention_short_bwd.cu; design,
 // bound and routes in its header note): the fused route's kernel
-// attention_bwd_fused and the two-pass route's bwd_dq and bwd_dkv with
-// their helpers. attention_short_bwd.cu instantiates them for 16-byte
-// copies; attention_any.cu instantiates the fused kernel at any copy width
-// (ANY) and builds the column-blocked two-pass kernels from the helpers.
+// attention_bwd_fused and the two-pass route's attention_two_pass_dq and
+// attention_two_pass_dkv with their launcher. attention_short_bwd.cu
+// instantiates them for 16-byte copies; attention_any.cu instantiates them
+// at any copy width (the fused kernel with ANY) and in column blocks.
 
 #pragma once
 
@@ -29,21 +29,11 @@ struct Args {
   int L, H, hd;  // hd: the head's real width (<= the instantiation's HD)
   long long q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl, g_sb, g_sl, m_sb;
   float scale;
-  int vb;  // the fused route's copy width in bytes (16 unless ANY)
+  int vb;  // the copy width in bytes (16 in attention_short_bwd.cu)
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
-
-// The probability as the forward multiplies it with v: rounded to T.
-template <typename T>
-__device__ __forceinline__ float rounded(float p) { return to_f32(from_f32<T>(p)); }
 
 
 // ---------------------------------------------------------------------------
@@ -390,7 +380,7 @@ attention_bwd_fused(Args a) {
   const long long D = (long long)a.H * hd;
   const long long col = (long long)blockIdx.y * hd;
 
-  // (its own name: the two-pass kernels declare `smem` as float)
+  // (its own name: the two-pass kernels declare smem_tp)
   extern __shared__ __align__(16) unsigned char smem_tc[];
   T* sq = reinterpret_cast<T*>(smem_tc);  // [rows][RS]
   T* sk = sq + rows * RS;                 // [rows][RS]; then dQ's and dK's staging
@@ -534,281 +524,511 @@ attention_bwd_fused(Args a) {
 // ---------------------------------------------------------------------------
 // The two-pass route
 // ---------------------------------------------------------------------------
+//
+// Two kernels on the tensor cores, templated on the column-block width W,
+// so that one design serves attention_short_bwd.cu (16-byte copies, hd <=
+// 128 in W = kernel_width(hd): one block) and attention_any.cu (any copy
+// width; a head wider than 128 in ncb = col_blocks(hd) blocks of W =
+// any_width(hd)). Each block has 4 warps, one per 16 rows of a 64-row tile:
+//   attention_two_pass_dq: one block per (batch row, head, 64 query rows,
+//     output column block ob). The 64-key K and V tiles stream through a
+//     ring of shared slots, two where they fit (the next step's cp.async
+//     under this step's products), in steps of one key tile and one column
+//     block. Pass 1 folds S = Q . K^T (tp_scores: score_tiles' products,
+//     the column blocks' k-steps summed into the same registers in column
+//     order, the forward's order) tile by tile with fold_tile, exactly as
+//     the forward, forms D = rowsum(dO * O) on the tensor cores in dP's own
+//     products (the diagonal of dO . O^T), and writes the row max, the row
+//     sum and D to the [3, B, H, L] f32 stats scratch. Pass 2 recomputes S
+//     and P = exp(S - m) / l (div_rn: the forward's bits), dP = dO . V^T
+//     and dS = P * (dP - D), 0 at masked
+//     keys, and adds dS . K_ob with dS as the A operand straight from the
+//     accumulators (the fused route's C -> A step, ds_times_k).
+//   attention_two_pass_dkv: one block per (batch row, head, 64 keys, output
+//     column block). The query tiles stream through the same kind of ring;
+//     each warp recomputes S and dP for its 16 query rows of the tile
+//     against the block's 64 keys (the same instructions as the dQ pass, so
+//     the same P), P from the stats, then round(P) and dS are staged in turn
+//     in one 64 x 64 shared buffer and each warp adds, for its 16 keys, dV
+//     += round(P)^T . dO and dK += dS^T . Q (keys_product: bf16 reads the
+//     transposed operand with ldmatrix.trans).
+// Heads wider than 128 (ncb > 1): a grid over output column blocks, each
+// block recomputing S and dP over every column block (ncb + 1 score passes
+// of the dQ pass, ncb of the dK/dV pass), with each column block of a
+// streamed tile staged once per step. Why: the accumulators of one output
+// block (16 rows x W, f32: W / 2 registers a thread, twice that for dK and
+// dV) already take half of a thread's 255 registers at W = 128 (the W =
+// 128 kernels use 202-255), so a block holding every output column of a
+// 256-wide head would spill. The recomputation is what the f32 head of
+// 256 pays most for (PERF.md, PR 19). The block's own
+// tiles (Q and dO of the dQ pass, K and V of the dK/dV pass) are then
+// staged per column block in the ring too, and the output block's tile (K
+// for dQ; Q and dO for dK and dV) rides with the tile's last column block.
+// No atomics and no sums across blocks: the result is deterministic, and a
+// text's gradient has the same bits in any batch. bf16 rounds P for dV and
+// dS for dQ and dK; f32 runs every product in 3xTF32; sums are in f32.
 
-constexpr int kTile = 32;      // query rows and key rows per tile
-constexpr int kThreads = 256;  // 8 warps
-constexpr float kMaskFill = -1e30f;
+constexpr int kTpRows = 64;                    // query rows (dQ) or keys (dK/dV) per block
+constexpr int kTpThreads = kTpRows / 16 * 32;  // one warp per 16 of them
 
-// Shared tile [kTile][HD + 1] of f32 loaded from rows row0.. of a strided
-// [B, L, D] tensor at batch b and column offset col; rows >= L and columns
-// >= hd are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long b, int row0,
-                                          int L, long long sb, long long sl, int col, int hd) {
-  for (int e = threadIdx.x; e < kTile * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    const int row = row0 + r;
-    dst[r * (HD + 1) + d] =
-        row < L && d < hd ? to_f32(src[b * sb + (long long)row * sl + col + d]) : 0.0f;
-  }
+// Bytes of one shared 64-row tile of one column block, rows padded by 16
+// bytes.
+template <typename T, int W>
+__host__ __device__ constexpr size_t tp_tile_bytes() {
+  return (size_t)kTpRows * (W + chunk<T>()) * sizeof(T);
 }
 
-// s[i][j] = sum_d a[i][d] * c[j][d] for the thread's 4 entries of a 32 x 32
-// tile: row i = tid / 8, columns j = tid % 8 + 8 * u.
-template <int HD>
-__device__ __forceinline__ void dot_rows(const float* a, const float* c, float acc[4]) {
-  const int i = threadIdx.x >> 3, j0 = threadIdx.x & 7;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) acc[u] = 0.0f;
-  for (int d = 0; d < HD; ++d) {
-    const float x = a[i * (HD + 1) + d];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc[u] = fmaf(x, c[(j0 + 8 * u) * (HD + 1) + d], acc[u]);
-  }
+// Shared bytes of one block at `slots` ring slots; mirrored by
+// ops/attention_kernel.py::_two_pass_geometry. dQ: Q and dO (ncb == 1) or
+// K of the output block (ncb > 1), then per slot K and V (and Q and dO of
+// the step's column block when ncb > 1) and the tile's 64 f32 fills. dK/dV:
+// K and V (ncb == 1) or Q and dO of the output block, per slot Q and dO
+// (and K and V), the 64 x 64 staging buffer and the block's 64 fills.
+template <typename T, int W>
+__host__ __device__ constexpr size_t dq_pass_bytes(int ncb, int slots) {
+  return (size_t)(ncb == 1 ? 2 + 2 * slots : 1 + 4 * slots) * tp_tile_bytes<T, W>() +
+         (size_t)slots * kKeyTile * sizeof(float);
+}
+template <typename T, int W>
+__host__ __device__ constexpr size_t dkv_pass_bytes(int ncb, int slots) {
+  return (size_t)(ncb == 1 ? 2 + 2 * slots : 2 + 4 * slots) * tp_tile_bytes<T, W>() +
+         (size_t)kTpRows * (kKeyTile + chunk<T>()) * sizeof(T) + kKeyTile * sizeof(float);
 }
 
-// dot_rows without clearing acc: the column blocks of a head wider than one
-// block add into the same scores, each column in order.
-template <int HD>
-__device__ __forceinline__ void dot_rows_acc(const float* a, const float* c, float acc[4]) {
-  const int i = threadIdx.x >> 3, j0 = threadIdx.x & 7;
-  for (int d = 0; d < HD; ++d) {
-    const float x = a[i * (HD + 1) + d];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc[u] = fmaf(x, c[(j0 + 8 * u) * (HD + 1) + d], acc[u]);
-  }
+// Two ring slots (the next step's copy under this step's products) where
+// they fit and leave as many blocks an SM as one slot would, up to the
+// blocks the kernels' registers allow (three at widths up to 64: 127-168
+// registers a thread; two above: 202-255); else one, and the other blocks'
+// products cover this block's copies. 4 warps a block hide too little
+// alone: one slot ran bf16 in column blocks of 128 (157,184 B and 183,552
+// B at two slots) 1.71x faster, the f32 dK/dV pass at width 64 1.59x, the
+// f32 dQ pass at width 64 (three blocks, not two) 1.30x
+// (tools/backward_ablation.py; PERF.md, PR 19). An SM holds 233,472 B of
+// shared memory, 1,024 B of it reserved per block.
+__host__ __device__ constexpr int tp_blocks_per_sm(size_t bytes) { return (int)(233472 / (bytes + 1024)); }
+__host__ __device__ constexpr int tp_slots(size_t two, size_t one, int cap) {
+  const int want = tp_blocks_per_sm(one) < cap ? tp_blocks_per_sm(one) : cap;
+  return two <= (size_t)kSmemLimit && tp_blocks_per_sm(two) >= want ? 2 : 1;
+}
+template <typename T, int W>
+__host__ __device__ constexpr int dq_slots(int ncb) {
+  return tp_slots(dq_pass_bytes<T, W>(ncb, 2), dq_pass_bytes<T, W>(ncb, 1), W <= 64 ? 3 : 2);
+}
+template <typename T, int W>
+__host__ __device__ constexpr int dkv_slots(int ncb) {
+  return tp_slots(dkv_pass_bytes<T, W>(ncb, 2), dkv_pass_bytes<T, W>(ncb, 1), W <= 64 ? 3 : 2);
 }
 
-// acc[u] += sum_j w[r][j] * c[j][d] for the thread's row r = tid / 8 and
-// columns d = tid % 8 + 8 * u of a 32 x HD tile; transpose_w reads w[j][r].
-template <int HD, bool kTransposeW>
-__device__ __forceinline__ void accum_rows(const float* w, const float* c, float* acc) {
-  const int r = threadIdx.x >> 3, d0 = threadIdx.x & 7;
-  for (int j = 0; j < kTile; ++j) {
-    const float x = kTransposeW ? w[j * (kTile + 1) + r] : w[r * (kTile + 1) + j];
+// s (16 rows x 64 keys) += Q_w . K^T over one column block of width W:
+// score_tiles<T, W, 1, false, true>'s loads, skips and products, each
+// score's mma.sync in the same order (so S keeps the forward's bits), with
+// the k-steps unrolled 4 at a time rather than in full: fully unrolled,
+// the f32 kernels ran 1.34x slower at 3 heads of 256 (width 128) and 1.12x
+// at 1,024 keys (tools/backward_ablation.py; PERF.md, PR 19).
+template <typename T, int W>
+__device__ __forceinline__ void tp_scores(float (&s)[1][8][4], const T* sq_w, const T* sk, int valid,
+                                          int lane) {
+  constexpr int C = chunk<T>();
+  constexpr int RS = W + C;
+#pragma unroll 4
+  for (int kk = 0; kk < W / (2 * C); ++kk) {
+    uint32_t x[4];
+    ldsm_x4(x, sq_w + (lane & 15) * RS + kk * 2 * C + (lane >> 4) * C);
+    const typename Mma<T>::A a = Mma<T>::operand(x);
 #pragma unroll
-    for (int u = 0; u < HD / 8; ++u) acc[u] = fmaf(x, c[j * (HD + 1) + d0 + 8 * u], acc[u]);
-  }
-}
-
-template <typename T, int HD>
-__device__ __forceinline__ void store_rows(T* dst, const float* acc, long long b, int row0,
-                                           int L, int D, int col, int hd, float mul) {
-  const int r = threadIdx.x >> 3, d0 = threadIdx.x & 7;
-  const int row = row0 + r;
-  if (row >= L) return;
-  T* p = dst + (b * L + row) * (long long)D + col;
-#pragma unroll
-  for (int u = 0; u < HD / 8; ++u)
-    if (d0 + 8 * u < hd) p[d0 + 8 * u] = from_f32<T>(acc[u] * mul);
-}
-
-
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) bwd_dq(Args a) {
-  extern __shared__ float smem[];
-  constexpr int kRow = HD + 1;
-  float* Qs = smem;                 // [32][HD + 1]
-  float* Gs = Qs + kTile * kRow;    // dO
-  float* Ks = Gs + kTile * kRow;
-  float* Vs = Ks + kTile * kRow;
-  float* Ss = Vs + kTile * kRow;    // [32][33]: scores, then dS
-  float* m_row = Ss + kTile * (kTile + 1);
-  float* l_row = m_row + kTile;
-  float* d_row = l_row + kTile;
-  float* keep = d_row + kTile;      // 1 for a kept key of the tile, 0 masked, -1 past L
-
-  const long long b = blockIdx.x;
-  const int h = blockIdx.y, L = a.L, H = a.H, hd = a.hd, D = H * hd, col = h * hd;
-  const int q0 = blockIdx.z * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* o = static_cast<const T*>(a.out);
-  const T* g = static_cast<const T*>(a.dout);
-
-  load_tile<T, HD>(Qs, q, b, q0, L, a.q_sb, a.q_sl, col, hd);
-  load_tile<T, HD>(Gs, g, b, q0, L, a.g_sb, a.g_sl, col, hd);
-  __syncthreads();
-  // D_i = rowsum(dO * O): warp w takes rows w, w + 8, ...
-  for (int r = warp; r < kTile; r += kThreads / 32) {
-    const int row = q0 + r;
-    float s = 0.0f;
-    if (row < L)
-      for (int d = lane; d < hd; d += 32)
-        s = fmaf(Gs[r * kRow + d], to_f32(o[b * a.o_sb + (long long)row * a.o_sl + col + d]), s);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) {
-      d_row[r] = s;
-      m_row[r] = -CUDART_INF_F;
-      l_row[r] = 0.0f;
-    }
-  }
-  const int n_tiles = (L + kTile - 1) / kTile;
-  const int ti = threadIdx.x >> 3, tj = threadIdx.x & 7;
-  float acc[4];
-
-  // pass 1: row max and rescaled row sum over the key tiles
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();
-    load_tile<T, HD>(Ks, k, b, k0, L, a.k_sb, a.k_sl, col, hd);
-    if (threadIdx.x < kTile) {
-      const int key = k0 + threadIdx.x;
-      keep[threadIdx.x] = key < L ? (a.mask[b * a.m_sb + key] ? 1.0f : 0.0f) : -1.0f;
-    }
-    __syncthreads();
-    dot_rows<HD>(Qs, Ks, acc);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int j = tj + 8 * u;
-      const float kp = keep[j];
-      Ss[ti * (kTile + 1) + j] =
-          kp > 0.5f ? acc[u] * a.scale : (kp == 0.0f ? kMaskFill : -CUDART_INF_F);
-    }
-    __syncthreads();
-    for (int r = warp; r < kTile; r += kThreads / 32) {
-      const float s = Ss[r * (kTile + 1) + lane];
-      float mx = s;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_row[r], mx);
-      float e = s == -CUDART_INF_F ? 0.0f : expf(s - m_new);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) e += __shfl_xor_sync(0xffffffffu, e, off);
-      __syncwarp();
-      if (lane == 0) {
-        const float m_old = m_row[r];
-        l_row[r] = (m_old == -CUDART_INF_F ? 0.0f : l_row[r] * expf(m_old - m_new)) + e;
-        m_row[r] = m_new;
+    for (int jp = 0; jp < 4; ++jp) {
+      const int key = jp * 16;
+      if (key < valid) {
+        uint32_t b[4];
+        ldsm_x4(b, sk + (key + (lane & 7) + ((lane >> 4) << 3)) * RS + kk * 2 * C + ((lane >> 3) & 1) * C);
+        Mma<T>::run(s[0][2 * jp], a, b[0], b[1]);
+        if (key + 8 < valid) Mma<T>::run(s[0][2 * jp + 1], a, b[2], b[3]);
       }
     }
   }
-  __syncthreads();
-  // the statistics the dK/dV kernel reads
-  if (threadIdx.x < kTile && q0 + threadIdx.x < L) {
-    const long long at = ((b * H + h) * (long long)L) + q0 + threadIdx.x;
-    const long long plane = a.B * (long long)H * L;
-    a.stats[at] = m_row[threadIdx.x];
-    a.stats[plane + at] = l_row[threadIdx.x];
-    a.stats[2 * plane + at] = d_row[threadIdx.x];
-  }
-
-  // pass 2: dS and dQ
-  float dq[HD / 8];
-#pragma unroll
-  for (int u = 0; u < HD / 8; ++u) dq[u] = 0.0f;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();
-    load_tile<T, HD>(Ks, k, b, k0, L, a.k_sb, a.k_sl, col, hd);
-    load_tile<T, HD>(Vs, v, b, k0, L, a.v_sb, a.v_sl, col, hd);
-    if (threadIdx.x < kTile) {
-      const int key = k0 + threadIdx.x;
-      keep[threadIdx.x] = key < L ? (a.mask[b * a.m_sb + key] ? 1.0f : 0.0f) : -1.0f;
-    }
-    __syncthreads();
-    float dp[4];
-    dot_rows<HD>(Qs, Ks, acc);
-    dot_rows<HD>(Gs, Vs, dp);
-    const float m = m_row[ti], l = l_row[ti], dd = d_row[ti];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int j = tj + 8 * u;
-      const float kp = keep[j];
-      const float s = kp > 0.5f ? acc[u] * a.scale : kMaskFill;
-      const float p = kp < 0.0f ? 0.0f : expf(s - m) / l;
-      Ss[ti * (kTile + 1) + j] = kp > 0.5f ? p * (dp[u] - dd) : 0.0f;
-    }
-    __syncthreads();
-    accum_rows<HD, false>(Ss, Ks, dq);
-  }
-  store_rows<T, HD>(static_cast<T*>(a.dq), dq, b, q0, L, D, col, hd, a.scale);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) bwd_dkv(Args a) {
-  extern __shared__ float smem[];
-  constexpr int kRow = HD + 1;
-  float* Ks = smem;
-  float* Vs = Ks + kTile * kRow;
-  float* Qs = Vs + kTile * kRow;
-  float* Gs = Qs + kTile * kRow;
-  float* Ps = Gs + kTile * kRow;        // [32 queries][33]: round(P)
-  float* Ds = Ps + kTile * (kTile + 1); // [32 queries][33]: dS
-  float* m_row = Ds + kTile * (kTile + 1);
-  float* l_row = m_row + kTile;
-  float* d_row = l_row + kTile;
-  float* keep = d_row + kTile;
+// f32 products of the dK/dV pass at widths up to 64: the 3xTF32 products of
+// keys_product, but its (at most 8) accumulators take their three TF32
+// passes in turn (a_small . b_big for every accumulator, then a_big .
+// b_small, then a_big . b_big) where Mma<float>::run issues one
+// accumulator's three back to back. Each accumulator sees run's order, so
+// the sums have run's bits; the dK/dV pass at width 64 ran up to 1.14x
+// faster (tools/backward_ablation.py; PERF.md, PR 19). Above 64 the 16
+// accumulators' split operands would not fit beside the 202-255
+// registers those kernels use: keys_product stays.
+template <int N>
+__device__ __forceinline__ void mma3(float (*c)[4], const Mma<float>::A& a, const Tf32Pair (&b0)[N],
+                                     const Tf32Pair (&b1)[N]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[n], a.small, b0[n].big, b1[n].big);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[n], a.big, b0[n].small, b1[n].small);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[n], a.big, b0[n].big, b1[n].big);
+}
+
+// o (16 keys x W) += B^T . X over the query rows < L of the staging buffer
+// (keys_product<W, false>).
+template <int W>
+__device__ __forceinline__ void tp_keys_product(float (&o)[W / 8][4], const bf16* sp, int PS, const bf16* sx,
+                                                int key0, int L, int lane) {
+  keys_product<W, false>(o, sp, PS, sx, key0, L, lane);
+}
+template <int W>
+__device__ __forceinline__ void tp_keys_product(float (&o)[W / 8][4], const float* sp, int PS, const float* sx,
+                                                int key0, int L, int lane) {
+  if constexpr (W > 64) {
+    keys_product<W, false>(o, sp, PS, sx, key0, L, lane);
+  } else {
+    constexpr int RS = W + chunk<float>();
+    const int g = lane >> 2, tq = lane & 3;
+    const int steps = (L + 7) / 8;
+#pragma unroll 1
+    for (int kk = 0; kk < steps; ++kk) {
+      const float* p0 = sp + (kk * 8 + 2 * tq) * PS + key0 + g;
+      const uint32_t x[4] = {__float_as_uint(p0[0]), __float_as_uint(p0[8]), __float_as_uint(p0[PS]),
+                             __float_as_uint(p0[PS + 8])};
+      const Mma<float>::A a = Mma<float>::operand(x);
+      const float* x0 = sx + (kk * 8 + 2 * tq) * RS + g;
+      Tf32Pair b0[W / 8], b1[W / 8];
+#pragma unroll
+      for (int n = 0; n < W / 8; ++n) {
+        b0[n] = split_tf32(__float_as_uint(x0[8 * n]));
+        b1[n] = split_tf32(__float_as_uint(x0[RS + 8 * n]));
+      }
+      mma3<W / 8>(o, a, b0, b1);
+    }
+  }
+}
+
+// D of the warp's rows g and g + 8 (lane / 4 = g) from the diagonal of the
+// 16 x 16 product dO_w . O_w^T, which score_tiles took with the warp's 16 O
+// rows as its keys: row g's entry sits in lane 4g + g / 2 (column g of the
+// first 8-key group), row g + 8's in the same lane (column g of the second).
+// (Each element picked by a select: a runtime index would put x in local
+// memory.)
+__device__ __forceinline__ void diag_rows(const float (&x)[1][8][4], float (&d)[2], int lane) {
+  const int g = lane >> 2, src = 4 * g + (g >> 1);
+  const bool odd = g & 1;
+  d[0] = __shfl_sync(0xffffffffu, odd ? x[0][0][1] : x[0][0][0], src);
+  d[1] = __shfl_sync(0xffffffffu, odd ? x[0][1][3] : x[0][1][2], src);
+}
+
+// P = exp(s - m) / l in place (the forward's exp_tile and div_rn), rows g
+// and g + 8 of the C layout; a row that is not real (v0, v1 false) gets 0.
+__device__ __forceinline__ void prob_tile(float (&s)[8][4], float m0, float m1, float l0, float l1,
+                                          bool v0, bool v1) {
+  exp_tile(s, m0, m1);
+  const float r0 = __frcp_rn(l0), r1 = __frcp_rn(l1);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s[j][0] = v0 ? div_rn(s[j][0], l0, r0) : 0.f;
+    s[j][1] = v0 ? div_rn(s[j][1], l0, r0) : 0.f;
+    s[j][2] = v1 ? div_rn(s[j][2], l1, r1) : 0.f;
+    s[j][3] = v1 ? div_rn(s[j][3], l1, r1) : 0.f;
+  }
+}
+
+// dS = P * (dP - D) in place at the kept keys of the tile (fill 0), 0 at
+// masked keys and past L; d0, d1: D of rows g and g + 8.
+__device__ __forceinline__ void ds_tile(float (&p)[8][4], const float (&dp)[8][4], const float* sf,
+                                        float d0, float d1, int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 f = *reinterpret_cast<const float2*>(sf + 8 * j + 2 * (lane & 3));
+    p[j][0] = f.x == 0.f ? p[j][0] * (dp[j][0] - d0) : 0.f;
+    p[j][1] = f.y == 0.f ? p[j][1] * (dp[j][1] - d0) : 0.f;
+    p[j][2] = f.x == 0.f ? p[j][2] * (dp[j][2] - d1) : 0.f;
+    p[j][3] = f.y == 0.f ? p[j][3] * (dp[j][3] - d1) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void clear_tile(float (&s)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+}
+
+// COLS: the head may take more than one column block (attention_any.cu);
+// without it ncb is the constant 1 (attention_short_bwd.cu), so the ring's
+// slot count and the step arithmetic fold at compile time: the bf16 dK/dV
+// pass at width 64 ran 1.41x faster with them constant
+// (tools/backward_ablation.py; PERF.md, PR 19).
+template <typename T, int W, bool COLS>
+__global__ void __launch_bounds__(kTpThreads) attention_two_pass_dq(Args a) {
+  constexpr int RS = W + chunk<T>();
+  constexpr int TILE = kTpRows * RS;  // elements of one shared tile
+  constexpr int NO = W / 8;
 
   const long long b = blockIdx.x;
-  const int h = blockIdx.y, L = a.L, H = a.H, hd = a.hd, D = H * hd, col = h * hd;
-  const int k0 = blockIdx.z * kTile;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* g = static_cast<const T*>(a.dout);
-  const long long plane = a.B * (long long)H * L;
-  const long long base = (b * H + h) * (long long)L;
+  const int L = a.L, hd = a.hd;
+  const int ncb = COLS ? (hd + W - 1) / W : 1;
+  const int ob = blockIdx.z % ncb;
+  const int q0 = blockIdx.z / ncb * kTpRows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nt = (L + kKeyTile - 1) / kKeyTile;
+  const int per_pass = nt * ncb, steps = 2 * per_pass;
+  const int slots = dq_slots<T, W>(ncb);
+  const int per_slot = ncb == 1 ? 2 : 4;
+  const long long col = (long long)blockIdx.y * hd;
+  const T* qh = static_cast<const T*>(a.q) + b * a.q_sb + col;
+  const T* kh = static_cast<const T*>(a.k) + b * a.k_sb + col;
+  const T* vh = static_cast<const T*>(a.v) + b * a.v_sb + col;
+  const T* gh = static_cast<const T*>(a.dout) + b * a.g_sb + col;
+  const T* oh = static_cast<const T*>(a.out) + b * a.o_sb + col;
+  const uint8_t* mrow = a.mask + b * a.m_sb;
 
-  load_tile<T, HD>(Ks, k, b, k0, L, a.k_sb, a.k_sl, col, hd);
-  load_tile<T, HD>(Vs, v, b, k0, L, a.v_sb, a.v_sl, col, hd);
-  if (threadIdx.x < kTile) {
-    const int key = k0 + threadIdx.x;
-    keep[threadIdx.x] = key < L ? (a.mask[b * a.m_sb + key] ? 1.0f : 0.0f) : -1.0f;
-  }
-  // the score tile here is [query i][key j] with i = tid / 8, j = tid % 8 + 8u
-  const int ti = threadIdx.x >> 3, tj = threadIdx.x & 7;
-  float dk[HD / 8], dv[HD / 8];
-#pragma unroll
-  for (int u = 0; u < HD / 8; ++u) dk[u] = dv[u] = 0.0f;
-  const int n_tiles = (L + kTile - 1) / kTile;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int q0 = t * kTile;
-    __syncthreads();
-    load_tile<T, HD>(Qs, q, b, q0, L, a.q_sb, a.q_sl, col, hd);
-    load_tile<T, HD>(Gs, g, b, q0, L, a.g_sb, a.g_sl, col, hd);
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      const bool in = row < L;
-      m_row[threadIdx.x] = in ? a.stats[base + row] : 0.0f;
-      l_row[threadIdx.x] = in ? a.stats[plane + base + row] : 1.0f;
-      d_row[threadIdx.x] = in ? a.stats[2 * plane + base + row] : 0.0f;
+  // (its own name: the other kernels of a source declare theirs)
+  extern __shared__ __align__(16) unsigned char smem_tp[];
+  T* own = reinterpret_cast<T*>(smem_tp);     // ncb == 1: Q, dO; else K of the output block
+  T* ring = own + (ncb == 1 ? 2 : 1) * TILE;  // slots x (K, V[, Q, dO])
+  float* fills = reinterpret_cast<float*>(ring + slots * per_slot * TILE);  // slots x 64
+
+  // Step st < per_pass is pass 1 on key tile st / ncb, column block st %
+  // ncb; step per_pass + r is pass 2 on the same. A step's fills are
+  // written with its last column block (read after the step's barrier).
+  // Pass 1's steps on key tile 0 also stage the column block's O rows in
+  // V's place (and, with ncb > 1, its dO rows), for D.
+  auto issue = [&](int st) {
+    const bool p2 = st >= per_pass;
+    const int r = p2 ? st - per_pass : st;
+    const int t = r / ncb, cb = r % ncb;
+    const int c0 = cb * W, w = min(W, hd - c0);
+    T* sl = ring + (st % slots) * per_slot * TILE;
+    load_rows_any<T, W>(sl, kh + c0, a.k_sl, t * kKeyTile, kKeyTile, L, w, a.vb);
+    if (p2) load_rows_any<T, W>(sl + TILE, vh + c0, a.v_sl, t * kKeyTile, kKeyTile, L, w, a.vb);
+    if (!p2 && t == 0) load_rows_any<T, W>(sl + TILE, oh + c0, a.o_sl, q0, kTpRows, L, w, a.vb);
+    if (ncb > 1) {
+      load_rows_any<T, W>(sl + 2 * TILE, qh + c0, a.q_sl, q0, kTpRows, L, w, a.vb);
+      if (p2 || t == 0) load_rows_any<T, W>(sl + 3 * TILE, gh + c0, a.g_sl, q0, kTpRows, L, w, a.vb);
+      if (p2 && cb == ncb - 1 && ob != cb)
+        load_rows_any<T, W>(own, kh + ob * W, a.k_sl, t * kKeyTile, kKeyTile, L, min(W, hd - ob * W), a.vb);
     }
-    __syncthreads();
-    float s[4], dp[4];
-    dot_rows<HD>(Qs, Ks, s);
-    dot_rows<HD>(Gs, Vs, dp);
-    const bool row_in = q0 + ti < L;
-    const float m = m_row[ti], l = l_row[ti], dd = d_row[ti];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int j = tj + 8 * u;
-      const float kp = keep[j];
-      const float sc = kp > 0.5f ? s[u] * a.scale : kMaskFill;
-      const float p = (kp < 0.0f || !row_in) ? 0.0f : expf(sc - m) / l;
-      Ps[ti * (kTile + 1) + j] = rounded<T>(p);
-      Ds[ti * (kTile + 1) + j] = kp > 0.5f ? p * (dp[u] - dd) : 0.0f;
-    }
-    __syncthreads();
-    // dV[j] += sum_i round(P)[i][j] dO[i]; dK[j] += sum_i dS[i][j] Q[i]
-    accum_rows<HD, true>(Ps, Gs, dv);
-    accum_rows<HD, true>(Ds, Qs, dk);
+    if (cb == ncb - 1) fill_tile(fills + (st % slots) * kKeyTile, mrow, t * kKeyTile, L);
+  };
+
+  if (ncb == 1) {
+    load_rows_any<T, W>(own, qh, a.q_sl, q0, kTpRows, L, hd, a.vb);
+    load_rows_any<T, W>(own + TILE, gh, a.g_sl, q0, kTpRows, L, hd, a.vb);
   }
-  store_rows<T, HD>(static_cast<T*>(a.dk), dk, b, k0, L, D, col, hd, a.scale);
-  store_rows<T, HD>(static_cast<T*>(a.dv), dv, b, k0, L, D, col, hd, 1.0f);
+  issue(0);
+  cp_async_commit();
+
+  const int row0 = q0 + warp * 16;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+  float dq[NO][4] = {};
+  float s[1][8][4], dp[1][8][4];
+  float dd_acc[1][8][4], dd[2] = {0.f, 0.f};  // D of the thread's rows g and g + 8 (0 past L)
+  for (int st = 0; st < steps; ++st) {
+    if (slots == 2 && st + 1 < steps) issue(st + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const bool p2 = st >= per_pass;
+    const int r = p2 ? st - per_pass : st;
+    const int t = r / ncb, cb = r % ncb;
+    const int slot = st % slots;
+    const T* sl = ring + slot * per_slot * TILE;
+    const T* sq_w = (ncb == 1 ? own : sl + 2 * TILE) + warp * 16 * RS;
+    const T* sg_w = (ncb == 1 ? own + TILE : sl + 3 * TILE) + warp * 16 * RS;
+    const int valid = L - t * kKeyTile;
+    if (cb == 0) {
+      clear_tile(s[0]);
+      clear_tile(dp[0]);
+    }
+    tp_scores<T, W>(s, sq_w, sl, valid, lane);
+    if (p2) tp_scores<T, W>(dp, sg_w, sl + TILE, valid, lane);
+    if (!p2 && t == 0) {
+      // D = rowsum(dO * O) on the tensor cores, the warp's 16 O rows (in
+      // V's place) as its keys: the products, column blocks and order of
+      // dP, so dP - D cancels exactly where the two agree (a row with one
+      // kept key has O = V of that key: its dS is 0, as the plain version's)
+      if (cb == 0) clear_tile(dd_acc[0]);
+      tp_scores<T, W>(dd_acc, sg_w, sl + TILE + warp * 16 * RS, 16, lane);
+      if (cb == ncb - 1) diag_rows(dd_acc, dd, lane);
+    }
+    if (cb == ncb - 1) {
+      const float* sf = fills + slot * kKeyTile;
+      mask_tile(s[0], sf, a.scale, lane);
+      if (!p2) {
+        fold_tile<false>(s[0], m0, m1, l0, l1);
+        if (t == nt - 1) {
+          l0 = quad_sum(l0);
+          l1 = quad_sum(l1);
+          // the statistics the dK/dV pass reads (every output block has the
+          // same; the first writes them)
+          if (ob == 0 && (lane & 3) == 0) {
+            const long long plane = a.B * (long long)a.H * L;
+            float* srow = a.stats + (b * a.H + blockIdx.y) * (long long)L;
+            const int g = row0 + (lane >> 2);
+            if (g < L) {
+              srow[g] = m0;
+              srow[plane + g] = l0;
+              srow[2 * plane + g] = dd[0];
+            }
+            if (g + 8 < L) {
+              srow[g + 8] = m1;
+              srow[plane + g + 8] = l1;
+              srow[2 * plane + g + 8] = dd[1];
+            }
+          }
+        }
+      } else {
+        prob_tile(s[0], m0, m1, l0, l1, true, true);
+        ds_tile(s[0], dp[0], sf, dd[0], dd[1], lane);
+        DsRegs<T> ds;
+        hold(ds, 0, s[0]);
+        ds_times_k<W, false>(dq, ds, 0, ncb == 1 || ob == cb ? sl : own, valid, lane);
+      }
+    }
+    __syncthreads();  // every warp is done with the slot: the next copy may refill it
+    if (slots == 1 && st + 1 < steps) {
+      issue(st + 1);
+      cp_async_commit();
+    }
+  }
+
+  // the warp's 16 rows of this output block leave through its own rows of
+  // the first tile
+  const long long D = (long long)a.H * hd;
+  write_rows_any<T, W>(own + warp * 16 * RS, dq, a.scale, static_cast<T*>(a.dq) + b * L * D + col + ob * W,
+                       D, row0, L, min(W, hd - ob * W), a.vb, lane);
 }
 
-template <int HD>
-constexpr int dq_smem_bytes() {
-  return (4 * kTile * (HD + 1) + kTile * (kTile + 1) + 4 * kTile) * 4;
+template <typename T, int W, bool COLS>
+__global__ void __launch_bounds__(kTpThreads) attention_two_pass_dkv(Args a) {
+  constexpr int C = chunk<T>();
+  constexpr int RS = W + C;
+  constexpr int TILE = kTpRows * RS;
+  constexpr int PS = kKeyTile + C;  // row stride of the staging buffer
+  constexpr int NO = W / 8;
+
+  const long long b = blockIdx.x;
+  const int L = a.L, hd = a.hd;
+  const int ncb = COLS ? (hd + W - 1) / W : 1;
+  const int ob = blockIdx.z % ncb;
+  const int k0 = blockIdx.z / ncb * kTpRows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int steps = (L + kTpRows - 1) / kTpRows * ncb;
+  const int slots = dkv_slots<T, W>(ncb);
+  const int per_slot = ncb == 1 ? 2 : 4;
+  const long long col = (long long)blockIdx.y * hd;
+  const T* qh = static_cast<const T*>(a.q) + b * a.q_sb + col;
+  const T* kh = static_cast<const T*>(a.k) + b * a.k_sb + col;
+  const T* vh = static_cast<const T*>(a.v) + b * a.v_sb + col;
+  const T* gh = static_cast<const T*>(a.dout) + b * a.g_sb + col;
+  const long long plane = a.B * (long long)a.H * L;
+  const float* srow = a.stats + (b * a.H + blockIdx.y) * (long long)L;
+
+  extern __shared__ __align__(16) unsigned char smem_tp[];
+  T* own = reinterpret_cast<T*>(smem_tp);  // ncb == 1: K, V; else Q and dO of the output block
+  T* ring = own + 2 * TILE;                // slots x (Q, dO[, K, V])
+  T* sp = ring + slots * per_slot * TILE;  // [64 queries][PS]: round(P), then dS
+  float* fills = reinterpret_cast<float*>(sp + kTpRows * PS);  // the block's 64 keys
+
+  // Step st: query tile st / ncb, column block st % ncb.
+  auto issue = [&](int st) {
+    const int u = st / ncb, cb = st % ncb;
+    const int c0 = cb * W, w = min(W, hd - c0);
+    T* sl = ring + (st % slots) * per_slot * TILE;
+    load_rows_any<T, W>(sl, qh + c0, a.q_sl, u * kTpRows, kTpRows, L, w, a.vb);
+    load_rows_any<T, W>(sl + TILE, gh + c0, a.g_sl, u * kTpRows, kTpRows, L, w, a.vb);
+    if (ncb > 1) {
+      load_rows_any<T, W>(sl + 2 * TILE, kh + c0, a.k_sl, k0, kTpRows, L, w, a.vb);
+      load_rows_any<T, W>(sl + 3 * TILE, vh + c0, a.v_sl, k0, kTpRows, L, w, a.vb);
+      if (cb == ncb - 1 && ob != cb) {
+        const int wo = min(W, hd - ob * W);
+        load_rows_any<T, W>(own, qh + ob * W, a.q_sl, u * kTpRows, kTpRows, L, wo, a.vb);
+        load_rows_any<T, W>(own + TILE, gh + ob * W, a.g_sl, u * kTpRows, kTpRows, L, wo, a.vb);
+      }
+    }
+  };
+
+  if (ncb == 1) {
+    load_rows_any<T, W>(own, kh, a.k_sl, k0, kTpRows, L, hd, a.vb);
+    load_rows_any<T, W>(own + TILE, vh, a.v_sl, k0, kTpRows, L, hd, a.vb);
+  }
+  issue(0);
+  cp_async_commit();
+  fill_tile(fills, a.mask + b * a.m_sb, k0, L);
+
+  float dk[NO][4] = {}, dv[NO][4] = {};
+  float s[1][8][4], dp[1][8][4];
+  for (int st = 0; st < steps; ++st) {
+    if (slots == 2 && st + 1 < steps) issue(st + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const int u = st / ncb, cb = st % ncb;
+    const T* sl = ring + (st % slots) * per_slot * TILE;
+    const T* sk = ncb == 1 ? own : sl + 2 * TILE;
+    const T* sv = ncb == 1 ? own + TILE : sl + 3 * TILE;
+    if (cb == 0) {
+      clear_tile(s[0]);
+      clear_tile(dp[0]);
+    }
+    tp_scores<T, W>(s, sl + warp * 16 * RS, sk, L - k0, lane);
+    tp_scores<T, W>(dp, sl + TILE + warp * 16 * RS, sv, L - k0, lane);
+    if (cb == ncb - 1) {
+      // the row statistics of the warp's rows g and g + 8 of this query tile
+      const int g = u * kTpRows + warp * 16 + (lane >> 2);
+      const bool v0 = g < L, v1 = g + 8 < L;
+      const float m0 = v0 ? srow[g] : 0.f, m1 = v1 ? srow[g + 8] : 0.f;
+      const float l0 = v0 ? srow[plane + g] : 1.f, l1 = v1 ? srow[plane + g + 8] : 1.f;
+      const float d0 = v0 ? srow[2 * plane + g] : 0.f, d1 = v1 ? srow[2 * plane + g + 8] : 0.f;
+      mask_tile(s[0], fills, a.scale, lane);
+      prob_tile(s[0], m0, m1, l0, l1, v0, v1);
+      T* sp_w = sp + warp * 16 * PS;
+      stage_tile<T, false>(sp_w, PS, s[0], 0, kKeyTile, lane);  // round(P), for dV
+      ds_tile(s[0], dp[0], fills, d0, d1, lane);
+      __syncthreads();
+      const bool here = ncb == 1 || ob == cb;  // the output block's Q and dO are the step's
+      const int rows = min(kTpRows, L - u * kTpRows);
+      tp_keys_product<W>(dv, sp, PS, here ? sl + TILE : own + TILE, warp * 16, rows, lane);
+      __syncthreads();  // every warp is done with round(P): the buffer takes dS
+      stage_tile<T, false>(sp_w, PS, s[0], 0, kKeyTile, lane);
+      __syncthreads();
+      tp_keys_product<W>(dk, sp, PS, here ? sl : own, warp * 16, rows, lane);
+    }
+    __syncthreads();
+    if (slots == 1 && st + 1 < steps) {
+      issue(st + 1);
+      cp_async_commit();
+    }
+  }
+
+  const long long D = (long long)a.H * hd;
+  const int row0 = k0 + warp * 16, wo = min(W, hd - ob * W);
+  write_rows_any<T, W>(own + warp * 16 * RS, dk, a.scale, static_cast<T*>(a.dk) + b * L * D + col + ob * W,
+                       D, row0, L, wo, a.vb, lane);
+  write_rows_any<T, W>(own + TILE + warp * 16 * RS, dv, 1.f,
+                       static_cast<T*>(a.dv) + b * L * D + col + ob * W, D, row0, L, wo, a.vb, lane);
 }
-template <int HD>
-constexpr int dkv_smem_bytes() {
-  return (4 * kTile * (HD + 1) + 2 * kTile * (kTile + 1) + 4 * kTile) * 4;
+
+// The dQ pass, then the dK/dV pass, on `stream`; a.stats is the f32
+// scratch of 3 * B * H * L, a.vb the copy width. Any L >= 1; hd <= W, or
+// with COLS any hd >= 1 (ncb = ceil(hd / W) column blocks).
+template <typename T, int W, bool COLS>
+cudaError_t launch_two_pass(const Args& a, cudaStream_t stream) {
+  if (a.L < 1 || a.hd < 1 || !a.stats || (!COLS && a.hd > W)) return cudaErrorInvalidValue;
+  const int ncb = COLS ? (a.hd + W - 1) / W : 1;
+  const size_t dq_bytes = dq_pass_bytes<T, W>(ncb, dq_slots<T, W>(ncb));
+  const size_t dkv_bytes = dkv_pass_bytes<T, W>(ncb, dkv_slots<T, W>(ncb));
+  if (dq_bytes > (size_t)kSmemLimit || dkv_bytes > (size_t)kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(attention_two_pass_dq<T, W, COLS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attention_two_pass_dkv<T, W, COLS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dkv_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)a.B, (unsigned)a.H, (unsigned)((a.L + kTpRows - 1) / kTpRows * ncb));
+  attention_two_pass_dq<T, W, COLS><<<grid, kTpThreads, dq_bytes, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_two_pass_dkv<T, W, COLS><<<grid, kTpThreads, dkv_bytes, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -67,32 +67,36 @@
 // f32 at HD 64: 206,848 B (one); at f32 and HD 128 the four tiles alone
 // take 270,336 B, above the 232,448 B a block may use.
 //
-// The two-pass route (bwd_dq, then bwd_dkv: L > 128, and f32 at HD = 128),
-// as first written, on the FP32 pipes: bwd_dq<T, HD> takes a tile of 32
-// query rows, folds the row max and rescaled sum over 32-key tiles (the
-// forward's exact two-pass softmax), writes the row's max, sum and D to a
-// [3, B, H, L] f32 scratch, then recomputes the scores and accumulates dQ;
-// bwd_dkv<T, HD> takes a tile of 32 key rows, walks the query tiles,
-// recomputes P from the scratch and accumulates dV and dK. Tiles live in
-// shared memory as f32 in rows padded by one word; f32 FMAs from shared
-// memory, the scores computed three times (16 * B * H * L^2 * hd FLOP).
+// The two-pass route (attention_two_pass_dq, then attention_two_pass_dkv:
+// L > 128, and f32 at HD = 80-128, whose fused block does not fit; design
+// in attention_bwd.cuh), on the tensor cores with the fused route's
+// products and roundings: the dQ pass takes 64 query rows, folds the
+// scores over 64-key tiles streamed through a double-buffered cp.async
+// ring exactly as the forward does, forms D in dP's own products (so dP - D
+// cancels exactly where the two agree: a row with one kept key), writes
+// each row's max, sum and D to a [3, B, H, L] f32 scratch, then recomputes
+// S and P and adds dS . K; the
+// dK/dV pass takes 64 keys, streams the query tiles, recomputes P from the
+// scratch, stages round(P) and then dS in shared memory and adds round(P)^T
+// . dO and dS^T . Q. The scores are computed three times (16 * B * H * L^2
+// * hd FLOP in all), every product on the tensor cores.
 //
 // Supported here: bf16 or f32 (dtype 1 / 0), any head width hd up to 128,
 // any L >= 1 (the two-pass route above 128 keys), last dimension
-// contiguous; strides in elements. The fused route copies 16 bytes at a
-// time, so the wrapper sends it only heads whose rows, head offsets and
-// pointers are 16-byte aligned; the two-pass route reads and writes single
-// elements and takes any alignment. Both routes are instantiated at HD =
+// contiguous; strides in elements. Both routes copy 16 bytes at a time, so
+// the wrapper sends this file only heads whose rows, head offsets and
+// pointers are 16-byte aligned. Both routes are instantiated at HD =
 // 16, 32, ..., 128 and a head of hd columns runs in HD = kernel_width(hd)
 // (hd rounded up to 16) with columns hd .. HD - 1 zero in shared memory and
 // never stored, as in the forward; the fused route exists where its block
 // fits at 128 rows: every bf16 HD and f32 up to HD = 64 (f32 at HD = 80
-// needs 239,616 B). Unaligned heads on the fused route and heads wider
-// than 128 run in attention_any.cu. The device code lives in
+// needs 239,616 B). Unaligned heads and heads wider than 128 run in
+// attention_any.cu, on both routes. The device code lives in
 // attention_bwd.cuh, which attention_any.cu includes too. The Python
 // wrapper checks it and picks the route
 // (ops/attention_kernel.py::backward_launch_geometry, the same formulas as
-// fused_smem_bytes); launch_fused refuses a shape outside the fused route.
+// fused_smem_bytes, dq_pass_bytes and dkv_pass_bytes); launch_fused refuses
+// a shape outside the fused route.
 
 #include "attention_bwd.cuh"
 #include "attention_tc.cuh"
@@ -117,27 +121,10 @@ cudaError_t launch_fused(const Args& a, cudaStream_t stream) {
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch_bwd(const Args& a, cudaStream_t stream) {
-  const int dq_bytes = dq_smem_bytes<HD>(), dkv_bytes = dkv_smem_bytes<HD>();
-  cudaError_t err =
-      cudaFuncSetAttribute(bwd_dq<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dkv<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dkv_bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)a.B, (unsigned)a.H, (unsigned)((a.L + kTile - 1) / kTile));
-  bwd_dq<T, HD><<<grid, kThreads, dq_bytes, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bwd_dkv<T, HD><<<grid, kThreads, dkv_bytes, stream>>>(a);
-  return cudaGetLastError();
-}
-
 template <int HD>
 cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
-  if (dtype == 0) return a.stats ? launch_bwd<float, HD>(a, stream) : launch_fused<float, HD>(a, stream);
-  if (dtype == 1) return a.stats ? launch_bwd<bf16, HD>(a, stream) : launch_fused<bf16, HD>(a, stream);
+  if (dtype == 0) return a.stats ? launch_two_pass<float, HD, false>(a, stream) : launch_fused<float, HD>(a, stream);
+  if (dtype == 1) return a.stats ? launch_two_pass<bf16, HD, false>(a, stream) : launch_fused<bf16, HD>(a, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -149,8 +136,8 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
 // offsets and pointers 16-byte aligned); dq/dk/dv are
 // contiguous [B, L, H * hd] outputs. stats = null launches the fused route
 // (L <= 128, 16 * ceil(L / 16) query rows per block; an error where the
-// block does not fit); else bwd_dq, then bwd_dkv, with stats an f32 scratch
-// of 3 * B * H * L. All on `stream`; returns the first cudaError_t (0 =
+// block does not fit); else the two-pass route's dQ pass, then its dK/dV
+// pass, with stats an f32 scratch of 3 * B * H * L. All on `stream`; returns the first cudaError_t (0 =
 // success).
 extern "C" int pw_attention_short_flat_backward(
     int dtype, int hd, const void* q, const void* k, const void* v, const void* mask,

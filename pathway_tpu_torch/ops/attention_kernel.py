@@ -12,7 +12,7 @@ grad) recomputes the forward's softmax and runs ``csrc/attention_short_bwd.cu``
 on the card, :func:`attention_short_flat_backward_plain` on the CPU:
 :func:`backward_launch_geometry` says which of its routes a call takes (up
 to 128 keys, one fused pass per (text, head) on the tensor cores; above, or
-f32 at head width 128, the two-pass kernels on the FP32 pipes).
+f32 at head widths 80-128, a dQ pass and a dK/dV pass on the tensor cores).
 
 On a CUDA tensor :func:`attention_short_flat` launches a hand-written Hopper
 kernel or raises. Both routes run on the tensor cores (``mma.sync`` with
@@ -51,30 +51,29 @@ ROUTE_LAUNCHES = {"tensor_core": 0, "tensor_core_3xtf32": 0, "tensor_core_any": 
 COPY_LAUNCHES = {16: 0, 8: 0, 4: 0, 2: 0}
 #: backward launches (one per gradient: the fused kernel, or the two kernels
 #: of the two-pass route), in all, per backward route and per copy width
-#: (the two-pass routes read single elements: the element's size)
 BACKWARD_LAUNCHES = 0
 BACKWARD_ROUTE_LAUNCHES = {
     "fused_tensor_core": 0, "fused_tensor_core_3xtf32": 0,
-    "two_pass_simt_bf16": 0, "two_pass_simt_f32": 0,
+    "two_pass_tensor_core": 0, "two_pass_tensor_core_3xtf32": 0,
     "fused_tensor_core_any": 0, "fused_tensor_core_3xtf32_any": 0,
-    "two_pass_simt_bf16_cols": 0, "two_pass_simt_f32_cols": 0,
+    "two_pass_tensor_core_cols": 0, "two_pass_tensor_core_3xtf32_cols": 0,
 }
 BACKWARD_COPY_LAUNCHES = {16: 0, 8: 0, 4: 0, 2: 0}
 #: the backward's route names per input dtype: (fused, two-pass)
 BACKWARD_ROUTES = {
-    torch.bfloat16: ("fused_tensor_core", "two_pass_simt_bf16"),
-    torch.float32: ("fused_tensor_core_3xtf32", "two_pass_simt_f32"),
+    torch.bfloat16: ("fused_tensor_core", "two_pass_tensor_core"),
+    torch.float32: ("fused_tensor_core_3xtf32", "two_pass_tensor_core_3xtf32"),
 }
 #: the ``__global__`` kernels of the backward per route kind (a profiler's
-#: kernel names contain them; ``bwd_dq`` also names ``bwd_dq_cols``)
-BACKWARD_KERNELS = {"fused": ("attention_bwd_fused",), "two_pass": ("bwd_dq", "bwd_dkv")}
+#: kernel names contain them; both libraries instantiate them)
+BACKWARD_KERNELS = {"fused": ("attention_bwd_fused",), "two_pass": ("attention_two_pass_dq", "attention_two_pass_dkv")}
 #: route name per input dtype
 ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "tensor_core_3xtf32"}
 #: ``attention_any.cu``'s routes per input dtype: (forward, fused backward,
-#: two-pass backward in column blocks)
+#: two-pass backward at any copy width, in column blocks above 128 columns)
 ANY_ROUTES = {
-    torch.bfloat16: ("tensor_core_any", "fused_tensor_core_any", "two_pass_simt_bf16_cols"),
-    torch.float32: ("tensor_core_3xtf32_any", "fused_tensor_core_3xtf32_any", "two_pass_simt_f32_cols"),
+    torch.bfloat16: ("tensor_core_any", "fused_tensor_core_any", "two_pass_tensor_core_cols"),
+    torch.float32: ("tensor_core_3xtf32_any", "fused_tensor_core_3xtf32_any", "two_pass_tensor_core_3xtf32_cols"),
 }
 _ANY_FORWARD_ROUTES = frozenset(routes[0] for routes in ANY_ROUTES.values())
 _ANY_BACKWARD_ROUTES = frozenset(r for routes in ANY_ROUTES.values() for r in routes[1:])
@@ -101,8 +100,9 @@ _TC_ROW_PAD_BYTES = 16  # padding per shared row
 
 #: the fused backward: keys (and query rows) per block up to this
 _BWD_FUSED_MAX_LEN = 128
-#: the two-pass backward: 32-row tiles, 256 threads
-_BWD_TILE = 32
+#: the two-pass backward: 64 query rows (dQ pass) or keys (dK/dV pass) per
+#: block, one warp per 16 (``kTpRows`` in ``attention_bwd.cuh``)
+_TP_ROWS = 64
 
 
 class LaunchGeometry(NamedTuple):
@@ -212,12 +212,12 @@ def launch_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype,
 
 class BackwardGeometry(NamedTuple):
     route: str  #: a key of BACKWARD_ROUTE_LAUNCHES
-    fused: bool  #: one fused kernel (else bwd_dq, then bwd_dkv)
+    fused: bool  #: one fused kernel (else the dQ pass, then the dK/dV pass)
     rows: int  #: query rows (fused: and keys) per block
     warps: int  #: warps per block
     smem_bytes: int  #: dynamic shared memory per block (two-pass: the larger kernel's)
     blocks: tuple[int, int, int]  #: grid (batch rows, heads, row tiles [x column blocks])
-    copy_bytes: int = 16  #: bytes per copy in and out (two-pass: one element)
+    copy_bytes: int = 16  #: bytes per copy in and out
     width: int = 0  #: the instantiated width (of one column block)
     col_blocks: int = 1  #: column blocks a head runs in
 
@@ -230,20 +230,59 @@ def _fused_smem_bytes(rows: int, hd: int, elem: int) -> int:
     return (4 * rows * (hd + pad) + rows * (rows + pad)) * elem
 
 
-def _two_pass_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype) -> BackwardGeometry:
-    """The two-pass route: 32-row tiles of f32 in rows padded by one word
-    at the instantiated width (``dkv_smem_bytes``, the larger of its two
-    kernels'), single elements read and written; a head wider than 128 in
-    column blocks of 128 (``attention_any.cu``, one grid block per row tile
-    and output column block)."""
+#: shared memory of one H100 SM, and what each resident block reserves of it
+_SM_SMEM = 233_472
+_BLOCK_RESERVED = 1024
+
+
+def _ring_slots(two: int, one: int, cap: int) -> int:
+    """``tp_slots`` of ``attention_bwd.cuh``: two ring slots where the block
+    of ``two`` bytes fits and leaves as many blocks an SM as one slot (of
+    ``one`` bytes) would, up to ``cap`` (what the kernels' registers allow);
+    else one."""
+    per_sm = lambda b: _SM_SMEM // (b + _BLOCK_RESERVED)  # noqa: E731
+    return 2 if two <= _SMEM_LIMIT and per_sm(two) >= min(per_sm(one), cap) else 1
+
+
+def _two_pass_smem_bytes(width: int, ncb: int, elem: int) -> tuple[int, int]:
+    """Shared bytes of the two-pass route's dQ block and dK/dV block at block
+    width ``width`` in ``ncb`` column blocks; mirrors ``dq_pass_bytes`` and
+    ``dkv_pass_bytes`` in ``attention_bwd.cuh`` at the ring slots
+    :func:`_ring_slots` picks: 64-row tiles padded by 16 bytes, 64 f32
+    fills per ring slot (dQ) or per block (dK/dV), and the dK/dV block's
+    64 x 64 staging buffer."""
+    tile = _TP_ROWS * (width * elem + _TC_ROW_PAD_BYTES)
+    fills = _TC_KEY_TILE * 4
+
+    def dq(slots):
+        return (2 + 2 * slots if ncb == 1 else 1 + 4 * slots) * tile + slots * fills
+
+    def dkv(slots):
+        return ((2 + 2 * slots if ncb == 1 else 2 + 4 * slots) * tile
+                + _TP_ROWS * (_TC_KEY_TILE * elem + _TC_ROW_PAD_BYTES) + fills)
+
+    cap = 3 if width <= 64 else 2  # blocks an SM the kernels' registers allow
+    return dq(_ring_slots(dq(2), dq(1), cap)), dkv(_ring_slots(dkv(2), dkv(1), cap))
+
+
+def _two_pass_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype,
+                       copy_bytes: int = 16) -> BackwardGeometry:
+    """The two-pass route: a dQ pass and a dK/dV pass of 64-row tiles (4
+    warps) on the tensor cores, one grid block per (text, head, tile,
+    output column block). 16-byte copies of a head of at most 128 columns
+    run in ``attention_short_bwd.cu`` at :func:`kernel_width`; any other
+    head in ``attention_any.cu`` (route ``two_pass_*_cols``) at its copy
+    width in :func:`col_blocks` blocks of :func:`any_width`. The shared
+    bytes are the larger of the two kernels' (:func:`_two_pass_smem_bytes`)."""
     elem = 2 if dtype == torch.bfloat16 else 4
-    if hd <= _MAX_COL_BLOCK:
+    vb = _copy_bytes(hd, elem, copy_bytes)
+    if hd <= _MAX_COL_BLOCK and vb == 16:
         width, route, ncb = kernel_width(hd), BACKWARD_ROUTES[dtype][1], 1
     else:
-        width, route, ncb = _MAX_COL_BLOCK, ANY_ROUTES[dtype][2], col_blocks(hd)
-    smem = (4 * _BWD_TILE * (width + 1) + 2 * _BWD_TILE * (_BWD_TILE + 1) + 4 * _BWD_TILE) * 4
+        width, route, ncb = any_width(hd), ANY_ROUTES[dtype][2], col_blocks(hd)
+    smem = max(_two_pass_smem_bytes(width, ncb, elem))
     return BackwardGeometry(
-        route, False, _BWD_TILE, 8, smem, (B, n_heads, -(-L // _BWD_TILE) * ncb), elem, width, ncb,
+        route, False, _TP_ROWS, _TP_ROWS // 16, smem, (B, n_heads, -(-L // _TP_ROWS) * ncb), vb, width, ncb,
     )
 
 
@@ -257,8 +296,8 @@ def backward_launch_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch
     with 16-byte copies at :func:`kernel_width` of ``hd``
     (``attention_short_bwd.cu``: every bf16 width, f32 up to 64) or at a
     narrower copy at :func:`any_width` (``attention_any.cu``, route
-    ``fused_*_any``); else the two-pass route (any ``L``, any alignment;
-    above 128 columns in column blocks, route ``two_pass_*_cols``)."""
+    ``fused_*_any``); else the two-pass route (any ``L``, any alignment:
+    :func:`_two_pass_geometry`)."""
     elem = 2 if dtype == torch.bfloat16 else 4
     vb = _copy_bytes(hd, elem, copy_bytes)
     if L <= _BWD_FUSED_MAX_LEN and hd <= _MAX_COL_BLOCK:
@@ -270,7 +309,7 @@ def backward_launch_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch
                 route, True, rows, rows // 16, _fused_smem_bytes(rows, width, elem),
                 (B, n_heads, 1), vb, width, 1,
             )
-    return _two_pass_geometry(B, L, n_heads, hd, dtype)
+    return _two_pass_geometry(B, L, n_heads, hd, dtype, vb)
 
 
 def in_envelope(L: int, hd: int) -> bool:
@@ -466,7 +505,7 @@ def _launch_backward(q, k, v, mask, out, d_out, n_heads: int, scale: float, hd: 
     # caller, who picked the route from their copy width
     if d_out.stride(-1) != 1 or copy_width(hd, es, d_out) < geo.copy_bytes:
         d_out = d_out.clone(memory_format=torch.contiguous_format)
-    if geo.fused and copy_width(hd, es, q, k, v, out) < geo.copy_bytes:
+    if copy_width(hd, es, q, k, v, out) < geo.copy_bytes:
         raise ValueError(
             f"attention_short_flat backward: route {geo.route} copies {geo.copy_bytes} bytes, "
             f"above what the rows of q, k, v and out allow"

@@ -183,8 +183,8 @@ def test_backward_launch_geometry_over_the_envelope(hd, dtype):
     """Lengths 1..512 at each instantiated width: the fused route exactly
     for L <= 128 where its block fits at 128 rows (every bf16 width, f32 up
     to hd 64), one block per (text, head) of 16·ceil(L/16) rows; the
-    two-pass route elsewhere; every block within the 227 KB a Hopper block
-    may use."""
+    two-pass route elsewhere, 64-row tiles of 4 warps; every block within
+    the 227 KB a Hopper block may use."""
     H = 384 // hd
     elem = 2 if dtype == torch.bfloat16 else 4
     fused_name, two_pass_name = A.BACKWARD_ROUTES[dtype]
@@ -199,7 +199,7 @@ def test_backward_launch_geometry_over_the_envelope(hd, dtype):
             pad = 16 // elem
             assert geo.smem_bytes == (4 * rows * (hd + pad) + rows * (rows + pad)) * elem
         else:
-            assert (geo.rows, geo.warps, geo.blocks) == (32, 8, (4, H, -(-L // 32)))
+            assert (geo.rows, geo.warps, geo.blocks) == (64, 4, (4, H, -(-L // 64)))
 
 
 def test_fused_block_bytes_at_the_train_shape():
@@ -214,7 +214,7 @@ def test_fused_block_bytes_at_the_train_shape():
     assert (f32.route, f32.smem_bytes) == ("fused_tensor_core_3xtf32", 206848)
     assert 4 * 128 * (128 + 4) * 4 == 270336 > A._SMEM_LIMIT
     assert A._fused_smem_bytes(128, 128, 4) == 270336 + 128 * (128 + 4) * 4
-    assert A.backward_launch_geometry(4, 128, 3, 128, torch.float32).route == "two_pass_simt_f32"
+    assert A.backward_launch_geometry(4, 128, 3, 128, torch.float32).route == "two_pass_tensor_core_3xtf32"
     assert A.backward_launch_geometry(4, 128, 3, 128, torch.bfloat16).smem_bytes == 174080
     assert set(A.BACKWARD_ROUTE_LAUNCHES) == {r for pair in A.BACKWARD_ROUTES.values() for r in pair} | {
         r for routes in A.ANY_ROUTES.values() for r in routes[1:]}

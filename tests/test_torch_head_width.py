@@ -199,12 +199,25 @@ def _tc_smem_cu(L: int, width: int, rows: int, elem: int) -> int:
 def _bwd_smem_cu(L: int, width: int, elem: int) -> tuple[bool, int]:
     """The backward's route and bytes as ``attention_short_bwd.cu`` states
     them: ``fused_smem_bytes`` where the block fits at 128 rows and L <= 128,
-    else ``dkv_smem_bytes`` of the two-pass route."""
+    else the two-pass route's larger block (one column block):
+    ``dq_pass_bytes`` (Q and dO, one or two ring slots of K and V in 64-row
+    tiles and 64 f32 fills each) or ``dkv_pass_bytes`` (K and V, the slots
+    of Q and dO, the 64 x 64 staging buffer and 64 fills); two slots
+    unless one slot leaves more blocks an SM (233,472 B, 1,024 B reserved a
+    block), up to three at widths up to 64 and two above."""
     pad = 16 // elem
     if L <= 128 and (4 * 128 * (width + pad) + 128 * (128 + pad)) * elem <= 232_448:
         rows = -(-L // 16) * 16
         return True, (4 * rows * (width + pad) + rows * (rows + pad)) * elem
-    return False, (4 * 32 * (width + 1) + 2 * 32 * 33 + 4 * 32) * 4
+    tile = 64 * (width + pad) * elem
+
+    def at_slots(by_slots):
+        per_sm = {s: 233_472 // (b + 1024) for s, b in by_slots.items()}
+        return by_slots[2 if per_sm[2] >= min(per_sm[1], 3 if width <= 64 else 2) else 1]
+
+    dq = at_slots({s: (2 + 2 * s) * tile + s * 64 * 4 for s in (1, 2)})
+    dkv = at_slots({s: (2 + 2 * s) * tile + 64 * (64 + pad) * elem + 64 * 4 for s in (1, 2)})
+    return False, max(dq, dkv)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])

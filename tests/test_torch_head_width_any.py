@@ -145,7 +145,8 @@ def test_every_head_width_has_a_route_and_a_copy_width(dtype):
     Hopper block may use. 16-byte copies of a head of at most 128 columns
     keep the aligned kernels; anything else runs in ``attention_any.cu``,
     the backward on its fused route where L <= 128 and the block fits, else
-    on the two-pass route (in column blocks of 128 above 128 columns)."""
+    on the two-pass route (in column blocks of 128 above 128 columns), at
+    the copy width, in 64-row tiles."""
     elem = torch.empty(0, dtype=dtype).element_size()
     fwd_routes = {A.ROUTES[dtype], A.ANY_ROUTES[dtype][0]}
     bwd_routes = {*A.BACKWARD_ROUTES[dtype], *A.ANY_ROUTES[dtype][1:]}
@@ -170,9 +171,9 @@ def test_every_head_width_has_a_route_and_a_copy_width(dtype):
                     assert bwd.route == (A.BACKWARD_ROUTES[dtype][0] if vb == 16 else A.ANY_ROUTES[dtype][1])
                     assert bwd.smem_bytes == A._fused_smem_bytes(bwd.rows, bwd.width, elem)
                 else:
-                    assert bwd.copy_bytes == elem
-                    assert bwd.route == (A.BACKWARD_ROUTES[dtype][1] if hd <= 128 else A.ANY_ROUTES[dtype][2])
-                    assert bwd.blocks[2] == -(-L // 32) * bwd.col_blocks
+                    assert bwd.copy_bytes == vb
+                    assert bwd.route == (A.BACKWARD_ROUTES[dtype][1] if aligned else A.ANY_ROUTES[dtype][2])
+                    assert bwd.blocks[2] == -(-L // 64) * bwd.col_blocks
                 # a bf16 head at L <= 128 always has the fused route; f32 up
                 # to a block of 64 columns
                 if L <= 128 and hd <= 128:
