@@ -263,6 +263,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -496,15 +497,25 @@ def phase_build() -> None:
         tp = two_pass(lib)
         check(len(tp) == n_tp and all(n > 0 for n in tp.values()),
               f"two-pass backward in {lib}: {len(tp)} instantiations, HMMA/HGMMA {tp}, expected {n_tp}, all > 0")
-    # attention_any.cu: the forward at each block width of ANY_WIDTHS per
-    # dtype, the fused backward at any copy width (bf16 at every block
-    # width, f32 up to 64), both on the tensor cores
+    # attention_any.cu: the forward at each full width of
+    # ANY_FORWARD_WIDTHS per dtype and its column-blocked kernel above 256
+    # columns, the fused backward at any copy width (bf16 at every block
+    # width, f32 up to 64), all on the tensor cores; every forward
+    # instantiation without a spill or a stack frame (where this run
+    # compiled it)
     anyk = sass.get("attention_any", {})
     n_any = len(A.ANY_WIDTHS)
     for dname, tname in (("bf16", "__nv_bfloat16"), ("f32", "float")):
-        mine = {f: n for f, n in anyk.items() if f"attention_any_kernel<{tname}," in f}
-        check(len(mine) == n_any and all(n > 0 for n in mine.values()),
-              f"{dname} any-width forward: {len(mine)} instantiations, HMMA/HGMMA {mine}, expected {n_any}, all > 0")
+        for kname, n_want in (("attention_any_kernel", len(A.ANY_FORWARD_WIDTHS)), ("attention_any_cols_kernel", 1)):
+            mine = {f: n for f, n in anyk.items() if f"{kname}<{tname}," in f}
+            check(len(mine) == n_want and all(n > 0 for n in mine.values()),
+                  f"{dname} any-width forward {kname}: {len(mine)} instantiations, HMMA/HGMMA {mine}, "
+                  f"expected {n_want}, all > 0")
+    fwd_ptxas = {f: v for f, v in ptxas.get("attention_any", {}).items() if "attention_any_" in f and "_kernel<" in f}
+    for f, v in fwd_ptxas.items():
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", v)
+        check(m is not None and m.groups() == ("0", "0", "0"), f"any-width forward {f}: ptxas says {v!r}, "
+              f"expected no stack frame and no spill")
     fused_any = {f: n for f, n in anyk.items() if "attention_bwd_fused" in f}
     n_fused_any = n_any + sum(w <= 64 for w in A.ANY_WIDTHS)
     check(len(fused_any) == n_fused_any and all(n > 0 for n in fused_any.values()),
@@ -589,11 +600,11 @@ KERNEL_SHAPES = {
 #: aligned kernels do not take and some they do, each in 3 heads (D = 3 hd,
 #: so the [B, L, 3D] projection's rows are unaligned wherever 3 hd
 #: elements are not a multiple of 16 bytes: copies of 2, 4, 8 and 16
-#: bytes in bf16, 4, 8 and 16 in f32, hd 6 the f32 case of 8), at 16, 128
-#: and 600 keys; then the two encoders of phase
-#: encoder_widths at their attention's shape (32 heads of 12, 3 of 256).
-#: Every case is timed.
-ANY_HEAD_WIDTHS = (1, 4, 6, 12, 20, 36, 100, 136, 192, 256)
+#: bytes in bf16, 4, 8 and 16 in f32, hd 6 the f32 case of 8; hd 320 in
+#: three column blocks, past the full-width kernel), at 16, 128 and 600
+#: keys; then the two encoders of phase encoder_widths at their
+#: attention's shape (32 heads of 12, 3 of 256). Every case is timed.
+ANY_HEAD_WIDTHS = (1, 4, 6, 12, 20, 36, 100, 136, 192, 256, 320)
 ANY_LENGTHS = {16: 64, 128: 32, 600: 4}  # L -> B
 ANY_SHAPES = {f"any_hd{hd}_l{L}": (B, L, 3, hd) for hd in ANY_HEAD_WIDTHS for L, B in ANY_LENGTHS.items()}
 ANY_SHAPES.update({"enc_hd12": (1024, 128, 32, 12), "enc_hd256": (1024, 128, 3, 256)})
@@ -6057,7 +6068,13 @@ BWD_SHAPES = {
     "any_hd1_l16": (8, 16, 3, 1), "any_hd136_l128": (8, 128, 3, 136), "any_hd136_l600": (2, 600, 3, 136),
     "any_hd256_l128": (8, 128, 3, 256), "any_hd256_l600": (2, 600, 3, 256),
     "train_hd12": (256, 128, 32, 12), "train_hd256": (256, 128, 3, 256),
+    # the fused route in f32 at width 64 where a text keeps one key
+    # (BWD_ONE_KEY): its P is 1 there, so dP and D cancel and dS is their
+    # rounding alone
+    "one_key_hd64": (8, 77, 3, 64),
 }
+#: cases whose odd texts keep exactly one key (text i: key 37 (i // 2) mod L)
+BWD_ONE_KEY = ("one_key_hd64",)
 #: the backward's timed cases: the train step's shape and multichip_dryrun's,
 #: encoder_widths' train shapes, and the two-pass route at 512 keys (the
 #: train phase's long leg), 1,024 keys and 3 heads of 256 at 600 keys
@@ -6125,6 +6142,10 @@ def phase_kernels_backward() -> list[dict]:
             vb = _projection_copy(H, hd, dtype)
             geo = A.backward_launch_geometry(B, L, H, hd, dtype, vb)
             q, k, v, mask = _attention_inputs(B, L, dtype, gen, H, hd)
+            if label in BWD_ONE_KEY:
+                mask[1::2] = False
+                for i in range(1, B, 2):
+                    mask[i, 37 * (i // 2) % L] = True
             out = A.attention_short_flat(q, k, v, mask, H, scale)
             g = torch.randn(B, L, D, device="cuda", generator=gen).to(dtype)
             before = dict(A.BACKWARD_ROUTE_LAUNCHES)
@@ -6633,8 +6654,9 @@ def _any_kernel_entry(records: list[dict], dtype: str, launches: dict, widths: d
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "shape": f"B=1024 L=128 D=768 H=3 {dtype}",
-        "kernel": "any head width and copy width (16/8/4/2 bytes), column blocks of <= 128, "
-                  "K/V streamed in 64-key tiles, scores recomputed per output block, tensor cores "
+        "kernel": "any head width and copy width (16/8/4/2 bytes); up to 256 columns at full width: Q resident, "
+                  "K/V through a cp.async ring of 64-key slots, one score pass at L <= 128 (two above); wider "
+                  "heads in column blocks of 128; tensor cores "
                   + ("(mma.sync bf16)" if dtype == "bfloat16" else "in 3xTF32"),
         "timed_cases": {r["case"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "copy_bytes")}
                         for r in mine if "ms" in r},

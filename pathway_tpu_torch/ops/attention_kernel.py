@@ -84,7 +84,16 @@ KERNEL_WIDTHS = (16, 32, 48, 64, 80, 96, 112, 128)
 #: block widths of ``attention_any.cu``'s kernels; a head of hd columns runs
 #: in col_blocks(hd) blocks of any_width(hd)
 ANY_WIDTHS = (16, 32, 64, 128)
+#: the full widths its forward (``attention_any_kernel<T, HD>``) is
+#: instantiated at: col_blocks(hd) * any_width(hd) for heads of up to
+#: _ANY_FULL_COLS blocks; wider heads run ``attention_any_cols_kernel`` at 128
+ANY_FORWARD_WIDTHS = (16, 32, 64, 128, 256)
 _MAX_COL_BLOCK = 128
+_ANY_FULL_COLS = 2
+#: query rows per block of that forward at most (``kAnyRows``)
+_ANY_MAX_ROWS = 64
+#: streaming multiprocessors of an H100 SXM
+_SM_COUNT = 132
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: an H100 block may use 227 KB of dynamic shared memory
 _SMEM_LIMIT = 232448
@@ -116,6 +125,7 @@ class LaunchGeometry(NamedTuple):
     copy_bytes: int = 16  #: bytes per copy of q, k, v and the output
     width: int = 0  #: the instantiated width (of one column block)
     col_blocks: int = 1  #: column blocks a head runs in
+    ring_slots: int = 0  #: ``attention_any_kernel``'s 64-key K/V slots (0: another kernel)
 
 
 def kernel_width(hd: int) -> int:
@@ -164,11 +174,48 @@ def _tc_smem_bytes(L: int, hd: int, rows: int, elem: int) -> int:
     return (rows + 2 * kv_rows) * (hd * elem + _TC_ROW_PAD_BYTES) + kv_rows * 4
 
 
-def _any_smem_bytes(width: int, rows: int, elem: int) -> int:
-    """Dynamic shared memory of one block of ``attention_any.cu``'s forward;
-    mirrors ``any_smem_bytes``: the rows of one column block of Q, one K and
+def _any_min_blocks(full: int, elem: int) -> int:
+    """``any_min_blocks``: the blocks of 64 rows an SM the forward's registers
+    allow, by its full width ``full``."""
+    if full == 16 or (full == 32 and elem == 2):
+        return 4
+    return 3 if full <= 64 else 2 if full == 128 or elem == 2 else 1
+
+
+def _any_smem_bytes(full: int, rows: int, elem: int, slots: int) -> int:
+    """Dynamic shared memory of one block of ``attention_any.cu``'s forward
+    at the full width ``full`` (``col_blocks * any_width``, at most 256);
+    mirrors ``any_smem_bytes``: Q's rows and ``slots`` ring slots of 64 keys,
+    rows padded by 16 bytes, and 64 f32 fills a slot (217,088 B at most: f32
+    at 256 columns, 16 rows, 3 slots)."""
+    return (rows + slots * _TC_KEY_TILE) * (full * elem + _TC_ROW_PAD_BYTES) + slots * _TC_KEY_TILE * 4
+
+
+def _any_blocks_per_sm(full: int, rows: int, elem: int, slots: int) -> int:
+    """``any_blocks_per_sm``: blocks of ``rows`` query rows an SM holds, by
+    shared memory and by the registers the launch bound grants."""
+    by_regs = _any_min_blocks(full, elem) * 64 // rows
+    return min(by_regs, _SM_SMEM // (_any_smem_bytes(full, rows, elem, slots) + _BLOCK_RESERVED))
+
+
+def _any_slots(full: int, rows: int, elem: int, blocks: int) -> int:
+    """``any_slots``: the ring's slots for a grid of ``blocks``, the most of 4
+    and 3 whose block fits and leaves an SM as many blocks as the grid can
+    use (as two slots allow, at most ``ceil(blocks / 132)``); else 2."""
+    want = min(-(-blocks // _SM_COUNT), _any_blocks_per_sm(full, rows, elem, 2))
+    for slots in (4, 3):
+        if (_any_smem_bytes(full, rows, elem, slots) <= _SMEM_LIMIT
+                and _any_blocks_per_sm(full, rows, elem, slots) >= want):
+            return slots
+    return 2
+
+
+def _any_cols_smem_bytes(width: int, rows: int, elem: int) -> int:
+    """Dynamic shared memory of one block of ``attention_any.cu``'s forward
+    above 256 columns (``attention_any_cols_kernel``); mirrors
+    ``any_cols_smem_bytes``: the rows of one column block of Q, one K and
     one V tile of 64 keys, rows padded by 16 bytes, and the tile's 64 f32
-    fills (at most 135,424 B: f32 at width 128)."""
+    fills (135,424 B at most: f32 at width 128, 128 rows)."""
     return (rows + 2 * _TC_KEY_TILE) * (width * elem + _TC_ROW_PAD_BYTES) + _TC_KEY_TILE * 4
 
 
@@ -182,10 +229,15 @@ def launch_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype,
     instantiated width :func:`kernel_width` of ``hd`` (~199 KB of shared
     memory at most: f32 at width 128, any ``L``); every other head in
     ``attention_any.cu`` (route ``*_any``) at its copy width, in
-    :func:`col_blocks` blocks of :func:`any_width`. Both dtypes share the
-    geometry, f32 with twice the shared memory. A block above the 227 KB a
-    Hopper block may use raises. Cached: the main path repeats a handful of
-    shapes, and the wrapper's host time is most of a small call's time."""
+    :func:`col_blocks` blocks of :func:`any_width`: up to two blocks (256
+    columns) held at once, Q resident, K and V through a ring of
+    :func:`_any_slots` 64-key slots, up to 64 query rows a block
+    (resident: one score pass, L <= 128); wider heads one block at a time,
+    up to 128 rows. Both dtypes share the geometry but for the ring's
+    slots, f32 with twice the shared memory. A block above the 227
+    KB a Hopper block may use raises. Cached: the main path repeats a
+    handful of shapes, and the wrapper's host time is most of a small
+    call's time."""
     rows = min(_TC_MAX_ROWS, (L + 15) // 16 * 16)
     elem = 2 if dtype == torch.bfloat16 else 4
     vb = _copy_bytes(hd, elem, copy_bytes)
@@ -196,11 +248,20 @@ def launch_geometry(B: int, L: int, n_heads: int, hd: int, dtype: torch.dtype,
             ROUTES[dtype], rows, rows // 16, _TC_KEY_TILE, L <= _TC_RESIDENT_LEN,
             _tc_smem_bytes(L, width, rows, elem), blocks, vb, width, 1,
         )
+    elif col_blocks(hd) <= _ANY_FULL_COLS:
+        width, ncb = any_width(hd), col_blocks(hd)
+        full = width * ncb
+        rows = min(_ANY_MAX_ROWS, (L + 15) // 16 * 16)
+        slots = _any_slots(full, rows, elem, B * n_heads * -(-L // rows))
+        geo = LaunchGeometry(
+            ANY_ROUTES[dtype][0], rows, rows // 16, _TC_KEY_TILE, L <= _TC_RESIDENT_LEN,
+            _any_smem_bytes(full, rows, elem, slots), (B, n_heads, -(-L // rows)), vb, width, ncb, slots,
+        )
     else:
         width = any_width(hd)
         geo = LaunchGeometry(
             ANY_ROUTES[dtype][0], rows, rows // 16, _TC_KEY_TILE, False,
-            _any_smem_bytes(width, rows, elem), blocks, vb, width, col_blocks(hd),
+            _any_cols_smem_bytes(width, rows, elem), blocks, vb, width, col_blocks(hd),
         )
     if geo.smem_bytes > _SMEM_LIMIT:
         raise ValueError(

@@ -178,12 +178,14 @@ def test_every_f32_geometry_in_the_envelope_fits_shared_memory(hd):
 def test_launch_geometry_rejects_a_block_above_shared_memory(monkeypatch):
     """hd 256 in f32 at 512 keys ran out of shared memory in one block of
     the aligned kernel; it now runs in two column blocks of 128
-    (``attention_any.cu``, 135,424 B). A block above the limit still
-    raises: with the limit set below that block, the same call is refused."""
+    (``attention_any.cu``: 64 query rows, Q and two 64-key ring slots at
+    256 columns, 200,192 B). A block above the limit still raises: with the
+    limit set below that block, the same call is refused."""
     geo = A.launch_geometry(1, 512, 1, 256, torch.float32)
-    assert (geo.route, geo.width, geo.col_blocks, geo.smem_bytes) == ("tensor_core_3xtf32_any", 128, 2, 135_424)
+    assert (geo.route, geo.width, geo.col_blocks, geo.rows, geo.ring_slots, geo.smem_bytes) == (
+        "tensor_core_3xtf32_any", 128, 2, 64, 2, 200_192)
     A.launch_geometry.cache_clear()
-    monkeypatch.setattr(A, "_SMEM_LIMIT", 135_423)
+    monkeypatch.setattr(A, "_SMEM_LIMIT", 200_191)
     try:
         with pytest.raises(ValueError, match="shared memory"):
             A.launch_geometry(1, 512, 1, 256, torch.float32)

@@ -15,7 +15,7 @@ reference's ``_sdpa`` (in f32 on the dtype-rounded inputs) at the chip
 check's tolerances: each of dq, dk, dv within 1e-5 (|ref| + max|ref|) in
 f32 and 2^-7 (|ref| + max|ref|) in bf16. Shapes: small versions of
 ``chip_smoke.py``'s ``BWD_SHAPES`` that take the fused route, row 0 fully
-masked.
+masked, and in one of them every odd text keeping exactly one key.
 """
 
 from __future__ import annotations
@@ -46,7 +46,11 @@ FUSED_SHAPES = [
     ("one", (1, 16, 2, 64), (torch.float32, torch.bfloat16)),
     ("dryrun", (2, 16, 2, 32), (torch.float32, torch.bfloat16)),
     ("hd128", (2, 96, 1, 128), (torch.bfloat16,)),
+    ("one_key_hd64", (4, 77, 2, 64), (torch.float32, torch.bfloat16)),
 ]
+#: shapes whose odd texts keep exactly one key (``BWD_ONE_KEY``): P is 1
+#: there, so dP and D cancel and dS is their rounding alone
+ONE_KEY_SHAPES = {(4, 77, 2, 64)}
 CASES = [
     pytest.param(shape, dtype, id=f"{label}-{str(dtype).replace('torch.', '')}")
     for label, shape, dtypes in FUSED_SHAPES for dtype in dtypes
@@ -114,6 +118,10 @@ def _inputs(B, L, H, hd, dtype, seed):
     lens = rng.integers(1, L + 1, size=B)
     mask = torch.from_numpy(np.arange(L)[None, :] < lens[:, None])
     mask[0] = False
+    if (B, L, H, hd) in ONE_KEY_SHAPES:
+        mask[1::2] = False
+        for i in range(1, B, 2):
+            mask[i, 37 * (i // 2) % L] = True
     out = A.attention_short_flat_plain(q, k, v, mask, H, hd ** -0.5)
     return q, k, v, mask, out, g
 

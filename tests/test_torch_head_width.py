@@ -110,10 +110,11 @@ def test_train_step_at_head_width_16_matches_the_reference():
 
 
 @pytest.mark.parametrize("requires_grad", [False, True])
-@pytest.mark.parametrize("L,hd", [(600, 12), (40, 136)])
+@pytest.mark.parametrize("L,hd", [(600, 12), (40, 136), (40, 320)])
 def test_outside_the_envelope_takes_the_counted_plain_route(L, hd, requires_grad):
-    """hd 12 at 600 keys and hd 136 at 40: widths the aligned kernels do not
-    take (rows of 24 bytes in bf16; above 128), now inside the envelope. On
+    """hd 12 at 600 keys, hd 136 and 320 at 40: widths the aligned kernels do
+    not take (rows of 24 bytes in bf16; above 128; 320 past the two column
+    blocks the any-width forward holds at once), inside the envelope. On
     the CPU the call runs the plain version (its gradient the plain
     backward, through ``AttentionShortFlat``), counts no launch on any
     route, and equals the reference's ``_sdpa`` within 1e-5; the gradient
@@ -142,7 +143,7 @@ def test_outside_the_envelope_takes_the_counted_plain_route(L, hd, requires_grad
 
 
 @pytest.mark.parametrize("requires_grad", [False, True])
-@pytest.mark.parametrize("L,hd", [(16, 12), (600, 136)])
+@pytest.mark.parametrize("L,hd", [(16, 12), (600, 136), (16, 320)])
 def test_outside_the_envelope_raises_off_the_cpu(L, hd, requires_grad):
     """The plain version is the CPU's alone: off the CPU the call goes to a
     kernel (hd 136, and hd 12 in bf16, whose rows of 24 bytes are not

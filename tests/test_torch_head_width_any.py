@@ -128,11 +128,16 @@ def test_train_step_at_any_head_width_matches_the_reference(hd):
 
 def _fwd_smem_cu(geo, L: int, elem: int) -> int:
     """The forward's bytes as the .cu files state them: ``tc_smem_bytes``
-    (attention_short.cu) or ``any_smem_bytes`` (attention_any.cu)."""
+    (attention_short.cu), ``any_smem_bytes`` (attention_any.cu up to two
+    column blocks: Q and the ring's slots at the full width) or
+    ``any_cols_smem_bytes`` (above: one column block of Q, K and V)."""
     pad = 16 // elem
     if geo.route in A.ROUTES.values():
         kv_rows = 64 if L <= 64 else 128
         return (geo.rows + 2 * kv_rows) * (geo.width + pad) * elem + kv_rows * 4
+    if geo.col_blocks <= 2:
+        full = geo.width * geo.col_blocks
+        return (geo.rows + geo.ring_slots * 64) * (full + pad) * elem + geo.ring_slots * 64 * 4
     return (geo.rows + 2 * 64) * (geo.width + pad) * elem + 64 * 4
 
 
@@ -209,10 +214,17 @@ def test_copy_width_of_an_unaligned_projection(dtype, heads, hd):
 def test_any_width_mirrors_the_header():
     """``any_width`` and ``col_blocks`` as ``attention_tc.cuh`` computes
     them, for hd 1..1,024: the blocks cover the head, none wider than 128,
-    the last not empty."""
+    the last not empty. The forward (``attention_any.cu``) holds a head of
+    up to two blocks at its full width ``n * w`` (``ANY_FORWARD_WIDTHS``:
+    16, 32, 64, 128, or 256 for every head of 129-256 columns) and takes a
+    wider head in blocks of 128."""
     for hd in range(1, 1025):
         n, w = A.col_blocks(hd), A.any_width(hd)
         per = -(-hd // n)
         assert n == -(-hd // 128) and w in A.ANY_WIDTHS and per <= w
         assert w == (16 if per <= 16 else 32 if per <= 32 else 64 if per <= 64 else 128)
         assert -(-hd // w) == n and (n - 1) * w < hd <= n * w
+        if hd <= 256:
+            assert n * w in A.ANY_FORWARD_WIDTHS and (n * w == 256) == (hd > 128)
+        else:
+            assert n > A._ANY_FULL_COLS and w == 128

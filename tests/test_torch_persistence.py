@@ -15,8 +15,10 @@ bit for bit. The reference's multi-worker cases are in
 from __future__ import annotations
 
 import csv
+import importlib
 import os
 import pickle
+import time
 
 import pytest
 
@@ -397,12 +399,33 @@ def test_timed_restart_stream_matches_reference_and_uninterrupted(tmp_path, _iso
         assert final(run2) == final(full)
 
 
-def test_periodic_snapshots_commit_generations_and_epochs(tmp_path, _isolated):
+class _StepClock:
+    """``time`` for a snapshot module whose ``monotonic()`` advances a fixed
+    step per reading (every other name is the real module's): the cadence
+    of ``_OperatorSnapshots.due`` then follows the run's own readings, not
+    the machine's load."""
+
+    def __init__(self, step_s: float):
+        self.step_s, self.now = step_s, 0.0
+
+    def monotonic(self) -> float:
+        self.now += self.step_s
+        return self.now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_periodic_snapshots_commit_generations_and_epochs(tmp_path, _isolated, monkeypatch):
     """With a snapshot cadence, generations commit during the run; the
     manifests' generation, offsets and the epoch record agree with the
-    reference's, and the log is compacted to the committed offsets."""
+    reference's, and the log is compacted to the committed offsets. Each
+    package's snapshot module reads a clock that advances 1 ms, the
+    cadence, per reading (both modules read it at the same places), so the
+    same ticks snapshot on both, however loaded the machine is."""
     got = {}
     for pw in PACKAGES:
+        monkeypatch.setattr(importlib.import_module(f"{pw.__name__}.persistence.snapshots"), "_time", _StepClock(1e-3))
         backend = _storage(pw, "memory", tmp_path, _isolated)
         stream = _timed_session(pw, _MD2, backend, "operator_persisting", interval_ms=1)
         kv = _kv(backend)
